@@ -13,7 +13,7 @@ setup(
         "TPU-native elastic distributed training framework "
         "(JAX/XLA/pjit/Pallas)"
     ),
-    packages=find_packages(include=["dlrover_tpu", "dlrover_tpu.*"]),
+    packages=find_packages(include=["dlrover_tpu", "dlrover_tpu.*", "dlrover_tpu_torch*"]),
     python_requires=">=3.10",
     install_requires=[],  # jax/flax/optax expected in the environment
     entry_points={
