@@ -8,19 +8,32 @@ Phases, each fatal on failure (no exception is caught):
 1. the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel from ``dlrover_tpu_torch/ops/csrc`` (parallel
    nvcc, sm_90a), with its seconds and the ptxas register report;
-3. each kernel against its plain PyTorch version in bf16 at three
-   shapes (the training slice's B8 H8 S2048 D128, a GQA shape H32/KVH8
-   S1024, a ragged S=1000), per kernel on shared inputs and end to end
-   through the autograd Function; at the slice's shape the kernel's ms,
-   the plain version's ms, SDPA's ms as the library yardstick, and the
-   bound (bytes or tensor-core operations at the H100 SXM peaks);
-4. the training slice: ``auto_accelerate`` on nano-350m at full width
-   (16 layers, dim 1024, 8 heads, vocab 32000), B=8, S=2048, adamw at
-   lr 3e-4, 5 steps on one seeded synthetic batch; the loss must be
-   finite and fall, and every kernel's launch count over those steps must show
-   the path ran through it (flash_fwd exactly 16 per step); then, logged
-   only, the losses of 5 fresh steps on the example's token stream;
-5. one JSON line with every kernel's numbers, then the last line
+3. each attention kernel (K1-K4) against its plain PyTorch version in
+   bf16 at three shapes (the training slice's B8 H8 S2048 D128, a GQA
+   shape H32/KVH8 S1024, a ragged S=1000), per kernel on shared inputs
+   and end to end through the autograd Function; at the slice's shape
+   the kernel's ms, the plain version's ms, SDPA's ms as the library
+   yardstick, and the bound (bytes or tensor-core operations at the
+   H100 SXM peaks);
+4. each optimizer kernel (K5-K8) against its plain version on the
+   slice's 12 parameter leaves plus a ragged 1000-element leaf and a
+   leaf without a grad (all-zero rows), both given the same rounding
+   field; K7/K8 one step from a state made by two plain steps, with
+   clipping and weight decay on and then off; then, on the 12 leaves,
+   each kernel's ms, its plain version's, its bound and its library
+   yardstick (fused torch AdamW for K7, ``torch.mul`` for K6);
+5. the training slice: ``auto_accelerate`` on nano-350m at full width
+   (16 layers, dim 1024, 8 heads, vocab 32000), B=8, S=2048, lr 3e-4,
+   5 steps on one seeded synthetic batch, once with each optimizer:
+   adamw (torch.optim.AdamW, the earlier slice; then a profiled step
+   and, logged only, 5 steps on the example's token stream),
+   (a) ``build_optimizer("adam8bit")`` (K5/K6 per leaf),
+   (b) ``adam8bit(fused=True)`` with ``Strategy(fused_optim=True)``
+   (K8), (c) ``fused_adamw(bits=32)`` (K7). Each run's loss must be
+   finite and fall and its launch counts must show the path ran through
+   its kernels (flash_fwd 16 per step; K5 = K6 = 12 per step in (a); K8
+   and K7 once per step); (c)'s loss must stay within 2e-2 of adamw's;
+6. one JSON line with every kernel's numbers, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero with no result line when CUDA is missing. Longer reports
@@ -30,6 +43,7 @@ Exits non-zero with no result line when CUDA is missing. Longer reports
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -71,7 +85,32 @@ KERNEL_INFO = {
                      "dlrover_tpu/ops/attention.py:973"),
     "flash_bwd_dkv": ("dlrover_tpu_torch/ops/csrc/flash_bwd.cu",
                       "dlrover_tpu/ops/attention.py:1052"),
+    "quantize_int8": ("dlrover_tpu_torch/ops/csrc/optim.cu",
+                      "dlrover_tpu/ops/quantization.py:35"),
+    "dequantize_int8": ("dlrover_tpu_torch/ops/csrc/optim.cu",
+                        "dlrover_tpu/ops/quantization.py:49"),
+    "fused_adamw32": ("dlrover_tpu_torch/ops/csrc/optim.cu",
+                      "dlrover_tpu/ops/fused_optim.py:166"),
+    "fused_adamw8": ("dlrover_tpu_torch/ops/csrc/optim.cu",
+                     "dlrover_tpu/ops/fused_optim.py:179"),
 }
+
+# Optimizer kernels against their plain versions. K5/K6 do the plain
+# versions' f32 operations in their order: codes, scales and values must
+# be bit-equal. K7 likewise (no FMA contraction on either side), held
+# within 1e-6 of the largest value. K8's log codes come through
+# expf/logf, whose last bit may differ from torch's exp/log: codes equal
+# in at least 99.99% of entries and off by at most 1 elsewhere, scales
+# within 1e-6 relative, params within 1e-4 of the step's largest update.
+K7_REL_TOL = 1e-6
+K8_CODE_MISMATCH = 1e-4
+K8_SCALE_REL_TOL = 1e-6
+K8_P_TOL = 1e-4
+# f32 operations per element of each optimizer kernel's arithmetic (for
+# the operations half of the bound; all four are bound by bytes)
+OPT_OPS = {"quantize_int8": 7, "dequantize_int8": 1, "fused_adamw32": 14,
+           "fused_adamw8": 36}
+SLICE_LR = 3e-4
 
 
 def log(msg: str) -> None:
@@ -279,6 +318,265 @@ def time_kernels(inputs):
     return times, library, bwd_ms
 
 
+def kernel_modules():
+    from dlrover_tpu_torch.ops import attention, fused_optim, quantization
+
+    return attention, quantization, fused_optim
+
+
+def reset_launches() -> None:
+    for mod in kernel_modules():
+        for kernel in mod.KERNELS:
+            kernel.launches = 0
+
+
+def launch_counts() -> dict:
+    return {kernel.__name__: kernel.launches for mod in kernel_modules()
+            for kernel in mod.KERNELS}
+
+
+def opt_tree(cfg):
+    """The slice's 12 parameter leaves (nano-350m, in the JAX leaf order
+    auto_accelerate uses), then a ragged 1000-element leaf and a
+    512-element leaf without a grad (its rows stay all zero), with
+    seeded grads of a training step's scale."""
+    from dlrover_tpu_torch.models import llama_init
+    from dlrover_tpu_torch.ops.fused_optim import tree_order
+
+    params = llama_init(cfg, seed=2, device="cuda")
+    leaves = [params.pop(name) for name in tree_order(params)]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    leaves.append(torch.randn(1000, generator=gen, device="cuda"))
+    leaves.append(torch.zeros(512, device="cuda"))
+    grads = [torch.randn(p.shape, generator=gen, device="cuda") * 1e-3
+             for p in leaves[:-1]] + [None]
+    return leaves, grads, gen
+
+
+def check_quantize(xs, gen, worst, failures):
+    """K5 and K6 against their plain versions on every leaf, stochastic
+    (shared u) and nearest."""
+    from dlrover_tpu_torch.ops import quantization as qz
+
+    code_err = val_err = 0.0
+    for x in xs:
+        rows = -(-x.numel() // qz.BLOCK)
+        u = torch.rand((rows, qz.BLOCK), generator=gen, device="cuda")
+        for stochastic in (True, False):
+            q, s, shape = qz.quantize_int8(x, u=u, stochastic=stochastic)
+            qp, sp = qz.quantize_int8_plain(x, u, stochastic)
+            code_err = max(code_err, (q.int() - qp.int()).abs().max().item(),
+                           (s - sp).abs().max().item())
+            out = qz.dequantize_int8(q, s, shape)
+            val_err = max(val_err, (out - qz.dequantize_int8_plain(
+                q, s, shape)).abs().max().item())
+    worst["quantize_int8"], worst["dequantize_int8"] = code_err, val_err
+    for name, err in (("quantize_int8", code_err),
+                      ("dequantize_int8", val_err)):
+        ok = err == 0.0
+        log(f"  optim  {name:21s} max_abs_err={err:.3e} (bit-equal "
+            f"required) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(name)
+
+
+def fresh_state(bits, rows):
+    from dlrover_tpu_torch.ops.quantization import BLOCK
+
+    if bits == 32:
+        return [torch.zeros((rows, BLOCK), device="cuda") for _ in range(2)]
+    return [torch.zeros((rows, BLOCK), dtype=torch.int8, device="cuda"),
+            torch.ones((rows, 1), device="cuda"),
+            torch.zeros((rows, BLOCK), dtype=torch.uint8, device="cuda"),
+            torch.ones((rows, 1), device="cuda")]
+
+
+def check_fused(bits, leaves, grads, gen, clip, wd, worst, failures):
+    """One K7/K8 step against its plain version from a state made by two
+    plain steps; both take the same u."""
+    from dlrover_tpu_torch.ops import fused_optim as fo
+    from dlrover_tpu_torch.ops.quantization import BLOCK
+
+    meta = fo.flatten_meta(leaves)
+    rows = meta.total_rows
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=wd, clip_norm=clip)
+    norm = fo._global_norm(grads) if clip is not None else None
+    name = f"fused_adamw{bits}"
+    kernel, plain = getattr(fo, name), getattr(fo, name + "_plain")
+
+    def step(fn, count, ps, st):
+        sc = fo._scalars(count, count + 1, 1e-3, 0.9, 0.999, norm, "cuda")
+        u = ([] if bits == 32 else
+             [torch.rand((rows, BLOCK), generator=gen, device="cuda")])
+        fn(sc, ps, grads, *st, *u, meta, **kw)
+
+    params = [p.clone() for p in leaves]
+    state = fresh_state(bits, rows)
+    seed = gen.initial_seed()
+    for count in range(2):
+        step(plain, count, params, state)
+    before = [p.clone() for p in params]
+    pk, sk = [p.clone() for p in params], [t.clone() for t in state]
+    pp, sp = params, state
+    gen.manual_seed(seed + 1)
+    step(kernel, 2, pk, sk)
+    gen.manual_seed(seed + 1)
+    step(plain, 2, pp, sp)
+    torch.cuda.synchronize()
+    label = f"clip={clip} wd={wd}"
+    if bits == 32:
+        errs = [(a - b).abs().max().item() for a, b in zip(pk + sk, pp + sp)]
+        rel = max((a - b).abs().max().item() / b.abs().max().item()
+                  for a, b in zip(pk + sk, pp + sp) if b.abs().max() > 0)
+        diff = sum(int((a != b).sum()) for a, b in zip(pk + sk, pp + sp))
+        ok = rel <= K7_REL_TOL
+        worst[name] = max(worst.get(name, 0.0), max(errs))
+        log(f"  optim  {name:21s} {label:17s} max_abs_err={max(errs):.3e} "
+            f"rel={rel:.3e} differing={diff} {'ok' if ok else 'FAIL'}")
+    else:
+        p_err = max((a - b).abs().max().item() for a, b in zip(pk, pp))
+        moved = max((a - b).abs().max().item() for a, b in zip(pp, before))
+        codes = [(sk[i].int() - sp[i].int()).abs() for i in (0, 2)]
+        mismatch = max((c != 0).float().mean().item() for c in codes)
+        code_max = max(c.max().item() for c in codes)
+        scale_rel = max(((sk[i] - sp[i]).abs() / sp[i].abs()).max().item()
+                        for i in (1, 3))
+        ok = (p_err <= K8_P_TOL * moved and code_max <= 1
+              and mismatch <= K8_CODE_MISMATCH
+              and scale_rel <= K8_SCALE_REL_TOL)
+        worst[name] = max(worst.get(name, 0.0), p_err)
+        log(f"  optim  {name:21s} {label:17s} p max_abs_err={p_err:.3e} "
+            f"(step {moved:.3e}) codes differing={mismatch:.2e} "
+            f"max={code_max} scale_rel={scale_rel:.2e} "
+            f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{name}/{label}")
+
+
+def opt_bounds(meta):
+    """Least time (ms) of each optimizer kernel over the leaves of
+    ``meta``: bytes (each input read once, each output written once)
+    over HBM bandwidth, or f32 operations over the f32 peak."""
+    n = sum(meta.numels)
+    rows = meta.total_rows
+    elems = rows * 256
+    work = {
+        "quantize_int8": 4 * n + 4 * elems + elems + 4 * rows,
+        "dequantize_int8": elems + 4 * rows + 4 * n,
+        "fused_adamw32": 4 * n + 8 * n + 16 * elems,
+        "fused_adamw8": 4 * n + 8 * n + 8 * elems + 16 * rows,
+    }
+    out = {}
+    for name, nbytes in work.items():
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = OPT_OPS[name] * elems / PEAK_F32 * 1e3
+        out[name] = (max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def time_opt_kernels(leaves, grads, gen):
+    """The optimizer kernels' ms at the slice's 12 leaves (the slice's
+    settings: lr 3e-4, no clipping, no weight decay): K7/K8 from CUDA
+    events around eager loops, K5/K6 (12 launches per step, each a few to
+    a few hundred microseconds) from CUDA-graph replays of one step's
+    calls. Returns (times, library, bounds)."""
+    from dlrover_tpu_torch.ops import fused_optim as fo
+    from dlrover_tpu_torch.ops import quantization as qz
+
+    meta = fo.flatten_meta(leaves)
+    rows = meta.total_rows
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0, clip_norm=None)
+    sc = fo._scalars(2, 3, SLICE_LR, 0.9, 0.999, None, "cuda")
+    times, library = {}, {}
+    mu, nu = fresh_state(32, rows)
+    times["fused_adamw32"] = (
+        cuda_ms(lambda: fo.fused_adamw32(sc, leaves, grads, mu, nu, meta,
+                                         **kw), 10),
+        cuda_ms(lambda: fo.fused_adamw32_plain(sc, leaves, grads, mu, nu,
+                                               meta, **kw), 3))
+    del mu, nu
+    state = fresh_state(8, rows)
+    u = torch.rand((rows, qz.BLOCK), generator=gen, device="cuda")
+    times["fused_adamw8"] = (
+        cuda_ms(lambda: fo.fused_adamw8(sc, leaves, grads, *state, u, meta,
+                                        **kw), 10),
+        cuda_ms(lambda: fo.fused_adamw8_plain(sc, leaves, grads, *state, u,
+                                              meta, **kw), 3))
+    u_ms = cuda_ms(lambda: torch.rand((rows, qz.BLOCK), generator=gen,
+                                      device="cuda"), 10)
+    del state, u
+    # the library yardstick for K7: one torch AdamW step over the same
+    # tree, fused (one kernel) and foreach (the adamw slice's optimizer)
+    for p, g in zip(leaves, grads):
+        p.grad = g
+    adamw = {}
+    for impl in ("fused", "foreach"):
+        opt = torch.optim.AdamW(leaves, lr=SLICE_LR, weight_decay=0.0,
+                                **{impl: True})
+        adamw[impl] = cuda_ms(opt.step, 10)
+        del opt
+    for p in leaves:
+        p.grad = None
+    library["fused_adamw32"] = adamw["fused"]
+    # K5/K6 per step: one call per leaf, leaf-shaped mu as input
+    us = [torch.rand((-(-g.numel() // qz.BLOCK), qz.BLOCK), generator=gen,
+                     device="cuda") for g in grads]
+    qs = [qz.quantize_int8(g, u=u_i)[:2] for g, u_i in zip(grads, us)]
+    graphs = {
+        "quantize_int8": (
+            lambda: [qz.quantize_int8(g, u=u_i) for g, u_i in zip(grads, us)],
+            lambda: [qz.quantize_int8_plain(g, u_i)
+                     for g, u_i in zip(grads, us)]),
+        "dequantize_int8": (
+            lambda: [qz.dequantize_int8(q, s, g.shape)
+                     for (q, s), g in zip(qs, grads)],
+            lambda: [qz.dequantize_int8_plain(q, s, g.shape)
+                     for (q, s), g in zip(qs, grads)]),
+    }
+    replays = {}
+    for name, (kernel, plain) in graphs.items():
+        replays[name] = {"kernel": graph_ms(kernel, 5),
+                         "plain": graph_ms(plain, 2)}
+        torch.cuda.empty_cache()
+    replays["dequantize_int8"]["library"] = graph_ms(
+        lambda: [torch.mul(q, s) for q, s in qs], 5)
+    log(json.dumps({"optim_graph_replays_ms_per_step": replays}))
+    for name, r in replays.items():
+        times[name] = (statistics.median(r["kernel"]),
+                       statistics.median(r["plain"]))
+    library["dequantize_int8"] = statistics.median(
+        replays["dequantize_int8"]["library"])
+    log(json.dumps({"optim_yardsticks_ms": {
+        "torch_adamw_fused_step": adamw["fused"],
+        "torch_adamw_foreach_step": adamw["foreach"],
+        "rand_u_field": u_ms}}))
+    return times, library, opt_bounds(meta)
+
+
+def slice_config():
+    """nano-350m at full width: the slice's model."""
+    from dlrover_tpu_torch.models import PRESETS
+
+    return PRESETS["nano-350m"]
+
+
+def optimizer_phase(cfg):
+    """Phase 4: returns (worst errors, times, library, bounds)."""
+    leaves, grads, gen = opt_tree(cfg)
+    worst: dict[str, float] = {}
+    failures: list[str] = []
+    check_quantize(grads[:-1] + [leaves[-1]], gen, worst, failures)
+    for bits in (32, 8):
+        for clip, wd in ((1.0, 0.01), (None, 0.0)):
+            check_fused(bits, leaves, grads, gen, clip, wd, worst, failures)
+            torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit(f"optimizer kernel check failed: {failures}")
+    times, library, bound = time_opt_kernels(leaves[:12], grads[:12], gen)
+    return worst, times, library, bound
+
+
 def synthetic_batch(vocab: int, seq_len: int, batch: int, step: int):
     """Tokens as examples/llama_pretrain.py makes them: sample ``idx`` is
     RandomState(idx).randint(0, vocab, seq_len + 1)."""
@@ -309,67 +607,156 @@ def model_check(cfg):
         raise SystemExit("model check failed")
 
 
-def train_slice(steps: int = 5):
-    from dlrover_tpu_torch.common import mfu
-    from dlrover_tpu_torch.models import PRESETS, llama_init, llama_loss_fn
-    from dlrover_tpu_torch.ops import attention as att
-    from dlrover_tpu_torch.parallel import Strategy, auto_accelerate
-    from dlrover_tpu_torch.trainer import build_optimizer
+def state_bytes(optimizer) -> int:
+    """Bytes of the tensors an optimizer keeps in its state."""
+    def walk(value):
+        if isinstance(value, torch.Tensor):
+            return value.numel() * value.element_size()
+        if isinstance(value, dict):
+            return sum(walk(v) for v in value.values())
+        return 0
 
-    cfg = PRESETS["nano-350m"]
-    B, S = 8, 2048
-    model_check(cfg)
+    return sum(walk(v) for v in optimizer.state.values())
+
+
+def time_optimizer_steps(optimizer) -> list:
+    """Record CUDA events around each ``optimizer.step()`` of the run
+    (device time from the step's first launch to its last)."""
+    events, inner = [], optimizer.step
+
+    def step(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(*args, **kwargs)
+        end.record()
+        events.append((start, end))
+        return out
+
+    optimizer.step = step
+    return events
+
+
+def release() -> None:
+    """Free what an earlier run left, so that the next run's peak memory
+    is its own."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_run(cfg, label, factory, strategy, steps=5, B=8, S=2048):
+    """``steps`` train steps on one repeated seeded batch; returns (res,
+    state, batch, losses, launches, summary). Uniform random tokens hold
+    nothing a model can learn across batches, so only a repeated batch
+    makes a falling loss show that the step learns."""
+    from dlrover_tpu_torch.common import mfu
+    from dlrover_tpu_torch.models import llama_init, llama_loss_fn
+    from dlrover_tpu_torch.parallel import auto_accelerate
+
     res = auto_accelerate(
         llama_loss_fn(cfg), lambda seed, device: llama_init(cfg, seed, device),
-        build_optimizer("adamw", 3e-4, weight_decay=0.0),
-        Strategy(remat="none"), device="cuda", seed=0)
+        factory, strategy, device="cuda", seed=0)
     state = res.state
-    # one seeded batch, repeated: uniform random tokens hold nothing a
-    # model can learn across batches, so only a repeated batch makes a
-    # falling loss show that the step learns
+    opt_events = time_optimizer_steps(state.optimizer)
     batch = synthetic_batch(cfg.vocab_size, S, B, 0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    att.reset_launches()
+    reset_launches()
     losses, step_s = [], []
-    for s in range(steps):
+    for _ in range(steps):
         t0 = time.perf_counter()
         state, metrics = res.train_step(state, batch, None)
         losses.append(metrics["loss"].item())
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-    launches = att.launches()
+    launches = launch_counts()
     peak_bytes = torch.cuda.max_memory_allocated()
-    log(f"  losses: {losses}")
-    log(f"  step seconds: {step_s}")
-    log(f"  launches over {steps} steps: {launches}")
+    # drop the wrapper: it refers back to the optimizer, and the cycle
+    # would keep this run's state alive into the next run's peak
+    del state.optimizer.step
+    opt_ms = [a.elapsed_time(b) for a, b in opt_events]
+    log(f"  [{label}] losses: {losses}")
+    log(f"  [{label}] step seconds: {step_s}")
+    log(f"  [{label}] optimizer.step ms: {opt_ms}")
+    log(f"  [{label}] launches over {steps} steps: {launches}")
     if not all(math.isfinite(x) for x in losses):
-        raise SystemExit(f"non-finite loss: {losses}")
+        raise SystemExit(f"{label}: non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
-        raise SystemExit(f"loss did not fall: {losses}")
-    if launches["flash_fwd"] != cfg.n_layers * steps:
-        raise SystemExit(f"flash_fwd launched {launches['flash_fwd']} "
-                         f"times, want {cfg.n_layers * steps}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise SystemExit(f"{name} never launched on the training path")
+        raise SystemExit(f"{label}: loss did not fall: {losses}")
+    want_fwd = cfg.n_layers * steps
+    for name in ("flash_fwd", "flash_bwd_preprocess", "flash_bwd_dq",
+                 "flash_bwd_dkv"):
+        if launches[name] != want_fwd:
+            raise SystemExit(f"{label}: {name} launched {launches[name]} "
+                             f"times, want {want_fwd}")
     steady = statistics.median(step_s[1:])
     flops = mfu.transformer_step_flops(cfg.param_count(), B * S,
                                        cfg.n_layers, cfg.dim, S)
     summary = {
-        "config": "nano-350m", "batch": B, "seq": S, "steps": steps,
-        "step_ms_median_2_to_5": steady * 1e3,
+        "config": "nano-350m", "optimizer": label, "batch": B, "seq": S,
+        "steps": steps, "step_ms_median_2_to_5": steady * 1e3,
         "first_step_ms": step_s[0] * 1e3,
         "tokens_per_s": B * S / steady,
         "mfu": mfu.mfu(flops, steady), "mfu_peak_flops": mfu.peak_flops(),
         "peak_mem_gib": peak_bytes / 2**30,
+        "opt_state_gb": state_bytes(state.optimizer) / 1e9,
+        "opt_step_ms_median_2_to_5": statistics.median(opt_ms[1:]),
         "loss_first": losses[0], "loss_last": losses[-1],
     }
     log(json.dumps({"slice": summary}))
+    return res, state, batch, losses, launches, summary
+
+
+def train_slice(steps: int = 5):
+    """The adamw run (the earlier slice) with its profile and stream
+    losses, then variants (a), (b), (c). Returns each kernel's launch
+    count from the run whose path it is on."""
+    from dlrover_tpu_torch.optimizers import adam8bit
+    from dlrover_tpu_torch.ops.fused_optim import fused_adamw
+    from dlrover_tpu_torch.parallel import Strategy
+    from dlrover_tpu_torch.trainer import build_optimizer
+
+    cfg = slice_config()
+    B, S = 8, 2048
+    model_check(cfg)
+    res, state, batch, adamw_losses, launches, _ = train_run(
+        cfg, "adamw", build_optimizer("adamw", SLICE_LR, weight_decay=0.0),
+        Strategy(remat="none"), steps)
     profile_step(res, state, batch)
     del res, state
-    torch.cuda.empty_cache()
+    release()
     stream_losses(cfg, B, S, steps)
+    release()
+
+    n_leaves = 12
+    variants = (
+        ("adam8bit", build_optimizer("adam8bit", SLICE_LR, weight_decay=0.0),
+         Strategy(remat="none"),
+         {"quantize_int8": n_leaves * steps,
+          "dequantize_int8": n_leaves * steps}),
+        ("adam8bit_fused", adam8bit(SLICE_LR, fused=True),
+         Strategy(remat="none", fused_optim=True), {"fused_adamw8": steps}),
+        ("fused_adamw32", fused_adamw(SLICE_LR, bits=32),
+         Strategy(remat="none"), {"fused_adamw32": steps}),
+    )
+    for label, factory, strategy, want in variants:
+        res, state, batch, losses, counts, _s = train_run(
+            cfg, label, factory, strategy, steps)
+        profile_step(res, state, batch, label, top=8)
+        del res, state
+        release()
+        for name in ("quantize_int8", "dequantize_int8", "fused_adamw32",
+                     "fused_adamw8"):
+            if counts[name] != want.get(name, 0):
+                raise SystemExit(f"{label}: {name} launched {counts[name]} "
+                                 f"times, want {want.get(name, 0)}")
+        launches.update(want)
+        if label == "fused_adamw32":
+            gap = max(abs(a - b) for a, b in zip(losses, adamw_losses))
+            log(f"  [{label}] largest loss gap to adamw: {gap:.3e}")
+            if gap > 2e-2:
+                raise SystemExit(f"{label}: losses {losses} leave adamw's "
+                                 f"{adamw_losses} by {gap}")
     return launches
 
 
@@ -394,8 +781,10 @@ def stream_losses(cfg, B, S, steps):
         f"only): {losses}")
 
 
-def profile_step(res, state, batch):
-    """Per-op device time of one more step, written to chiprun_out/."""
+def profile_step(res, state, batch, label="adamw", top=16):
+    """Per-op device time of one more step, written to chiprun_out/
+    (``profile_step.txt`` for adamw, ``profile_step_<label>.txt``
+    otherwise); the first ``top`` rows are logged."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -416,14 +805,17 @@ def profile_step(res, state, batch):
                   if e.device_type == DeviceType.CUDA
                   and not e.is_user_annotation)
     log(json.dumps({"profiled_step": {
-        "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+        "optimizer": label, "wall_ms": wall_us / 1e3,
+        "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1 - busy_us / wall_us}}))
     table = averages.table(sort_by="cuda_time_total", row_limit=40)
+    name = ("profile_step.txt" if label == "adamw"
+            else f"profile_step_{label}.txt")
     OUT.mkdir(exist_ok=True)
-    (OUT / "profile_step.txt").write_text(table)
-    log("  profile of one step (top rows, full table in "
-        "chiprun_out/profile_step.txt):")
-    for line in table.splitlines()[:16]:
+    (OUT / name).write_text(table)
+    log(f"  profile of one step (top rows, full table in "
+        f"chiprun_out/{name}):")
+    for line in table.splitlines()[:top]:
         log("    " + line)
 
 
@@ -475,11 +867,21 @@ def main() -> int:
         "port_bwd_ms": bwd_sum, "sdpa_bwd_ms": sdpa_bwd_ms}}))
     torch.cuda.empty_cache()
 
-    # 4. the training slice through the kernels
+    # 4. optimizer kernels vs plain versions, and their times
+    log("phase optimizer kernels:")
+    opt_worst, opt_times, opt_library, opt_bound = optimizer_phase(
+        slice_config())
+    worst.update(opt_worst)
+    times.update(opt_times)
+    library.update(opt_library)
+    bound.update(opt_bound)
+    torch.cuda.empty_cache()
+
+    # 5. the training slice through the kernels, once per optimizer
     log("phase slice:")
     launches = train_slice()
 
-    # 5. kernel line, then the result line
+    # 6. kernel line, then the result line
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         kernels.append({

@@ -1,6 +1,9 @@
 """Models of the PyTorch port."""
 
-from dlrover_tpu_torch.models.convert import params_from_jax  # noqa: F401
+from dlrover_tpu_torch.models.convert import (  # noqa: F401
+    opt_state_from_jax,
+    params_from_jax,
+)
 from dlrover_tpu_torch.models.llama import (  # noqa: F401
     PRESETS,
     LlamaConfig,

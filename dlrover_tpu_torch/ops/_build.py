@@ -6,7 +6,9 @@ takes seconds). The library name carries a hash of the sources and
 flags, so an edited source is rebuilt and an unchanged one is reused.
 Builds go to ``ops/build/`` (listed in ``.gitignore``) and happen at first
 use; :func:`build` starts every missing ``nvcc`` at once, so the
-libraries compile in parallel.
+libraries compile in parallel. :func:`launch` binds a C entry at first
+use and calls it on the current stream; every op module launches
+through it.
 """
 
 from __future__ import annotations
@@ -19,12 +21,15 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-# library name -> its source; every source also includes the header
+# library name -> its source; the shared header is hashed with each
 SOURCES = {
     "flash_fwd": "flash_fwd.cu",
     "flash_bwd": "flash_bwd.cu",
+    "optim": "optim.cu",
 }
 HEADERS = ("flash_common.cuh",)
 NVCC_FLAGS = (
@@ -33,6 +38,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_bound: dict[str, object] = {}
 
 
 def nvcc_path() -> str:
@@ -97,3 +103,20 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def launch(symbol: str, library: str, argtypes, *args) -> None:
+    """Call the C entry ``symbol`` of ``library`` (building and binding it
+    at first use) with ``args``, typed by ``argtypes``, and then the
+    current stream; raise if it reports a CUDA error. Every entry
+    returns ``cudaGetLastError()`` after its launch, which itself is
+    asynchronous."""
+    fn = _bound.get(symbol)
+    if fn is None:
+        fn = getattr(load(library), symbol)
+        fn.argtypes = list(argtypes) + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _bound[symbol] = fn
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol}: CUDA error {err} at launch")

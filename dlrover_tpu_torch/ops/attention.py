@@ -26,6 +26,8 @@ import ctypes
 
 import torch
 
+from dlrover_tpu_torch.ops import _build
+
 NEG_INF = -1e30
 HEAD_DIM = 128  # the head_dim the CUDA kernels are built for
 
@@ -142,34 +144,19 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
-# C entry -> (library, argtypes)
+# C entry -> (library, argtypes before the stream)
 _ENTRIES = {
-    "flash_fwd": ("flash_fwd", [_P] * 7 + [_I] * 5 + [_L] * 9 + [_I, _F, _P]),
-    "flash_bwd_preprocess": ("flash_bwd",
-                             [_P] * 3 + [_I] * 3 + [_L] * 6 + [_P]),
+    "flash_fwd": ("flash_fwd", [_P] * 7 + [_I] * 5 + [_L] * 9 + [_I, _F]),
+    "flash_bwd_preprocess": ("flash_bwd", [_P] * 3 + [_I] * 3 + [_L] * 6),
     "flash_bwd_dq": ("flash_bwd",
-                     [_P] * 9 + [_I] * 5 + [ctypes.POINTER(_L), _I, _F, _P]),
+                     [_P] * 9 + [_I] * 5 + [ctypes.POINTER(_L), _I, _F]),
     "flash_bwd_dkv": ("flash_bwd",
-                      [_P] * 10 + [_I] * 5 + [ctypes.POINTER(_L), _I, _F, _P]),
+                      [_P] * 10 + [_I] * 5 + [ctypes.POINTER(_L), _I, _F]),
 }
-_bound: dict = {}
 
 
 def _launch(symbol: str, *args) -> None:
-    """Call a C entry (building and binding its library at first use) and
-    raise if it reports a CUDA error; the launch itself is asynchronous on
-    the current stream."""
-    fn = _bound.get(symbol)
-    if fn is None:
-        from dlrover_tpu_torch.ops import _build
-
-        library, argtypes = _ENTRIES[symbol]
-        fn = getattr(_build.load(library), symbol)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        _bound[symbol] = fn
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{symbol}: CUDA error {err} at launch")
+    _build.launch(symbol, *_ENTRIES[symbol], *args)
 
 
 def _rows(t):

@@ -19,6 +19,7 @@ import torch
 
 from dlrover_tpu_torch.common.log import get_logger
 from dlrover_tpu_torch.device import resolve_device
+from dlrover_tpu_torch.ops.fused_optim import tree_order
 from dlrover_tpu_torch.parallel.strategy import (
     AXIS_ORDER,
     DEFAULT_RULES,
@@ -70,9 +71,6 @@ def _check_strategy(strategy: Strategy) -> None:
         raise NotImplementedError(
             "overlap_collectives needs a sharded mesh (ROADMAP Queue 1 "
             "item 7)")
-    if strategy.fused_optim:
-        raise NotImplementedError(
-            "fused optimizer kernels are not ported yet (ROADMAP Queue 2 f)")
     if not strategy.donate:
         raise NotImplementedError(
             "donate=False: the port's step always updates the state in "
@@ -101,6 +99,12 @@ def auto_accelerate(
     """Build the state and the train step for ``strategy`` on one device
     (``cuda`` unless ``device`` says otherwise).
 
+    ``optimizer_factory`` receives the params in the JAX package's leaf
+    order (``ops.fused_optim.tree_order`` of their names).
+    ``strategy.fused_optim`` is recorded, as in the JAX package: the
+    optimizer factory acts on it (``adam8bit(fused=True)``,
+    ``fused_adamw``), the step does not change.
+
     ``train_step(state, batch, rng)`` takes a dict batch of arrays or
     tensors (moved to the device), runs ``strategy.grad_accum``
     microbatches split along dim 0, applies the optimizer and returns
@@ -117,8 +121,10 @@ def auto_accelerate(
         name: p.to(device=device, dtype=torch.float32).requires_grad_()
         for name, p in init_fn(seed, device).items()
     }
-    state = TrainState(step=0, params=params,
-                       optimizer=optimizer_factory(list(params.values())))
+    # the optimizer sees the params in the JAX package's leaf order, so
+    # that flat optimizer state and per-leaf seeds line up with JAX's
+    state = TrainState(step=0, params=params, optimizer=optimizer_factory(
+        [params[name] for name in tree_order(params)]))
 
     def to_device(x):
         return torch.as_tensor(x).to(device, non_blocking=True)

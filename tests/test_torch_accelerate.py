@@ -29,6 +29,7 @@ from dlrover_tpu.parallel.accelerate import auto_accelerate as jax_accelerate
 from dlrover_tpu.parallel.mesh import MeshConfig as JaxMesh
 from dlrover_tpu.parallel.strategy import Strategy as JaxStrategy
 from dlrover_tpu_torch.models import LlamaConfig, llama_loss_fn, params_from_jax
+from dlrover_tpu_torch.optimizers import Adam8bit, FusedAdamW, fused_adamw
 from dlrover_tpu_torch.parallel import MeshConfig, Strategy, auto_accelerate
 from dlrover_tpu_torch.trainer import build_optimizer
 
@@ -113,17 +114,30 @@ def test_strategy_json_round_trip_and_jax_plans_load():
     Strategy(mesh=MeshConfig(fsdp=4), remat="none"),
     Strategy(remat="minimal"),
     Strategy(remat="none", compute_dtype="int8"),
-    Strategy(remat="none", fused_optim=True),
     Strategy(remat="none", donate=False),
     Strategy(remat="none", quant_sites="mlp"),
     Strategy(remat="none", rules=(("batch", "data"),)),
-], ids=["data2", "fsdp4", "remat", "int8", "fused_optim", "donate",
-        "quant_sites", "rules"])
+], ids=["data2", "fsdp4", "remat", "int8", "donate", "quant_sites",
+        "rules"])
 def test_unported_strategies_raise(strategy):
     tc = LlamaConfig(**SMALL)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         auto_accelerate(llama_loss_fn(tc), lambda s, d: {},
                         build_optimizer("sgd", 0.1), strategy, device="cpu")
+
+
+def test_fused_optim_lever_is_accepted_and_recorded():
+    """As in the JAX package, ``fused_optim`` is a recorded lever that the
+    optimizer factory acts on; the step is unchanged."""
+    tc = LlamaConfig(**SMALL)
+    strategy = Strategy(remat="none", fused_optim=True)
+    res = auto_accelerate(
+        llama_loss_fn(tc), lambda s, d: {"w": torch.zeros(300)},
+        fused_adamw(1e-3, bits=8), strategy, device="cpu")
+    assert res.strategy.fused_optim
+    assert "fused_optim" in res.strategy.describe()
+    assert isinstance(res.state.optimizer, FusedAdamW)
+    assert Strategy.from_json(strategy.to_json()).fused_optim
 
 
 def test_build_optimizer():
@@ -132,7 +146,9 @@ def test_build_optimizer():
     assert isinstance(adamw, torch.optim.AdamW)
     assert adamw.param_groups[0]["weight_decay"] == 0.0
     assert isinstance(build_optimizer("sgd", 0.1)(p), torch.optim.SGD)
+    a8 = build_optimizer("adam8bit", 1e-3, weight_decay=0.1)(p)
+    assert isinstance(a8, Adam8bit) and a8.weight_decay == 0.1
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_optimizer("adam8bit")
+        build_optimizer("agd")
     with pytest.raises(ValueError):
         build_optimizer("lion")

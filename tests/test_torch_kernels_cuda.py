@@ -7,6 +7,13 @@ with a reason (a CUDA kernel has no CPU mode). Run them on the GPU with
 Tolerance: errors relative to the largest reference value, 2e-2 for o
 and 3e-2 for gradients: the kernels round roped q/k, P and dS to bf16
 before the tensor-core products, which the f32 plain versions do not.
+
+The optimizer kernels (K5-K8) do the plain versions' f32 operations in
+the same order, without FMA contraction: K5/K6 codes, scales and values
+are bit-equal; K7 is held within 1e-6 of the largest value (bit-equal
+expected); K8's log codes come from expf/logf, whose last bit may differ
+from torch's, so at most 1e-4 of codes may differ, by 1, and the params
+within 1e-4 of the step's largest update.
 """
 
 import pytest
@@ -14,6 +21,8 @@ import torch
 
 from dlrover_tpu_torch.device import CUDA_SKIP_REASON, cuda_available
 from dlrover_tpu_torch.ops import attention as att
+from dlrover_tpu_torch.ops import fused_optim as fo
+from dlrover_tpu_torch.ops import quantization as qz
 
 pytestmark = pytest.mark.cuda
 
@@ -65,3 +74,83 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     q32 = torch.zeros(1, 2, 16, 128, device=cuda)
     with pytest.raises(TypeError, match="bfloat16"):
         att.flash_fwd(q32, q32, q32, None, None, True, 0.125)
+
+
+@pytest.mark.parametrize("shape", [(1000,), (3, 256), (7, 33, 5)])
+def test_quantize_kernels_match_plain(cuda, shape):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(shape, generator=gen, device=cuda)
+    x.view(-1)[:256] = 0.0  # an all-zero row: scale 1
+    rows = -(-x.numel() // qz.BLOCK)
+    u = torch.rand((rows, qz.BLOCK), generator=gen, device=cuda)
+    for stochastic in (True, False):
+        q, s, orig = qz.quantize_int8(x, u=u, stochastic=stochastic)
+        qp, sp = qz.quantize_int8_plain(x, u, stochastic)
+        assert torch.equal(q, qp) and torch.equal(s, sp)
+        assert s[0].item() == 1.0
+        assert torch.equal(qz.dequantize_int8(q, s, orig),
+                           qz.dequantize_int8_plain(q, s, orig))
+
+
+def _opt_tree(cuda, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    shapes = [(7, 33), (1000,), (256,), (2, 300)]
+    params = [torch.randn(s, generator=gen, device=cuda) for s in shapes]
+    grads = [torch.randn(s, generator=gen, device=cuda) for s in shapes]
+    grads[2] = None  # no grad: zeros, an all-zero row
+    return params, grads, gen
+
+
+@pytest.mark.parametrize("bits", [32, 8])
+@pytest.mark.parametrize("clip,wd", [(None, 0.0), (0.5, 0.01)])
+def test_fused_adamw_kernels_match_plain(cuda, bits, clip, wd):
+    params, grads, gen = _opt_tree(cuda, 2)
+    meta = fo.flatten_meta(params)
+    r = meta.total_rows
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=wd, clip_norm=clip)
+    if bits == 32:
+        state = [torch.zeros((r, qz.BLOCK), device=cuda) for _ in range(2)]
+    else:
+        state = [torch.zeros((r, qz.BLOCK), dtype=torch.int8, device=cuda),
+                 torch.ones((r, 1), device=cuda),
+                 torch.zeros((r, qz.BLOCK), dtype=torch.uint8, device=cuda),
+                 torch.ones((r, 1), device=cuda)]
+
+    def step(kernel, count, ps, st, u):
+        norm = fo._global_norm(grads) if clip is not None else None
+        sc = fo._scalars(count, count + 1, 1e-2, 0.9, 0.999, norm, cuda)
+        if bits == 32:
+            fn = fo.fused_adamw32 if kernel else fo.fused_adamw32_plain
+            fn(sc, ps, grads, *st, meta, **kw)
+        else:
+            fn = fo.fused_adamw8 if kernel else fo.fused_adamw8_plain
+            fn(sc, ps, grads, *st, u, meta, **kw)
+
+    def draw():
+        return torch.rand((r, qz.BLOCK), generator=gen, device=cuda)
+
+    for count in range(2):  # a non-trivial state first
+        step(False, count, params, state, draw())
+    u = draw()
+    pk, sk = [p.clone() for p in params], [t.clone() for t in state]
+    pp, sp = [p.clone() for p in params], [t.clone() for t in state]
+    name = "fused_adamw32" if bits == 32 else "fused_adamw8"
+    before = getattr(fo, name).launches
+    step(True, 2, pk, sk, u)
+    step(False, 2, pp, sp, u)
+    torch.cuda.synchronize()
+    assert getattr(fo, name).launches == before + 1
+    if bits == 32:
+        for got, want in zip(pk + sk, pp + sp):
+            err = (got - want).abs().max() / want.abs().max()
+            assert err.item() <= 1e-6
+        return
+    moved = max((a - b).abs().max().item() for a, b in zip(pp, params))
+    for got, want in zip(pk, pp):
+        assert (got - want).abs().max().item() <= 1e-4 * moved
+    for got, want in ((sk[0], sp[0]), (sk[2], sp[2])):
+        diff = (got.int() - want.int()).abs()
+        assert diff.max().item() <= 1
+        assert (diff != 0).float().mean().item() <= 1e-4
+    for got, want in ((sk[1], sp[1]), (sk[3], sp[3])):
+        assert ((got - want).abs() / want.abs()).max().item() <= 1e-6
