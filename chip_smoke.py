@@ -8,13 +8,17 @@ Phases, each fatal on failure (no exception is caught):
 1. the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel from ``dlrover_tpu_torch/ops/csrc`` (parallel
    nvcc, sm_90a), with its seconds and the ptxas register report;
-3. each attention kernel (K1-K4) against its plain PyTorch version in
-   bf16 at three shapes (the training slice's B8 H8 S2048 D128, a GQA
-   shape H32/KVH8 S1024, a ragged S=1000), per kernel on shared inputs
-   and end to end through the autograd Function; at the slice's shape
-   the kernel's ms, the plain version's ms, SDPA's ms as the library
-   yardstick, and the bound (bytes or tensor-core operations at the
-   H100 SXM peaks);
+3. each attention kernel against its plain PyTorch version in bf16 at
+   three shapes (the training slice's B8 H8 S2048 D128, a GQA shape
+   H32/KVH8 S1024, a ragged S=1000) and a masked case (the GQA shape
+   with a 512-key sliding window and a 128-key prefix): K1-K4 on
+   [B, H, S, D] with rope, K9-K11 on [B, S, H*D], per kernel on shared
+   inputs and end to end (K1-K4 through flash_attention, K9-K11 and
+   K1-K4 through both routes of flash_attention_bshd); at the slice's
+   shape each kernel's ms, its plain version's ms, SDPA's ms as the
+   library yardstick, and the bound (bytes or tensor-core operations at
+   the H100 SXM peaks); at the GQA shape K9 against K1 and K10 against
+   K3, both without rope, as the measure of K9/K10's group packing;
 4. each optimizer kernel (K5-K8) against its plain version on the
    slice's 12 parameter leaves plus a ragged 1000-element leaf and a
    leaf without a grad (all-zero rows), both given the same rounding
@@ -27,12 +31,17 @@ Phases, each fatal on failure (no exception is caught):
    5 steps on one seeded synthetic batch, once with each optimizer:
    adamw (torch.optim.AdamW, the earlier slice; then a profiled step
    and, logged only, 5 steps on the example's token stream),
+   a ``[bshd]`` run with adamw and ``attn_impl="bshd"`` (K9-K11 and
+   K2 on every layer, with a profiled step),
    (a) ``build_optimizer("adam8bit")`` (K5/K6 per leaf),
    (b) ``adam8bit(fused=True)`` with ``Strategy(fused_optim=True)``
    (K8), (c) ``fused_adamw(bits=32)`` (K7). Each run's loss must be
    finite and fall and its launch counts must show the path ran through
-   its kernels (flash_fwd 16 per step; K5 = K6 = 12 per step in (a); K8
-   and K7 once per step); (c)'s loss must stay within 2e-2 of adamw's;
+   its kernels (16 per step for each attention kernel of its route and
+   none of the other route's; K5 = K6 = 12 per step in (a); K8 and K7
+   once per step); the losses of [bshd] and (c) must stay within 2e-2 of
+   adamw's; before the runs, 2-layer logits of the flash and bshd models
+   are held against plain attention;
 6. one JSON line with every kernel's numbers, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -85,6 +94,12 @@ KERNEL_INFO = {
                      "dlrover_tpu/ops/attention.py:973"),
     "flash_bwd_dkv": ("dlrover_tpu_torch/ops/csrc/flash_bwd.cu",
                       "dlrover_tpu/ops/attention.py:1052"),
+    "flash_fwd_heads": ("dlrover_tpu_torch/ops/csrc/flash_heads.cu",
+                        "dlrover_tpu/ops/attention.py:644"),
+    "flash_bwd_dq_heads": ("dlrover_tpu_torch/ops/csrc/flash_heads.cu",
+                           "dlrover_tpu/ops/attention.py:719"),
+    "flash_bwd_dkv_heads": ("dlrover_tpu_torch/ops/csrc/flash_heads.cu",
+                            "dlrover_tpu/ops/attention.py:781"),
     "quantize_int8": ("dlrover_tpu_torch/ops/csrc/optim.cu",
                       "dlrover_tpu/ops/quantization.py:35"),
     "dequantize_int8": ("dlrover_tpu_torch/ops/csrc/optim.cu",
@@ -111,6 +126,13 @@ K8_P_TOL = 1e-4
 OPT_OPS = {"quantize_int8": 7, "dequantize_int8": 1, "fused_adamw32": 14,
            "fused_adamw8": 36}
 SLICE_LR = 3e-4
+# the masked case: a sliding window and a prefix at the GQA shape
+MASKED = {"window": 512, "prefix": 128}
+# the attention kernels of each route of the model's attention
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_preprocess", "flash_bwd_dq",
+                 "flash_bwd_dkv")
+HEADS_KERNELS = ("flash_fwd_heads", "flash_bwd_preprocess",
+                 "flash_bwd_dq_heads", "flash_bwd_dkv_heads")
 
 
 def log(msg: str) -> None:
@@ -186,34 +208,50 @@ def rel_err(got, want) -> tuple[float, float]:
     return diff, diff / max(want.float().abs().max().item(), 1e-30)
 
 
-def check_shape(name, shape, seed, worst):
-    """Kernels vs plain versions at one shape; fills ``worst`` with each
-    kernel's largest absolute error. Returns the inputs for timing."""
+class Judge:
+    """Holds kernel outputs against plain ones at one case, logging each
+    comparison; ``worst`` collects each kernel's largest absolute error
+    (end-to-end checks are logged and judged, not collected)."""
+
+    def __init__(self, name, worst):
+        self.name, self.worst, self.failures = name, worst, []
+
+    def __call__(self, kernel, what, got, want, collect=True):
+        abs_err, rel = rel_err(got, want)
+        if collect:
+            self.worst[kernel] = max(self.worst.get(kernel, 0.0), abs_err)
+        ok = abs_err <= LSE_ABS_TOL if what == "lse" else rel <= REL_TOL[what]
+        log(f"  {self.name:6s} {kernel:21s} {what:5s} max_abs_err="
+            f"{abs_err:.3e} rel={rel:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            self.failures.append(f"{self.name}/{kernel}/{what}")
+
+    def done(self):
+        torch.cuda.synchronize()
+        if self.failures:
+            raise SystemExit(f"kernel check failed: {self.failures}")
+
+
+def check_shape(name, shape, seed, worst, window=None, prefix=None):
+    """K1-K4 vs plain versions at one shape (with rope; the mask extras
+    when given); fills ``worst`` with each kernel's largest absolute
+    error. Returns the inputs for timing."""
     from dlrover_tpu_torch.ops import attention as att
 
     q, k, v, do, cos, sin = make_inputs(shape, seed)
-    scale = HEAD_DIM ** -0.5
-    failures = []
-
-    def judge(kernel, what, got, want):
-        abs_err, rel = rel_err(got, want)
-        worst[kernel] = max(worst.get(kernel, 0.0), abs_err)
-        ok = abs_err <= LSE_ABS_TOL if what == "lse" else rel <= REL_TOL[what]
-        log(f"  {name:6s} {kernel:21s} {what:5s} max_abs_err={abs_err:.3e} "
-            f"rel={rel:.3e} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            failures.append(f"{name}/{kernel}/{what}")
+    mask = (True, HEAD_DIM ** -0.5, window, prefix)
+    judge = Judge(name, worst)
 
     # each kernel on shared inputs (the kernel chain's own o/lse/delta)
-    o, lse = att.flash_fwd(q, k, v, cos, sin, True, scale)
-    o_p, lse_p = att.flash_fwd_plain(q, k, v, cos, sin, True, scale)
+    o, lse = att.flash_fwd(q, k, v, cos, sin, *mask)
+    o_p, lse_p = att.flash_fwd_plain(q, k, v, cos, sin, *mask)
     judge("flash_fwd", "o", o, o_p)
     judge("flash_fwd", "lse", lse, lse_p)
     del o_p, lse_p
     delta = att.flash_bwd_preprocess(do, o)
     judge("flash_bwd_preprocess", "delta", delta,
           att.flash_bwd_preprocess_plain(do, o))
-    args = (q, k, v, do, lse, delta, cos, sin, True, scale)
+    args = (q, k, v, do, lse, delta, cos, sin, *mask)
     judge("flash_bwd_dq", "dq", att.flash_bwd_dq(*args),
           att.flash_bwd_dq_plain(*args))
     dk, dv = att.flash_bwd_dkv(*args)
@@ -224,26 +262,88 @@ def check_shape(name, shape, seed, worst):
 
     # end to end through the autograd Function vs the plain chain
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    out = att.flash_attention(*leaves, rope_cos=cos, rope_sin=sin)
+    out = att.flash_attention(*leaves, rope_cos=cos, rope_sin=sin,
+                              window=window, prefix_len=prefix)
     out.backward(do)
-    o_p, lse_p = att.flash_fwd_plain(q, k, v, cos, sin, True, scale)
-    delta_p = att.flash_bwd_preprocess_plain(do, o_p)
-    pargs = (q, k, v, do, lse_p, delta_p, cos, sin, True, scale)
-    dq_p = att.flash_bwd_dq_plain(*pargs)
-    dk_p, dv_p = att.flash_bwd_dkv_plain(*pargs)
-    for what, got, want in (("o", out.detach(), o_p), ("dq", leaves[0].grad,
-                            dq_p), ("dk", leaves[1].grad, dk_p),
-                            ("dv", leaves[2].grad, dv_p)):
-        abs_err, rel = rel_err(got, want)
-        ok = rel <= REL_TOL[what]
-        log(f"  {name:6s} {'autograd':21s} {what:5s} max_abs_err="
-            f"{abs_err:.3e} rel={rel:.3e} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            failures.append(f"{name}/autograd/{what}")
-    torch.cuda.synchronize()
-    if failures:
-        raise SystemExit(f"kernel check failed: {failures}")
+    want = plain_chain(q, k, v, do, lambda *a: a + (cos, sin, *mask),
+                       att.flash_fwd_plain, att.flash_bwd_preprocess_plain,
+                       att.flash_bwd_dq_plain, att.flash_bwd_dkv_plain)
+    for what, got, ref in zip(("o", "dq", "dk", "dv"), [out.detach()] + [
+            t.grad for t in leaves], want):
+        judge("autograd", what, got, ref, collect=False)
+    judge.done()
     return q, k, v, do, cos, sin, o, lse, delta
+
+
+def plain_chain(q, k, v, do, extra, fwd, pre, dq, dkv, split=None):
+    """(o, dq, dk, dv) of the plain versions chained as the autograd
+    Function chains the kernels; ``extra(*operands)`` appends the
+    arguments after q/k/v(/do/lse/delta), ``split`` views o/do for
+    delta."""
+    o, lse = fwd(*extra(q, k, v))
+    views = split or (lambda t: t)
+    delta = pre(views(do), views(o))
+    args = extra(q, k, v, do, lse, delta)
+    return (o, dq(*args), *dkv(*args))
+
+
+def heads_inputs(shape, seed):
+    """make_inputs' q/k/v/do laid out as [B, S, heads * D], contiguous,
+    as the bshd model's projections give them."""
+    B, H, KVH, S = shape
+    return tuple(t.transpose(1, 2).reshape(B, S, -1).contiguous()
+                 for t in make_inputs(shape, seed)[:4])
+
+
+def check_heads(name, shape, seed, worst, window=None, prefix=None):
+    """K9-K11 vs plain versions at one shape (the mask extras when
+    given), and flash_attention_bshd end to end through both routes
+    (K9-K11, and K1-K4 on strided views) vs the plain chain. Returns the
+    inputs for timing."""
+    from dlrover_tpu_torch.ops import attention as att
+
+    B, H, KVH, S = shape
+    q, k, v, do = heads_inputs(shape, seed)
+    mask = (True, HEAD_DIM ** -0.5, window, prefix)
+    judge = Judge(name, worst)
+
+    def split(t):
+        return att._split_heads(t, H)
+
+    o, lse = att.flash_fwd_heads(q, k, v, H, *mask)
+    o_p, lse_p = att.flash_fwd_heads_plain(q, k, v, H, *mask)
+    judge("flash_fwd_heads", "o", o, o_p)
+    judge("flash_fwd_heads", "lse", lse, lse_p)
+    del o_p, lse_p
+    delta = att.flash_bwd_preprocess(split(do), split(o))
+    judge("flash_bwd_preprocess", "delta", delta,
+          att.flash_bwd_preprocess_plain(split(do), split(o)))
+    args = (q, k, v, do, lse, delta, H, *mask)
+    judge("flash_bwd_dq_heads", "dq", att.flash_bwd_dq_heads(*args),
+          att.flash_bwd_dq_heads_plain(*args))
+    dk, dv = att.flash_bwd_dkv_heads(*args)
+    dk_p, dv_p = att.flash_bwd_dkv_heads_plain(*args)
+    judge("flash_bwd_dkv_heads", "dk", dk, dk_p)
+    judge("flash_bwd_dkv_heads", "dv", dv, dv_p)
+    del dk, dv, dk_p, dv_p
+
+    want = plain_chain(q, k, v, do, lambda *a: a + (H, *mask),
+                       att.flash_fwd_heads_plain,
+                       att.flash_bwd_preprocess_plain,
+                       att.flash_bwd_dq_heads_plain,
+                       att.flash_bwd_dkv_heads_plain, split)
+    for fused, label in ((True, "bshd fused"), (False, "bshd per-head")):
+        leaves = [t.view(B, S, -1, HEAD_DIM).clone().requires_grad_()
+                  for t in (q, k, v)]
+        out = att.flash_attention_bshd(*leaves, fused=fused, window=window,
+                                       prefix_len=prefix)
+        out.backward(do.view(B, S, H, HEAD_DIM))
+        got = [out.detach()] + [t.grad for t in leaves]
+        for what, g, ref in zip(("o", "dq", "dk", "dv"), got, want):
+            judge(label, what, g.reshape(ref.shape), ref, collect=False)
+        del leaves, out, got
+    judge.done()
+    return q, k, v, do, o, lse, delta
 
 
 def bounds(shape):
@@ -256,16 +356,19 @@ def bounds(shape):
     pairs = B * H * S * (S + 1) / 2
     q_b, kv_b, row_b = B * H * S * D * 2, B * KVH * S * D * 2, B * H * S * 4
     tab_b = 2 * B * S * D * 2
+    fwd_b = 2 * q_b + 2 * kv_b + row_b
+    dq_b = 3 * q_b + 2 * kv_b + 2 * row_b
+    dkv_b = 2 * q_b + 4 * kv_b + 2 * row_b
     work = {
-        # (bytes, ops, peak)
-        "flash_fwd": (2 * q_b + 2 * kv_b + tab_b + row_b, 4 * D * pairs,
-                      PEAK_BF16),
+        # (bytes, ops, peak); K9-K11 do K1/K3/K4's work without rope tables
+        "flash_fwd": (fwd_b + tab_b, 4 * D * pairs, PEAK_BF16),
         "flash_bwd_preprocess": (2 * q_b + row_b, 2 * B * H * S * D,
                                  PEAK_F32),
-        "flash_bwd_dq": (3 * q_b + 2 * kv_b + 2 * row_b + tab_b,
-                         6 * D * pairs, PEAK_BF16),
-        "flash_bwd_dkv": (2 * q_b + 4 * kv_b + 2 * row_b + tab_b,
-                          8 * D * pairs, PEAK_BF16),
+        "flash_bwd_dq": (dq_b + tab_b, 6 * D * pairs, PEAK_BF16),
+        "flash_bwd_dkv": (dkv_b + tab_b, 8 * D * pairs, PEAK_BF16),
+        "flash_fwd_heads": (fwd_b, 4 * D * pairs, PEAK_BF16),
+        "flash_bwd_dq_heads": (dq_b, 6 * D * pairs, PEAK_BF16),
+        "flash_bwd_dkv_heads": (dkv_b, 8 * D * pairs, PEAK_BF16),
     }
     out = {}
     for name, (nbytes, ops, peak) in work.items():
@@ -316,6 +419,63 @@ def time_kernels(inputs):
         out, (qr, kr, vr), do, retain_graph=True), 20)
     library = {"flash_fwd": fwd_ms, "flash_bwd_preprocess": k2["library"]}
     return times, library, bwd_ms
+
+
+def time_heads(inputs):
+    """K9-K11's ms and their plain versions' at the slice's shape, and
+    SDPA forward / backward on the same rope-free [B, H, S, D] views (the
+    library yardstick, timed only)."""
+    from dlrover_tpu_torch.ops import attention as att
+
+    q, k, v, do, o, lse, delta = inputs
+    H = SHAPES["slice"][1]
+    args = (q, k, v, do, lse, delta, H, True, HEAD_DIM ** -0.5)
+    fwd = (q, k, v, H, True, HEAD_DIM ** -0.5)
+    times = {}
+    for name, call in (("flash_fwd_heads", fwd), ("flash_bwd_dq_heads", args),
+                       ("flash_bwd_dkv_heads", args)):
+        kernel, plain = getattr(att, name), getattr(att, name + "_plain")
+        times[name] = (cuda_ms(lambda: kernel(*call), 20),
+                       cuda_ms(lambda: plain(*call), 3))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    views = [att._split_heads(t, H).detach().requires_grad_()
+             for t in (q, k, v)]
+    fwd_ms = cuda_ms(lambda: sdpa(*views, is_causal=True), 20)
+    out = sdpa(*views, is_causal=True)
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, views, att._split_heads(do, H), retain_graph=True), 20)
+    return times, {"flash_fwd_heads": fwd_ms}, bwd_ms
+
+
+def time_packing(shape):
+    """K9 against K1 and K10 against K3 at ``shape``, all without rope,
+    on the same data: K1/K3 stage each k/v tile once per q head, K9/K10
+    once per GQA group."""
+    from dlrover_tpu_torch.ops import attention as att
+
+    B, H, KVH, S = shape
+    q, k, v, do = make_inputs(shape, 7)[:4]
+    scale = HEAD_DIM ** -0.5
+    o, lse = att.flash_fwd(q, k, v, None, None, True, scale)
+    delta = att.flash_bwd_preprocess(do, o)
+    q3, k3, v3, do3 = (t.transpose(1, 2).reshape(B, S, -1).contiguous()
+                       for t in (q, k, v, do))
+    per_head = (q, k, v, do, lse, delta, None, None, True, scale)
+    packed = (q3, k3, v3, do3, lse, delta, H, True, scale)
+    ms = {
+        "flash_fwd": cuda_ms(lambda: att.flash_fwd(*per_head[:3],
+                                                   *per_head[6:]), 20),
+        "flash_fwd_heads": cuda_ms(lambda: att.flash_fwd_heads(
+            *packed[:3], *packed[6:]), 20),
+        "flash_bwd_dq": cuda_ms(lambda: att.flash_bwd_dq(*per_head), 20),
+        "flash_bwd_dq_heads": cuda_ms(lambda: att.flash_bwd_dq_heads(
+            *packed), 20),
+    }
+    log(json.dumps({"group_packing_ms_no_rope": {
+        "shape_b_h_kvh_s": list(shape), **ms,
+        "fwd_ratio_k9_over_k1": ms["flash_fwd_heads"] / ms["flash_fwd"],
+        "dq_ratio_k10_over_k3": ms["flash_bwd_dq_heads"] / ms["flash_bwd_dq"],
+    }}))
 
 
 def kernel_modules():
@@ -586,8 +746,8 @@ def synthetic_batch(vocab: int, seq_len: int, batch: int, step: int):
 
 
 def model_check(cfg):
-    """Logits of a 2-layer cut of the model: flash kernels vs plain
-    attention, same weights, bf16 compute."""
+    """Logits of a 2-layer cut of the model: the flash and the bshd
+    kernels vs plain attention, same weights, bf16 compute."""
     from dlrover_tpu_torch.models import llama_apply, llama_init
 
     small = dataclasses.replace(cfg, n_layers=2)
@@ -596,15 +756,18 @@ def model_check(cfg):
         synthetic_batch(cfg.vocab_size, 256, 2, 99)["tokens"][:, :-1],
         device="cuda")
     with torch.no_grad():
-        flash = llama_apply(small, params, tokens)
         ref = llama_apply(dataclasses.replace(small, attn_impl="reference"),
                           params, tokens)
-    abs_err, rel = rel_err(flash, ref)
-    ok = bool(torch.isfinite(flash).all()) and rel <= 5e-2
-    log(f"  model logits flash vs reference (2 layers, B2 S256): "
-        f"max_abs_err={abs_err:.3e} rel={rel:.3e} {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise SystemExit("model check failed")
+        for impl in ("flash", "bshd"):
+            out = llama_apply(dataclasses.replace(small, attn_impl=impl),
+                              params, tokens)
+            abs_err, rel = rel_err(out, ref)
+            ok = bool(torch.isfinite(out).all()) and rel <= 5e-2
+            log(f"  model logits {impl} vs reference (2 layers, B2 S256): "
+                f"max_abs_err={abs_err:.3e} rel={rel:.3e} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"model check failed ({impl})")
 
 
 def state_bytes(optimizer) -> int:
@@ -644,11 +807,22 @@ def release() -> None:
     torch.cuda.empty_cache()
 
 
-def train_run(cfg, label, factory, strategy, steps=5, B=8, S=2048):
+def attention_launches(cfg, steps):
+    """The launches of each attention kernel a run of ``steps`` steps
+    must show: one per layer and step for the kernels of
+    ``cfg.attn_impl``'s route, none for the other route's."""
+    route = FLASH_KERNELS if cfg.attn_impl == "flash" else HEADS_KERNELS
+    return {name: cfg.n_layers * steps if name in route else 0
+            for name in FLASH_KERNELS + HEADS_KERNELS}
+
+
+def train_run(cfg, label, factory, strategy, steps=5, B=8, S=2048,
+              optimizer=None):
     """``steps`` train steps on one repeated seeded batch; returns (res,
     state, batch, losses, launches, summary). Uniform random tokens hold
     nothing a model can learn across batches, so only a repeated batch
-    makes a falling loss show that the step learns."""
+    makes a falling loss show that the step learns. ``optimizer`` names
+    the optimizer in the summary (default: ``label``)."""
     from dlrover_tpu_torch.common import mfu
     from dlrover_tpu_torch.models import llama_init, llama_loss_fn
     from dlrover_tpu_torch.parallel import auto_accelerate
@@ -683,17 +857,16 @@ def train_run(cfg, label, factory, strategy, steps=5, B=8, S=2048):
         raise SystemExit(f"{label}: non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
         raise SystemExit(f"{label}: loss did not fall: {losses}")
-    want_fwd = cfg.n_layers * steps
-    for name in ("flash_fwd", "flash_bwd_preprocess", "flash_bwd_dq",
-                 "flash_bwd_dkv"):
-        if launches[name] != want_fwd:
+    for name, want in attention_launches(cfg, steps).items():
+        if launches[name] != want:
             raise SystemExit(f"{label}: {name} launched {launches[name]} "
-                             f"times, want {want_fwd}")
+                             f"times, want {want}")
     steady = statistics.median(step_s[1:])
     flops = mfu.transformer_step_flops(cfg.param_count(), B * S,
                                        cfg.n_layers, cfg.dim, S)
     summary = {
-        "config": "nano-350m", "optimizer": label, "batch": B, "seq": S,
+        "config": "nano-350m", "attn_impl": cfg.attn_impl,
+        "optimizer": optimizer or label, "batch": B, "seq": S,
         "steps": steps, "step_ms_median_2_to_5": steady * 1e3,
         "first_step_ms": step_s[0] * 1e3,
         "tokens_per_s": B * S / steady,
@@ -709,8 +882,8 @@ def train_run(cfg, label, factory, strategy, steps=5, B=8, S=2048):
 
 def train_slice(steps: int = 5):
     """The adamw run (the earlier slice) with its profile and stream
-    losses, then variants (a), (b), (c). Returns each kernel's launch
-    count from the run whose path it is on."""
+    losses, the [bshd] run, then variants (a), (b), (c). Returns each
+    kernel's launch count from the run whose path it is on."""
     from dlrover_tpu_torch.optimizers import adam8bit
     from dlrover_tpu_torch.ops.fused_optim import fused_adamw
     from dlrover_tpu_torch.parallel import Strategy
@@ -727,6 +900,18 @@ def train_slice(steps: int = 5):
     release()
     stream_losses(cfg, B, S, steps)
     release()
+
+    # the model-native layout: K9-K11 (and K2) on every layer
+    bshd = dataclasses.replace(cfg, attn_impl="bshd")
+    res, state, batch, losses, counts, _s = train_run(
+        bshd, "bshd", build_optimizer("adamw", SLICE_LR, weight_decay=0.0),
+        Strategy(remat="none"), steps, optimizer="adamw")
+    profile_step(res, state, batch, "bshd", top=8)
+    del res, state
+    release()
+    launches.update({name: counts[name] for name in HEADS_KERNELS
+                     if name not in FLASH_KERNELS})
+    loss_gap("bshd", losses, adamw_losses)
 
     n_leaves = 12
     variants = (
@@ -752,12 +937,18 @@ def train_slice(steps: int = 5):
                                  f"times, want {want.get(name, 0)}")
         launches.update(want)
         if label == "fused_adamw32":
-            gap = max(abs(a - b) for a, b in zip(losses, adamw_losses))
-            log(f"  [{label}] largest loss gap to adamw: {gap:.3e}")
-            if gap > 2e-2:
-                raise SystemExit(f"{label}: losses {losses} leave adamw's "
-                                 f"{adamw_losses} by {gap}")
+            loss_gap(label, losses, adamw_losses)
     return launches
+
+
+def loss_gap(label, losses, adamw_losses, limit=2e-2):
+    """Fail when a run's losses leave the adamw run's by more than
+    ``limit`` at any step."""
+    gap = max(abs(a - b) for a, b in zip(losses, adamw_losses))
+    log(f"  [{label}] largest loss gap to adamw: {gap:.3e}")
+    if gap > limit:
+        raise SystemExit(f"{label}: losses {losses} leave adamw's "
+                         f"{adamw_losses} by {gap}")
 
 
 def stream_losses(cfg, B, S, steps):
@@ -805,7 +996,7 @@ def profile_step(res, state, batch, label="adamw", top=16):
                   if e.device_type == DeviceType.CUDA
                   and not e.is_user_annotation)
     log(json.dumps({"profiled_step": {
-        "optimizer": label, "wall_ms": wall_us / 1e3,
+        "run": label, "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1 - busy_us / wall_us}}))
     table = averages.table(sort_by="cuda_time_total", row_limit=40)
@@ -853,18 +1044,31 @@ def main() -> int:
     # 3. kernels vs plain versions
     log("phase kernels:")
     worst: dict[str, float] = {}
-    slice_inputs = None
     for i, (name, shape) in enumerate(SHAPES.items()):
         inputs = check_shape(name, shape, seed=i, worst=worst)
+        heads = check_heads(name, shape, seed=i, worst=worst)
         if name == "slice":
-            slice_inputs = inputs
+            slice_inputs, slice_heads = inputs, heads
+        del inputs, heads
+    check_shape("masked", SHAPES["gqa"], 3, worst, **MASKED)
+    check_heads("masked", SHAPES["gqa"], 3, worst, **MASKED)
     times, library, sdpa_bwd_ms = time_kernels(slice_inputs)
-    del slice_inputs
+    heads_times, heads_library, sdpa_bwd_plain_ms = time_heads(slice_heads)
+    times.update(heads_times)
+    library.update(heads_library)
+    del slice_inputs, slice_heads
+    time_packing(SHAPES["gqa"])
     bound = bounds(SHAPES["slice"])
-    bwd_sum = sum(times[k][0] for k in ("flash_bwd_preprocess",
-                                        "flash_bwd_dq", "flash_bwd_dkv"))
+
+    def bwd_sum(names):
+        return sum(times[k][0] for k in ("flash_bwd_preprocess",) + names)
+
     log(json.dumps({"backward_at_slice_shape": {
-        "port_bwd_ms": bwd_sum, "sdpa_bwd_ms": sdpa_bwd_ms}}))
+        "port_bwd_ms": bwd_sum(("flash_bwd_dq", "flash_bwd_dkv")),
+        "sdpa_bwd_ms": sdpa_bwd_ms,
+        "port_bshd_bwd_ms": bwd_sum(("flash_bwd_dq_heads",
+                                     "flash_bwd_dkv_heads")),
+        "sdpa_bwd_ms_rope_free_views": sdpa_bwd_plain_ms}}))
     torch.cuda.empty_cache()
 
     # 4. optimizer kernels vs plain versions, and their times

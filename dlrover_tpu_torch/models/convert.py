@@ -22,8 +22,11 @@ def params_from_jax(params_np: dict, device="cpu") -> dict:
     axis is KEPT: ``"layers.wq"`` stays [n_layers, dim, heads*head_dim],
     exactly as ``llama_init`` lays it out, and ``llama_apply`` unbinds it.
     Shapes and dtypes are unchanged, values are copied, so both packages
-    compute the same function from the same numbers. ``device`` is where
-    the tensors are placed (the CPU unless the caller asks otherwise)."""
+    compute the same function from the same numbers. Every ``attn_impl``
+    ("flash", "bshd", "reference") uses these same leaves: the layouts
+    differ only in how the projections' outputs are viewed. ``device`` is
+    where the tensors are placed (the CPU unless the caller asks
+    otherwise)."""
     out = {}
 
     def walk(prefix, node):

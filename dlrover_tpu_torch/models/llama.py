@@ -8,9 +8,11 @@ scan. RMSNorm, RoPE, GQA, SwiGLU, untied LM head.
 
 Attention: ``attn_impl="flash"`` takes the JAX package's einsum-form
 branch (projections write the [B,H,S,Dh] layout; rope is applied inside
-the flash kernels from full-width tables); ``"reference"`` runs the
-plain attention with rope applied outside. What this slice does not
-port raises ``NotImplementedError`` naming its ROADMAP item.
+the flash kernels from full-width tables); ``"bshd"`` keeps the
+model-native [B,S,H,Dh] layout end to end (rope applied outside, then
+the fused-heads kernels, no transposes); ``"reference"`` runs the plain
+attention with rope applied outside. What the port does not run yet
+raises ``NotImplementedError`` naming its ROADMAP item.
 
 Rematerialisation (``config.remat``) is not applied: every layer keeps
 its activations, which is what ``auto_accelerate`` with
@@ -26,7 +28,11 @@ import torch
 import torch.nn.functional as F
 
 from dlrover_tpu_torch.device import resolve_device
-from dlrover_tpu_torch.ops.attention import flash_attention, mha_reference
+from dlrover_tpu_torch.ops.attention import (
+    flash_attention,
+    flash_attention_bshd,
+    mha_reference,
+)
 from dlrover_tpu_torch.ops.cross_entropy import softmax_cross_entropy
 
 
@@ -42,8 +48,9 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"          # activation/compute dtype
-    # "flash" (hand-written kernels, [B,H,S,Dh]) | "reference"; the JAX
-    # package's "bshd" and "ulysses" are not ported yet
+    # "flash" (hand-written kernels, [B,H,S,Dh]) | "bshd" (fused-heads
+    # kernels, [B,S,H,Dh]) | "reference"; the JAX package's "ulysses" is
+    # not ported yet
     attn_impl: str = "flash"
     # accepted and ignored: the port keeps every layer's activations
     # (Strategy.remat must be "none"), which changes memory, not results
@@ -140,11 +147,10 @@ def check_supported(config: LlamaConfig) -> None:
         raise NotImplementedError(
             "pipeline schedules are not ported yet (ROADMAP Queue 1 "
             "item 10)")
-    if config.attn_impl not in ("flash", "reference"):
+    if config.attn_impl not in ("flash", "bshd", "reference"):
         raise NotImplementedError(
             f"attn_impl={config.attn_impl!r} is not ported yet (ROADMAP "
-            "Queue 1 items 3 and 10: bshd kernels, Ulysses sequence "
-            "parallelism)")
+            "Queue 1 item 10: Ulysses sequence parallelism)")
 
 
 # ---------------------------------------------------------------------------
@@ -249,9 +255,14 @@ def _layer(config: LlamaConfig, x, p, rope_cos, rope_sin):
         v = (y @ p["wv"]).view(B, S, kvh, hd)
         q = _rope_apply(q, rope_cos, rope_sin)
         k = _rope_apply(k, rope_cos, rope_sin)
-        attn = mha_reference(q.transpose(1, 2), k.transpose(1, 2),
-                             v.transpose(1, 2), causal=True)
-        x = x + attn.transpose(1, 2).reshape(B, S, h * hd) @ p["wo"]
+        if config.attn_impl == "bshd":
+            # model-native layout end to end: no q/k/v/o transposes
+            attn = flash_attention_bshd(q, k, v, causal=True)
+        else:
+            attn = mha_reference(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), causal=True)
+            attn = attn.transpose(1, 2)
+        x = x + attn.reshape(B, S, h * hd) @ p["wo"]
 
     y = _rms_norm(x, p["mlp_norm"], config.norm_eps)
     mlp = F.silu(y @ p["w_gate"]) * (y @ p["w_up"])

@@ -29,6 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = {
     "flash_fwd": "flash_fwd.cu",
     "flash_bwd": "flash_bwd.cu",
+    "flash_heads": "flash_heads.cu",
     "optim": "optim.cu",
 }
 HEADERS = ("flash_common.cuh",)

@@ -1,9 +1,9 @@
-"""Flash attention on hand-written Hopper kernels ([B, H, S, Dh] layout).
+"""Flash attention on hand-written Hopper kernels.
 
 The JAX package runs attention as Pallas TPU kernels
-(dlrover_tpu/ops/attention.py). Here the same function runs as four
-CUDA kernels written for sm_90a (sources in ``csrc/``, built by
-``_build``):
+(dlrover_tpu/ops/attention.py). Here the same functions run as CUDA
+kernels written for sm_90a (sources in ``csrc/``, built by ``_build``).
+On the [B, H, S, Dh] layout (:func:`flash_attention`):
 
 - ``flash_fwd`` (K1): o and lse, rope applied inside the kernel.
 - ``flash_bwd_preprocess`` (K2): delta = rowsum(dO * O).
@@ -11,13 +11,25 @@ CUDA kernels written for sm_90a (sources in ``csrc/``, built by
 - ``flash_bwd_dkv`` (K4): dk and dv at kv-head width, kv-major, dk
   un-roped in the kernel.
 
+On the model-native [B, S, H*Dh] layout (:func:`flash_attention_bshd`,
+the JAX package's fused-heads family), each q-major kernel packing the q
+heads of one GQA group into its tiles:
+
+- ``flash_fwd_heads`` (K9): o [B, S, H*Dh] and lse.
+- ``flash_bwd_dq_heads`` (K10): dq [B, S, H*Dh].
+- ``flash_bwd_dkv_heads`` (K11): dk and dv [B, S, KVH*Dh].
+
+Their backward takes delta from K2, over [B, H, S, Dh] views.
+
+Every kernel takes the JAX package's mask: causal (end-aligned), with an
+optional sliding ``window`` and an always-visible ``prefix``;
+visibility is ``(causal & in-window) | in-prefix``.
+
 Each wrapper launches its kernel for CUDA tensors and counts the launch
 in its ``launches`` attribute; for CPU tensors it runs the kernel's
 plain PyTorch version (``*_plain``), which holds the same math in f32.
 There is no fallback from one to the other: a CUDA tensor the kernel
-does not take (dtype, head_dim) raises.
-
-:func:`flash_attention` ties them together in a ``torch.autograd.Function``.
+does not take (dtype, head_dim, head grouping) raises.
 """
 
 from __future__ import annotations
@@ -30,6 +42,7 @@ from dlrover_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 HEAD_DIM = 128  # the head_dim the CUDA kernels are built for
+TILE_ROWS = 64  # query rows per tile of the packed kernels (K9, K10)
 
 
 # ---------------------------------------------------------------------------
@@ -55,14 +68,21 @@ def _unrope(g, cos, sin):
     return g * c + torch.cat([gs[..., half:], -gs[..., :half]], dim=-1)
 
 
-def _visible(q_len, kv_len, causal, device):
-    """[q_len, kv_len] bool: end-aligned causal visibility (all True
-    without causality), as in the JAX kernels' _block_mask."""
+def _visible(q_len, kv_len, causal, device, window=None, prefix=None):
+    """[q_len, kv_len] bool, as in the JAX kernels' _block_mask:
+    ``(causal & in-window) | in-prefix`` with end-aligned causality (all
+    True without causality). ``window``: key i-window+1..i visible from
+    query i; ``prefix``: keys below it visible from every query."""
     if not causal:
         return torch.ones(q_len, kv_len, dtype=torch.bool, device=device)
-    rows = torch.arange(q_len, device=device)[:, None]
+    last = torch.arange(q_len, device=device)[:, None] + (kv_len - q_len)
     cols = torch.arange(kv_len, device=device)[None, :]
-    return cols <= rows + (kv_len - q_len)
+    vis = cols <= last
+    if window is not None:
+        vis &= cols > last - window
+    if prefix is not None:
+        vis |= cols < prefix
+    return vis
 
 
 def _operands(q, k, v, rope_cos, rope_sin):
@@ -80,18 +100,20 @@ def _operands(q, k, v, rope_cos, rope_sin):
     return qf, kf, vf
 
 
-def _probs(qf, kf, lse, causal, sm_scale):
+def _probs(qf, kf, lse, causal, sm_scale, window, prefix):
     """P = exp(S * scale - lse) with invisible entries exactly 0."""
-    mask = _visible(qf.shape[2], kf.shape[2], causal, qf.device)
+    mask = _visible(qf.shape[2], kf.shape[2], causal, qf.device, window,
+                    prefix)
     s = qf @ kf.transpose(-1, -2) * sm_scale
     return torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
 
 
-def flash_fwd_plain(q, k, v, rope_cos, rope_sin, causal, sm_scale):
+def flash_fwd_plain(q, k, v, rope_cos, rope_sin, causal, sm_scale,
+                    window=None, prefix=None):
     """Plain version of K1: (o in q.dtype, lse f32 [B, H, S]). A row that
     sees no key gets o = 0 and lse = -1e30, as in the kernel."""
     qf, kf, vf = _operands(q, k, v, rope_cos, rope_sin)
-    mask = _visible(q.shape[2], k.shape[2], causal, q.device)
+    mask = _visible(q.shape[2], k.shape[2], causal, q.device, window, prefix)
     s = (qf @ kf.transpose(-1, -2) * sm_scale).masked_fill(~mask, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)
@@ -107,10 +129,10 @@ def flash_bwd_preprocess_plain(do, o):
 
 
 def flash_bwd_dq_plain(q, k, v, do, lse, delta, rope_cos, rope_sin, causal,
-                       sm_scale):
+                       sm_scale, window=None, prefix=None):
     """Plain version of K3: dq (q.dtype), un-roped."""
     qf, kf, vf = _operands(q, k, v, rope_cos, rope_sin)
-    p = _probs(qf, kf, lse, causal, sm_scale)
+    p = _probs(qf, kf, lse, causal, sm_scale, window, prefix)
     ds = p * (do.float() @ vf.transpose(-1, -2) - delta[..., None])
     dq = ds @ kf * sm_scale
     if rope_cos is not None:
@@ -119,10 +141,10 @@ def flash_bwd_dq_plain(q, k, v, do, lse, delta, rope_cos, rope_sin, causal,
 
 
 def flash_bwd_dkv_plain(q, k, v, do, lse, delta, rope_cos, rope_sin, causal,
-                        sm_scale):
+                        sm_scale, window=None, prefix=None):
     """Plain version of K4: (dk, dv) at kv-head width, dk un-roped."""
     qf, kf, vf = _operands(q, k, v, rope_cos, rope_sin)
-    p = _probs(qf, kf, lse, causal, sm_scale)
+    p = _probs(qf, kf, lse, causal, sm_scale, window, prefix)
     dof = do.float()
     ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None])
     dv = p.transpose(-1, -2) @ dof
@@ -136,6 +158,53 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, rope_cos, rope_sin, causal,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _split_heads(t, heads):
+    """[B, S, heads * D] -> its [B, heads, S, D] view."""
+    B, S, width = t.shape
+    return t.reshape(B, S, heads, width // heads).transpose(1, 2)
+
+
+def _merge_heads(t):
+    """[B, heads, S, D] -> [B, S, heads * D]."""
+    B, H, S, D = t.shape
+    return t.transpose(1, 2).reshape(B, S, H * D)
+
+
+def _heads_views(q, k, v, do, heads):
+    """The [B, heads, S, D] views of [B, S, heads * D] operands (do may
+    be None); k/v hold as many heads as their width allows."""
+    kv_heads = k.shape[-1] // (q.shape[-1] // heads)
+    views = (_split_heads(q, heads), _split_heads(k, kv_heads),
+             _split_heads(v, kv_heads))
+    return views + (() if do is None else (_split_heads(do, heads),))
+
+
+def flash_fwd_heads_plain(q, k, v, heads, causal, sm_scale, window=None,
+                          prefix=None):
+    """Plain version of K9 on q [B, S, H*D], k/v [B, S, KVH*D]: (o
+    [B, S, H*D] in q.dtype, lse f32 [B, H, S])."""
+    o, lse = flash_fwd_plain(*_heads_views(q, k, v, None, heads), None, None,
+                             causal, sm_scale, window, prefix)
+    return _merge_heads(o), lse
+
+
+def flash_bwd_dq_heads_plain(q, k, v, do, lse, delta, heads, causal,
+                             sm_scale, window=None, prefix=None):
+    """Plain version of K10: dq [B, S, H*D] in q.dtype."""
+    return _merge_heads(flash_bwd_dq_plain(
+        *_heads_views(q, k, v, do, heads), lse, delta, None, None, causal,
+        sm_scale, window, prefix))
+
+
+def flash_bwd_dkv_heads_plain(q, k, v, do, lse, delta, heads, causal,
+                              sm_scale, window=None, prefix=None):
+    """Plain version of K11: (dk, dv) [B, S, KVH*D]."""
+    dk, dv = flash_bwd_dkv_plain(
+        *_heads_views(q, k, v, do, heads), lse, delta, None, None, causal,
+        sm_scale, window, prefix)
+    return _merge_heads(dk), _merge_heads(dv)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -144,14 +213,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_S = ctypes.POINTER(_L)
+_MASK = [_I, _I, _I, _F]  # causal, window, prefix, scale
 # C entry -> (library, argtypes before the stream)
 _ENTRIES = {
-    "flash_fwd": ("flash_fwd", [_P] * 7 + [_I] * 5 + [_L] * 9 + [_I, _F]),
+    "flash_fwd": ("flash_fwd", [_P] * 7 + [_I] * 5 + [_S] + _MASK),
     "flash_bwd_preprocess": ("flash_bwd", [_P] * 3 + [_I] * 3 + [_L] * 6),
-    "flash_bwd_dq": ("flash_bwd",
-                     [_P] * 9 + [_I] * 5 + [ctypes.POINTER(_L), _I, _F]),
-    "flash_bwd_dkv": ("flash_bwd",
-                      [_P] * 10 + [_I] * 5 + [ctypes.POINTER(_L), _I, _F]),
+    "flash_bwd_dq": ("flash_bwd", [_P] * 9 + [_I] * 5 + [_S] + _MASK),
+    "flash_bwd_dkv": ("flash_bwd", [_P] * 10 + [_I] * 5 + [_S] + _MASK),
+    "flash_fwd_heads": ("flash_heads", [_P] * 5 + [_I] * 5 + [_S] + _MASK),
+    "flash_bwd_dq_heads": ("flash_heads", [_P] * 7 + [_I] * 5 + [_S] + _MASK),
+    "flash_bwd_dkv_heads": ("flash_heads",
+                            [_P] * 8 + [_I] * 5 + [_S] + _MASK),
 }
 
 
@@ -172,6 +245,20 @@ def _rows(t):
     return t, tuple(t.stride()[:3])
 
 
+def _strides(*operands):
+    """The (batch, head, row) strides of (tensor, strides) pairs from
+    :func:`_rows`, as the C array the entries take."""
+    flat = [s for _, st in operands for s in st]
+    return (_L * len(flat))(*flat)
+
+
+def _mask_args(causal, window, prefix, sm_scale):
+    """The C entries' trailing (causal, window, prefix, scale); 0 means
+    no window / no prefix."""
+    return (int(causal), 0 if window is None else int(window),
+            0 if prefix is None else int(prefix), float(sm_scale))
+
+
 def _check(name, q, k, *others):
     """Raise for what the CUDA kernels do not take."""
     for t in (q, k) + others:
@@ -186,6 +273,15 @@ def _check(name, q, k, *others):
         raise NotImplementedError(
             f"{name}: the CUDA kernel is built for head_dim {HEAD_DIM}, got "
             f"{q.shape[-1]}")
+
+
+def _check_packing(name, heads, kv_heads):
+    """K9/K10 put a GQA group's q heads in the rows of one 64-row tile."""
+    group = heads // kv_heads
+    if TILE_ROWS % group != 0:
+        raise NotImplementedError(
+            f"{name}: the packed kernel needs heads / kv_heads to divide "
+            f"{TILE_ROWS}, got {heads} / {kv_heads}")
 
 
 def _table_ptrs(q, k, rope_cos, rope_sin):
@@ -205,19 +301,40 @@ def _table_ptrs(q, k, rope_cos, rope_sin):
     return tables, tuple(t.data_ptr() for t in tables)
 
 
-def flash_fwd(q, k, v, rope_cos, rope_sin, causal, sm_scale):
+def _launch_attn(symbol, operands, inputs, tables, outs, causal, sm_scale,
+                 window, prefix):
+    """Launch one attention kernel. Every C entry takes the [B, heads, S,
+    D] operands q, k, v (and do) by pointer, read through their strides
+    (views of the fused layout for K9-K11), then the f32 inputs (lse,
+    delta), the rope tables (K1/K3/K4 only: ``tables`` is None for the
+    fused-heads entries), the outputs, then B, H, KVH, q_len, kv_len, the
+    operands' strides, causal, window, prefix, scale and the stream."""
+    _check(symbol, *operands, *(tables or ()))
+    ops = [_rows(t) for t in operands]
+    q, k = ops[0][0], ops[1][0]
+    inputs = [t.contiguous() for t in inputs]
+    table_ptrs = ()
+    if tables is not None:
+        _tables, table_ptrs = _table_ptrs(q, k, *tables)
+    B, H, q_len, _ = q.shape
+    _launch(symbol, *(t.data_ptr() for t, _ in ops),
+            *(t.data_ptr() for t in inputs), *table_ptrs,
+            *(t.data_ptr() for t in outs), B, H, k.shape[1], q_len,
+            k.shape[2], _strides(*ops),
+            *_mask_args(causal, window, prefix, sm_scale))
+
+
+def flash_fwd(q, k, v, rope_cos, rope_sin, causal, sm_scale, window=None,
+              prefix=None):
     """K1: (o [B,H,S,D] q.dtype, lse f32 [B,H,S])."""
     if q.device.type == "cpu":
-        return flash_fwd_plain(q, k, v, rope_cos, rope_sin, causal, sm_scale)
-    _check("flash_fwd", q, k, v, rope_cos, rope_sin)
-    (q, sq), (k, sk), (v, sv) = _rows(q), _rows(k), _rows(v)
-    B, H, S, D = q.shape
-    _tables, (pc, ps) = _table_ptrs(q, k, rope_cos, rope_sin)
-    o = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
+        return flash_fwd_plain(q, k, v, rope_cos, rope_sin, causal, sm_scale,
+                               window, prefix)
+    B, H, S, _ = q.shape
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), pc, ps,
-            o.data_ptr(), lse.data_ptr(), B, H, k.shape[1], S, k.shape[2],
-            *sq, *sk, *sv, int(causal), float(sm_scale))
+    _launch_attn("flash_fwd", (q, k, v), (), (rope_cos, rope_sin), (o, lse),
+                 causal, sm_scale, window, prefix)
     flash_fwd.launches += 1
     return o, lse
 
@@ -239,52 +356,85 @@ def flash_bwd_preprocess(do, o):
     return delta
 
 
-def _launch_bwd(symbol, outs, q, k, v, do, lse, delta, rope_cos, rope_sin,
-                causal, sm_scale):
-    """Shared launch of K3/K4: both C entries take (q, k, v, do, lse,
-    delta, cos, sin, *outs, B, H, KVH, q_len, kv_len, strides, causal,
-    scale, stream)."""
-    _check(symbol, q, k, v, do, rope_cos, rope_sin)
-    (q, sq), (k, sk), (v, sv), (do, sd) = (
-        _rows(q), _rows(k), _rows(v), _rows(do))
-    lse, delta = lse.contiguous(), delta.contiguous()
-    _tables, (pc, ps) = _table_ptrs(q, k, rope_cos, rope_sin)
-    strides = (ctypes.c_longlong * 12)(*sq, *sk, *sv, *sd)
-    B, H, q_len, _ = q.shape
-    _launch(symbol, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), pc, ps,
-            *(t.data_ptr() for t in outs), B, H, k.shape[1], q_len,
-            k.shape[2], strides, int(causal), float(sm_scale))
-
-
 def flash_bwd_dq(q, k, v, do, lse, delta, rope_cos, rope_sin, causal,
-                 sm_scale):
+                 sm_scale, window=None, prefix=None):
     """K3: dq [B,H,S,D] in q.dtype, un-roped."""
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, rope_cos,
-                                  rope_sin, causal, sm_scale)
+                                  rope_sin, causal, sm_scale, window, prefix)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch_bwd("flash_bwd_dq", (dq,), q, k, v, do, lse, delta, rope_cos,
-                rope_sin, causal, sm_scale)
+    _launch_attn("flash_bwd_dq", (q, k, v, do), (lse, delta),
+                 (rope_cos, rope_sin), (dq,), causal, sm_scale, window,
+                 prefix)
     flash_bwd_dq.launches += 1
     return dq
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, rope_cos, rope_sin, causal,
-                  sm_scale):
+                  sm_scale, window=None, prefix=None):
     """K4: (dk, dv) [B,KVH,S,D] in k.dtype/v.dtype, dk un-roped."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, rope_cos,
-                                   rope_sin, causal, sm_scale)
+                                   rope_sin, causal, sm_scale, window, prefix)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _launch_bwd("flash_bwd_dkv", (dk, dv), q, k, v, do, lse, delta,
-                rope_cos, rope_sin, causal, sm_scale)
+    _launch_attn("flash_bwd_dkv", (q, k, v, do), (lse, delta),
+                 (rope_cos, rope_sin), (dk, dv), causal, sm_scale, window,
+                 prefix)
     flash_bwd_dkv.launches += 1
     return dk, dv
 
 
-KERNELS = (flash_fwd, flash_bwd_preprocess, flash_bwd_dq, flash_bwd_dkv)
+def flash_fwd_heads(q, k, v, heads, causal, sm_scale, window=None,
+                    prefix=None):
+    """K9 on q [B,S,H*D], k/v [B,S,KVH*D]: (o [B,S,H*D] q.dtype, lse f32
+    [B,H,S])."""
+    if q.device.type == "cpu":
+        return flash_fwd_heads_plain(q, k, v, heads, causal, sm_scale,
+                                     window, prefix)
+    views = _heads_views(q, k, v, None, heads)
+    _check_packing("flash_fwd_heads", heads, views[1].shape[1])
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((q.shape[0], heads, q.shape[1]), dtype=torch.float32,
+                      device=q.device)
+    _launch_attn("flash_fwd_heads", views, (), None, (o, lse), causal,
+                 sm_scale, window, prefix)
+    flash_fwd_heads.launches += 1
+    return o, lse
+
+
+def flash_bwd_dq_heads(q, k, v, do, lse, delta, heads, causal, sm_scale,
+                       window=None, prefix=None):
+    """K10: dq [B,S,H*D] in q.dtype."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_heads_plain(q, k, v, do, lse, delta, heads,
+                                        causal, sm_scale, window, prefix)
+    views = _heads_views(q, k, v, do, heads)
+    _check_packing("flash_bwd_dq_heads", heads, views[1].shape[1])
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch_attn("flash_bwd_dq_heads", views, (lse, delta), None, (dq,),
+                 causal, sm_scale, window, prefix)
+    flash_bwd_dq_heads.launches += 1
+    return dq
+
+
+def flash_bwd_dkv_heads(q, k, v, do, lse, delta, heads, causal, sm_scale,
+                        window=None, prefix=None):
+    """K11: (dk, dv) [B,S,KVH*D] in k.dtype/v.dtype."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_heads_plain(q, k, v, do, lse, delta, heads,
+                                         causal, sm_scale, window, prefix)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _launch_attn("flash_bwd_dkv_heads", _heads_views(q, k, v, do, heads),
+                 (lse, delta), None, (dk, dv), causal, sm_scale, window,
+                 prefix)
+    flash_bwd_dkv_heads.launches += 1
+    return dk, dv
+
+
+KERNELS = (flash_fwd, flash_bwd_preprocess, flash_bwd_dq, flash_bwd_dkv,
+           flash_fwd_heads, flash_bwd_dq_heads, flash_bwd_dkv_heads)
 for _k in KERNELS:
     _k.launches = 0
 
@@ -304,22 +454,71 @@ def launches() -> dict[str, int]:
 
 
 class _FlashAttention(torch.autograd.Function):
+    """K1-K4 on [B, H, S, D]."""
+
     @staticmethod
-    def forward(ctx, q, k, v, rope_cos, rope_sin, causal, sm_scale):
-        o, lse = flash_fwd(q, k, v, rope_cos, rope_sin, causal, sm_scale)
+    def forward(ctx, q, k, v, rope_cos, rope_sin, causal, sm_scale, window,
+                prefix):
+        o, lse = flash_fwd(q, k, v, rope_cos, rope_sin, causal, sm_scale,
+                           window, prefix)
         ctx.save_for_backward(q, k, v, o, lse, rope_cos, rope_sin)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.opts = (causal, sm_scale, window, prefix)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse, rope_cos, rope_sin = ctx.saved_tensors
         delta = flash_bwd_preprocess(do, o)
-        args = (q, k, v, do, lse, delta, rope_cos, rope_sin, ctx.causal,
-                ctx.sm_scale)
+        args = (q, k, v, do, lse, delta, rope_cos, rope_sin, *ctx.opts)
         dq = flash_bwd_dq(*args)
         dk, dv = flash_bwd_dkv(*args)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+class _FlashAttentionHeads(torch.autograd.Function):
+    """K9-K11 (and K2 for delta) on [B, S, H*D]."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, heads, causal, sm_scale, window, prefix):
+        o, lse = flash_fwd_heads(q, k, v, heads, causal, sm_scale, window,
+                                 prefix)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (heads, causal, sm_scale, window, prefix)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        heads = ctx.args[0]
+        delta = flash_bwd_preprocess(_split_heads(do, heads),
+                                     _split_heads(o, heads))
+        args = (q, k, v, do, lse, delta, *ctx.args)
+        dq = flash_bwd_dq_heads(*args)
+        dk, dv = flash_bwd_dkv_heads(*args)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def _check_mask_extras(causal, window, prefix_len):
+    """The JAX package's rules for the mask extras."""
+    if window is None and prefix_len is None:
+        return
+    if not causal:
+        raise ValueError("window/prefix_len require causal=True")
+    if window is not None and int(window) < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if prefix_len is not None and int(prefix_len) < 0:
+        raise ValueError(f"prefix_len must be >= 0, got {prefix_len}")
+
+
+def _int_or_none(x):
+    return None if x is None else int(x)
+
+
+def _same_device(name, q, *others):
+    for t in others:
+        if t is not None and t.device != q.device:
+            raise ValueError(f"{name}: q on {q.device}, an operand on "
+                             f"{t.device}")
 
 
 def flash_attention(q, k, v, causal: bool = True,
@@ -335,19 +534,20 @@ def flash_attention(q, k, v, causal: bool = True,
         rotary tables. Rope is then applied to q and k inside the
         kernels (q/k passed raw; dq/dk come back un-roped).
         Self-attention only (q_len == kv_len).
-      window/prefix_len: not in this port yet (ROADMAP Queue 1 item 3).
+      window: Mistral-style sliding window: query i sees keys
+        i-window+1..i (end-aligned); the kernels skip the tiles below it.
+      prefix_len: GLM-style prefix-LM: the first ``prefix_len`` keys are
+        visible from every query. Both need causal=True and compose as
+        ``(causal & in-window) | in-prefix``.
     Returns [batch, heads, q_len, head_dim] in q.dtype. Gradients flow to
     q, k and v; the rope tables are constants.
     """
-    if window is not None or prefix_len is not None:
-        raise NotImplementedError(
-            "window/prefix_len attention is not ported yet "
-            "(ROADMAP Queue 1 item 3, Queue 2 a)")
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     if q.shape[1] % k.shape[1] != 0:
         raise ValueError(
             f"q heads {q.shape[1]} not divisible by kv {k.shape[1]}")
+    _check_mask_extras(causal, window, prefix_len)
     if rope_cos is not None:
         if q.shape[2] != k.shape[2]:
             raise ValueError(
@@ -358,12 +558,61 @@ def flash_attention(q, k, v, causal: bool = True,
                 f"rope tables must be [B, S, head_dim] {want}, got "
                 f"{tuple(rope_cos.shape)} / {tuple(rope_sin.shape)}")
         rope_cos, rope_sin = rope_cos.detach(), rope_sin.detach()
-    for t in (k, v, rope_cos, rope_sin):
-        if t is not None and t.device != q.device:
-            raise ValueError(f"flash_attention: q on {q.device}, an operand "
-                             f"on {t.device}")
+    _same_device("flash_attention", q, k, v, rope_cos, rope_sin)
     return _FlashAttention.apply(q, k, v, rope_cos, rope_sin, bool(causal),
-                                 float(sm_scale))
+                                 float(sm_scale), _int_or_none(window),
+                                 _int_or_none(prefix_len))
+
+
+def flash_attention_bshd(q, k, v, causal: bool = True,
+                         sm_scale: float | None = None, block_q: int = 512,
+                         block_k: int = 512, bwd_block_q: int | None = None,
+                         bwd_block_k: int | None = None, fused: bool = True,
+                         window: int | None = None,
+                         prefix_len: int | None = None):
+    """Flash attention on the model-native [B, S, H, Dh] layout, with no
+    transposes on either side of the fused kernels.
+
+    - ``fused=True`` (default) with heads <= 128: the heads fold into
+      the minor dimension ([B, S, H*Dh], a free view) and K9-K11 run
+      there, each staging a k/v tile once for the q heads of its GQA
+      group.
+    - ``fused=False``, or heads > 128 (as in the JAX package): K1-K4 on
+      the [B, H, S, Dh] strided views, without rope; only the output is
+      laid back as [B, S, H, Dh].
+
+    ``block_*`` are accepted and ignored: they are TPU VMEM tunings of
+    the JAX kernels; the port's kernels fix their own tiles, and no block
+    size changes the function computed. ``window``/``prefix_len`` as in
+    :func:`flash_attention`. On the card, head_dim must be 128 (the JAX
+    package's transposing fallback for other widths is not ported; the
+    kernels raise).
+
+    Args:
+      q: [batch, q_len, heads, head_dim]
+      k, v: [batch, kv_len, kv_heads, head_dim]; heads % kv_heads == 0.
+    Returns [batch, q_len, heads, head_dim] in q.dtype.
+    """
+    B, S, H, hd = q.shape
+    KVH, Skv = k.shape[2], k.shape[1]
+    if H % KVH != 0:
+        raise ValueError(f"q heads {H} not divisible by kv {KVH}")
+    if H > 128:
+        fused = False
+    if sm_scale is None:
+        sm_scale = hd ** -0.5
+    _check_mask_extras(causal, window, prefix_len)
+    _same_device("flash_attention_bshd", q, k, v)
+    opts = (bool(causal), float(sm_scale), _int_or_none(window),
+            _int_or_none(prefix_len))
+    if not fused:
+        o = _FlashAttention.apply(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), None, None, *opts)
+        return o.transpose(1, 2)
+    o = _FlashAttentionHeads.apply(
+        q.reshape(B, S, H * hd), k.reshape(B, Skv, KVH * hd),
+        v.reshape(B, Skv, KVH * hd), H, *opts)
+    return o.view(B, S, H, hd)
 
 
 def mha_reference(q, k, v, causal: bool = True,

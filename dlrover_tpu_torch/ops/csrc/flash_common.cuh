@@ -1,10 +1,15 @@
 // Shared pieces of the Hopper flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu): tile geometry, tile loads with in-kernel rope, and the
-// two warp-level products every kernel is built from.
+// flash_bwd.cu, flash_heads.cu): tile geometry, the mask and the tile
+// ranges it leaves live, tile loads with in-kernel rope, the two
+// warp-level products every kernel is built from, and the three tile
+// loops (forward, dq, dk/dv) that the kernels run.
 //
-// Layout: q/k/v/do are [B, heads, S, D] bf16 addressed through batch,
-// head and row strides (elements); each row of D values is contiguous and
-// 16-byte aligned (the Python wrapper checks). Rope tables are [B, S, D]
+// Layout: q/k/v/do are bf16 operands addressed as [B, heads, S, D] through
+// batch, head and row strides (elements). That covers the [B, H, S, D]
+// tensors of flash_attention and the [B, S, H*D] tensors of
+// flash_attention_bshd (head stride D, row stride H*D) alike. Each row of
+// D values is contiguous and 16-byte aligned (the Python wrapper checks).
+// Outputs are written through strides as well. Rope tables are [B, S, D]
 // bf16, contiguous, full width (the first-half values repeated in the
 // second half). lse and delta are f32 [B, H, S].
 //
@@ -12,6 +17,12 @@
 // run on the tensor cores through WMMA (bf16 in, f32 accumulate, 16x16x16
 // fragments). Eight warps per block; warp w owns the 16-row group
 // (w & 3) and the column half (w >> 2) of every product it computes.
+//
+// Row maps: a 64-row query tile holds 2^shift consecutive positions of
+// 64 >> shift heads; row r is position pos0 + r % 2^shift of head
+// head0 + r / 2^shift. The per-head kernels (K1, K3) take one head per
+// tile (shift 6); the fused-heads kernels (K9, K10) pack the q heads of
+// one GQA group into the tile, so one staged k/v tile serves the group.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -49,6 +60,105 @@ struct Operand {
   long long sb, sh, ss;
 };
 
+// One [B, heads, S, D] output, addressed the same way.
+struct Out {
+  bf16* ptr;
+  long long sb, sh, ss;
+};
+
+// The visibility rule of every kernel, from the JAX kernels' _block_mask:
+// (causal & in-window) | in-prefix, with end-aligned causality (offset =
+// kv_len - q_len). Positions past q_len or kv_len are never visible.
+// window <= 0 means no sliding window, prefix <= 0 no prefix; both act
+// only under causality (the wrapper refuses them otherwise). The loops
+// test it as a range per query row (Keys) or per key (Rows), set up once
+// for the row or key a thread holds across a tile.
+struct Mask {
+  int q_len, kv_len, causal, window, prefix;
+};
+
+// The keys query `row` sees: [lo, hi] (the causal band, cut below by the
+// window) and [0, pre) (the prefix); none when row is past q_len.
+struct Keys {
+  int lo, hi, pre;
+  __device__ __forceinline__ bool has(int col) const {
+    return (col >= lo && col <= hi) || col < pre;
+  }
+};
+
+__device__ __forceinline__ Keys keys_of(const Mask& m, int row) {
+  if (row >= m.q_len) return Keys{1, 0, 0};
+  if (!m.causal) return Keys{0, m.kv_len - 1, 0};
+  const int last = row + m.kv_len - m.q_len;  // the newest key row sees
+  return Keys{m.window > 0 ? last - m.window + 1 : 0, min(last, m.kv_len - 1),
+              min(m.prefix, m.kv_len)};
+}
+
+// The queries [lo, hi] that see some key of [k_lo, k_hi] (none when
+// lo > hi): every query when a key lies in the prefix, else those whose
+// band covers one of the keys. For one key this is exactly the set that
+// sees it.
+struct Rows {
+  int lo, hi;
+  __device__ __forceinline__ bool has(int row) const { return row >= lo && row <= hi; }
+};
+
+__device__ __forceinline__ Rows rows_of(const Mask& m, int k_lo, int k_hi) {
+  if (k_lo >= m.kv_len) return Rows{1, 0};
+  if (!m.causal || k_lo < m.prefix) return Rows{0, m.q_len - 1};
+  const int off = m.kv_len - m.q_len;
+  return Rows{max(0, k_lo - off),
+              m.window > 0 ? min(m.q_len - 1, k_hi - off + m.window - 1) : m.q_len - 1};
+}
+
+// The live kv tiles of query rows [r_lo, r_hi], as _tile_meta_impl's
+// live(i, j) keeps them: tiles [0, pre) hold the prefix, tiles [lo, hi)
+// the causal band, bounded below by the window. A tile in neither has no
+// visible (row, col) pair and is never loaded. Walk t in [0, count()),
+// tile(t) in increasing order.
+struct TileRange {
+  int pre, lo, hi;
+  __device__ __forceinline__ int count() const { return pre + max(0, hi - max(lo, pre)); }
+  __device__ __forceinline__ int tile(int t) const {
+    return t < pre ? t : max(lo, pre) + t - pre;
+  }
+};
+
+__device__ __forceinline__ TileRange kv_tiles(const Mask& m, int r_lo, int r_hi) {
+  const int nk = (m.kv_len + BK - 1) / BK;
+  if (!m.causal) return TileRange{0, 0, nk};
+  const int off = m.kv_len - m.q_len;
+  const int last = min(m.kv_len - 1, r_hi + off);
+  TileRange t{m.prefix > 0 ? min(nk, (m.prefix + BK - 1) / BK) : 0, 0, 0};
+  if (last >= 0) {
+    t.lo = m.window > 0 ? max(0, r_lo + off - m.window + 1) / BK : 0;
+    t.hi = last / BK + 1;
+  }
+  return t;
+}
+
+// Which position and head each of a tile's 64 rows holds (see the top).
+struct RowMap {
+  int pos0, shift, head0;
+  __device__ __forceinline__ int pos(int r) const { return pos0 + (r & ((1 << shift) - 1)); }
+  __device__ __forceinline__ int head(int r) const { return head0 + (r >> shift); }
+};
+
+// Everything a kernel reads: operands, rope tables (nullptr: no rope),
+// the backward's lse and delta, the outputs, and the mask.
+struct AttnArgs {
+  Operand q, k, v, dout;
+  const bf16* cos;
+  const bf16* sin;
+  const float* lse_in;
+  const float* delta;
+  Out o, dq, dk, dv;
+  float* lse;
+  int H, group, shift;  // shift: log2 of the query positions per tile
+  Mask mask;
+  float scale;
+};
+
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragBRow;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBCol;
@@ -76,32 +186,33 @@ __device__ __forceinline__ uint4 ld16(const bf16* p) {
   return *reinterpret_cast<const uint4*>(p);
 }
 
-// Copy rows [row0, row0 + 64) of one head (src = head base, row stride
-// ss) into dst [64][LD_H]; rows at or past `len` become zeros. With rope
-// tables (cos/sin = this batch's [S, D] base) the tile is stored roped:
-// rope(x) = x * C + rotate_half(x) * S with rotate_half(x) = [-x2, x1],
-// computed in f32 and rounded once to bf16.
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long ss,
-                                          int row0, int len, const bf16* cos,
-                                          const bf16* sin) {
+// Stage the 64 rows of `map` into dst [64][LD_H]: row r is read at
+// src + head(r) * sh + pos(r) * ss (src = this batch's base); positions
+// at or past `len` become zeros. With rope tables (cos/sin = this batch's
+// [S, D] base) the tile is stored roped: rope(x) = x * C +
+// rotate_half(x) * S with rotate_half(x) = [-x2, x1], computed in f32 and
+// rounded once to bf16.
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long long sh,
+                                          long long ss, RowMap map, int len,
+                                          const bf16* cos, const bf16* sin) {
   if (cos == nullptr) {
     for (int idx = threadIdx.x; idx < 64 * (D / 8); idx += NTHREADS) {
       const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
-      const int row = row0 + r;
+      const int pos = map.pos(r);
       uint4 val = make_uint4(0, 0, 0, 0);
-      if (row < len) val = ld16(src + row * ss + c);
+      if (pos < len) val = ld16(src + map.head(r) * sh + pos * ss + c);
       *reinterpret_cast<uint4*>(dst + r * LD_H + c) = val;
     }
     return;
   }
   for (int idx = threadIdx.x; idx < 64 * (HALF / 8); idx += NTHREADS) {
     const int r = idx / (HALF / 8), c = (idx % (HALF / 8)) * 8;
-    const int row = row0 + r;
+    const int pos = map.pos(r);
     float o1[8], o2[8];
-    if (row < len) {
+    if (pos < len) {
       float x1[8], x2[8], c1[8], c2[8], s1[8], s2[8];
-      const bf16* x = src + row * ss;
-      const long long t = (long long)row * D;
+      const bf16* x = src + map.head(r) * sh + pos * ss;
+      const long long t = (long long)pos * D;
       unpack8(ld16(x + c), x1);
       unpack8(ld16(x + c + HALF), x2);
       unpack8(ld16(cos + t + c), c1);
@@ -180,24 +291,17 @@ __device__ __forceinline__ void load_acc(FragC (&acc)[4], const float* src) {
                            wmma::mem_row_major);
 }
 
-// Whether key position `col` is visible from query position `row`.
-// Causality is end-aligned (offset = kv_len - q_len), as in the JAX
-// kernels' _block_mask; columns past kv_len are never visible.
-__device__ __forceinline__ bool visible(int row, int col, int q_len, int kv_len,
-                                        int causal) {
-  return col < kv_len && row < q_len && (!causal || col <= row + kv_len - q_len);
-}
-
-// Write a [64][LD_O] f32 tile scaled by `scale` to dst rows [row0, len)
-// (contiguous [S, D] head base), un-roping first when tables are given:
-// unrope(g) = [g1*c1 + g2*s2, g2*c2 - g1*s1], the transpose of rope.
-__device__ __forceinline__ void write_rows(bf16* dst, const float* src, float scale,
-                                           int row0, int len, const bf16* cos,
-                                           const bf16* sin) {
+// Write a [64][LD_O] f32 tile times `scale` to the rows of `map` (dst =
+// this batch's base, head stride sh, row stride ss), positions below
+// `len` only, un-roping first when tables are given: unrope(g) =
+// [g1*c1 + g2*s2, g2*c2 - g1*s1], the transpose of rope.
+__device__ __forceinline__ void write_rows(bf16* dst, long long sh, long long ss,
+                                           const float* src, float scale, RowMap map,
+                                           int len, const bf16* cos, const bf16* sin) {
   for (int idx = threadIdx.x; idx < 64 * (HALF / 8); idx += NTHREADS) {
     const int r = idx / (HALF / 8), c = (idx % (HALF / 8)) * 8;
-    const int row = row0 + r;
-    if (row >= len) continue;
+    const int pos = map.pos(r);
+    if (pos >= len) continue;
     float g1[8], g2[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
@@ -206,7 +310,7 @@ __device__ __forceinline__ void write_rows(bf16* dst, const float* src, float sc
     }
     if (cos != nullptr) {
       float c1[8], c2[8], s1[8], s2[8];
-      const long long t = (long long)row * D;
+      const long long t = (long long)pos * D;
       unpack8(ld16(cos + t + c), c1);
       unpack8(ld16(cos + t + c + HALF), c2);
       unpack8(ld16(sin + t + c), s1);
@@ -218,8 +322,9 @@ __device__ __forceinline__ void write_rows(bf16* dst, const float* src, float sc
         g2[e] = b * c2[e] - a * s1[e];
       }
     }
-    *reinterpret_cast<uint4*>(dst + (long long)row * D + c) = pack8(g1);
-    *reinterpret_cast<uint4*>(dst + (long long)row * D + c + HALF) = pack8(g2);
+    bf16* out = dst + map.head(r) * sh + pos * ss;
+    *reinterpret_cast<uint4*>(out + c) = pack8(g1);
+    *reinterpret_cast<uint4*>(out + c + HALF) = pack8(g2);
   }
 }
 
@@ -233,6 +338,343 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// This batch's [S, D] rope table, or nullptr without rope.
+__device__ __forceinline__ const bf16* table(const bf16* t, int b, int S) {
+  return t ? t + (long long)b * S * D : nullptr;
+}
+
+// ------------------------------------------------------------- forward
+constexpr size_t FWD_SMEM =
+    (3 * TILE_H + TILE_P) * sizeof(bf16) + (TILE_S + TILE_O + 2 * 64) * sizeof(float);
+
+// Forward of one 64-row query tile (rows by `map`, batch b) against kv
+// head kvh: online softmax over the live kv tiles with the running output
+// in shared memory, then o = acc / l and lse = m + log(l) per row. A row
+// that sees no key gets o = 0 and lse = -1e30; P is zero wherever a row
+// sees no key of a tile, so a window-edge tile that is some rows' first
+// adds nothing to them.
+__device__ __forceinline__ void fwd_tile(unsigned char* smem, const AttnArgs& a,
+                                         RowMap map, int kvh, int b) {
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sK = sQ + TILE_H;
+  bf16* sV = sK + TILE_H;
+  float* sS = reinterpret_cast<float*>(sV + TILE_H);
+  float* sO = sS + TILE_S;
+  float* sM = sO + TILE_O;
+  float* sL = sM + 64;
+  bf16* sP = reinterpret_cast<bf16*>(sL + 64);
+
+  const Mask& m = a.mask;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bf16* k = a.k.ptr + b * a.k.sb + kvh * a.k.sh;
+  const bf16* v = a.v.ptr + b * a.v.sb + kvh * a.v.sh;
+  const bf16* cos = table(a.cos, b, m.q_len);
+  const bf16* sin = table(a.sin, b, m.q_len);
+
+  load_rows(sQ, a.q.ptr + b * a.q.sb, a.q.sh, a.q.ss, map, m.q_len, cos, sin);
+  for (int i = threadIdx.x; i < TILE_O; i += NTHREADS) sO[i] = 0.f;
+  if (threadIdx.x < 64) {
+    sM[threadIdx.x] = NEG_INF;
+    sL[threadIdx.x] = 0.f;
+  }
+
+  const TileRange tiles =
+      kv_tiles(m, map.pos0, min(map.pos0 + (1 << map.shift), m.q_len) - 1);
+  const int n = tiles.count();
+  for (int t = 0; t < n; ++t) {
+    const int k0 = tiles.tile(t) * BK;
+    __syncthreads();  // the previous tile's readers of sK/sV/sP are done
+    load_rows(sK, k, 0, a.k.ss, RowMap{k0, 6, 0}, m.kv_len, cos, sin);
+    load_rows(sV, v, 0, a.v.ss, RowMap{k0, 6, 0}, m.kv_len, nullptr, nullptr);
+    __syncthreads();
+    mm_abt(sS, sQ, sK);
+    __syncthreads();
+
+    // online softmax: warp w owns rows 8w..8w+7, two columns per lane
+    for (int rr = 0; rr < 8; ++rr) {
+      const int r = warp * 8 + rr;
+      const Keys keys = keys_of(m, map.pos(r));
+      float s[2];
+      bool ok[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = lane + 32 * e;
+        ok[e] = keys.has(k0 + c);
+        s[e] = ok[e] ? sS[r * LD_S + c] * a.scale : NEG_INF;
+      }
+      const float m_old = sM[r];
+      const float m_new = fmaxf(m_old, warp_max(fmaxf(s[0], s[1])));
+      float p[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        p[e] = ok[e] ? __expf(s[e] - m_new) : 0.f;
+        sP[r * LD_P + lane + 32 * e] = __float2bfloat16(p[e]);
+      }
+      const float sum = warp_sum(p[0] + p[1]);
+      const float alpha = __expf(m_old - m_new);
+      for (int c = lane; c < D; c += 32) sO[r * LD_O + c] *= alpha;
+      __syncwarp();
+      if (lane == 0) {
+        sM[r] = m_new;
+        sL[r] = sL[r] * alpha + sum;
+      }
+    }
+    __syncthreads();
+
+    FragC acc[4];
+    load_acc(acc, sO);
+    mm_ab_acc(acc, sP, sV);
+    store_acc(sO, acc);
+  }
+  __syncthreads();
+
+  // epilogue: o = acc / l, lse = m + log(l); l == 0 (no visible key) -> 1
+  if (threadIdx.x < 64) {
+    const float l = sL[threadIdx.x];
+    sL[threadIdx.x] = l == 0.f ? 1.f : l;
+  }
+  __syncthreads();
+  bf16* o = a.o.ptr + b * a.o.sb;
+  for (int idx = threadIdx.x; idx < 64 * (D / 8); idx += NTHREADS) {
+    const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
+    const int pos = map.pos(r);
+    if (pos >= m.q_len) continue;
+    const float inv = 1.f / sL[r];
+    float f[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) f[e] = sO[r * LD_O + c + e] * inv;
+    *reinterpret_cast<uint4*>(o + map.head(r) * a.o.sh + pos * a.o.ss + c) = pack8(f);
+  }
+  if (threadIdx.x < 64) {
+    const int r = threadIdx.x, pos = map.pos(r);
+    if (pos < m.q_len)
+      a.lse[((long long)b * a.H + map.head(r)) * m.q_len + pos] = sM[r] + logf(sL[r]);
+  }
+}
+
+// ------------------------------------------------------------------ dq
+constexpr size_t DQ_SMEM = (4 * TILE_H + TILE_P) * sizeof(bf16) +
+                           (2 * TILE_S + 2 * 64) * sizeof(float);
+
+// dq of one 64-row query tile (rows by `map`, batch b) against kv head
+// kvh: recompute S = Q K^T and dP = dO V^T per live kv tile, form
+// dS = P * (dP - delta) and accumulate dQ += dS K in registers; the
+// epilogue scales, un-ropes (with tables) and writes the rows.
+__device__ __forceinline__ void dq_tile(unsigned char* smem, const AttnArgs& a,
+                                        RowMap map, int kvh, int b) {
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sdO = sQ + TILE_H;
+  bf16* sK = sdO + TILE_H;
+  bf16* sV = sK + TILE_H;
+  float* sS = reinterpret_cast<float*>(sV + TILE_H);
+  float* sdP = sS + TILE_S;
+  float* sLse = sdP + TILE_S;
+  float* sDelta = sLse + 64;
+  bf16* sdS = reinterpret_cast<bf16*>(sDelta + 64);
+
+  const Mask& m = a.mask;
+  const bf16* k = a.k.ptr + b * a.k.sb + kvh * a.k.sh;
+  const bf16* v = a.v.ptr + b * a.v.sb + kvh * a.v.sh;
+  const bf16* cos = table(a.cos, b, m.q_len);
+  const bf16* sin = table(a.sin, b, m.q_len);
+
+  load_rows(sQ, a.q.ptr + b * a.q.sb, a.q.sh, a.q.ss, map, m.q_len, cos, sin);
+  load_rows(sdO, a.dout.ptr + b * a.dout.sb, a.dout.sh, a.dout.ss, map, m.q_len, nullptr,
+            nullptr);
+  if (threadIdx.x < 64) {
+    const int r = threadIdx.x, pos = map.pos(r);
+    const long long i = ((long long)b * a.H + map.head(r)) * m.q_len + pos;
+    sLse[r] = pos < m.q_len ? a.lse_in[i] : 0.f;
+    sDelta[r] = pos < m.q_len ? a.delta[i] : 0.f;
+  }
+
+  FragC acc[4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n) wmma::fill_fragment(acc[n], 0.f);
+
+  const TileRange tiles =
+      kv_tiles(m, map.pos0, min(map.pos0 + (1 << map.shift), m.q_len) - 1);
+  const int n = tiles.count();
+  for (int t = 0; t < n; ++t) {
+    const int k0 = tiles.tile(t) * BK;
+    __syncthreads();
+    load_rows(sK, k, 0, a.k.ss, RowMap{k0, 6, 0}, m.kv_len, cos, sin);
+    load_rows(sV, v, 0, a.v.ss, RowMap{k0, 6, 0}, m.kv_len, nullptr, nullptr);
+    __syncthreads();
+    mm_abt(sS, sQ, sK);    // S  = Q K^T
+    mm_abt(sdP, sdO, sV);  // dP = dO V^T
+    __syncthreads();
+    // this thread's key column is the same at every step of the loop
+    const Rows rows = rows_of(m, k0 + threadIdx.x % BK, k0 + threadIdx.x % BK);
+    for (int idx = threadIdx.x; idx < BQ * BK; idx += NTHREADS) {
+      const int r = idx / BK, c = idx % BK;
+      float ds = 0.f;
+      if (rows.has(map.pos(r))) {
+        const float p = __expf(sS[r * LD_S + c] * a.scale - sLse[r]);
+        ds = p * (sdP[r * LD_S + c] - sDelta[r]);
+      }
+      sdS[r * LD_P + c] = __float2bfloat16(ds);
+    }
+    __syncthreads();
+    mm_ab_acc(acc, sdS, sK);  // dQ += dS K
+  }
+  __syncthreads();
+  float* sOut = reinterpret_cast<float*>(smem);  // reuses sQ + sdO
+  store_acc(sOut, acc);
+  __syncthreads();
+  write_rows(a.dq.ptr + b * a.dq.sb, a.dq.sh, a.dq.ss, sOut, a.scale, map, m.q_len, cos,
+             sin);
+}
+
+// --------------------------------------------------------------- dk, dv
+constexpr size_t DKV_SMEM = (4 * TILE_H + 2 * TILE_P) * sizeof(bf16) +
+                            (2 * TILE_S + 2 * 64) * sizeof(float);
+
+// dk and dv of the 64 kv rows from k0 (kv head kvh, batch b): the block
+// holds its k/v tile while the group's q heads stream past in 64-row
+// tiles over the query rows that see it, recomputing S^T = K Q^T and
+// dP^T = V dO^T (no transposed copies) and accumulating dV += P^T dO and
+// dK += dS^T Q in registers. The sum over the group happens in those
+// registers, so dk/dv come out at kv-head width.
+__device__ __forceinline__ void dkv_tile(unsigned char* smem, const AttnArgs& a, int k0,
+                                         int kvh, int b) {
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sdO = sQ + TILE_H;
+  float* sS = reinterpret_cast<float*>(sdO + TILE_H);
+  float* sdP = sS + TILE_S;
+  bf16* sK = reinterpret_cast<bf16*>(sdP + TILE_S);
+  bf16* sV = sK + TILE_H;
+  bf16* sP = sV + TILE_H;
+  bf16* sdS = sP + TILE_P;
+  float* sLse = reinterpret_cast<float*>(sdS + TILE_P);
+  float* sDelta = sLse + 64;
+
+  const Mask& m = a.mask;
+  const bf16* k = a.k.ptr + b * a.k.sb + kvh * a.k.sh;
+  const bf16* v = a.v.ptr + b * a.v.sb + kvh * a.v.sh;
+  const bf16* cos = table(a.cos, b, m.q_len);
+  const bf16* sin = table(a.sin, b, m.q_len);
+  const RowMap kv_map{k0, 6, kvh};
+
+  load_rows(sK, k, 0, a.k.ss, RowMap{k0, 6, 0}, m.kv_len, cos, sin);
+  load_rows(sV, v, 0, a.v.ss, RowMap{k0, 6, 0}, m.kv_len, nullptr, nullptr);
+
+  const Rows live = rows_of(m, k0, min(k0 + BK, m.kv_len) - 1);
+  const int i0 = live.lo / BQ, i1 = live.lo <= live.hi ? live.hi / BQ + 1 : i0;
+
+  FragC dk[4], dv[4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    wmma::fill_fragment(dk[n], 0.f);
+    wmma::fill_fragment(dv[n], 0.f);
+  }
+
+  for (int g = 0; g < a.group; ++g) {
+    const int h = kvh * a.group + g;
+    // this head's bases, once per head: a head offset per staged row (a
+    // 64-bit multiply each) made this loop measurably slower on the H100
+    const bf16* q = a.q.ptr + b * a.q.sb + h * a.q.sh;
+    const bf16* dout = a.dout.ptr + b * a.dout.sb + h * a.dout.sh;
+    const long long row_base = ((long long)b * a.H + h) * m.q_len;
+    for (int i = i0; i < i1; ++i) {
+      const int q0 = i * BQ;
+      __syncthreads();
+      load_rows(sQ, q, 0, a.q.ss, RowMap{q0, 6, 0}, m.q_len, cos, sin);
+      load_rows(sdO, dout, 0, a.dout.ss, RowMap{q0, 6, 0}, m.q_len, nullptr, nullptr);
+      if (threadIdx.x < 64) {
+        const int row = q0 + threadIdx.x;
+        sLse[threadIdx.x] = row < m.q_len ? a.lse_in[row_base + row] : 0.f;
+        sDelta[threadIdx.x] = row < m.q_len ? a.delta[row_base + row] : 0.f;
+      }
+      __syncthreads();
+      mm_abt(sS, sK, sQ);    // S^T  = K Q^T   [kv, q]
+      mm_abt(sdP, sV, sdO);  // dP^T = V dO^T  [kv, q]
+      __syncthreads();
+      // this thread's query row is the same at every step of the loop
+      const Keys keys = keys_of(m, q0 + threadIdx.x % BQ);
+      for (int idx = threadIdx.x; idx < BK * BQ; idx += NTHREADS) {
+        const int r = idx / BQ, c = idx % BQ;  // r: key row, c: query row
+        float p = 0.f, ds = 0.f;
+        if (keys.has(k0 + r)) {
+          p = __expf(sS[r * LD_S + c] * a.scale - sLse[c]);
+          ds = p * (sdP[r * LD_S + c] - sDelta[c]);
+        }
+        sP[r * LD_P + c] = __float2bfloat16(p);
+        sdS[r * LD_P + c] = __float2bfloat16(ds);
+      }
+      __syncthreads();
+      mm_ab_acc(dv, sP, sdO);  // dV += P^T dO
+      mm_ab_acc(dk, sdS, sQ);  // dK += dS^T Q
+    }
+  }
+  __syncthreads();
+  float* sOutK = reinterpret_cast<float*>(sQ);  // reuses sQ + sdO
+  float* sOutV = sS;                            // reuses sS + sdP
+  store_acc(sOutK, dk);
+  store_acc(sOutV, dv);
+  __syncthreads();
+  write_rows(a.dk.ptr + b * a.dk.sb, a.dk.sh, a.dk.ss, sOutK, a.scale, kv_map, m.kv_len,
+             cos, sin);
+  write_rows(a.dv.ptr + b * a.dv.sb, a.dv.sh, a.dv.ss, sOutV, 1.f, kv_map, m.kv_len,
+             nullptr, nullptr);
+}
+
+// ---------------------------------------------------------- host side
+typedef void (*AttnKernel)(AttnArgs);
+
+// The arguments every C entry shares. `st` holds the (batch, head, row)
+// strides of q, k, v and, when dout is given (the backward, with lse and
+// delta), do.
+inline AttnArgs attn_args(const void* q, const void* k, const void* v, const void* dout,
+                          const void* lse, const void* delta, const long long* st, int H,
+                          int KVH, int q_len, int kv_len, int causal, int window,
+                          int prefix, float scale) {
+  AttnArgs a = {};
+  a.q = Operand{static_cast<const bf16*>(q), st[0], st[1], st[2]};
+  a.k = Operand{static_cast<const bf16*>(k), st[3], st[4], st[5]};
+  a.v = Operand{static_cast<const bf16*>(v), st[6], st[7], st[8]};
+  if (dout != nullptr) a.dout = Operand{static_cast<const bf16*>(dout), st[9], st[10], st[11]};
+  a.lse_in = static_cast<const float*>(lse);
+  a.delta = static_cast<const float*>(delta);
+  a.H = H;
+  a.group = H / KVH;
+  a.shift = 6;
+  a.mask = Mask{q_len, kv_len, causal, causal ? window : 0, causal ? prefix : 0};
+  a.scale = scale;
+  return a;
+}
+
+// Strides of a contiguous [B, heads, S, D] and [B, S, heads * D] output.
+inline Out out_bhsd(void* p, int heads, int S) {
+  return Out{static_cast<bf16*>(p), (long long)heads * S * D, (long long)S * D, D};
+}
+
+inline Out out_bshd(void* p, int heads, int S) {
+  return Out{static_cast<bf16*>(p), (long long)S * heads * D, D, (long long)heads * D};
+}
+
+// log2 of the query positions per tile when `group` q heads share a
+// tile (64 / group), or -1 when group is not a power of two up to 64.
+inline int pack_shift(int group) {
+  int shift = 6;
+  for (int g = group; g > 1; g >>= 1) {
+    if (g & 1) return -1;
+    --shift;
+  }
+  return shift;
+}
+
+// Raise the kernel's dynamic shared-memory limit, launch it on `stream`
+// and return the launch's error (0 when it was accepted).
+inline int launch(AttnKernel kernel, dim3 grid, size_t smem, void* stream,
+                  const AttnArgs& a) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace fa

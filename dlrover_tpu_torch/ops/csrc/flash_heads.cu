@@ -1,0 +1,116 @@
+// K9 flash_fwd_heads, K10 flash_bwd_dq_heads and K11 flash_bwd_dkv_heads:
+// flash attention on the model-native [B, S, H*D] layout
+// (flash_attention_bshd, LlamaConfig.attn_impl="bshd") for Hopper (sm_90a).
+//
+// Replaces, in dlrover_tpu/ops/attention.py, the fused-heads ("bshdf")
+// Pallas family:
+//   K9  `_fwd_fused` -> `_fwdf_kernel`;
+//   K10 `_bwd_fused` -> `_bwdf_dq_kernel`;
+//   K11 `_bwd_fused` -> `_bwdf_dkv_kernel`.
+// The delta the TPU backward computes in XLA comes from K2 here.
+//
+// What the TPU design buys, and what stands for it here: a TPU program
+// spans every head of a row block, so one kv block read from HBM feeds all
+// q heads. On Hopper all heads of a 64-row tile do not fit one block's
+// 227 KB of shared memory (at H*D = 1024: 128 KB of q, 256 KB of k/v and
+// 256 KB of f32 accumulator). The reuse that survives is within a GQA
+// group, whose q heads share one kv head. K9 and K10 pack the group's
+// g = H / KVH q heads as the rows of one 64-row tile (64/g positions x g
+// heads), so each k/v tile is staged in shared memory once per group
+// where K1/K3 stage it once per q head; one block per (64/g positions,
+// kv head, batch). K11 is kv-major, as K4: one block holds its k/v tile
+// while the group's q heads stream past, and sums dk/dv over the group in
+// registers, so they come out at kv-head width with no group-sum pass.
+//
+// What bounds them on the H100: tensor-core operations, as K1/K3/K4: 4, 6
+// and 8 * D operations per visible (q, k) pair, at B8 H8 S2048 D128
+// causal 0.07, 0.10 and 0.14 ms at 989 TFLOP/s. Every loop visits only
+// the tiles the mask leaves live (causal diagonal, sliding window,
+// prefix), as `_tile_meta_impl` does on the TPU. The tile loops are K1's,
+// K3's and K4's (flash_common.cuh) with another row map and output
+// layout and without rope (the bshd route ropes q/k before attention, as
+// the JAX model does). Not yet done: wgmma, TMA, double buffering.
+//
+// Outputs: o and dq [B, S, H*D], dk and dv [B, S, KVH*D], contiguous; lse
+// f32 [B, H, S]. A row that sees no key gets o = 0 and lse = -1e30.
+#include "flash_common.cuh"
+
+namespace fa {
+
+// One block per (2^shift query positions, kv head, batch): rows are the
+// group's q heads at those positions.
+__global__ void __launch_bounds__(NTHREADS) flash_fwd_heads_kernel(AttnArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int kvh = blockIdx.y;
+  fwd_tile(smem, a, RowMap{(int)blockIdx.x << a.shift, a.shift, kvh * a.group}, kvh,
+           blockIdx.z);
+}
+
+__global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_heads_kernel(AttnArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int kvh = blockIdx.y;
+  dq_tile(smem, a, RowMap{(int)blockIdx.x << a.shift, a.shift, kvh * a.group}, kvh,
+          blockIdx.z);
+}
+
+// One block per (kv tile, kv head, batch).
+__global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_heads_kernel(AttnArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  dkv_tile(smem, a, blockIdx.x * BK, blockIdx.y, blockIdx.z);
+}
+
+// Grid of the packed q-major kernels: query tiles of 2^shift positions.
+static dim3 packed_grid(const AttnArgs& a, int KVH, int B) {
+  const int per_tile = 1 << a.shift;
+  return dim3((a.mask.q_len + per_tile - 1) / per_tile, KVH, B);
+}
+
+}  // namespace fa
+
+using namespace fa;
+
+// C entries, bound with ctypes. Each returns cudaGetLastError() after its
+// launch, or cudaErrorInvalidValue when H / KVH is not a power of two up
+// to 64 (the packed kernels' row maps need one). `strides` holds the
+// (batch, head, row) strides of q, k, v and, for the backward, do, each
+// viewed as [B, heads, S, D].
+extern "C" int flash_fwd_heads(const void* q, const void* k, const void* v, void* o,
+                               void* lse, int B, int H, int KVH, int q_len, int kv_len,
+                               const long long* strides, int causal, int window,
+                               int prefix, float scale, void* stream) {
+  const int shift = pack_shift(H / KVH);
+  if (shift < 0) return (int)cudaErrorInvalidValue;
+  AttnArgs a = attn_args(q, k, v, nullptr, nullptr, nullptr, strides, H, KVH, q_len, kv_len,
+                         causal, window, prefix, scale);
+  a.shift = shift;
+  a.o = out_bshd(o, H, q_len);
+  a.lse = static_cast<float*>(lse);
+  return launch(flash_fwd_heads_kernel, packed_grid(a, KVH, B), FWD_SMEM, stream, a);
+}
+
+extern "C" int flash_bwd_dq_heads(const void* q, const void* k, const void* v,
+                                  const void* dout, const void* lse, const void* delta,
+                                  void* dq, int B, int H, int KVH, int q_len, int kv_len,
+                                  const long long* strides, int causal, int window,
+                                  int prefix, float scale, void* stream) {
+  const int shift = pack_shift(H / KVH);
+  if (shift < 0) return (int)cudaErrorInvalidValue;
+  AttnArgs a = attn_args(q, k, v, dout, lse, delta, strides, H, KVH, q_len, kv_len, causal,
+                         window, prefix, scale);
+  a.shift = shift;
+  a.dq = out_bshd(dq, H, q_len);
+  return launch(flash_bwd_dq_heads_kernel, packed_grid(a, KVH, B), DQ_SMEM, stream, a);
+}
+
+extern "C" int flash_bwd_dkv_heads(const void* q, const void* k, const void* v,
+                                   const void* dout, const void* lse, const void* delta,
+                                   void* dk, void* dv, int B, int H, int KVH, int q_len,
+                                   int kv_len, const long long* strides, int causal,
+                                   int window, int prefix, float scale, void* stream) {
+  AttnArgs a = attn_args(q, k, v, dout, lse, delta, strides, H, KVH, q_len, kv_len, causal,
+                         window, prefix, scale);
+  a.dk = out_bshd(dk, KVH, kv_len);
+  a.dv = out_bshd(dv, KVH, kv_len);
+  return launch(flash_bwd_dkv_heads_kernel, dim3((kv_len + BK - 1) / BK, KVH, B),
+                DKV_SMEM, stream, a);
+}

@@ -117,7 +117,8 @@ def test_cpu_path_counts_no_launch():
     assert out.shape == q.shape
     assert port.launches() == {
         "flash_fwd": 0, "flash_bwd_preprocess": 0, "flash_bwd_dq": 0,
-        "flash_bwd_dkv": 0,
+        "flash_bwd_dkv": 0, "flash_fwd_heads": 0, "flash_bwd_dq_heads": 0,
+        "flash_bwd_dkv_heads": 0,
     }
 
 
@@ -140,6 +141,49 @@ def test_flash_attention_argument_checks(bad):
             port.flash_attention(q, kv[:, :, :4], kv[:, :, :4],
                                  rope_cos=tables, rope_sin=tables)
     else:
-        extra = {"window": 4} if bad == "window" else {"prefix_len": 2}
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        extra = {"window": 0} if bad == "window" else {"prefix_len": -1}
+        with pytest.raises(ValueError, match=">= "):
             port.flash_attention(q, kv, kv, **extra)
+        with pytest.raises(ValueError, match="causal=True"):
+            port.flash_attention(q, kv, kv, causal=False, window=4)
+
+
+# (q_len, kv_len, window, prefix_len), the shapes of the JAX package's own
+# window/prefix gradient tests (tests/test_ops.py)
+MASK_CASES = [
+    (128, 128, 64, None),
+    (100, 100, 48, None),
+    (96, 200, 64, None),
+    (128, 128, None, 32),
+    (100, 100, 33, 17),
+]
+
+
+@pytest.mark.parametrize("q_len,kv_len,window,prefix", MASK_CASES)
+def test_window_prefix_match_jax(q_len, kv_len, window, prefix):
+    """K1/K3/K4's plain versions under a sliding window and a prefix-LM
+    mask (GQA, no rope) against JAX flash_attention(window, prefix_len)
+    with 32-row blocks, outputs and grads."""
+    rng = np.random.RandomState(5)
+    B, H, KVH, D = 1, 4, 2, 16
+    q = rng.randn(B, H, q_len, D).astype(np.float32)
+    k = rng.randn(B, KVH, kv_len, D).astype(np.float32)
+    v = rng.randn(B, KVH, kv_len, D).astype(np.float32)
+    do = rng.randn(B, H, q_len, D).astype(np.float32)
+    mask = {"window": window, "prefix_len": prefix}
+
+    def jax_out(q, k, v):
+        return jax_flash(q, k, v, causal=True, block_q=32, block_k=32, **mask)
+
+    j_o = np.asarray(jax_out(q, k, v))
+    j_grads = jax.grad(
+        lambda *a: jnp.sum(jax_out(*a) * do), argnums=(0, 1, 2))(q, k, v)
+    tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    t_o = port.flash_attention(tq, tk, tv, causal=True, **mask)
+    (t_o * torch.tensor(do)).sum().backward()
+
+    np.testing.assert_allclose(t_o.detach().numpy(), j_o, atol=1e-5)
+    for name, t, j in zip("qkv", (tq, tk, tv), j_grads):
+        j = np.asarray(j)
+        err = np.abs(t.grad.numpy() - j).max() / np.abs(j).max()
+        assert err < 1e-5, f"d{name}: relative error {err}"

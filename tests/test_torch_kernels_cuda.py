@@ -7,6 +7,9 @@ with a reason (a CUDA kernel has no CPU mode). Run them on the GPU with
 Tolerance: errors relative to the largest reference value, 2e-2 for o
 and 3e-2 for gradients: the kernels round roped q/k, P and dS to bf16
 before the tensor-core products, which the f32 plain versions do not.
+The attention kernels are checked per head layout (K1-K4 on [B, H, S, D],
+K9-K11 on [B, S, H*D] through flash_attention_bshd), with GQA, ragged
+lengths, a sliding window and a prefix.
 
 The optimizer kernels (K5-K8) do the plain versions' f32 operations in
 the same order, without FMA contraction: K5/K6 codes, scales and values
@@ -67,6 +70,66 @@ def test_kernels_match_plain(cuda, B, H, KVH, S, rope):
     assert _rel(leaves[2].grad, dv_p) < 3e-2
 
 
+@pytest.mark.parametrize("B,H,KVH,S,window,prefix", [
+    (1, 8, 2, 256, None, None),   # GQA, g = 4: 16 positions x 4 heads
+    (2, 4, 4, 200, None, None),   # MHA, ragged
+    (1, 8, 2, 300, 96, None),     # sliding window, ragged
+    (1, 8, 1, 256, 64, 40),       # MQA, window + prefix
+])
+def test_fused_heads_kernels_match_plain(cuda, B, H, KVH, S, window, prefix):
+    """K9-K11 through flash_attention_bshd against the plain chain (K9's,
+    K2's, K10's and K11's plain versions) on the same bf16 inputs."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v, do = (torch.randn(B, S, h * 128, generator=gen, device=cuda)
+                   .to(torch.bfloat16) for h in (H, KVH, KVH, H))
+    before = att.launches()
+    leaves = [t.view(B, S, -1, 128).clone().requires_grad_()
+              for t in (q, k, v)]
+    out = att.flash_attention_bshd(*leaves, window=window, prefix_len=prefix)
+    out.backward(do.view(B, S, H, 128))
+    torch.cuda.synchronize()
+    after = att.launches()
+    for name in ("flash_fwd_heads", "flash_bwd_dq_heads",
+                 "flash_bwd_dkv_heads", "flash_bwd_preprocess"):
+        assert after[name] == before[name] + 1
+    scale = 128 ** -0.5
+    o_p, lse_p = att.flash_fwd_heads_plain(q, k, v, H, True, scale, window,
+                                           prefix)
+    delta_p = att.flash_bwd_preprocess_plain(att._split_heads(do, H),
+                                             att._split_heads(o_p, H))
+    args = (q, k, v, do, lse_p, delta_p, H, True, scale, window, prefix)
+    dk_p, dv_p = att.flash_bwd_dkv_heads_plain(*args)
+    assert _rel(out.reshape(o_p.shape), o_p) < 2e-2
+    assert _rel(leaves[0].grad.reshape(q.shape),
+                att.flash_bwd_dq_heads_plain(*args)) < 3e-2
+    assert _rel(leaves[1].grad.reshape(k.shape), dk_p) < 3e-2
+    assert _rel(leaves[2].grad.reshape(v.shape), dv_p) < 3e-2
+
+
+def test_masked_per_head_kernels_match_plain(cuda):
+    """K1/K3/K4 with rope under a sliding window and a prefix."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    B, H, KVH, S = 1, 8, 2, 300
+    q, k, v, do = (torch.randn(B, h, S, 128, generator=gen, device=cuda)
+                   .to(torch.bfloat16) for h in (H, KVH, KVH, H))
+    ang = torch.randn(B, S, 64, generator=gen, device=cuda)
+    cos = torch.cat([ang.cos()] * 2, -1).to(torch.bfloat16)
+    sin = torch.cat([ang.sin()] * 2, -1).to(torch.bfloat16)
+    mask = (True, 128 ** -0.5, 96, 40)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = att.flash_attention(*leaves, rope_cos=cos, rope_sin=sin,
+                              window=96, prefix_len=40)
+    out.backward(do)
+    o_p, lse_p = att.flash_fwd_plain(q, k, v, cos, sin, *mask)
+    delta_p = att.flash_bwd_preprocess_plain(do, o_p)
+    args = (q, k, v, do, lse_p, delta_p, cos, sin, *mask)
+    dk_p, dv_p = att.flash_bwd_dkv_plain(*args)
+    assert _rel(out, o_p) < 2e-2
+    assert _rel(leaves[0].grad, att.flash_bwd_dq_plain(*args)) < 3e-2
+    assert _rel(leaves[1].grad, dk_p) < 3e-2
+    assert _rel(leaves[2].grad, dv_p) < 3e-2
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     q = torch.zeros(1, 2, 16, 64, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="head_dim"):
@@ -74,6 +137,10 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     q32 = torch.zeros(1, 2, 16, 128, device=cuda)
     with pytest.raises(TypeError, match="bfloat16"):
         att.flash_fwd(q32, q32, q32, None, None, True, 0.125)
+    q3 = torch.zeros(1, 16, 3 * 128, device=cuda, dtype=torch.bfloat16)
+    kv3 = torch.zeros(1, 16, 128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="divide"):
+        att.flash_fwd_heads(q3, kv3, kv3, 3, True, 0.125)
 
 
 @pytest.mark.parametrize("shape", [(1000,), (3, 256), (7, 33, 5)])

@@ -1,7 +1,8 @@
 """Parity of the port's Llama (dlrover_tpu_torch.models) with the JAX
 package's, from the same weights: JAX ``llama_init`` params go through
 ``params_from_jax``. Both sides run in float32 on the CPU; the JAX flash
-kernels run in Pallas interpret mode with 16-row blocks.
+kernels (``attn_impl`` "flash", and the fused-heads kernels of "bshd")
+run in Pallas interpret mode with 16-row blocks.
 
 Tolerances: logits and loss 1e-5 absolute (observed ~5e-7: f32 with a
 different summation order); gradients 1e-5 relative to each tensor's
@@ -66,7 +67,7 @@ def _tokens(seq_plus_one=33):
         0, SMALL["vocab_size"], (2, seq_plus_one)).astype(np.int32)
 
 
-@pytest.mark.parametrize("attn_impl", ["flash", "reference"])
+@pytest.mark.parametrize("attn_impl", ["flash", "bshd", "reference"])
 def test_llama_apply_logits_match_jax(attn_impl):
     jc, tc, j_params, p_np = _pair(attn_impl)
     tokens = _tokens()[:, :-1]
@@ -76,8 +77,9 @@ def test_llama_apply_logits_match_jax(attn_impl):
     np.testing.assert_allclose(t_logits.numpy(), j_logits, atol=1e-5)
 
 
-def test_llama_loss_and_grads_match_jax():
-    jc, tc, j_params, p_np = _pair("flash")
+@pytest.mark.parametrize("attn_impl", ["flash", "bshd"])
+def test_llama_loss_and_grads_match_jax(attn_impl):
+    jc, tc, j_params, p_np = _pair(attn_impl)
     tokens = _tokens()
     j_loss, j_grads = jax.value_and_grad(
         lambda p: jax_loss_fn(jc)(p, {"tokens": jnp.asarray(tokens)}, None)
@@ -126,7 +128,7 @@ def test_presets_match_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("n_experts", 4), ("ce_chunks", 2), ("attn_impl", "bshd"),
+    ("n_experts", 4), ("ce_chunks", 2), ("pipe_virtual_stages", 2),
     ("attn_impl", "ulysses"), ("pipe_schedule", "1f1b"),
 ])
 def test_unported_settings_raise(field, value):
