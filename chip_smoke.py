@@ -19,6 +19,17 @@ Phases, each fatal on failure (no exception is caught):
    library yardstick, and the bound (bytes or tensor-core operations at
    the H100 SXM peaks); at the GQA shape K9 against K1 and K10 against
    K3, both without rope, as the measure of K9/K10's group packing;
+   then each ring-block kernel (K12-K14) against its plain version in
+   bf16, for the q shard of ring rank 1 against the kv shards of ranks 1
+   (the diagonal), 0 (wholly visible) and 2 (wholly in the future: exact
+   zeros and lse -1e30), and K2 on that shard's do and o, every operand
+   a shard's view of a whole sequence laid out as the [seq4] run hands
+   it to the ring, at the slice's block shape (B8 H8 KVH8, 512-row
+   shards), a GQA one (B2 H32 KVH8, 256-row shards) and a ragged one
+   (B2 H8 KVH4, 500-row shards); at the slice's block shape, for the
+   diagonal and the visible block, each kernel's ms (CUDA-graph
+   replays), its plain version's, its bound and SDPA's (causal on the
+   diagonal, not on the visible block) as the library yardstick;
 4. each optimizer kernel (K5-K8) against its plain version on the
    slice's 12 parameter leaves plus a ragged 1000-element leaf and a
    leaf without a grad (all-zero rows), both given the same rounding
@@ -40,8 +51,14 @@ Phases, each fatal on failure (no exception is caught):
    its kernels (16 per step for each attention kernel of its route and
    none of the other route's; K5 = K6 = 12 per step in (a); K8 and K7
    once per step); the losses of [bshd] and (c) must stay within 2e-2 of
-   adamw's; before the runs, 2-layer logits of the flash and bshd models
-   are held against plain attention;
+   adamw's; before the runs, 2-layer logits of the flash and bshd models,
+   and of the model under a seq=4 mesh, are held against plain
+   attention; last, a ``[seq4]`` run with adamw and
+   ``Strategy(mesh=MeshConfig(seq=4))``: the sequence sharded over 4 ring
+   ranks held in this process (the in-process transport), every
+   attention on the ring-block kernels (n(n+1)/2 = 10 blocks per layer
+   for each of K12-K14, K2 once per rank), losses within 2e-2 of adamw's,
+   with a profiled step;
 6. one JSON line with every kernel's numbers, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -108,7 +125,20 @@ KERNEL_INFO = {
                       "dlrover_tpu/ops/fused_optim.py:166"),
     "fused_adamw8": ("dlrover_tpu_torch/ops/csrc/optim.cu",
                      "dlrover_tpu/ops/fused_optim.py:179"),
+    "flash_ring_fwd": ("dlrover_tpu_torch/ops/csrc/flash_ring.cu",
+                       "dlrover_tpu/ops/attention.py:1547"),
+    "flash_ring_dq": ("dlrover_tpu_torch/ops/csrc/flash_ring.cu",
+                      "dlrover_tpu/ops/attention.py:1583"),
+    "flash_ring_dkv": ("dlrover_tpu_torch/ops/csrc/flash_ring.cu",
+                       "dlrover_tpu/ops/attention.py:1612"),
 }
+# ring blocks (B, H, KVH, shard length): the slice's block shape first
+RING_SHAPES = {
+    "ring": (8, 8, 8, 512),
+    "ring-gqa": (2, 32, 8, 256),
+    "ring-ragged": (2, 8, 4, 500),
+}
+SEQ = 4  # ranks of the [seq4] run's seq axis
 
 # Optimizer kernels against their plain versions. K5/K6 do the plain
 # versions' f32 operations in their order: codes, scales and values must
@@ -133,6 +163,8 @@ FLASH_KERNELS = ("flash_fwd", "flash_bwd_preprocess", "flash_bwd_dq",
                  "flash_bwd_dkv")
 HEADS_KERNELS = ("flash_fwd_heads", "flash_bwd_preprocess",
                  "flash_bwd_dq_heads", "flash_bwd_dkv_heads")
+RING_KERNELS = ("flash_ring_fwd", "flash_bwd_preprocess", "flash_ring_dq",
+                "flash_ring_dkv")
 
 
 def log(msg: str) -> None:
@@ -478,6 +510,159 @@ def time_packing(shape):
     }}))
 
 
+def ring_inputs(shape, seed):
+    """q, k, v, do of a whole sequence of SEQ shards of ``shape``'s
+    length, laid out as the [seq4] path hands them to the ring: [B, S,
+    heads, D] tensors (the model's layout after rope) seen as [B, heads,
+    S, D] views."""
+    B, H, KVH, S = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(heads):
+        return torch.randn(B, SEQ * S, heads, HEAD_DIM, generator=gen,
+                           device="cuda").to(torch.bfloat16).transpose(1, 2)
+
+    return randn(H), randn(KVH), randn(KVH), randn(H)
+
+
+def check_ring(name, shape, seed, worst):
+    """K12-K14 and K2 vs plain versions for the q shard of ring rank 1
+    against the kv shards of ranks 1 (diagonal), 0 (visible) and 2
+    (future), each operand a shard's view of the whole sequence as in
+    the [seq4] run, with the lse and delta of the ring over the two
+    visible blocks (their plain outputs merged as the ring merges them;
+    delta from K2 on do's shard and o's shard of a contiguous [B, H, S,
+    D] o, as the ring's backward takes them). The future block must give
+    exact zeros and lse -1e30. Returns the inputs for timing."""
+    from dlrover_tpu_torch.ops import attention as att
+    from dlrover_tpu_torch.parallel.sequence import _merge_block
+
+    S = shape[3]
+    q_all, k_all, v_all, do_all = ring_inputs(shape, seed)
+
+    def shard(t, rank):
+        return t[:, :, rank * S:(rank + 1) * S]
+
+    q, do = shard(q_all, 1), shard(do_all, 1)
+    scale = HEAD_DIM ** -0.5
+    judge = Judge(name, worst)
+    ranks = {"diagonal": 1, "visible": 0, "future": 2}
+    plain = {}
+    for rel, c in ranks.items():
+        k, v = shard(k_all, c), shard(v_all, c)
+        o, lse = att.flash_ring_fwd(q, k, v, S, c * S, scale)
+        if rel == "future":
+            exact = bool((o == 0).all()) and bool((lse == att.NEG_INF).all())
+            continue
+        o_p, lse_p = att.flash_ring_fwd_plain(q, k, v, S, c * S, scale)
+        judge("flash_ring_fwd", "o", o, o_p)
+        judge("flash_ring_fwd", "lse", lse, lse_p)
+        plain[rel] = (o_p, lse_p)
+    o_d, lse_d = plain["diagonal"]
+    o_g, lse_g = _merge_block(o_d.float(), lse_d, *plain["visible"])
+    o_all = torch.zeros(do_all.shape, dtype=torch.bfloat16, device="cuda")
+    o = shard(o_all, 1)
+    o.copy_(o_g)
+    delta = att.flash_bwd_preprocess(do, o)
+    judge("flash_bwd_preprocess", "delta", delta,
+          att.flash_bwd_preprocess_plain(do, o))
+    del plain, o_d, o_g, o_all, o
+    for rel, c in ranks.items():
+        args = (q, shard(k_all, c), shard(v_all, c), do, lse_g, delta, S,
+                c * S, scale)
+        dq = att.flash_ring_dq(*args)
+        dk, dv = att.flash_ring_dkv(*args)
+        if rel == "future":
+            exact = exact and not (dq.any() or dk.any() or dv.any())
+            continue
+        judge("flash_ring_dq", "dq", dq, att.flash_ring_dq_plain(*args))
+        dk_p, dv_p = att.flash_ring_dkv_plain(*args)
+        judge("flash_ring_dkv", "dk", dk, dk_p)
+        judge("flash_ring_dkv", "dv", dv, dv_p)
+        del dq, dk, dv, dk_p, dv_p
+    log(f"  {name:6s} future block: o == 0, lse == -1e30, dq = dk = dv = 0 "
+        f"{'ok' if exact else 'FAIL'}")
+    if not exact:
+        judge.failures.append(f"{name}/future")
+    judge.done()
+    # time_ring runs the diagonal and the visible block on one kv shard
+    return q, shard(k_all, 0), shard(v_all, 0), do, lse_g, delta
+
+
+def ring_bounds(shape, rel):
+    """Least time (ms) of each ring-block kernel on one block of
+    ``shape``: bytes (bf16 operands read once, o bf16 and lse written
+    once; lse/delta read and the f32 dq or dk/dv written once) over HBM
+    bandwidth, or the products' operations over the bf16 tensor-core
+    peak, counting the visible (query, key) pairs only: S(S+1)/2 per head
+    on the diagonal, S^2 on a wholly visible block."""
+    B, H, KVH, S = shape
+    D = HEAD_DIM
+    pairs = B * H * (S * (S + 1) / 2 if rel == "diagonal" else S * S)
+    q_b, kv_b, row_b = B * H * S * D * 2, B * KVH * S * D * 2, B * H * S * 4
+    work = {
+        "flash_ring_fwd": (2 * q_b + 2 * kv_b + row_b, 4 * D * pairs),
+        "flash_ring_dq": (4 * q_b + 2 * kv_b + 2 * row_b, 6 * D * pairs),
+        "flash_ring_dkv": (2 * q_b + 6 * kv_b + 2 * row_b, 8 * D * pairs),
+    }
+    out = {}
+    for name, (nbytes, ops) in work.items():
+        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_BF16 * 1e3
+        out[name] = (max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def time_ring(inputs):
+    """K12-K14's ms at the slice's block shape, for the diagonal and the
+    wholly visible block: device times of CUDA-graph replays (median of
+    5 replays of 20 calls; a block is ~0.1-0.3 ms, near the wrappers'
+    host cost), the plain versions' from CUDA events, SDPA forward and
+    backward on the same q/k/v (is_causal on the diagonal) as the
+    library yardstick. Returns {rel: {name: (ms, plain, bound, bound_by,
+    library)}}."""
+    from dlrover_tpu_torch.ops import attention as att
+
+    q, k, v, do, lse, delta = inputs
+    S = q.shape[2]
+    scale = HEAD_DIM ** -0.5
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    report, result = {}, {}
+    for rel, k_start in (("diagonal", S), ("visible", 0)):
+        fwd = (q, k, v, S, k_start, scale)
+        bwd = (q, k, v, do, lse, delta, S, k_start, scale)
+        calls = {
+            "flash_ring_fwd": (lambda: att.flash_ring_fwd(*fwd),
+                               lambda: att.flash_ring_fwd_plain(*fwd)),
+            "flash_ring_dq": (lambda: att.flash_ring_dq(*bwd),
+                              lambda: att.flash_ring_dq_plain(*bwd)),
+            "flash_ring_dkv": (lambda: att.flash_ring_dkv(*bwd),
+                               lambda: att.flash_ring_dkv_plain(*bwd)),
+        }
+        causal = rel == "diagonal"
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        fwd_ms = statistics.median(graph_ms(
+            lambda: sdpa(q, k, v, is_causal=causal), 20))
+        out = sdpa(*leaves, is_causal=causal)
+        bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+            out, leaves, do, retain_graph=True), 20)
+        bound = ring_bounds((q.shape[0], q.shape[1], k.shape[1], S), rel)
+        result[rel] = {}
+        for name, (kernel, plain) in calls.items():
+            replays = graph_ms(kernel, 20)
+            result[rel][name] = (
+                statistics.median(replays), cuda_ms(plain, 3), *bound[name],
+                fwd_ms if name == "flash_ring_fwd" else None)
+            report[f"{rel}/{name}"] = {
+                "replays_ms": replays, "plain_ms": result[rel][name][1],
+                "bound_ms": bound[name][0], "bound_by": bound[name][1]}
+            torch.cuda.empty_cache()
+        report[f"{rel}/sdpa"] = {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms}
+        del leaves, out
+    log(json.dumps({"ring_blocks_at_slice_block_shape": report}))
+    return result
+
+
 def kernel_modules():
     from dlrover_tpu_torch.ops import attention, fused_optim, quantization
 
@@ -747,8 +932,10 @@ def synthetic_batch(vocab: int, seq_len: int, batch: int, step: int):
 
 def model_check(cfg):
     """Logits of a 2-layer cut of the model: the flash and the bshd
-    kernels vs plain attention, same weights, bf16 compute."""
+    kernels, and the ring over a seq=4 mesh (4 ranks in this process),
+    vs plain attention, same weights, bf16 compute."""
     from dlrover_tpu_torch.models import llama_apply, llama_init
+    from dlrover_tpu_torch.parallel import MeshConfig, build_mesh, set_mesh
 
     small = dataclasses.replace(cfg, n_layers=2)
     params = llama_init(small, seed=1, device="cuda")
@@ -758,9 +945,13 @@ def model_check(cfg):
     with torch.no_grad():
         ref = llama_apply(dataclasses.replace(small, attn_impl="reference"),
                           params, tokens)
-        for impl in ("flash", "bshd"):
-            out = llama_apply(dataclasses.replace(small, attn_impl=impl),
-                              params, tokens)
+        for impl in ("flash", "bshd", "seq4"):
+            if impl == "seq4":
+                set_mesh(build_mesh(MeshConfig(seq=SEQ)))
+            out = llama_apply(dataclasses.replace(
+                small, attn_impl="flash" if impl == "seq4" else impl),
+                params, tokens)
+            set_mesh(None)
             abs_err, rel = rel_err(out, ref)
             ok = bool(torch.isfinite(out).all()) and rel <= 5e-2
             log(f"  model logits {impl} vs reference (2 layers, B2 S256): "
@@ -807,13 +998,21 @@ def release() -> None:
     torch.cuda.empty_cache()
 
 
-def attention_launches(cfg, steps):
+def attention_launches(cfg, steps, seq=1):
     """The launches of each attention kernel a run of ``steps`` steps
     must show: one per layer and step for the kernels of
-    ``cfg.attn_impl``'s route, none for the other route's."""
-    route = FLASH_KERNELS if cfg.attn_impl == "flash" else HEADS_KERNELS
-    return {name: cfg.n_layers * steps if name in route else 0
-            for name in FLASH_KERNELS + HEADS_KERNELS}
+    ``cfg.attn_impl``'s route; under a seq axis of ``seq`` ranks, for
+    each ring-block kernel n(n+1)/2 per layer and step (the blocks not
+    wholly in a shard's future) and for K2 n (one per rank); none for
+    the other routes' kernels."""
+    per_step = {name: 1 for name in (
+        FLASH_KERNELS if cfg.attn_impl == "flash" else HEADS_KERNELS)}
+    if seq > 1:
+        per_step = {name: seq * (seq + 1) // 2 for name in RING_KERNELS}
+        per_step["flash_bwd_preprocess"] = seq
+    return {name: cfg.n_layers * steps * per_step.get(name, 0)
+            for name in dict.fromkeys(FLASH_KERNELS + HEADS_KERNELS
+                                      + RING_KERNELS)}
 
 
 def train_run(cfg, label, factory, strategy, steps=5, B=8, S=2048,
@@ -836,10 +1035,13 @@ def train_run(cfg, label, factory, strategy, steps=5, B=8, S=2048,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    losses, step_s = [], []
+    losses, step_s, enqueue_s = [], [], []
     for _ in range(steps):
         t0 = time.perf_counter()
         state, metrics = res.train_step(state, batch, None)
+        # the host's time to issue the step (the loss is read after): near
+        # the step time, the host and not the device sets the pace
+        enqueue_s.append(time.perf_counter() - t0)
         losses.append(metrics["loss"].item())
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
@@ -857,7 +1059,8 @@ def train_run(cfg, label, factory, strategy, steps=5, B=8, S=2048,
         raise SystemExit(f"{label}: non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
         raise SystemExit(f"{label}: loss did not fall: {losses}")
-    for name, want in attention_launches(cfg, steps).items():
+    for name, want in attention_launches(cfg, steps,
+                                         strategy.mesh.seq).items():
         if launches[name] != want:
             raise SystemExit(f"{label}: {name} launched {launches[name]} "
                              f"times, want {want}")
@@ -867,7 +1070,10 @@ def train_run(cfg, label, factory, strategy, steps=5, B=8, S=2048,
     summary = {
         "config": "nano-350m", "attn_impl": cfg.attn_impl,
         "optimizer": optimizer or label, "batch": B, "seq": S,
+        "seq_transport": res.mesh.ring.describe() if res.mesh.ring else None,
         "steps": steps, "step_ms_median_2_to_5": steady * 1e3,
+        "host_enqueue_ms_median_2_to_5":
+            statistics.median(enqueue_s[1:]) * 1e3,
         "first_step_ms": step_s[0] * 1e3,
         "tokens_per_s": B * S / steady,
         "mfu": mfu.mfu(flops, steady), "mfu_peak_flops": mfu.peak_flops(),
@@ -882,11 +1088,12 @@ def train_run(cfg, label, factory, strategy, steps=5, B=8, S=2048,
 
 def train_slice(steps: int = 5):
     """The adamw run (the earlier slice) with its profile and stream
-    losses, the [bshd] run, then variants (a), (b), (c). Returns each
-    kernel's launch count from the run whose path it is on."""
+    losses, the [bshd] run, variants (a), (b), (c), then the [seq4] run.
+    Returns each kernel's launch count from the run whose path it is
+    on."""
     from dlrover_tpu_torch.optimizers import adam8bit
     from dlrover_tpu_torch.ops.fused_optim import fused_adamw
-    from dlrover_tpu_torch.parallel import Strategy
+    from dlrover_tpu_torch.parallel import MeshConfig, Strategy
     from dlrover_tpu_torch.trainer import build_optimizer
 
     cfg = slice_config()
@@ -938,6 +1145,24 @@ def train_slice(steps: int = 5):
         launches.update(want)
         if label == "fused_adamw32":
             loss_gap(label, losses, adamw_losses)
+
+    # the sequence sharded over 4 ring ranks in this process: K12-K14 and
+    # K2 on every layer
+    res, state, batch, losses, counts, _s = train_run(
+        cfg, "seq4", build_optimizer("adamw", SLICE_LR, weight_decay=0.0),
+        Strategy(remat="none", mesh=MeshConfig(seq=SEQ)), steps,
+        optimizer="adamw")
+    ring = res.mesh.ring
+    log(f"  [seq4] {res.strategy.describe(res.mesh)}")
+    if ring.kind != "in-process" or ring.ranks != tuple(range(SEQ)):
+        raise SystemExit(f"seq4: ran on {ring.describe()}, want the "
+                         f"in-process transport with {SEQ} ranks")
+    profile_step(res, state, batch, "seq4", top=12)
+    del res, state
+    release()
+    launches.update({name: counts[name] for name in RING_KERNELS
+                     if name != "flash_bwd_preprocess"})
+    loss_gap("seq4", losses, adamw_losses)
     return launches
 
 
@@ -1059,6 +1284,20 @@ def main() -> int:
     del slice_inputs, slice_heads
     time_packing(SHAPES["gqa"])
     bound = bounds(SHAPES["slice"])
+
+    log("phase ring kernels:")
+    for i, (name, shape) in enumerate(RING_SHAPES.items()):
+        inputs = check_ring(name, shape, 10 + i, worst)
+        if name == "ring":
+            ring_inputs = inputs
+        del inputs
+    # the kernels line carries the wholly visible block: six of the ten
+    # blocks per layer of the [seq4] run, three quarters of their work
+    for name, (ms, plain, b_ms, b_by, lib) in time_ring(
+            ring_inputs)["visible"].items():
+        times[name], bound[name] = (ms, plain), (b_ms, b_by)
+        library[name] = lib
+    del ring_inputs
 
     def bwd_sum(names):
         return sum(times[k][0] for k in ("flash_bwd_preprocess",) + names)

@@ -11,8 +11,12 @@ branch (projections write the [B,H,S,Dh] layout; rope is applied inside
 the flash kernels from full-width tables); ``"bshd"`` keeps the
 model-native [B,S,H,Dh] layout end to end (rope applied outside, then
 the fused-heads kernels, no transposes); ``"reference"`` runs the plain
-attention with rope applied outside. What the port does not run yet
-raises ``NotImplementedError`` naming its ROADMAP item.
+attention with rope applied outside. When the active mesh's ``seq`` axis
+is above 1, every ``attn_impl`` takes the sequence-parallel branch, as
+in the JAX package: rope outside at global positions, q/k/v transposed
+to [B,H,S,Dh], then ring attention over the ring-block kernels
+(parallel/sequence.py). What the port does not run yet raises
+``NotImplementedError`` naming its ROADMAP item.
 
 Rematerialisation (``config.remat``) is not applied: every layer keeps
 its activations, which is what ``auto_accelerate`` with
@@ -34,6 +38,8 @@ from dlrover_tpu_torch.ops.attention import (
     mha_reference,
 )
 from dlrover_tpu_torch.ops.cross_entropy import softmax_cross_entropy
+from dlrover_tpu_torch.parallel.mesh import axis_index, seq_ring
+from dlrover_tpu_torch.parallel.sequence import sequence_sharded_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,8 +55,8 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"          # activation/compute dtype
     # "flash" (hand-written kernels, [B,H,S,Dh]) | "bshd" (fused-heads
-    # kernels, [B,S,H,Dh]) | "reference"; the JAX package's "ulysses" is
-    # not ported yet
+    # kernels, [B,S,H,Dh]) | "reference"; a seq mesh axis runs the ring
+    # whatever this says; the JAX package's "ulysses" is not ported yet
     attn_impl: str = "flash"
     # accepted and ignored: the port keeps every layer's activations
     # (Strategy.remat must be "none"), which changes memory, not results
@@ -150,7 +156,8 @@ def check_supported(config: LlamaConfig) -> None:
     if config.attn_impl not in ("flash", "bshd", "reference"):
         raise NotImplementedError(
             f"attn_impl={config.attn_impl!r} is not ported yet (ROADMAP "
-            "Queue 1 item 10: Ulysses sequence parallelism)")
+            "Queue 1 item 10: Ulysses sequence parallelism; a seq mesh "
+            "axis runs ring attention with any other attn_impl)")
 
 
 # ---------------------------------------------------------------------------
@@ -226,21 +233,28 @@ def _rope_apply(x, cos, sin):
     return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
 
 
-def _maybe_full_rope(config, cos, sin):
+def _flash_path(config, ring) -> bool:
+    """Whether the einsum-form flash branch applies (the JAX package's
+    ``flash_einsum_path``): ``attn_impl="flash"`` and no seq axis."""
+    return config.attn_impl == "flash" and ring is None
+
+
+def _maybe_full_rope(config, cos, sin, ring=None):
     """Full-width [B, S, Dh] tables for the flash path (rope fuses into
     the kernels); half-width tables otherwise."""
-    if config.attn_impl == "flash":
+    if _flash_path(config, ring):
         return torch.cat([cos, cos], dim=-1), torch.cat([sin, sin], dim=-1)
     return cos, sin
 
 
-def _layer(config: LlamaConfig, x, p, rope_cos, rope_sin):
-    """One transformer block. x: [B,S,D]; p: this layer's params."""
+def _layer(config: LlamaConfig, x, p, rope_cos, rope_sin, ring=None):
+    """One transformer block. x: [B,S,D]; p: this layer's params;
+    ``ring``: the seq axis' transport, or None."""
     B, S, D = x.shape
     h, kvh, hd = config.n_heads, config.n_kv_heads, config.head_dim
 
     y = _rms_norm(x, p["attn_norm"], config.norm_eps)
-    if config.attn_impl == "flash":
+    if _flash_path(config, ring):
         # projections viewed as [B,H,S,Dh] (no copies): the kernels read
         # heads and rows by stride
         qt = (y @ p["wq"]).view(B, S, h, hd).transpose(1, 2)
@@ -255,7 +269,12 @@ def _layer(config: LlamaConfig, x, p, rope_cos, rope_sin):
         v = (y @ p["wv"]).view(B, S, kvh, hd)
         q = _rope_apply(q, rope_cos, rope_sin)
         k = _rope_apply(k, rope_cos, rope_sin)
-        if config.attn_impl == "bshd":
+        if ring is not None:
+            # sequence sharded on the mesh: the ring over [B,H,S,Dh]
+            attn = sequence_sharded_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                causal=True).transpose(1, 2)
+        elif config.attn_impl == "bshd":
             # model-native layout end to end: no q/k/v/o transposes
             attn = flash_attention_bshd(q, k, v, causal=True)
         else:
@@ -273,22 +292,31 @@ def llama_apply(config: LlamaConfig, params: dict, tokens, positions=None):
     """tokens [B, S] int -> logits [B, S, vocab] float32.
 
     ``params`` are used in their own dtype except that every weight is
-    cast to ``config.dtype`` at its use, as the JAX forward does."""
+    cast to ``config.dtype`` at its use, as the JAX forward does. Under a
+    seq mesh axis ``tokens`` are the sequence shards this process holds
+    (all of them with the in-process transport, this rank's with a
+    process group), and positions default to their global positions."""
     check_supported(config)
     dtype = getattr(torch, config.dtype)
     B, S = tokens.shape
+    ring = seq_ring()
     if positions is None:
-        positions = torch.arange(S, device=tokens.device).expand(B, S)
+        # this process's first shard starts at its rank's global position
+        start = (0 if ring is None
+                 else axis_index("seq") * (S // len(ring.ranks)))
+        positions = torch.arange(start, start + S,
+                                 device=tokens.device).expand(B, S)
 
     x = F.embedding(tokens, params["embed"].to(dtype))
     cos, sin = _rope_tables(positions, config.head_dim // 2,
                             config.rope_theta, dtype)
-    cos, sin = _maybe_full_rope(config, cos, sin)
+    cos, sin = _maybe_full_rope(config, cos, sin, ring)
 
     stacks = {k: params["layers." + k].to(dtype).unbind(0)
               for k in LAYER_KEYS}
     for i in range(config.n_layers):
-        x = _layer(config, x, {k: v[i] for k, v in stacks.items()}, cos, sin)
+        x = _layer(config, x, {k: v[i] for k, v in stacks.items()}, cos, sin,
+                   ring)
 
     x = _rms_norm(x, params["final_norm"], config.norm_eps)
     return (x @ params["lm_head"].to(dtype)).float()
@@ -296,13 +324,20 @@ def llama_apply(config: LlamaConfig, params: dict, tokens, positions=None):
 
 def llama_loss_fn(config: LlamaConfig):
     """Next-token CE loss closure for auto_accelerate:
-    ``loss_fn(params, batch, rng) -> scalar``."""
+    ``loss_fn(params, batch, rng) -> scalar``, the mean over valid
+    labels. ``batch["tokens"]`` [B, S+1] is shifted into inputs and
+    labels, unless ``batch["labels"]`` [B, S] comes with them."""
     check_supported(config)
 
     def loss_fn(params, batch, rng):
         tokens = batch["tokens"]
-        logits = llama_apply(config, params, tokens[:, :-1])
-        loss, valid = softmax_cross_entropy(logits, tokens[:, 1:])
+        if "labels" in batch:
+            # already shifted (a seq rank's slice, parallel/accelerate.py)
+            inputs, labels = tokens, batch["labels"]
+        else:
+            inputs, labels = tokens[:, :-1], tokens[:, 1:]
+        logits = llama_apply(config, params, inputs)
+        loss, valid = softmax_cross_entropy(logits, labels)
         return loss.sum() / valid.sum().clamp(min=1)
 
     return loss_fn

@@ -30,6 +30,7 @@ SOURCES = {
     "flash_fwd": "flash_fwd.cu",
     "flash_bwd": "flash_bwd.cu",
     "flash_heads": "flash_heads.cu",
+    "flash_ring": "flash_ring.cu",
     "optim": "optim.cu",
 }
 HEADERS = ("flash_common.cuh",)

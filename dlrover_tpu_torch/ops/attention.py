@@ -21,9 +21,19 @@ heads of one GQA group into its tiles:
 
 Their backward takes delta from K2, over [B, H, S, Dh] views.
 
-Every kernel takes the JAX package's mask: causal (end-aligned), with an
-optional sliding ``window`` and an always-visible ``prefix``;
+Every kernel above takes the JAX package's mask: causal (end-aligned),
+with an optional sliding ``window`` and an always-visible ``prefix``;
 visibility is ``(causal & in-window) | in-prefix``.
+
+One block of ring attention (parallel/sequence.py's causal ring: a q
+shard against one visiting kv shard, causal at global positions
+``q_start + r >= k_start + c``), the counterparts of the JAX package's
+``ring_fwd_block``, ``ring_dq_block`` and ``ring_dkv_block``:
+
+- ``flash_ring_fwd`` (K12): the block's normalized o and its lse.
+- ``flash_ring_dq`` (K13): the block's dq part, f32.
+- ``flash_ring_dkv`` (K14): its dk and dv parts, f32, summed over each
+  GQA group.
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch
 in its ``launches`` attribute; for CPU tensors it runs the kernel's
@@ -100,27 +110,60 @@ def _operands(q, k, v, rope_cos, rope_sin):
     return qf, kf, vf
 
 
-def _probs(qf, kf, lse, causal, sm_scale, window, prefix):
-    """P = exp(S * scale - lse) with invisible entries exactly 0."""
-    mask = _visible(qf.shape[2], kf.shape[2], causal, qf.device, window,
-                    prefix)
-    s = qf @ kf.transpose(-1, -2) * sm_scale
-    return torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+def _ring_visible(q_len, kv_len, q_start, k_start, device):
+    """[q_len, kv_len] bool of one ring block: causality at global
+    positions, as the TPU ring's _dyn_mask, ``q_start + r >= k_start +
+    c``."""
+    rows = q_start + torch.arange(q_len, device=device)[:, None]
+    cols = k_start + torch.arange(kv_len, device=device)[None, :]
+    return rows >= cols
 
 
-def flash_fwd_plain(q, k, v, rope_cos, rope_sin, causal, sm_scale,
-                    window=None, prefix=None):
-    """Plain version of K1: (o in q.dtype, lse f32 [B, H, S]). A row that
-    sees no key gets o = 0 and lse = -1e30, as in the kernel."""
-    qf, kf, vf = _operands(q, k, v, rope_cos, rope_sin)
-    mask = _visible(q.shape[2], k.shape[2], causal, q.device, window, prefix)
+def _attend(qf, kf, vf, mask, sm_scale, dtype):
+    """(o in ``dtype``, lse f32) of f32 operands under ``mask``. A row
+    that sees no key gets o = 0 and lse = -1e30, as in the kernels."""
     s = (qf @ kf.transpose(-1, -2) * sm_scale).masked_fill(~mask, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
     l = torch.where(l == 0, 1.0, l)
     o = (p @ vf) / l
-    return o.to(q.dtype), (m + torch.log(l)).squeeze(-1)
+    return o.to(dtype), (m + torch.log(l)).squeeze(-1)
+
+
+def _probs(qf, kf, lse, mask, sm_scale):
+    """P = exp(S * scale - lse) with invisible entries exactly 0."""
+    s = qf @ kf.transpose(-1, -2) * sm_scale
+    return torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+
+
+def _dq(qf, kf, vf, do, lse, delta, mask, sm_scale):
+    """f32 dq of f32 operands from the saved lse and delta."""
+    p = _probs(qf, kf, lse, mask, sm_scale)
+    ds = p * (do.float() @ vf.transpose(-1, -2) - delta[..., None])
+    return ds @ kf * sm_scale
+
+
+def _dkv(qf, kf, vf, do, lse, delta, mask, sm_scale, kv_heads):
+    """f32 (dk, dv) of f32 operands (k/v repeated to q's heads), summed
+    over each group of q heads to ``kv_heads``."""
+    p = _probs(qf, kf, lse, mask, sm_scale)
+    dof = do.float()
+    ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None])
+    dv = p.transpose(-1, -2) @ dof
+    dk = ds.transpose(-1, -2) @ qf * sm_scale
+    B, H, S, D = dk.shape
+    group = H // kv_heads
+    return (dk.view(B, kv_heads, group, S, D).sum(dim=2),
+            dv.view(B, kv_heads, group, S, D).sum(dim=2))
+
+
+def flash_fwd_plain(q, k, v, rope_cos, rope_sin, causal, sm_scale,
+                    window=None, prefix=None):
+    """Plain version of K1: (o in q.dtype, lse f32 [B, H, S])."""
+    mask = _visible(q.shape[2], k.shape[2], causal, q.device, window, prefix)
+    return _attend(*_operands(q, k, v, rope_cos, rope_sin), mask, sm_scale,
+                   q.dtype)
 
 
 def flash_bwd_preprocess_plain(do, o):
@@ -131,10 +174,9 @@ def flash_bwd_preprocess_plain(do, o):
 def flash_bwd_dq_plain(q, k, v, do, lse, delta, rope_cos, rope_sin, causal,
                        sm_scale, window=None, prefix=None):
     """Plain version of K3: dq (q.dtype), un-roped."""
-    qf, kf, vf = _operands(q, k, v, rope_cos, rope_sin)
-    p = _probs(qf, kf, lse, causal, sm_scale, window, prefix)
-    ds = p * (do.float() @ vf.transpose(-1, -2) - delta[..., None])
-    dq = ds @ kf * sm_scale
+    mask = _visible(q.shape[2], k.shape[2], causal, q.device, window, prefix)
+    dq = _dq(*_operands(q, k, v, rope_cos, rope_sin), do, lse, delta, mask,
+             sm_scale)
     if rope_cos is not None:
         dq = _unrope(dq, rope_cos, rope_sin)
     return dq.to(q.dtype)
@@ -143,19 +185,38 @@ def flash_bwd_dq_plain(q, k, v, do, lse, delta, rope_cos, rope_sin, causal,
 def flash_bwd_dkv_plain(q, k, v, do, lse, delta, rope_cos, rope_sin, causal,
                         sm_scale, window=None, prefix=None):
     """Plain version of K4: (dk, dv) at kv-head width, dk un-roped."""
-    qf, kf, vf = _operands(q, k, v, rope_cos, rope_sin)
-    p = _probs(qf, kf, lse, causal, sm_scale, window, prefix)
-    dof = do.float()
-    ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None])
-    dv = p.transpose(-1, -2) @ dof
-    dk = ds.transpose(-1, -2) @ qf * sm_scale
-    B, KVH, S, D = k.shape
-    group = q.shape[1] // KVH
-    dk = dk.view(B, KVH, group, S, D).sum(dim=2)
-    dv = dv.view(B, KVH, group, S, D).sum(dim=2)
+    mask = _visible(q.shape[2], k.shape[2], causal, q.device, window, prefix)
+    dk, dv = _dkv(*_operands(q, k, v, rope_cos, rope_sin), do, lse, delta,
+                  mask, sm_scale, k.shape[1])
     if rope_cos is not None:
         dk = _unrope(dk, rope_cos, rope_sin)
     return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_ring_fwd_plain(q, k, v, q_start, k_start, sm_scale):
+    """Plain version of K12: (o in q.dtype, normalized; lse f32
+    [B, H, Sq]) of one ring block; rows that see nothing (a block wholly
+    in their future) get o = 0 and lse = -1e30."""
+    mask = _ring_visible(q.shape[2], k.shape[2], q_start, k_start, q.device)
+    return _attend(*_operands(q, k, v, None, None), mask, sm_scale, q.dtype)
+
+
+def flash_ring_dq_plain(q, k, v, do, lse, delta, q_start, k_start,
+                        sm_scale):
+    """Plain version of K13: the block's dq part, f32 [B, H, Sq, D],
+    from the ring's global lse and delta."""
+    mask = _ring_visible(q.shape[2], k.shape[2], q_start, k_start, q.device)
+    return _dq(*_operands(q, k, v, None, None), do, lse, delta, mask,
+               sm_scale)
+
+
+def flash_ring_dkv_plain(q, k, v, do, lse, delta, q_start, k_start,
+                         sm_scale):
+    """Plain version of K14: the block's (dk, dv) parts, f32
+    [B, KVH, Sk, D], summed over each GQA group."""
+    mask = _ring_visible(q.shape[2], k.shape[2], q_start, k_start, q.device)
+    return _dkv(*_operands(q, k, v, None, None), do, lse, delta, mask,
+                sm_scale, k.shape[1])
 
 
 def _split_heads(t, heads):
@@ -215,6 +276,7 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _S = ctypes.POINTER(_L)
 _MASK = [_I, _I, _I, _F]  # causal, window, prefix, scale
+_RING = [_I, _I, _F]  # q_start, k_start, scale
 # C entry -> (library, argtypes before the stream)
 _ENTRIES = {
     "flash_fwd": ("flash_fwd", [_P] * 7 + [_I] * 5 + [_S] + _MASK),
@@ -225,6 +287,9 @@ _ENTRIES = {
     "flash_bwd_dq_heads": ("flash_heads", [_P] * 7 + [_I] * 5 + [_S] + _MASK),
     "flash_bwd_dkv_heads": ("flash_heads",
                             [_P] * 8 + [_I] * 5 + [_S] + _MASK),
+    "flash_ring_fwd": ("flash_ring", [_P] * 5 + [_I] * 5 + [_S] + _RING),
+    "flash_ring_dq": ("flash_ring", [_P] * 7 + [_I] * 5 + [_S] + _RING),
+    "flash_ring_dkv": ("flash_ring", [_P] * 8 + [_I] * 5 + [_S] + _RING),
 }
 
 
@@ -273,6 +338,9 @@ def _check(name, q, k, *others):
         raise NotImplementedError(
             f"{name}: the CUDA kernel is built for head_dim {HEAD_DIM}, got "
             f"{q.shape[-1]}")
+    if q.shape[1] % k.shape[1] != 0:
+        raise ValueError(f"{name}: q heads {q.shape[1]} not divisible by "
+                         f"kv heads {k.shape[1]}")
 
 
 def _check_packing(name, heads, kv_heads):
@@ -301,14 +369,20 @@ def _table_ptrs(q, k, rope_cos, rope_sin):
     return tables, tuple(t.data_ptr() for t in tables)
 
 
-def _launch_attn(symbol, operands, inputs, tables, outs, causal, sm_scale,
-                 window, prefix):
+def _ring_args(q_start, k_start, sm_scale):
+    """The ring entries' trailing (q_start, k_start, scale)."""
+    return int(q_start), int(k_start), float(sm_scale)
+
+
+def _launch_attn(symbol, operands, inputs, tables, outs, tail):
     """Launch one attention kernel. Every C entry takes the [B, heads, S,
     D] operands q, k, v (and do) by pointer, read through their strides
     (views of the fused layout for K9-K11), then the f32 inputs (lse,
     delta), the rope tables (K1/K3/K4 only: ``tables`` is None for the
-    fused-heads entries), the outputs, then B, H, KVH, q_len, kv_len, the
-    operands' strides, causal, window, prefix, scale and the stream."""
+    other entries), the outputs, then B, H, KVH, q_len, kv_len, the
+    operands' strides, the entry's trailing arguments ``tail`` (causal,
+    window, prefix and scale from :func:`_mask_args`; q_start, k_start and
+    scale for the ring entries) and the stream."""
     _check(symbol, *operands, *(tables or ()))
     ops = [_rows(t) for t in operands]
     q, k = ops[0][0], ops[1][0]
@@ -320,8 +394,7 @@ def _launch_attn(symbol, operands, inputs, tables, outs, causal, sm_scale,
     _launch(symbol, *(t.data_ptr() for t, _ in ops),
             *(t.data_ptr() for t in inputs), *table_ptrs,
             *(t.data_ptr() for t in outs), B, H, k.shape[1], q_len,
-            k.shape[2], _strides(*ops),
-            *_mask_args(causal, window, prefix, sm_scale))
+            k.shape[2], _strides(*ops), *tail)
 
 
 def flash_fwd(q, k, v, rope_cos, rope_sin, causal, sm_scale, window=None,
@@ -334,7 +407,7 @@ def flash_fwd(q, k, v, rope_cos, rope_sin, causal, sm_scale, window=None,
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     _launch_attn("flash_fwd", (q, k, v), (), (rope_cos, rope_sin), (o, lse),
-                 causal, sm_scale, window, prefix)
+                 _mask_args(causal, window, prefix, sm_scale))
     flash_fwd.launches += 1
     return o, lse
 
@@ -364,8 +437,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, rope_cos, rope_sin, causal,
                                   rope_sin, causal, sm_scale, window, prefix)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch_attn("flash_bwd_dq", (q, k, v, do), (lse, delta),
-                 (rope_cos, rope_sin), (dq,), causal, sm_scale, window,
-                 prefix)
+                 (rope_cos, rope_sin), (dq,),
+                 _mask_args(causal, window, prefix, sm_scale))
     flash_bwd_dq.launches += 1
     return dq
 
@@ -379,8 +452,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, rope_cos, rope_sin, causal,
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _launch_attn("flash_bwd_dkv", (q, k, v, do), (lse, delta),
-                 (rope_cos, rope_sin), (dk, dv), causal, sm_scale, window,
-                 prefix)
+                 (rope_cos, rope_sin), (dk, dv),
+                 _mask_args(causal, window, prefix, sm_scale))
     flash_bwd_dkv.launches += 1
     return dk, dv
 
@@ -397,8 +470,8 @@ def flash_fwd_heads(q, k, v, heads, causal, sm_scale, window=None,
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((q.shape[0], heads, q.shape[1]), dtype=torch.float32,
                       device=q.device)
-    _launch_attn("flash_fwd_heads", views, (), None, (o, lse), causal,
-                 sm_scale, window, prefix)
+    _launch_attn("flash_fwd_heads", views, (), None, (o, lse),
+                 _mask_args(causal, window, prefix, sm_scale))
     flash_fwd_heads.launches += 1
     return o, lse
 
@@ -413,7 +486,7 @@ def flash_bwd_dq_heads(q, k, v, do, lse, delta, heads, causal, sm_scale,
     _check_packing("flash_bwd_dq_heads", heads, views[1].shape[1])
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch_attn("flash_bwd_dq_heads", views, (lse, delta), None, (dq,),
-                 causal, sm_scale, window, prefix)
+                 _mask_args(causal, window, prefix, sm_scale))
     flash_bwd_dq_heads.launches += 1
     return dq
 
@@ -427,14 +500,57 @@ def flash_bwd_dkv_heads(q, k, v, do, lse, delta, heads, causal, sm_scale,
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _launch_attn("flash_bwd_dkv_heads", _heads_views(q, k, v, do, heads),
-                 (lse, delta), None, (dk, dv), causal, sm_scale, window,
-                 prefix)
+                 (lse, delta), None, (dk, dv),
+                 _mask_args(causal, window, prefix, sm_scale))
     flash_bwd_dkv_heads.launches += 1
     return dk, dv
 
 
+def flash_ring_fwd(q, k, v, q_start, k_start, sm_scale):
+    """K12: one ring block, q [B,H,Sq,D] against k/v [B,KVH,Sk,D] at
+    global offsets ``q_start``/``k_start``: (o q.dtype normalized, lse
+    f32 [B,H,Sq])."""
+    if q.device.type == "cpu":
+        return flash_ring_fwd_plain(q, k, v, q_start, k_start, sm_scale)
+    B, H, Sq, _ = q.shape
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    _launch_attn("flash_ring_fwd", (q, k, v), (), None, (o, lse),
+                 _ring_args(q_start, k_start, sm_scale))
+    flash_ring_fwd.launches += 1
+    return o, lse
+
+
+def flash_ring_dq(q, k, v, do, lse, delta, q_start, k_start, sm_scale):
+    """K13: the block's dq part, f32 [B,H,Sq,D], from the ring's global
+    lse and delta."""
+    if q.device.type == "cpu":
+        return flash_ring_dq_plain(q, k, v, do, lse, delta, q_start, k_start,
+                                   sm_scale)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    _launch_attn("flash_ring_dq", (q, k, v, do), (lse, delta), None, (dq,),
+                 _ring_args(q_start, k_start, sm_scale))
+    flash_ring_dq.launches += 1
+    return dq
+
+
+def flash_ring_dkv(q, k, v, do, lse, delta, q_start, k_start, sm_scale):
+    """K14: the block's (dk, dv) parts, f32 [B,KVH,Sk,D], summed over
+    each GQA group."""
+    if q.device.type == "cpu":
+        return flash_ring_dkv_plain(q, k, v, do, lse, delta, q_start,
+                                    k_start, sm_scale)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.empty(v.shape, dtype=torch.float32, device=v.device)
+    _launch_attn("flash_ring_dkv", (q, k, v, do), (lse, delta), None,
+                 (dk, dv), _ring_args(q_start, k_start, sm_scale))
+    flash_ring_dkv.launches += 1
+    return dk, dv
+
+
 KERNELS = (flash_fwd, flash_bwd_preprocess, flash_bwd_dq, flash_bwd_dkv,
-           flash_fwd_heads, flash_bwd_dq_heads, flash_bwd_dkv_heads)
+           flash_fwd_heads, flash_bwd_dq_heads, flash_bwd_dkv_heads,
+           flash_ring_fwd, flash_ring_dq, flash_ring_dkv)
 for _k in KERNELS:
     _k.launches = 0
 

@@ -6,8 +6,10 @@ from __future__ import annotations
 
 import torch
 
+IGNORE_INDEX = -100  # labels that count for nothing
 
-def softmax_cross_entropy(logits, labels, ignore_index: int = -100):
+
+def softmax_cross_entropy(logits, labels, ignore_index: int = IGNORE_INDEX):
     """Token-level CE. logits [..., V] float, labels [...] int.
 
     Returns (per-token loss [...], valid mask [...]). Loss is 0 where

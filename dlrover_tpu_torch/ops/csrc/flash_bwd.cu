@@ -68,14 +68,14 @@ __global__ void __launch_bounds__(NTHREADS)
 __global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(AttnArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int h = blockIdx.y;
-  dq_tile(smem, a, RowMap{(int)blockIdx.x * BQ, 6, h}, h / a.group, blockIdx.z);
+  dq_tile<bf16>(smem, a, RowMap{(int)blockIdx.x * BQ, 6, h}, h / a.group, blockIdx.z);
 }
 
 // ---------------------------------------------------------------- K4
 // One block per (kv tile, kv head, batch).
 __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(AttnArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  dkv_tile(smem, a, blockIdx.x * BK, blockIdx.y, blockIdx.z);
+  dkv_tile<bf16>(smem, a, blockIdx.x * BK, blockIdx.y, blockIdx.z);
 }
 
 }  // namespace fa

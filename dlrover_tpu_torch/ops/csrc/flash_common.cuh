@@ -1,7 +1,7 @@
 // Shared pieces of the Hopper flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu, flash_heads.cu): tile geometry, the mask and the tile
-// ranges it leaves live, tile loads with in-kernel rope, the two
-// warp-level products every kernel is built from, and the three tile
+// flash_bwd.cu, flash_heads.cu, flash_ring.cu): tile geometry, the mask
+// and the tile ranges it leaves live, tile loads with in-kernel rope, the
+// two warp-level products every kernel is built from, and the three tile
 // loops (forward, dq, dk/dv) that the kernels run.
 //
 // Layout: q/k/v/do are bf16 operands addressed as [B, heads, S, D] through
@@ -9,7 +9,9 @@
 // tensors of flash_attention and the [B, S, H*D] tensors of
 // flash_attention_bshd (head stride D, row stride H*D) alike. Each row of
 // D values is contiguous and 16-byte aligned (the Python wrapper checks).
-// Outputs are written through strides as well. Rope tables are [B, S, D]
+// Outputs are written through strides as well: o in bf16; dq, dk and dv
+// in bf16 or, for the ring kernels, f32 (the dq/dk/dv epilogues take the
+// element type as a template argument). Rope tables are [B, S, D]
 // bf16, contiguous, full width (the first-half values repeated in the
 // second half). lse and delta are f32 [B, H, S].
 //
@@ -60,21 +62,26 @@ struct Operand {
   long long sb, sh, ss;
 };
 
-// One [B, heads, S, D] output, addressed the same way.
+// One [B, heads, S, D] output, addressed the same way; its element type
+// (bf16 or f32) is the writing epilogue's.
 struct Out {
-  bf16* ptr;
+  void* ptr;
   long long sb, sh, ss;
 };
 
 // The visibility rule of every kernel, from the JAX kernels' _block_mask:
-// (causal & in-window) | in-prefix, with end-aligned causality (offset =
-// kv_len - q_len). Positions past q_len or kv_len are never visible.
+// (causal & in-window) | in-prefix, where causal means query row r sees
+// the keys up to r + off. K1-K4 and K9-K11 align the ends (off = kv_len -
+// q_len); the ring kernels K12-K14 compare global positions (off =
+// q_start - k_start, the rule of the TPU ring's _dyn_mask) with no window
+// and no prefix. Positions past q_len or kv_len are never visible.
 // window <= 0 means no sliding window, prefix <= 0 no prefix; both act
 // only under causality (the wrapper refuses them otherwise). The loops
 // test it as a range per query row (Keys) or per key (Rows), set up once
-// for the row or key a thread holds across a tile.
+// for the row or key a thread holds across a tile, so the offset costs
+// nothing per element.
 struct Mask {
-  int q_len, kv_len, causal, window, prefix;
+  int q_len, kv_len, causal, window, prefix, off;
 };
 
 // The keys query `row` sees: [lo, hi] (the causal band, cut below by the
@@ -89,7 +96,7 @@ struct Keys {
 __device__ __forceinline__ Keys keys_of(const Mask& m, int row) {
   if (row >= m.q_len) return Keys{1, 0, 0};
   if (!m.causal) return Keys{0, m.kv_len - 1, 0};
-  const int last = row + m.kv_len - m.q_len;  // the newest key row sees
+  const int last = row + m.off;  // the newest key row sees
   return Keys{m.window > 0 ? last - m.window + 1 : 0, min(last, m.kv_len - 1),
               min(m.prefix, m.kv_len)};
 }
@@ -106,16 +113,16 @@ struct Rows {
 __device__ __forceinline__ Rows rows_of(const Mask& m, int k_lo, int k_hi) {
   if (k_lo >= m.kv_len) return Rows{1, 0};
   if (!m.causal || k_lo < m.prefix) return Rows{0, m.q_len - 1};
-  const int off = m.kv_len - m.q_len;
-  return Rows{max(0, k_lo - off),
-              m.window > 0 ? min(m.q_len - 1, k_hi - off + m.window - 1) : m.q_len - 1};
+  return Rows{max(0, k_lo - m.off),
+              m.window > 0 ? min(m.q_len - 1, k_hi - m.off + m.window - 1) : m.q_len - 1};
 }
 
 // The live kv tiles of query rows [r_lo, r_hi], as _tile_meta_impl's
 // live(i, j) keeps them: tiles [0, pre) hold the prefix, tiles [lo, hi)
 // the causal band, bounded below by the window. A tile in neither has no
-// visible (row, col) pair and is never loaded. Walk t in [0, count()),
-// tile(t) in increasing order.
+// visible (row, col) pair and is never loaded; a ring block wholly in the
+// future of its q shard has none at all. Walk t in [0, count()), tile(t)
+// in increasing order.
 struct TileRange {
   int pre, lo, hi;
   __device__ __forceinline__ int count() const { return pre + max(0, hi - max(lo, pre)); }
@@ -127,11 +134,10 @@ struct TileRange {
 __device__ __forceinline__ TileRange kv_tiles(const Mask& m, int r_lo, int r_hi) {
   const int nk = (m.kv_len + BK - 1) / BK;
   if (!m.causal) return TileRange{0, 0, nk};
-  const int off = m.kv_len - m.q_len;
-  const int last = min(m.kv_len - 1, r_hi + off);
+  const int last = min(m.kv_len - 1, r_hi + m.off);
   TileRange t{m.prefix > 0 ? min(nk, (m.prefix + BK - 1) / BK) : 0, 0, 0};
   if (last >= 0) {
-    t.lo = m.window > 0 ? max(0, r_lo + off - m.window + 1) / BK : 0;
+    t.lo = m.window > 0 ? max(0, r_lo + m.off - m.window + 1) / BK : 0;
     t.hi = last / BK + 1;
   }
   return t;
@@ -184,6 +190,16 @@ __device__ __forceinline__ uint4 pack8(const float* f) {
 
 __device__ __forceinline__ uint4 ld16(const bf16* p) {
   return *reinterpret_cast<const uint4*>(p);
+}
+
+// Store 8 f32 values as bf16 (one 16-byte store) or as f32 (two).
+__device__ __forceinline__ void store8(bf16* p, const float* f) {
+  *reinterpret_cast<uint4*>(p) = pack8(f);
+}
+
+__device__ __forceinline__ void store8(float* p, const float* f) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(f[0], f[1], f[2], f[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(f[4], f[5], f[6], f[7]);
 }
 
 // Stage the 64 rows of `map` into dst [64][LD_H]: row r is read at
@@ -292,10 +308,11 @@ __device__ __forceinline__ void load_acc(FragC (&acc)[4], const float* src) {
 }
 
 // Write a [64][LD_O] f32 tile times `scale` to the rows of `map` (dst =
-// this batch's base, head stride sh, row stride ss), positions below
-// `len` only, un-roping first when tables are given: unrope(g) =
-// [g1*c1 + g2*s2, g2*c2 - g1*s1], the transpose of rope.
-__device__ __forceinline__ void write_rows(bf16* dst, long long sh, long long ss,
+// this batch's base, head stride sh, row stride ss; T is bf16 or f32),
+// positions below `len` only, un-roping first when tables are given:
+// unrope(g) = [g1*c1 + g2*s2, g2*c2 - g1*s1], the transpose of rope.
+template <typename T>
+__device__ __forceinline__ void write_rows(T* dst, long long sh, long long ss,
                                            const float* src, float scale, RowMap map,
                                            int len, const bf16* cos, const bf16* sin) {
   for (int idx = threadIdx.x; idx < 64 * (HALF / 8); idx += NTHREADS) {
@@ -322,9 +339,9 @@ __device__ __forceinline__ void write_rows(bf16* dst, long long sh, long long ss
         g2[e] = b * c2[e] - a * s1[e];
       }
     }
-    bf16* out = dst + map.head(r) * sh + pos * ss;
-    *reinterpret_cast<uint4*>(out + c) = pack8(g1);
-    *reinterpret_cast<uint4*>(out + c + HALF) = pack8(g2);
+    T* out = dst + map.head(r) * sh + pos * ss;
+    store8(out + c, g1);
+    store8(out + c + HALF, g2);
   }
 }
 
@@ -436,7 +453,7 @@ __device__ __forceinline__ void fwd_tile(unsigned char* smem, const AttnArgs& a,
     sL[threadIdx.x] = l == 0.f ? 1.f : l;
   }
   __syncthreads();
-  bf16* o = a.o.ptr + b * a.o.sb;
+  bf16* o = static_cast<bf16*>(a.o.ptr) + b * a.o.sb;
   for (int idx = threadIdx.x; idx < 64 * (D / 8); idx += NTHREADS) {
     const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
     const int pos = map.pos(r);
@@ -461,7 +478,8 @@ constexpr size_t DQ_SMEM = (4 * TILE_H + TILE_P) * sizeof(bf16) +
 // dq of one 64-row query tile (rows by `map`, batch b) against kv head
 // kvh: recompute S = Q K^T and dP = dO V^T per live kv tile, form
 // dS = P * (dP - delta) and accumulate dQ += dS K in registers; the
-// epilogue scales, un-ropes (with tables) and writes the rows.
+// epilogue scales, un-ropes (with tables) and writes the rows as T.
+template <typename T>
 __device__ __forceinline__ void dq_tile(unsigned char* smem, const AttnArgs& a,
                                         RowMap map, int kvh, int b) {
   bf16* sQ = reinterpret_cast<bf16*>(smem);
@@ -524,8 +542,8 @@ __device__ __forceinline__ void dq_tile(unsigned char* smem, const AttnArgs& a,
   float* sOut = reinterpret_cast<float*>(smem);  // reuses sQ + sdO
   store_acc(sOut, acc);
   __syncthreads();
-  write_rows(a.dq.ptr + b * a.dq.sb, a.dq.sh, a.dq.ss, sOut, a.scale, map, m.q_len, cos,
-             sin);
+  write_rows(static_cast<T*>(a.dq.ptr) + b * a.dq.sb, a.dq.sh, a.dq.ss, sOut, a.scale, map,
+             m.q_len, cos, sin);
 }
 
 // --------------------------------------------------------------- dk, dv
@@ -537,7 +555,8 @@ constexpr size_t DKV_SMEM = (4 * TILE_H + 2 * TILE_P) * sizeof(bf16) +
 // tiles over the query rows that see it, recomputing S^T = K Q^T and
 // dP^T = V dO^T (no transposed copies) and accumulating dV += P^T dO and
 // dK += dS^T Q in registers. The sum over the group happens in those
-// registers, so dk/dv come out at kv-head width.
+// registers, so dk/dv come out at kv-head width, written as T.
+template <typename T>
 __device__ __forceinline__ void dkv_tile(unsigned char* smem, const AttnArgs& a, int k0,
                                          int kvh, int b) {
   bf16* sQ = reinterpret_cast<bf16*>(smem);
@@ -615,10 +634,10 @@ __device__ __forceinline__ void dkv_tile(unsigned char* smem, const AttnArgs& a,
   store_acc(sOutK, dk);
   store_acc(sOutV, dv);
   __syncthreads();
-  write_rows(a.dk.ptr + b * a.dk.sb, a.dk.sh, a.dk.ss, sOutK, a.scale, kv_map, m.kv_len,
-             cos, sin);
-  write_rows(a.dv.ptr + b * a.dv.sb, a.dv.sh, a.dv.ss, sOutV, 1.f, kv_map, m.kv_len,
-             nullptr, nullptr);
+  write_rows(static_cast<T*>(a.dk.ptr) + b * a.dk.sb, a.dk.sh, a.dk.ss, sOutK, a.scale,
+             kv_map, m.kv_len, cos, sin);
+  write_rows(static_cast<T*>(a.dv.ptr) + b * a.dv.sb, a.dv.sh, a.dv.ss, sOutV, 1.f, kv_map,
+             m.kv_len, nullptr, nullptr);
 }
 
 // ---------------------------------------------------------- host side
@@ -641,18 +660,20 @@ inline AttnArgs attn_args(const void* q, const void* k, const void* v, const voi
   a.H = H;
   a.group = H / KVH;
   a.shift = 6;
-  a.mask = Mask{q_len, kv_len, causal, causal ? window : 0, causal ? prefix : 0};
+  a.mask = Mask{q_len, kv_len, causal, causal ? window : 0, causal ? prefix : 0,
+                kv_len - q_len};
   a.scale = scale;
   return a;
 }
 
-// Strides of a contiguous [B, heads, S, D] and [B, S, heads * D] output.
+// Strides (elements) of a contiguous [B, heads, S, D] and [B, S, heads *
+// D] output.
 inline Out out_bhsd(void* p, int heads, int S) {
-  return Out{static_cast<bf16*>(p), (long long)heads * S * D, (long long)S * D, D};
+  return Out{p, (long long)heads * S * D, (long long)S * D, D};
 }
 
 inline Out out_bshd(void* p, int heads, int S) {
-  return Out{static_cast<bf16*>(p), (long long)S * heads * D, D, (long long)heads * D};
+  return Out{p, (long long)S * heads * D, D, (long long)heads * D};
 }
 
 // log2 of the query positions per tile when `group` q heads share a

@@ -49,14 +49,14 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_heads_kernel(AttnArgs a) {
 __global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_heads_kernel(AttnArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int kvh = blockIdx.y;
-  dq_tile(smem, a, RowMap{(int)blockIdx.x << a.shift, a.shift, kvh * a.group}, kvh,
+  dq_tile<bf16>(smem, a, RowMap{(int)blockIdx.x << a.shift, a.shift, kvh * a.group}, kvh,
           blockIdx.z);
 }
 
 // One block per (kv tile, kv head, batch).
 __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_heads_kernel(AttnArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  dkv_tile(smem, a, blockIdx.x * BK, blockIdx.y, blockIdx.z);
+  dkv_tile<bf16>(smem, a, blockIdx.x * BK, blockIdx.y, blockIdx.z);
 }
 
 // Grid of the packed q-major kernels: query tiles of 2^shift positions.

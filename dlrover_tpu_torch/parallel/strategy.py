@@ -1,9 +1,11 @@
 """Serializable acceleration plans (a copy of the ``Strategy`` dataclass of
 dlrover_tpu/parallel/strategy.py, with its fields and JSON round-trip).
 
-``MeshConfig`` is kept only as far as a one-device mesh needs: its
-fields, so that a plan written by the JAX package loads here.
-Multi-device meshes are ROADMAP Queue 1 item 7.
+``MeshConfig`` keeps every field, so that a plan written by the JAX
+package loads here; of its axes the port runs ``seq`` (ring attention,
+parallel/mesh.py). The others must be 1 (or -1, which then absorbs
+nothing): data, fsdp, tensor, expert and pipe parallelism are ROADMAP
+Queue 1 item 7.
 """
 
 from __future__ import annotations
@@ -36,8 +38,10 @@ DEFAULT_RULES: LogicalRules = (
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
     """Sizes for each named axis; 1 means the axis is inactive and -1
-    absorbs the remaining devices. ``dcn_*`` give the slices an axis
-    spans (kept for plan compatibility)."""
+    absorbs the remaining ranks. ``seq=n`` shards the sequence over n
+    ring ranks: a process group of n processes, or n ranks in one
+    process on one device. ``dcn_*`` give the slices an axis spans (kept
+    for plan compatibility)."""
 
     pipe: int = 1
     data: int = -1
@@ -88,7 +92,9 @@ class Strategy:
         )
         return cls(**d)
 
-    def describe(self) -> str:
+    def describe(self, mesh=None) -> str:
+        """One line for logs; with the built ``mesh``, it names the seq
+        axis' transport."""
         active = {
             a: getattr(self.mesh, a)
             for a in AXIS_ORDER
@@ -101,6 +107,8 @@ class Strategy:
             extras += f", qsites={self.quant_sites}"
         if self.fused_optim:
             extras += ", fused_optim"
+        if mesh is not None and mesh.ring is not None:
+            extras += f", seq transport={mesh.ring.describe()}"
         return (
             f"Strategy(mesh={active or 'dp-only'}, dtype={self.compute_dtype},"
             f" remat={self.remat}, accum={self.grad_accum}{extras})"

@@ -1,0 +1,284 @@
+#!/usr/bin/env python3
+"""A/B of the attention kernels built on ``flash_common.cuh`` (K1, K3, K4
+and K9-K11) between this checkout and another one, say the parent commit
+unpacked with ``git archive`` into a gitignored directory, on one GPU:
+
+    python3 kernel_ab.py --other _archive/parent [--pairs 20] [--calls 20]
+
+Both checkouts' sources are compiled with this checkout's nvcc flags.
+For each kernel it prints one JSON line with:
+
+- ``ptxas``: each build's register, spill and stack report;
+- ``sass``: each build's instruction count, the opcodes whose counts
+  differ, and how many instruction lines differ, as printed and with
+  every hex literal masked (constant-bank offsets and branch targets
+  move when a kernel argument struct grows);
+- ``bit_equal``: whether the two builds give bit-equal outputs on the
+  same inputs;
+- ``ms``: the time in ``--pairs`` alternating pairs (this, other; then
+  other, this; ...), each side the mean of CUDA-event times over
+  ``--calls`` launches, at the training slice's shape (B8 H8 KVH8 S2048
+  D128, causal; rope in K1/K3/K4, the [B, S, H*D] layout for K9-K11):
+  each side's median, min and max, and the other/this ratio of each
+  pair (median, min, max).
+
+The C entries must take the same arguments in both checkouts. The card's
+name and power limit come first; the whole report also goes to
+``chiprun_out/kernel_ab.json``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import difflib
+import json
+import re
+import shutil
+import statistics
+import subprocess
+import sys
+from collections import Counter
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent
+OUT = ROOT / "chiprun_out"
+B, H, KVH, S, D = 8, 8, 8, 2048, 128
+# library -> the C entries compared (each launches <entry>_kernel)
+LIBRARIES = {
+    "flash_fwd": ("flash_fwd",),
+    "flash_bwd": ("flash_bwd_dq", "flash_bwd_dkv"),
+    "flash_heads": ("flash_fwd_heads", "flash_bwd_dq_heads",
+                    "flash_bwd_dkv_heads"),
+}
+INSTR = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
+HEX = re.compile(r"0x[0-9a-f]+")
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def build_this():
+    """This checkout's libraries and their ptxas reports."""
+    from dlrover_tpu_torch.ops import _build
+
+    _build.build(LIBRARIES)
+    return {name: (_build.library_path(name),
+                   _build.library_path(name).with_suffix(".log").read_text())
+            for name in LIBRARIES}
+
+
+def build_other(other: Path):
+    """``other``'s libraries, compiled in parallel with this checkout's
+    flags into its ``ops/build/ab-<name>.so``, and their ptxas reports."""
+    from dlrover_tpu_torch.ops import _build
+
+    out_dir = other / "dlrover_tpu_torch" / "ops" / "build"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in LIBRARIES:
+        src = other / "dlrover_tpu_torch" / "ops" / "csrc" / f"{name}.cu"
+        so = out_dir / f"ab-{name}.so"
+        procs[name] = (so, subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    built = {}
+    for name, (so, proc) in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed on {other}'s {name}:\n{text}")
+        built[name] = (so, text)
+    return built
+
+
+def mangled(kernel: str) -> re.Pattern:
+    """The kernel's name inside its mangled symbol (``<len><name>E``)."""
+    return re.compile(rf"\d+{kernel}E")
+
+
+def ptxas_report(text: str, kernel: str) -> list[str]:
+    """The ptxas lines of ``kernel``'s entry function."""
+    lines, found, pattern = text.splitlines(), [], mangled(kernel)
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and pattern.search(line):
+            for nxt in lines[i + 1:]:
+                if "Compiling entry function" in nxt:
+                    break
+                found.append(nxt.replace("ptxas info    :", "").strip())
+    return found
+
+
+def sass(so: Path, kernel: str):
+    """The instruction lines of ``kernel``'s function in ``so``, or None
+    when cuobjdump is missing."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    text = subprocess.run([tool, "-sass", str(so)], check=True,
+                          capture_output=True, text=True).stdout
+    pattern, instrs, inside = mangled(kernel), [], False
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = bool(pattern.search(line))
+            continue
+        match = INSTR.search(line) if inside else None
+        if match:
+            instrs.append(match.group(1))
+    return instrs
+
+
+def opcode(instr: str) -> str:
+    words = instr.split()
+    return words[1] if words[0].startswith("@") else words[0]
+
+
+def differing(a: list[str], b: list[str]) -> int:
+    """Instruction lines of ``a`` and ``b`` outside their longest common
+    runs."""
+    matcher = difflib.SequenceMatcher(None, a, b, autojunk=False)
+    same = sum(block.size for block in matcher.get_matching_blocks())
+    return len(a) + len(b) - 2 * same
+
+
+def compare_sass(this: list[str], other: list[str]) -> dict:
+    counts = Counter(map(opcode, this)), Counter(map(opcode, other))
+    masked = [[HEX.sub("0x_", i) for i in side] for side in (this, other)]
+    return {
+        "this_instructions": len(this), "other_instructions": len(other),
+        "opcode_count_other_minus_this": {
+            op: counts[1][op] - counts[0][op]
+            for op in sorted(set(counts[0]) | set(counts[1]))
+            if counts[1][op] != counts[0][op]},
+        "differing_lines": differing(this, other),
+        "differing_lines_hex_masked": differing(*masked),
+    }
+
+
+def kernel_calls():
+    """entry -> a call of its wrapper at the slice's shape."""
+    from dlrover_tpu_torch.models.llama import _rope_tables
+    from dlrover_tpu_torch.ops import attention as att
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    q, k, v, do = (randn(B, heads, S, D) for heads in (H, KVH, KVH, H))
+    cos, sin = _rope_tables(torch.arange(S, device="cuda").expand(B, S),
+                            D // 2, 10000.0, torch.bfloat16)
+    cos, sin = torch.cat([cos, cos], -1), torch.cat([sin, sin], -1)
+    scale = D ** -0.5
+    o, lse = att.flash_fwd_plain(q, k, v, cos, sin, True, scale)
+    delta = att.flash_bwd_preprocess_plain(do, o)
+    bwd = (q, k, v, do, lse, delta, cos, sin, True, scale)
+    fused = [att._merge_heads(t) for t in (q, k, v, do)]
+    o_f, lse_f = att.flash_fwd_heads_plain(*fused[:3], H, True, scale)
+    delta_f = att.flash_bwd_preprocess_plain(
+        att._split_heads(fused[3], H), att._split_heads(o_f, H))
+    bwd_f = (*fused, lse_f, delta_f, H, True, scale)
+    return {
+        "flash_fwd": lambda: att.flash_fwd(q, k, v, cos, sin, True, scale),
+        "flash_bwd_dq": lambda: att.flash_bwd_dq(*bwd),
+        "flash_bwd_dkv": lambda: att.flash_bwd_dkv(*bwd),
+        "flash_fwd_heads": lambda: att.flash_fwd_heads(*fused[:3], H, True,
+                                                       scale),
+        "flash_bwd_dq_heads": lambda: att.flash_bwd_dq_heads(*bwd_f),
+        "flash_bwd_dkv_heads": lambda: att.flash_bwd_dkv_heads(*bwd_f),
+    }
+
+
+def mean_ms(fn, calls: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def spread(values) -> dict:
+    return {"median": statistics.median(values), "min": min(values),
+            "max": max(values)}
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--other", type=Path, required=True,
+                        help="root of the other checkout")
+    parser.add_argument("--pairs", type=int, default=20)
+    parser.add_argument("--calls", type=int, default=20)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        log("kernel_ab: CUDA is not available")
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.ops import attention as att
+
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], check=True,
+                       capture_output=True, text=True).stdout.strip())
+    this, other = build_this(), build_other(args.other.resolve())
+    calls = kernel_calls()
+    report = []
+    for lib, entries in LIBRARIES.items():
+        other_lib = ctypes.CDLL(str(other[lib][0]))
+        for entry in entries:
+            kernel = f"{entry}_kernel"
+            calls[entry]()  # binds this checkout's entry
+            fns = {"this": _build._bound[entry],
+                   "other": getattr(other_lib, entry)}
+            fns["other"].argtypes = (list(att._ENTRIES[entry][1])
+                                     + [ctypes.c_void_p])
+            fns["other"].restype = ctypes.c_int
+
+            def run(side, fn=calls[entry], symbol=entry, fns=fns):
+                _build._bound[symbol] = fns[side]
+                return fn()
+
+            outs = {side: run(side) for side in fns}
+            flat = {side: out if isinstance(out, tuple) else (out,)
+                    for side, out in outs.items()}
+            bit_equal = all(torch.equal(a, b) for a, b in
+                            zip(flat["this"], flat["other"]))
+            del outs, flat
+            times = {"this": [], "other": []}
+            for pair in range(args.pairs):
+                order = ("this", "other") if pair % 2 == 0 else ("other",
+                                                                 "this")
+                for side in order:
+                    times[side].append(mean_ms(
+                        lambda side=side: run(side), args.calls))
+            _build._bound[entry] = fns["this"]
+            codes = [sass(side[lib][0], kernel) for side in (this, other)]
+            line = {
+                "kernel": entry,
+                "ptxas": {"this": ptxas_report(this[lib][1], kernel),
+                          "other": ptxas_report(other[lib][1], kernel)},
+                "sass": (None if None in codes else compare_sass(*codes)),
+                "bit_equal": bit_equal,
+                "ms": {"this": spread(times["this"]),
+                       "other": spread(times["other"]),
+                       "ratio_other_over_this": spread(
+                           [o / t for t, o in zip(times["this"],
+                                                  times["other"])]),
+                       "pairs": args.pairs, "calls": args.calls},
+            }
+            log(json.dumps({"kernel_ab": line}))
+            report.append(line)
+    OUT.mkdir(exist_ok=True)
+    (OUT / "kernel_ab.json").write_text(json.dumps(report, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -118,7 +118,8 @@ def test_cpu_path_counts_no_launch():
     assert port.launches() == {
         "flash_fwd": 0, "flash_bwd_preprocess": 0, "flash_bwd_dq": 0,
         "flash_bwd_dkv": 0, "flash_fwd_heads": 0, "flash_bwd_dq_heads": 0,
-        "flash_bwd_dkv_heads": 0,
+        "flash_bwd_dkv_heads": 0, "flash_ring_fwd": 0, "flash_ring_dq": 0,
+        "flash_ring_dkv": 0,
     }
 
 

@@ -9,7 +9,9 @@ and 3e-2 for gradients: the kernels round roped q/k, P and dS to bf16
 before the tensor-core products, which the f32 plain versions do not.
 The attention kernels are checked per head layout (K1-K4 on [B, H, S, D],
 K9-K11 on [B, S, H*D] through flash_attention_bshd), with GQA, ragged
-lengths, a sliding window and a prefix.
+lengths, a sliding window and a prefix; the ring-block kernels (K12-K14)
+at the diagonal, wholly visible and wholly future offsets (exact zeros),
+and through ring_attention over 4 in-process ranks.
 
 The optimizer kernels (K5-K8) do the plain versions' f32 operations in
 the same order, without FMA contraction: K5/K6 codes, scales and values
@@ -26,6 +28,7 @@ from dlrover_tpu_torch.device import CUDA_SKIP_REASON, cuda_available
 from dlrover_tpu_torch.ops import attention as att
 from dlrover_tpu_torch.ops import fused_optim as fo
 from dlrover_tpu_torch.ops import quantization as qz
+from dlrover_tpu_torch.parallel import MeshConfig, build_mesh, ring_attention
 
 pytestmark = pytest.mark.cuda
 
@@ -141,6 +144,96 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     kv3 = torch.zeros(1, 16, 128, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="divide"):
         att.flash_fwd_heads(q3, kv3, kv3, 3, True, 0.125)
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        att.flash_ring_fwd(q, q, q, 16, 0, 0.125)
+    with pytest.raises(TypeError, match="bfloat16"):
+        att.flash_ring_dq(q32, q32, q32, q32, q32[..., 0], q32[..., 0], 16,
+                          0, 0.125)
+    q4 = torch.zeros(1, 4, 16, 128, device=cuda, dtype=torch.bfloat16)
+    rows = torch.zeros(1, 4, 16, device=cuda)
+    with pytest.raises(ValueError, match="divisible"):
+        att.flash_ring_dkv(q4, q4[:, :3], q4[:, :3], q4, rows, rows, 16, 0,
+                           0.125)
+
+
+def _merge(o_a, lse_a, o_b, lse_b):
+    """The ring's merge of two normalized blocks (f32)."""
+    lse = torch.logaddexp(lse_a, lse_b)
+    return (o_a.float() * (lse_a - lse).exp()[..., None]
+            + o_b.float() * (lse_b - lse).exp()[..., None]), lse
+
+
+@pytest.mark.parametrize("B,H,KVH,S", [
+    (1, 4, 4, 128),
+    (2, 8, 2, 200),    # GQA, ragged
+    (1, 4, 1, 77),     # MQA, ragged
+])
+def test_ring_block_kernels_match_plain(cuda, B, H, KVH, S):
+    """K12-K14 against their plain versions for the q shard of ring rank
+    1 against the kv shards of ranks 1 (the diagonal), 0 (wholly
+    visible) and 2 (wholly in the future: exact zeros, lse -1e30), with
+    the lse and delta of the ring over the two visible blocks."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v, do = (torch.randn(B, h, S, 128, generator=gen, device=cuda)
+                   .to(torch.bfloat16) for h in (H, KVH, KVH, H))
+    scale = 128 ** -0.5
+    starts = {"diagonal": S, "visible": 0, "future": 2 * S}
+    before = att.launches()
+    plain = {}
+    for name, k_start in starts.items():
+        o, lse = att.flash_ring_fwd(q, k, v, S, k_start, scale)
+        o_p, lse_p = att.flash_ring_fwd_plain(q, k, v, S, k_start, scale)
+        plain[name] = (o_p, lse_p)
+        if name == "future":
+            assert torch.all(o == 0) and torch.all(lse == att.NEG_INF)
+            continue
+        assert _rel(o, o_p) < 2e-2
+        assert (lse - lse_p).abs().max().item() < 2e-2
+    o_g, lse_g = _merge(*plain["diagonal"], *plain["visible"])
+    delta = att.flash_bwd_preprocess_plain(do, o_g.to(torch.bfloat16))
+    for name, k_start in starts.items():
+        args = (q, k, v, do, lse_g, delta, S, k_start, scale)
+        dq = att.flash_ring_dq(*args)
+        dk, dv = att.flash_ring_dkv(*args)
+        assert dq.dtype == dk.dtype == dv.dtype == torch.float32
+        assert dk.shape == k.shape and dv.shape == v.shape
+        if name == "future":
+            assert not dq.any() and not dk.any() and not dv.any()
+            continue
+        dk_p, dv_p = att.flash_ring_dkv_plain(*args)
+        assert _rel(dq, att.flash_ring_dq_plain(*args)) < 3e-2
+        assert _rel(dk, dk_p) < 3e-2
+        assert _rel(dv, dv_p) < 3e-2
+    torch.cuda.synchronize()
+    after = att.launches()
+    for name in ("flash_ring_fwd", "flash_ring_dq", "flash_ring_dkv"):
+        assert after[name] == before[name] + 3
+
+
+def test_ring_attention_through_the_kernels(cuda):
+    """ring_attention over 4 in-process ranks of 128 positions (GQA) on
+    K12-K14 and K2, against autograd through mha_reference in f32."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    B, H, KVH, S = 2, 8, 2, 512
+    q, k, v, do = (torch.randn(B, h, S, 128, generator=gen, device=cuda)
+                   .to(torch.bfloat16) for h in (H, KVH, KVH, H))
+    before = att.launches()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ring_attention(*leaves, mesh=build_mesh(MeshConfig(seq=4)))
+    out.backward(do)
+    torch.cuda.synchronize()
+    after = att.launches()
+    for name, want in (("flash_ring_fwd", 10), ("flash_ring_dq", 10),
+                       ("flash_ring_dkv", 10), ("flash_bwd_preprocess", 4),
+                       ("flash_fwd", 0), ("flash_bwd_dq", 0)):
+        assert after[name] == before[name] + want, name
+    ref = [t.float().requires_grad_() for t in (q, k, v)]
+    want = att.mha_reference(*ref, causal=True)
+    want.backward(do.float())
+    assert out.dtype == torch.bfloat16
+    assert _rel(out, want) < 2e-2
+    for got, r in zip(leaves, ref):
+        assert _rel(got.grad, r.grad) < 3e-2
 
 
 @pytest.mark.parametrize("shape", [(1000,), (3, 256), (7, 33, 5)])
