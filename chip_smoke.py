@@ -17,8 +17,10 @@ Phases, each fatal on failure (no exception is caught):
    K1-K4 through both routes of flash_attention_bshd); at the slice's
    shape each kernel's ms, its plain version's ms, SDPA's ms as the
    library yardstick, and the bound (bytes or tensor-core operations at
-   the H100 SXM peaks); at the GQA shape K9 against K1 and K10 against
-   K3, both without rope, as the measure of K9/K10's group packing;
+   the H100 SXM peaks), K1's time including its rope pre-pass, which is
+   also checked against the plain rope and timed alone; at the GQA shape
+   K9 against K1 and K10 against K3, both without rope, as the measure
+   of K9/K10's group packing;
    then each ring-block kernel (K12-K14) against its plain version in
    bf16, for the q shard of ring rank 1 against the kv shards of ranks 1
    (the diagonal), 0 (wholly visible) and 2 (wholly in the future: exact
@@ -99,7 +101,11 @@ HEAD_DIM = 128
 # reference value: the kernels round roped q/k, P and dS to bf16 before
 # the tensor-core products (2^-9 relative each), which plain f32 math
 # does not; a wrong mask, tile or stride gives errors of order 1.
-REL_TOL = {"o": 2e-2, "delta": 1e-3, "dq": 3e-2, "dk": 3e-2, "dv": 3e-2}
+REL_TOL = {"o": 2e-2, "delta": 1e-3, "dq": 3e-2, "dk": 3e-2, "dv": 3e-2,
+           # K1's rope pre-pass against the plain rope rounded to bf16:
+           # both round f32 once, the kernel perhaps after a fused
+           # multiply-add, so at most one bf16 step at the largest value
+           "k_rope": 2 ** -8}
 LSE_ABS_TOL = 2e-2   # lse is log-sum-exp of f32 scores, values ~ log S
 
 KERNEL_INFO = {
@@ -280,6 +286,8 @@ def check_shape(name, shape, seed, worst, window=None, prefix=None):
     judge("flash_fwd", "o", o, o_p)
     judge("flash_fwd", "lse", lse, lse_p)
     del o_p, lse_p
+    judge("flash_fwd", "k_rope", att.flash_fwd_rope_k(k, cos, sin),
+          att._rope(k, cos, sin).to(k.dtype), collect=False)
     delta = att.flash_bwd_preprocess(do, o)
     judge("flash_bwd_preprocess", "delta", delta,
           att.flash_bwd_preprocess_plain(do, o))
@@ -426,6 +434,9 @@ def time_kernels(inputs):
     }
     log(json.dumps({"flash_bwd_preprocess_graph_replays_ms": k2}))
     k2 = {key: statistics.median(val) for key, val in k2.items()}
+    # K1's rope pre-pass alone (part of K1's time below), likewise
+    prepass = graph_ms(lambda: att.flash_fwd_rope_k(k, cos, sin), 50)
+    log(json.dumps({"flash_fwd_rope_k_graph_replays_ms": prepass}))
     times = {
         "flash_fwd": (
             cuda_ms(lambda: att.flash_fwd(q, k, v, cos, sin, True, scale), 20),
@@ -450,7 +461,7 @@ def time_kernels(inputs):
     bwd_ms = cuda_ms(lambda: torch.autograd.grad(
         out, (qr, kr, vr), do, retain_graph=True), 20)
     library = {"flash_fwd": fwd_ms, "flash_bwd_preprocess": k2["library"]}
-    return times, library, bwd_ms
+    return times, library, bwd_ms, statistics.median(prepass)
 
 
 def time_heads(inputs):
@@ -1224,7 +1235,7 @@ def profile_step(res, state, batch, label="adamw", top=16):
         "run": label, "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1 - busy_us / wall_us}}))
-    table = averages.table(sort_by="cuda_time_total", row_limit=40)
+    table = averages.table(sort_by="cuda_time_total", row_limit=60)
     name = ("profile_step.txt" if label == "adamw"
             else f"profile_step_{label}.txt")
     OUT.mkdir(exist_ok=True)
@@ -1277,7 +1288,7 @@ def main() -> int:
         del inputs, heads
     check_shape("masked", SHAPES["gqa"], 3, worst, **MASKED)
     check_heads("masked", SHAPES["gqa"], 3, worst, **MASKED)
-    times, library, sdpa_bwd_ms = time_kernels(slice_inputs)
+    times, library, sdpa_bwd_ms, prepass_ms = time_kernels(slice_inputs)
     heads_times, heads_library, sdpa_bwd_plain_ms = time_heads(slice_heads)
     times.update(heads_times)
     library.update(heads_library)
@@ -1334,6 +1345,8 @@ def main() -> int:
             "plain_ms": times[name][1], "bound_ms": bound[name][0],
             "bound_by": bound[name][1], "library_ms": library.get(name),
         })
+        if name == "flash_fwd":  # its rope pre-pass, included in ms
+            kernels[-1]["prepass_ms"] = prepass_ms
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-# library name -> its source; the shared header is hashed with each
+# library name -> its source; the shared headers are hashed with each
 SOURCES = {
     "flash_fwd": "flash_fwd.cu",
     "flash_bwd": "flash_bwd.cu",
@@ -33,7 +33,7 @@ SOURCES = {
     "flash_ring": "flash_ring.cu",
     "optim": "optim.cu",
 }
-HEADERS = ("flash_common.cuh",)
+HEADERS = ("flash_common.cuh", "flash_fwd_sm90.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -5,7 +5,8 @@ The JAX package runs attention as Pallas TPU kernels
 kernels written for sm_90a (sources in ``csrc/``, built by ``_build``).
 On the [B, H, S, Dh] layout (:func:`flash_attention`):
 
-- ``flash_fwd`` (K1): o and lse, rope applied inside the kernel.
+- ``flash_fwd`` (K1): o and lse; q roped inside the kernel, k by its
+  pre-pass ``flash_fwd_rope_k``.
 - ``flash_bwd_preprocess`` (K2): delta = rowsum(dO * O).
 - ``flash_bwd_dq`` (K3): dq, q-major, un-roped in the kernel.
 - ``flash_bwd_dkv`` (K4): dk and dv at kv-head width, kv-major, dk
@@ -280,6 +281,7 @@ _RING = [_I, _I, _F]  # q_start, k_start, scale
 # C entry -> (library, argtypes before the stream)
 _ENTRIES = {
     "flash_fwd": ("flash_fwd", [_P] * 7 + [_I] * 5 + [_S] + _MASK),
+    "flash_fwd_rope_k": ("flash_fwd", [_P] * 4 + [_I] * 3 + [_L] * 3),
     "flash_bwd_preprocess": ("flash_bwd", [_P] * 3 + [_I] * 3 + [_L] * 6),
     "flash_bwd_dq": ("flash_bwd", [_P] * 9 + [_I] * 5 + [_S] + _MASK),
     "flash_bwd_dkv": ("flash_bwd", [_P] * 10 + [_I] * 5 + [_S] + _MASK),
@@ -397,15 +399,33 @@ def _launch_attn(symbol, operands, inputs, tables, outs, tail):
             k.shape[2], _strides(*ops), *tail)
 
 
+def flash_fwd_rope_k(k, rope_cos, rope_sin):
+    """K1's pre-pass: rope(k) as a contiguous [B, KVH, S, D] bf16 CUDA
+    tensor, rounded once from f32 (tables [B, S, D] full width). Counted
+    as part of K1, which loads it in place of k."""
+    _check("flash_fwd_rope_k", k, k, rope_cos, rope_sin)
+    k, st = _rows(k)
+    (cos, sin), _ = _table_ptrs(k, k, rope_cos, rope_sin)
+    out = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    B, KVH, S, _ = k.shape
+    _launch("flash_fwd_rope_k", k.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+            out.data_ptr(), B, KVH, S, *st)
+    return out
+
+
 def flash_fwd(q, k, v, rope_cos, rope_sin, causal, sm_scale, window=None,
               prefix=None):
-    """K1: (o [B,H,S,D] q.dtype, lse f32 [B,H,S])."""
+    """K1: (o [B,H,S,D] q.dtype, lse f32 [B,H,S]). With rope tables, k
+    is roped first by the pre-pass :func:`flash_fwd_rope_k` and q inside
+    the kernel."""
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, rope_cos, rope_sin, causal, sm_scale,
                                window, prefix)
     B, H, S, _ = q.shape
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    if rope_cos is not None:
+        k = flash_fwd_rope_k(k, rope_cos, rope_sin)
     _launch_attn("flash_fwd", (q, k, v), (), (rope_cos, rope_sin), (o, lse),
                  _mask_args(causal, window, prefix, sm_scale))
     flash_fwd.launches += 1

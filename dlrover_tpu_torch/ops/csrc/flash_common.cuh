@@ -1,8 +1,10 @@
 // Shared pieces of the Hopper flash-attention kernels (flash_fwd.cu,
 // flash_bwd.cu, flash_heads.cu, flash_ring.cu): tile geometry, the mask
-// and the tile ranges it leaves live, tile loads with in-kernel rope, the
-// two warp-level products every kernel is built from, and the three tile
-// loops (forward, dq, dk/dv) that the kernels run.
+// and the tile ranges it leaves live (the one visibility rule of every
+// loop, the Hopper forward of flash_fwd_sm90.cuh included), tile loads
+// with in-kernel rope, the two WMMA products, and three WMMA tile loops:
+// forward (`fwd_tile`, now K12's alone: K1 and K9 run the wgmma/TMA loop
+// of flash_fwd_sm90.cuh), dq and dk/dv.
 //
 // Layout: q/k/v/do are bf16 operands addressed as [B, heads, S, D] through
 // batch, head and row strides (elements). That covers the [B, H, S, D]
@@ -117,12 +119,23 @@ __device__ __forceinline__ Rows rows_of(const Mask& m, int k_lo, int k_hi) {
               m.window > 0 ? min(m.q_len - 1, k_hi - m.off + m.window - 1) : m.q_len - 1};
 }
 
-// The live kv tiles of query rows [r_lo, r_hi], as _tile_meta_impl's
-// live(i, j) keeps them: tiles [0, pre) hold the prefix, tiles [lo, hi)
-// the causal band, bounded below by the window. A tile in neither has no
-// visible (row, col) pair and is never loaded; a ring block wholly in the
-// future of its q shard has none at all. Walk t in [0, count()), tile(t)
-// in increasing order.
+// Whether every query of [r_lo, r_hi] sees every key of [k0, k0 + n):
+// the tiles on which the Hopper forward (flash_fwd_sm90.cuh) skips the
+// per-element mask. Rows past q_len are not asked about (their outputs
+// are never written).
+__device__ __forceinline__ bool sees_all(const Mask& m, int r_lo, int r_hi, int k0, int n) {
+  const int k1 = k0 + n - 1;
+  if (k1 >= m.kv_len) return false;
+  if (!m.causal || k1 < m.prefix) return true;
+  return r_lo + m.off >= k1 && (m.window <= 0 || r_hi + m.off - m.window + 1 <= k0);
+}
+
+// The live kv tiles (TK keys each) of query rows [r_lo, r_hi], as
+// _tile_meta_impl's live(i, j) keeps them: tiles [0, pre) hold the
+// prefix, tiles [lo, hi) the causal band, bounded below by the window. A
+// tile in neither has no visible (row, col) pair and is never loaded; a
+// ring block wholly in the future of its q shard has none at all. Walk t
+// in [0, count()), tile(t) in increasing order.
 struct TileRange {
   int pre, lo, hi;
   __device__ __forceinline__ int count() const { return pre + max(0, hi - max(lo, pre)); }
@@ -131,14 +144,15 @@ struct TileRange {
   }
 };
 
+template <int TK = BK>
 __device__ __forceinline__ TileRange kv_tiles(const Mask& m, int r_lo, int r_hi) {
-  const int nk = (m.kv_len + BK - 1) / BK;
+  const int nk = (m.kv_len + TK - 1) / TK;
   if (!m.causal) return TileRange{0, 0, nk};
   const int last = min(m.kv_len - 1, r_hi + m.off);
-  TileRange t{m.prefix > 0 ? min(nk, (m.prefix + BK - 1) / BK) : 0, 0, 0};
+  TileRange t{m.prefix > 0 ? min(nk, (m.prefix + TK - 1) / TK) : 0, 0, 0};
   if (last >= 0) {
-    t.lo = m.window > 0 ? max(0, r_lo + m.off - m.window + 1) / BK : 0;
-    t.hi = last / BK + 1;
+    t.lo = m.window > 0 ? max(0, r_lo + m.off - m.window + 1) / TK : 0;
+    t.hi = last / TK + 1;
   }
   return t;
 }
@@ -367,7 +381,7 @@ constexpr size_t FWD_SMEM =
     (3 * TILE_H + TILE_P) * sizeof(bf16) + (TILE_S + TILE_O + 2 * 64) * sizeof(float);
 
 // Forward of one 64-row query tile (rows by `map`, batch b) against kv
-// head kvh: online softmax over the live kv tiles with the running output
+// head kvh, for the ring block K12 (K1 and K9 run flash_fwd_sm90.cuh): online softmax over the live kv tiles with the running output
 // in shared memory, then o = acc / l and lse = m + log(l) per row. A row
 // that sees no key gets o = 0 and lse = -1e30; P is zero wherever a row
 // sees no key of a tile, so a window-edge tile that is some rows' first

@@ -11,39 +11,48 @@
 //
 // What the TPU design buys, and what stands for it here: a TPU program
 // spans every head of a row block, so one kv block read from HBM feeds all
-// q heads. On Hopper all heads of a 64-row tile do not fit one block's
-// 227 KB of shared memory (at H*D = 1024: 128 KB of q, 256 KB of k/v and
-// 256 KB of f32 accumulator). The reuse that survives is within a GQA
+// q heads. On Hopper all heads of a row tile do not fit one block's
+// 227 KB of shared memory. The reuse that survives is within a GQA
 // group, whose q heads share one kv head. K9 and K10 pack the group's
-// g = H / KVH q heads as the rows of one 64-row tile (64/g positions x g
-// heads), so each k/v tile is staged in shared memory once per group
-// where K1/K3 stage it once per q head; one block per (64/g positions,
-// kv head, batch). K11 is kv-major, as K4: one block holds its k/v tile
-// while the group's q heads stream past, and sums dk/dv over the group in
-// registers, so they come out at kv-head width with no group-sum pass.
+// g = H / KVH q heads as the rows of one tile (positions x g heads,
+// head-major), so each k/v tile is staged in shared memory once per group
+// where K1/K3 stage it once per q head. K11 is kv-major, as K4: one block
+// holds its k/v tile while the group's q heads stream past, and sums
+// dk/dv over the group in registers, so they come out at kv-head width
+// with no group-sum pass.
 //
 // What bounds them on the H100: tensor-core operations, as K1/K3/K4: 4, 6
 // and 8 * D operations per visible (q, k) pair, at B8 H8 S2048 D128
 // causal 0.07, 0.10 and 0.14 ms at 989 TFLOP/s. Every loop visits only
 // the tiles the mask leaves live (causal diagonal, sliding window,
-// prefix), as `_tile_meta_impl` does on the TPU. The tile loops are K1's,
-// K3's and K4's (flash_common.cuh) with another row map and output
-// layout and without rope (the bshd route ropes q/k before attention, as
-// the JAX model does). Not yet done: wgmma, TMA, double buffering.
+// prefix), as `_tile_meta_impl` does on the TPU. No rope: the bshd route
+// ropes q/k before attention, as the JAX model does.
+//
+// What the designs do about it. K9 runs K1's Hopper loop
+// (flash_fwd_sm90.cuh: TMA producer warpgroup, two wgmma consumer
+// warpgroups, online softmax in registers) on 128-row tiles of 128 / g
+// positions x g heads; its q tensor map's box spans (64 columns, 128 / g
+// positions, g heads) of the [B, S, H*D] view, which lands the rows in
+// that order. K10 and K11 still run K3's and K4's WMMA loops
+// (flash_common.cuh) on 64-row tiles: no wgmma, TMA or double buffering
+// yet.
 //
 // Outputs: o and dq [B, S, H*D], dk and dv [B, S, KVH*D], contiguous; lse
 // f32 [B, H, S]. A row that sees no key gets o = 0 and lse = -1e30.
-#include "flash_common.cuh"
+#include "flash_fwd_sm90.cuh"
 
 namespace fa {
 
-// One block per (2^shift query positions, kv head, batch): rows are the
-// group's q heads at those positions.
-__global__ void __launch_bounds__(NTHREADS) flash_fwd_heads_kernel(AttnArgs a) {
+// One block per (128 / group query positions, kv head, batch), in sm90's
+// causal order: its 128 rows are the group's q heads at those positions.
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+    flash_fwd_heads_kernel(const __grid_constant__ sm90::FwdParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int kvh = blockIdx.y;
-  fwd_tile(smem, a, RowMap{(int)blockIdx.x << a.shift, a.shift, kvh * a.group}, kvh,
-           blockIdx.z);
+  int bh, qi;
+  sm90::block_tile(p, bh, qi);
+  const int kvh = bh % (p.a.H / p.a.group), shift = p.a.shift;
+  sm90::fwd_block(smem, p, RowMap{qi << shift, shift, kvh * p.a.group}, kvh,
+                  bh / (p.a.H / p.a.group));
 }
 
 __global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_heads_kernel(AttnArgs a) {
@@ -78,14 +87,17 @@ extern "C" int flash_fwd_heads(const void* q, const void* k, const void* v, void
                                void* lse, int B, int H, int KVH, int q_len, int kv_len,
                                const long long* strides, int causal, int window,
                                int prefix, float scale, void* stream) {
-  const int shift = pack_shift(H / KVH);
-  if (shift < 0) return (int)cudaErrorInvalidValue;
-  AttnArgs a = attn_args(q, k, v, nullptr, nullptr, nullptr, strides, H, KVH, q_len, kv_len,
-                         causal, window, prefix, scale);
-  a.shift = shift;
-  a.o = out_bshd(o, H, q_len);
-  a.lse = static_cast<float*>(lse);
-  return launch(flash_fwd_heads_kernel, packed_grid(a, KVH, B), FWD_SMEM, stream, a);
+  // 128-row tiles: one more position bit than the 64-row K10 tiles
+  const int shift = pack_shift(H / KVH) + 1;
+  if (shift < 1) return (int)cudaErrorInvalidValue;
+  sm90::FwdParams p = {};
+  p.a = attn_args(q, k, v, nullptr, nullptr, nullptr, strides, H, KVH, q_len, kv_len, causal,
+                  window, prefix, scale);
+  p.a.shift = shift;
+  p.a.o = out_bshd(o, H, q_len);
+  p.a.lse = static_cast<float*>(lse);
+  p.n_bh = B * KVH;
+  return sm90::launch_fwd(flash_fwd_heads_kernel, p, B, KVH, shift, stream);
 }
 
 extern "C" int flash_bwd_dq_heads(const void* q, const void* k, const void* v,

@@ -13,14 +13,23 @@ For each kernel it prints one JSON line with:
   differ, and how many instruction lines differ, as printed and with
   every hex literal masked (constant-bank offsets and branch targets
   move when a kernel argument struct grows);
+- ``tensor_core``: each build's count of HGMMA (wgmma), UTMALDG (TMA
+  load) and HMMA (mma.sync / WMMA) instructions, the tensor-core path
+  the kernel takes;
 - ``bit_equal``: whether the two builds give bit-equal outputs on the
-  same inputs;
+  same inputs, and when they do not (a loop that sums in another order),
+  ``diff``: per output, the largest absolute difference and that over
+  the other build's largest absolute value;
 - ``ms``: the time in ``--pairs`` alternating pairs (this, other; then
   other, this; ...), each side the mean of CUDA-event times over
   ``--calls`` launches, at the training slice's shape (B8 H8 KVH8 S2048
   D128, causal; rope in K1/K3/K4, the [B, S, H*D] layout for K9-K11):
   each side's median, min and max, and the other/this ratio of each
   pair (median, min, max).
+
+K1's time includes its rope pre-pass (``flash_fwd_rope_k``); against a
+checkout whose library has no pre-pass (its K1 ropes k inside the loop),
+that side runs without it.
 
 The C entries must take the same arguments in both checkouts. The card's
 name and power limit come first; the whole report also goes to
@@ -30,6 +39,7 @@ name and power limit come first; the whole report also goes to
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import difflib
 import json
@@ -53,6 +63,9 @@ LIBRARIES = {
     "flash_heads": ("flash_fwd_heads", "flash_bwd_dq_heads",
                     "flash_bwd_dkv_heads"),
 }
+# entry -> the pre-pass its wrapper launches before it
+PREPASS = {"flash_fwd": "flash_fwd_rope_k"}
+TENSOR_CORE = ("HGMMA", "UTMALDG", "HMMA")
 INSTR = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
 HEX = re.compile(r"0x[0-9a-f]+")
 
@@ -133,6 +146,35 @@ def sass(so: Path, kernel: str):
 def opcode(instr: str) -> str:
     words = instr.split()
     return words[1] if words[0].startswith("@") else words[0]
+
+
+def tensor_core(instrs: list[str]) -> dict:
+    counts = Counter(opcode(i).split(".")[0] for i in instrs)
+    return {op: counts[op] for op in TENSOR_CORE}
+
+
+def difference(this, other) -> list[dict]:
+    """Per output: the largest absolute difference, and that over the
+    other build's largest absolute value."""
+    out = []
+    for a, b in zip(this, other):
+        diff = (a.float() - b.float()).abs().max().item()
+        out.append({"max_abs": diff,
+                    "max_rel": diff / b.float().abs().max().item()})
+    return out
+
+
+@contextlib.contextmanager
+def without_prepass(att, entry: str):
+    """Run ``entry``'s wrapper with its pre-pass as the identity (for a
+    library whose kernel does that work itself)."""
+    name = PREPASS[entry]
+    saved = getattr(att, name)
+    setattr(att, name, lambda x, *tables: x)
+    try:
+        yield
+    finally:
+        setattr(att, name, saved)
 
 
 def differing(a: list[str], b: list[str]) -> int:
@@ -241,8 +283,14 @@ def main() -> int:
                                      + [ctypes.c_void_p])
             fns["other"].restype = ctypes.c_int
 
-            def run(side, fn=calls[entry], symbol=entry, fns=fns):
+            bare = (entry in PREPASS
+                    and not hasattr(other_lib, PREPASS[entry]))
+
+            def run(side, fn=calls[entry], symbol=entry, fns=fns, bare=bare):
                 _build._bound[symbol] = fns[side]
+                if side == "other" and bare:
+                    with without_prepass(att, symbol):
+                        return fn()
                 return fn()
 
             outs = {side: run(side) for side in fns}
@@ -250,6 +298,8 @@ def main() -> int:
                     for side, out in outs.items()}
             bit_equal = all(torch.equal(a, b) for a, b in
                             zip(flat["this"], flat["other"]))
+            diff = (None if bit_equal
+                    else difference(flat["this"], flat["other"]))
             del outs, flat
             times = {"this": [], "other": []}
             for pair in range(args.pairs):
@@ -265,7 +315,11 @@ def main() -> int:
                 "ptxas": {"this": ptxas_report(this[lib][1], kernel),
                           "other": ptxas_report(other[lib][1], kernel)},
                 "sass": (None if None in codes else compare_sass(*codes)),
+                "tensor_core": (None if None in codes else {
+                    side: tensor_core(code)
+                    for side, code in zip(("this", "other"), codes)}),
                 "bit_equal": bit_equal,
+                "diff": diff,
                 "ms": {"this": spread(times["this"]),
                        "other": spread(times["other"]),
                        "ratio_other_over_this": spread(

@@ -49,6 +49,10 @@ def _rel(got, want):
     (1, 4, 4, 128, True),
     (2, 8, 2, 200, True),     # GQA, ragged
     (1, 4, 1, 77, False),     # MQA, ragged, no rope
+    (1, 2, 2, 48, True),      # shorter than one 128-row tile
+    (1, 4, 2, 1000, True),    # ragged against 128-row tiles
+    (1, 2, 1, 1100, False),   # ragged, MQA, no rope
+    (1, 2, 2, 256, True),     # 4 blocks: a grid smaller than one wave
 ])
 def test_kernels_match_plain(cuda, B, H, KVH, S, rope):
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -78,6 +82,13 @@ def test_kernels_match_plain(cuda, B, H, KVH, S, rope):
     (2, 4, 4, 200, None, None),   # MHA, ragged
     (1, 8, 2, 300, 96, None),     # sliding window, ragged
     (1, 8, 1, 256, 64, 40),       # MQA, window + prefix
+    (1, 2, 2, 48, None, None),    # shorter than one tile
+    (1, 8, 8, 1100, None, None),  # g = 1, ragged against 128-row tiles
+    (1, 8, 4, 1000, None, None),  # g = 2, ragged
+    (1, 16, 1, 256, None, None),  # g = 16: 8 positions x 16 heads
+    (1, 8, 1, 300, 200, None),    # g = 8, window not a tile multiple
+    (1, 4, 2, 400, None, 200),    # prefix crossing a tile
+    (1, 4, 1, 500, 160, 150),     # window and prefix, both mid-tile
 ])
 def test_fused_heads_kernels_match_plain(cuda, B, H, KVH, S, window, prefix):
     """K9-K11 through flash_attention_bshd against the plain chain (K9's,
@@ -128,6 +139,63 @@ def test_masked_per_head_kernels_match_plain(cuda):
     args = (q, k, v, do, lse_p, delta_p, cos, sin, *mask)
     dk_p, dv_p = att.flash_bwd_dkv_plain(*args)
     assert _rel(out, o_p) < 2e-2
+    assert _rel(leaves[0].grad, att.flash_bwd_dq_plain(*args)) < 3e-2
+    assert _rel(leaves[1].grad, dk_p) < 3e-2
+    assert _rel(leaves[2].grad, dv_p) < 3e-2
+
+
+@pytest.mark.parametrize("q_len,kv_len", [
+    (200, 333),   # kv_len > q_len: end-aligned causality
+    (333, 200),   # q_len > kv_len: rows 0..132 see no key
+    (48, 300),
+    (300, 48),
+])
+def test_forward_kernels_on_uneven_lengths(cuda, q_len, kv_len):
+    """K1 (no rope) and K9 (g = 4) with kv_len != q_len against their
+    plain versions; rows that see no key give o = 0 and lse = -1e30
+    exactly."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    B, H, KVH = 2, 8, 2
+    q = torch.randn(B, H, q_len, 128, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    k, v = (torch.randn(B, KVH, kv_len, 128, generator=gen, device=cuda)
+            .to(torch.bfloat16) for _ in range(2))
+    scale = 128 ** -0.5
+    blind = max(0, q_len - kv_len)  # rows with no visible key
+    o_p, lse_p = att.flash_fwd_plain(q, k, v, None, None, True, scale)
+    o9, lse9 = att.flash_fwd_heads(*(att._merge_heads(t) for t in (q, k, v)),
+                                   H, True, scale)
+    for o, lse in (att.flash_fwd(q, k, v, None, None, True, scale),
+                   (att._split_heads(o9, H), lse9)):
+        assert _rel(o, o_p) < 2e-2
+        assert (lse - lse_p).abs().max().item() < 2e-2
+        assert not o[:, :, :blind].any()
+        assert torch.all(lse[:, :, :blind] == att.NEG_INF)
+
+
+def test_per_head_kernels_on_transposed_views(cuda):
+    """K1-K4 with rope on [B, S, H, D] tensors passed as their [B, H, S,
+    D] transposes (head stride D, row stride H*D), read in place."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    B, H, KVH, S = 2, 8, 4, 300
+    q, k, v, do = (torch.randn(B, S, h, 128, generator=gen, device=cuda)
+                   .to(torch.bfloat16).transpose(1, 2)
+                   for h in (H, KVH, KVH, H))
+    ang = torch.randn(B, S, 64, generator=gen, device=cuda)
+    cos = torch.cat([ang.cos()] * 2, -1).to(torch.bfloat16)
+    sin = torch.cat([ang.sin()] * 2, -1).to(torch.bfloat16)
+    assert q.stride() == (S * H * 128, 128, H * 128, 1)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = att.flash_attention(*leaves, rope_cos=cos, rope_sin=sin)
+    out.backward(do)
+    scale = 128 ** -0.5
+    o_p, lse_p = att.flash_fwd_plain(q, k, v, cos, sin, True, scale)
+    o, lse = att.flash_fwd(q, k, v, cos, sin, True, scale)
+    assert (lse - lse_p).abs().max().item() < 2e-2
+    delta_p = att.flash_bwd_preprocess_plain(do, o_p)
+    args = (q, k, v, do, lse_p, delta_p, cos, sin, True, scale)
+    dk_p, dv_p = att.flash_bwd_dkv_plain(*args)
+    assert _rel(out, o_p) < 2e-2 and _rel(o, o_p) < 2e-2
     assert _rel(leaves[0].grad, att.flash_bwd_dq_plain(*args)) < 3e-2
     assert _rel(leaves[1].grad, dk_p) < 3e-2
     assert _rel(leaves[2].grad, dv_p) < 3e-2
