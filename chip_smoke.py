@@ -16,11 +16,15 @@ Phases, each fatal on failure (no exception is caught):
    inputs and end to end (K1-K4 through flash_attention, K9-K11 and
    K1-K4 through both routes of flash_attention_bshd); at the slice's
    shape each kernel's ms, its plain version's ms, SDPA's ms as the
-   library yardstick, and the bound (bytes or tensor-core operations at
-   the H100 SXM peaks), K1's time including its rope pre-pass, which is
-   also checked against the plain rope and timed alone; at the GQA shape
-   K9 against K1 and K10 against K3, both without rope, as the measure
-   of K9/K10's group packing;
+   library yardstick (its backward from CUDA-graph replays, forward and
+   backward less forward), and the bound (bytes or tensor-core
+   operations at the H100 SXM peaks), K1's time including its rope
+   pre-pass, which is also checked against the plain rope and timed
+   alone, and K3's and K4's each including the two pre-passes (q and k)
+   that the backward runs once for both, also timed alone; at the GQA
+   shape K9 against K1 and K10 against K3, both without rope, as the
+   measure of K9/K10's group packing (K10 against K3 also of the WMMA
+   loop against the wgmma one);
    then each ring-block kernel (K12-K14) against its plain version in
    bf16, for the q shard of ring rank 1 against the kv shards of ranks 1
    (the diagonal), 0 (wholly visible) and 2 (wholly in the future: exact
@@ -434,9 +438,13 @@ def time_kernels(inputs):
     }
     log(json.dumps({"flash_bwd_preprocess_graph_replays_ms": k2}))
     k2 = {key: statistics.median(val) for key, val in k2.items()}
-    # K1's rope pre-pass alone (part of K1's time below), likewise
+    # K1's rope pre-pass alone (part of K1's time below), likewise; and
+    # the two that K3 and K4 each run (q and k), part of their times
     prepass = graph_ms(lambda: att.flash_fwd_rope_k(k, cos, sin), 50)
     log(json.dumps({"flash_fwd_rope_k_graph_replays_ms": prepass}))
+    bwd_prepass = graph_ms(lambda: (att.flash_fwd_rope_k(q, cos, sin),
+                                    att.flash_fwd_rope_k(k, cos, sin)), 50)
+    log(json.dumps({"bwd_rope_q_and_k_graph_replays_ms": bwd_prepass}))
     times = {
         "flash_fwd": (
             cuda_ms(lambda: att.flash_fwd(q, k, v, cos, sin, True, scale), 20),
@@ -457,11 +465,27 @@ def time_kernels(inputs):
     kr = att._rope(k, cos, sin).to(torch.bfloat16).requires_grad_()
     vr = v.clone().requires_grad_()
     fwd_ms = cuda_ms(lambda: sdpa(qr, kr, vr, is_causal=True), 20)
-    out = sdpa(qr, kr, vr, is_causal=True)
-    bwd_ms = cuda_ms(lambda: torch.autograd.grad(
-        out, (qr, kr, vr), do, retain_graph=True), 20)
+    bwd_ms = sdpa_bwd_ms((qr, kr, vr), do, "slice")
     library = {"flash_fwd": fwd_ms, "flash_bwd_preprocess": k2["library"]}
-    return times, library, bwd_ms, statistics.median(prepass)
+    prepass_ms = {"flash_fwd": statistics.median(prepass)}
+    prepass_ms["flash_bwd_dq"] = prepass_ms["flash_bwd_dkv"] = (
+        statistics.median(bwd_prepass))
+    return times, library, bwd_ms, prepass_ms
+
+
+def sdpa_bwd_ms(leaves, do, label):
+    """SDPA's backward (causal) on the leaves q/k/v with output gradient
+    do: the median of 5 CUDA-graph replays of forward and backward
+    together less that of the forward alone (a captured backward needs
+    its forward in the same capture). Both medians are logged."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd = graph_ms(lambda: sdpa(*leaves, is_causal=True), 20)
+    both = graph_ms(lambda: torch.autograd.grad(
+        sdpa(*leaves, is_causal=True), leaves, do), 20)
+    bwd = statistics.median(both) - statistics.median(fwd)
+    log(json.dumps({"sdpa_graph_replays_ms": {
+        "case": label, "fwd": fwd, "fwd_and_bwd": both, "bwd": bwd}}))
+    return bwd
 
 
 def time_heads(inputs):
@@ -484,16 +508,15 @@ def time_heads(inputs):
     views = [att._split_heads(t, H).detach().requires_grad_()
              for t in (q, k, v)]
     fwd_ms = cuda_ms(lambda: sdpa(*views, is_causal=True), 20)
-    out = sdpa(*views, is_causal=True)
-    bwd_ms = cuda_ms(lambda: torch.autograd.grad(
-        out, views, att._split_heads(do, H), retain_graph=True), 20)
+    bwd_ms = sdpa_bwd_ms(views, att._split_heads(do, H), "bshd views")
     return times, {"flash_fwd_heads": fwd_ms}, bwd_ms
 
 
 def time_packing(shape):
     """K9 against K1 and K10 against K3 at ``shape``, all without rope,
     on the same data: K1/K3 stage each k/v tile once per q head, K9/K10
-    once per GQA group."""
+    once per GQA group. K10 against K3 also holds the WMMA loop against
+    the wgmma one, until K10 moves onto it."""
     from dlrover_tpu_torch.ops import attention as att
 
     B, H, KVH, S = shape
@@ -1288,7 +1311,7 @@ def main() -> int:
         del inputs, heads
     check_shape("masked", SHAPES["gqa"], 3, worst, **MASKED)
     check_heads("masked", SHAPES["gqa"], 3, worst, **MASKED)
-    times, library, sdpa_bwd_ms, prepass_ms = time_kernels(slice_inputs)
+    times, library, sdpa_bwd, prepass_ms = time_kernels(slice_inputs)
     heads_times, heads_library, sdpa_bwd_plain_ms = time_heads(slice_heads)
     times.update(heads_times)
     library.update(heads_library)
@@ -1314,8 +1337,11 @@ def main() -> int:
         return sum(times[k][0] for k in ("flash_bwd_preprocess",) + names)
 
     log(json.dumps({"backward_at_slice_shape": {
-        "port_bwd_ms": bwd_sum(("flash_bwd_dq", "flash_bwd_dkv")),
-        "sdpa_bwd_ms": sdpa_bwd_ms,
+        # K3's and K4's times each hold both rope pre-passes, which the
+        # backward runs once for the two
+        "port_bwd_ms": bwd_sum(("flash_bwd_dq", "flash_bwd_dkv"))
+        - prepass_ms["flash_bwd_dq"],
+        "sdpa_bwd_ms": sdpa_bwd,
         "port_bshd_bwd_ms": bwd_sum(("flash_bwd_dq_heads",
                                      "flash_bwd_dkv_heads")),
         "sdpa_bwd_ms_rope_free_views": sdpa_bwd_plain_ms}}))
@@ -1345,8 +1371,8 @@ def main() -> int:
             "plain_ms": times[name][1], "bound_ms": bound[name][0],
             "bound_by": bound[name][1], "library_ms": library.get(name),
         })
-        if name == "flash_fwd":  # its rope pre-pass, included in ms
-            kernels[-1]["prepass_ms"] = prepass_ms
+        if name in prepass_ms:  # its rope pre-passes, included in ms
+            kernels[-1]["prepass_ms"] = prepass_ms[name]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

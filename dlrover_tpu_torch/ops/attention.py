@@ -12,6 +12,9 @@ On the [B, H, S, Dh] layout (:func:`flash_attention`):
 - ``flash_bwd_dkv`` (K4): dk and dv at kv-head width, kv-major, dk
   un-roped in the kernel.
 
+K3 and K4 load q and k roped by the same pre-pass, run once per
+backward for both.
+
 On the model-native [B, S, H*Dh] layout (:func:`flash_attention_bshd`,
 the JAX package's fused-heads family), each q-major kernel packing the q
 heads of one GQA group into its tiles:
@@ -400,9 +403,10 @@ def _launch_attn(symbol, operands, inputs, tables, outs, tail):
 
 
 def flash_fwd_rope_k(k, rope_cos, rope_sin):
-    """K1's pre-pass: rope(k) as a contiguous [B, KVH, S, D] bf16 CUDA
+    """K1's pre-pass: rope(k) as a contiguous [B, heads, S, D] bf16 CUDA
     tensor, rounded once from f32 (tables [B, S, D] full width). Counted
-    as part of K1, which loads it in place of k."""
+    as part of K1, which loads it in place of k, and of K3 and K4, which
+    load it in place of q and k."""
     _check("flash_fwd_rope_k", k, k, rope_cos, rope_sin)
     k, st = _rows(k)
     (cos, sin), _ = _table_ptrs(k, k, rope_cos, rope_sin)
@@ -450,12 +454,18 @@ def flash_bwd_preprocess(do, o):
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, rope_cos, rope_sin, causal,
-                 sm_scale, window=None, prefix=None):
-    """K3: dq [B,H,S,D] in q.dtype, un-roped."""
+                 sm_scale, window=None, prefix=None, roped=None):
+    """K3: dq [B,H,S,D] in q.dtype, un-roped. With rope tables the kernel
+    loads q and k roped: ``roped`` is the pair from
+    :func:`flash_fwd_rope_k` on q and k, or, when None, they are roped
+    here first; the tables un-rope dq in the kernel."""
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, rope_cos,
                                   rope_sin, causal, sm_scale, window, prefix)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if rope_cos is not None:
+        q, k = roped or (flash_fwd_rope_k(q, rope_cos, rope_sin),
+                         flash_fwd_rope_k(k, rope_cos, rope_sin))
     _launch_attn("flash_bwd_dq", (q, k, v, do), (lse, delta),
                  (rope_cos, rope_sin), (dq,),
                  _mask_args(causal, window, prefix, sm_scale))
@@ -464,13 +474,17 @@ def flash_bwd_dq(q, k, v, do, lse, delta, rope_cos, rope_sin, causal,
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, rope_cos, rope_sin, causal,
-                  sm_scale, window=None, prefix=None):
-    """K4: (dk, dv) [B,KVH,S,D] in k.dtype/v.dtype, dk un-roped."""
+                  sm_scale, window=None, prefix=None, roped=None):
+    """K4: (dk, dv) [B,KVH,S,D] in k.dtype/v.dtype, dk un-roped. Rope and
+    ``roped`` as in :func:`flash_bwd_dq`."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, rope_cos,
                                    rope_sin, causal, sm_scale, window, prefix)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    if rope_cos is not None:
+        q, k = roped or (flash_fwd_rope_k(q, rope_cos, rope_sin),
+                         flash_fwd_rope_k(k, rope_cos, rope_sin))
     _launch_attn("flash_bwd_dkv", (q, k, v, do), (lse, delta),
                  (rope_cos, rope_sin), (dk, dv),
                  _mask_args(causal, window, prefix, sm_scale))
@@ -606,8 +620,13 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse, rope_cos, rope_sin = ctx.saved_tensors
         delta = flash_bwd_preprocess(do, o)
         args = (q, k, v, do, lse, delta, rope_cos, rope_sin, *ctx.opts)
-        dq = flash_bwd_dq(*args)
-        dk, dv = flash_bwd_dkv(*args)
+        roped = None
+        if rope_cos is not None and q.device.type == "cuda":
+            # K3 and K4 load q and k roped: one pre-pass each for both
+            roped = (flash_fwd_rope_k(q, rope_cos, rope_sin),
+                     flash_fwd_rope_k(k, rope_cos, rope_sin))
+        dq = flash_bwd_dq(*args, roped=roped)
+        dk, dv = flash_bwd_dkv(*args, roped=roped)
         return dq, dk, dv, None, None, None, None, None, None
 
 

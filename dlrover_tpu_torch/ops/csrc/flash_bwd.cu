@@ -28,16 +28,19 @@
 //      at 989 TFLOP/s): tensor-core bound.
 //   K4 recomputes S^T and dP^T and forms dV = P^T dO and dK = dS^T Q: four
 //      products, 137 GFLOP (0.14 ms): tensor-core bound.
-// What the design does about that: every product runs on the tensor cores
-// (WMMA bf16 -> f32); the loops visit only the tiles the mask leaves live
-// (causal diagonal, sliding window, prefix); S^T and dP^T are formed
-// directly (K4 multiplies K Q^T, not a transposed copy); rope is applied
-// to tiles as they are staged and the transpose of rope is applied to
-// dq/dk in the epilogue, so roped tensors never reach device memory.
-// Accumulators stay in registers across the loop. The tile loops
-// (`dq_tile`, `dkv_tile`) live in flash_common.cuh and are shared with
-// K10/K11. Not yet done: wgmma, TMA, double buffering.
-#include "flash_common.cuh"
+// What the design does about that: K3 and K4 run the Hopper loops of
+// flash_bwd_sm90.cuh (a TMA producer warpgroup streaming 64-row tiles,
+// two wgmma consumer warpgroups of 64 rows each, P and dS formed in
+// registers and fed back to wgmma as its register operand, accumulators
+// in registers), visiting only the tiles the mask leaves live (causal
+// diagonal, sliding window, prefix), longest blocks first. Rope: TMA
+// cannot rope a tile as it lands, so the wrappers rope q and k once per
+// call with K1's pre-pass `flash_fwd_rope_k` (flash_fwd.cu) and pass the
+// roped buffers as q and k; the tables still come in, for the transpose
+// of rope that the epilogues apply to dq and dk. K10/K11 (flash_heads.cu)
+// and K13/K14 (flash_ring.cu) keep the WMMA loops `dq_tile`/`dkv_tile` of
+// flash_common.cuh.
+#include "flash_bwd_sm90.cuh"
 
 namespace fa {
 
@@ -64,18 +67,21 @@ __global__ void __launch_bounds__(NTHREADS)
 }
 
 // ---------------------------------------------------------------- K3
-// One block per (q tile, q head, batch).
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(AttnArgs a) {
+// One block per (q tile of 128 positions, q head, batch), last tiles
+// first.
+__global__ void __launch_bounds__(sm90::bwd::THREADS, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ sm90::bwd::BwdParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int h = blockIdx.y;
-  dq_tile<bf16>(smem, a, RowMap{(int)blockIdx.x * BQ, 6, h}, h / a.group, blockIdx.z);
+  sm90::bwd::dq_block(smem, p);
 }
 
 // ---------------------------------------------------------------- K4
-// One block per (kv tile, kv head, batch).
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(AttnArgs a) {
+// One block per (kv tile of 128 positions, kv head, batch), first tiles
+// first.
+__global__ void __launch_bounds__(sm90::bwd::THREADS, 1)
+    flash_bwd_dkv_kernel(const __grid_constant__ sm90::bwd::BwdParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  dkv_tile<bf16>(smem, a, blockIdx.x * BK, blockIdx.y, blockIdx.z);
+  sm90::bwd::dkv_block(smem, p);
 }
 
 }  // namespace fa
@@ -96,19 +102,22 @@ extern "C" int flash_bwd_preprocess(const void* dout, const void* o, void* delta
   return (int)cudaGetLastError();
 }
 
-// `strides` holds 12 values: (batch, head, row) strides of q, k, v, do.
+// flash_bwd_dq / flash_bwd_dkv: `strides` holds 12 values, the (batch,
+// head, row) strides of q, k, v and do. With rope tables, q and k must
+// come roped already, from flash_fwd_rope_k on the same tables; the
+// tables un-rope dq and dk.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, const void* cos,
                             const void* sin, void* dq, int B, int H, int KVH, int q_len,
                             int kv_len, const long long* strides, int causal, int window,
                             int prefix, float scale, void* stream) {
-  AttnArgs a = attn_args(q, k, v, dout, lse, delta, strides, H, KVH, q_len, kv_len, causal,
-                         window, prefix, scale);
-  a.cos = static_cast<const bf16*>(cos);
-  a.sin = static_cast<const bf16*>(sin);
-  a.dq = out_bhsd(dq, H, q_len);
-  return launch(flash_bwd_dq_kernel, dim3((q_len + BQ - 1) / BQ, H, B), DQ_SMEM, stream,
-                a);
+  sm90::bwd::BwdParams p = {};
+  p.a = attn_args(q, k, v, dout, lse, delta, strides, H, KVH, q_len, kv_len, causal, window,
+                  prefix, scale);
+  p.a.cos = static_cast<const bf16*>(cos);
+  p.a.sin = static_cast<const bf16*>(sin);
+  p.a.dq = out_bhsd(dq, H, q_len);
+  return sm90::bwd::launch_bwd(flash_bwd_dq_kernel, p, B, KVH, false, stream);
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
@@ -116,12 +125,12 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                              const void* sin, void* dk, void* dv, int B, int H, int KVH,
                              int q_len, int kv_len, const long long* strides, int causal,
                              int window, int prefix, float scale, void* stream) {
-  AttnArgs a = attn_args(q, k, v, dout, lse, delta, strides, H, KVH, q_len, kv_len, causal,
-                         window, prefix, scale);
-  a.cos = static_cast<const bf16*>(cos);
-  a.sin = static_cast<const bf16*>(sin);
-  a.dk = out_bhsd(dk, KVH, kv_len);
-  a.dv = out_bhsd(dv, KVH, kv_len);
-  return launch(flash_bwd_dkv_kernel, dim3((kv_len + BK - 1) / BK, KVH, B), DKV_SMEM,
-                stream, a);
+  sm90::bwd::BwdParams p = {};
+  p.a = attn_args(q, k, v, dout, lse, delta, strides, H, KVH, q_len, kv_len, causal, window,
+                  prefix, scale);
+  p.a.cos = static_cast<const bf16*>(cos);
+  p.a.sin = static_cast<const bf16*>(sin);
+  p.a.dk = out_bhsd(dk, KVH, kv_len);
+  p.a.dv = out_bhsd(dv, KVH, kv_len);
+  return sm90::bwd::launch_bwd(flash_bwd_dkv_kernel, p, B, KVH, true, stream);
 }

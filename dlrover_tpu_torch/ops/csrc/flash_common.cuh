@@ -1,10 +1,12 @@
 // Shared pieces of the Hopper flash-attention kernels (flash_fwd.cu,
 // flash_bwd.cu, flash_heads.cu, flash_ring.cu): tile geometry, the mask
 // and the tile ranges it leaves live (the one visibility rule of every
-// loop, the Hopper forward of flash_fwd_sm90.cuh included), tile loads
-// with in-kernel rope, the two WMMA products, and three WMMA tile loops:
-// forward (`fwd_tile`, now K12's alone: K1 and K9 run the wgmma/TMA loop
-// of flash_fwd_sm90.cuh), dq and dk/dv.
+// loop, the wgmma/TMA loops of flash_fwd_sm90.cuh and flash_bwd_sm90.cuh
+// included), tile loads with in-kernel rope, the two WMMA products, and
+// three WMMA tile loops: forward (`fwd_tile`, K12's), dq (`dq_tile`, K10's
+// and K13's) and dk/dv (`dkv_tile`, K11's and K14's). K1 and K9 run the
+// wgmma/TMA forward of flash_fwd_sm90.cuh, K3 and K4 the wgmma/TMA
+// backward of flash_bwd_sm90.cuh.
 //
 // Layout: q/k/v/do are bf16 operands addressed as [B, heads, S, D] through
 // batch, head and row strides (elements). That covers the [B, H, S, D]
@@ -24,9 +26,10 @@
 //
 // Row maps: a 64-row query tile holds 2^shift consecutive positions of
 // 64 >> shift heads; row r is position pos0 + r % 2^shift of head
-// head0 + r / 2^shift. The per-head kernels (K1, K3) take one head per
-// tile (shift 6); the fused-heads kernels (K9, K10) pack the q heads of
-// one GQA group into the tile, so one staged k/v tile serves the group.
+// head0 + r / 2^shift. The per-head loops take one head per tile (shift
+// 6; 7 for the 128-row tiles of the wgmma loops); the fused-heads
+// kernels (K9, K10) pack the q heads of one GQA group into the tile, so
+// one staged k/v tile serves the group.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -120,9 +123,10 @@ __device__ __forceinline__ Rows rows_of(const Mask& m, int k_lo, int k_hi) {
 }
 
 // Whether every query of [r_lo, r_hi] sees every key of [k0, k0 + n):
-// the tiles on which the Hopper forward (flash_fwd_sm90.cuh) skips the
-// per-element mask. Rows past q_len are not asked about (their outputs
-// are never written).
+// the tiles on which the wgmma loops (flash_fwd_sm90.cuh,
+// flash_bwd_sm90.cuh) skip the per-element mask. Rows past q_len are not
+// asked about: their outputs are never written, and the backward gives
+// them lse = +inf, so their P is 0.
 __device__ __forceinline__ bool sees_all(const Mask& m, int r_lo, int r_hi, int k0, int n) {
   const int k1 = k0 + n - 1;
   if (k1 >= m.kv_len) return false;

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""A/B of the attention kernels built on ``flash_common.cuh`` (K1, K3, K4
-and K9-K11) between this checkout and another one, say the parent commit
-unpacked with ``git archive`` into a gitignored directory, on one GPU:
+"""A/B of the attention kernels K1, K3, K4 and K9-K11 between this
+checkout and another one, say the parent commit unpacked with ``git
+archive`` into a gitignored directory, or a copy of this tree with one
+constant changed, on one GPU:
 
     python3 kernel_ab.py --other _archive/parent [--pairs 20] [--calls 20]
 
 Both checkouts' sources are compiled with this checkout's nvcc flags.
 For each kernel it prints one JSON line with:
 
-- ``ptxas``: each build's register, spill and stack report;
+- ``ptxas``: each build's register, spill and stack report, and any
+  warning that it serialised wgmma;
 - ``sass``: each build's instruction count, the opcodes whose counts
   differ, and how many instruction lines differ, as printed and with
   every hex literal masked (constant-bank offsets and branch targets
@@ -27,9 +29,10 @@ For each kernel it prints one JSON line with:
   each side's median, min and max, and the other/this ratio of each
   pair (median, min, max).
 
-K1's time includes its rope pre-pass (``flash_fwd_rope_k``); against a
-checkout whose library has no pre-pass (its K1 ropes k inside the loop),
-that side runs without it.
+K1's, K3's and K4's times include their rope pre-passes
+(``flash_fwd_rope_k``: k for K1, q and k for K3 and for K4); against a
+checkout whose wrapper of that kernel runs no pre-pass (its kernel ropes
+inside the loop), that side runs without it.
 
 The C entries must take the same arguments in both checkouts. The card's
 name and power limit come first; the whole report also goes to
@@ -39,6 +42,7 @@ name and power limit come first; the whole report also goes to
 from __future__ import annotations
 
 import argparse
+import ast
 import contextlib
 import ctypes
 import difflib
@@ -64,7 +68,8 @@ LIBRARIES = {
                     "flash_bwd_dkv_heads"),
 }
 # entry -> the pre-pass its wrapper launches before it
-PREPASS = {"flash_fwd": "flash_fwd_rope_k"}
+PREPASS = {"flash_fwd": "flash_fwd_rope_k", "flash_bwd_dq": "flash_fwd_rope_k",
+           "flash_bwd_dkv": "flash_fwd_rope_k"}
 TENSOR_CORE = ("HGMMA", "UTMALDG", "HMMA")
 INSTR = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
 HEX = re.compile(r"0x[0-9a-f]+")
@@ -113,9 +118,12 @@ def mangled(kernel: str) -> re.Pattern:
 
 
 def ptxas_report(text: str, kernel: str) -> list[str]:
-    """The ptxas lines of ``kernel``'s entry function."""
+    """The ptxas lines of ``kernel``'s entry function, and its warnings
+    (such as C7512/C7514, wgmma serialised), which come before them."""
     lines, found, pattern = text.splitlines(), [], mangled(kernel)
     for i, line in enumerate(lines):
+        if "Potential Performance Loss" in line and pattern.search(line):
+            found.append(line.replace("ptxas info    :", "").strip())
         if "Compiling entry function" in line and pattern.search(line):
             for nxt in lines[i + 1:]:
                 if "Compiling entry function" in nxt:
@@ -175,6 +183,17 @@ def without_prepass(att, entry: str):
         yield
     finally:
         setattr(att, name, saved)
+
+
+def runs_prepass(root: Path, entry: str) -> bool:
+    """Whether the wrapper of ``entry`` in ``root``'s attention module
+    calls the pre-pass ``PREPASS[entry]``."""
+    source = root / "dlrover_tpu_torch" / "ops" / "attention.py"
+    for node in ast.parse(source.read_text()).body:
+        if isinstance(node, ast.FunctionDef) and node.name == entry:
+            return any(isinstance(n, ast.Name) and n.id == PREPASS[entry]
+                       for n in ast.walk(node))
+    return False
 
 
 def differing(a: list[str], b: list[str]) -> int:
@@ -284,7 +303,7 @@ def main() -> int:
             fns["other"].restype = ctypes.c_int
 
             bare = (entry in PREPASS
-                    and not hasattr(other_lib, PREPASS[entry]))
+                    and not runs_prepass(args.other.resolve(), entry))
 
             def run(side, fn=calls[entry], symbol=entry, fns=fns, bare=bare):
                 _build._bound[symbol] = fns[side]

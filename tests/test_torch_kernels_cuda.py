@@ -201,6 +201,117 @@ def test_per_head_kernels_on_transposed_views(cuda):
     assert _rel(leaves[2].grad, dv_p) < 3e-2
 
 
+def _backward_inputs(cuda, seed, B, H, KVH, q_len, kv_len, rope, mask,
+                     transposed=False):
+    """Seeded bf16 q/k/v/do (as [B, S, heads, D] transposes when
+    ``transposed``), rope tables or None, and the arguments K3/K4 and
+    their plain versions take, with lse and delta from the plain
+    forward."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def randn(heads, S):
+        if transposed:
+            return torch.randn(B, S, heads, 128, generator=gen, device=cuda
+                               ).to(torch.bfloat16).transpose(1, 2)
+        return torch.randn(B, heads, S, 128, generator=gen,
+                           device=cuda).to(torch.bfloat16)
+
+    q, k, v, do = (randn(H, q_len), randn(KVH, kv_len), randn(KVH, kv_len),
+                   randn(H, q_len))
+    cos = sin = None
+    if rope:
+        ang = torch.randn(B, q_len, 64, generator=gen, device=cuda)
+        cos = torch.cat([ang.cos()] * 2, -1).to(torch.bfloat16)
+        sin = torch.cat([ang.sin()] * 2, -1).to(torch.bfloat16)
+    o_p, lse_p = att.flash_fwd_plain(q, k, v, cos, sin, *mask)
+    delta_p = att.flash_bwd_preprocess_plain(do, o_p)
+    return (q, k, v, do, lse_p, delta_p, cos, sin, *mask)
+
+
+def _check_backward_kernels(args):
+    """K3 and K4 against their plain versions on the same arguments;
+    returns the kernels' (dq, dk, dv)."""
+    before = att.launches()
+    dq = att.flash_bwd_dq(*args)
+    dk, dv = att.flash_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    after = att.launches()
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert after[name] == before[name] + 1
+    dk_p, dv_p = att.flash_bwd_dkv_plain(*args)
+    assert _rel(dq, att.flash_bwd_dq_plain(*args)) < 3e-2
+    assert _rel(dk, dk_p) < 3e-2
+    assert _rel(dv, dv_p) < 3e-2
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("B,H,KVH,S,window,prefix", [
+    (1, 2, 2, 48, None, None),     # shorter than one 64-row tile
+    (1, 4, 2, 1000, None, None),   # ragged against 64- and 128-row tiles
+    (1, 2, 1, 1100, None, None),   # ragged, MQA
+    (1, 2, 2, 256, None, None),    # group 1; 4 blocks: less than one wave
+    (2, 4, 2, 384, None, None),    # group 2
+    (1, 8, 2, 256, None, None),    # group 4
+    (1, 8, 1, 320, None, None),    # group 8
+    (1, 16, 1, 256, None, None),   # group 16
+    (1, 8, 2, 700, 200, None),     # a window of 200
+    (1, 4, 1, 500, 160, 150),      # window 160 and prefix 150, mid-tile
+    (1, 4, 2, 400, None, 200),     # a prefix of 200, crossing tiles
+])
+def test_backward_kernels_match_plain(cuda, B, H, KVH, S, window, prefix):
+    """K3 and K4 with rope, each called on its own from the plain
+    forward's lse and delta, against their plain versions."""
+    _check_backward_kernels(_backward_inputs(
+        cuda, 8, B, H, KVH, S, S, True, (True, 128 ** -0.5, window, prefix)))
+
+
+@pytest.mark.parametrize("q_len,kv_len,window", [
+    (333, 200, None),  # q_len > kv_len: rows 0..132 see no key
+    (300, 48, None),   # rows 0..251 see no key
+    (200, 333, 64),    # kv_len > q_len: keys 0..69 are seen by no row
+    (48, 300, 100),    # keys 0..152 are seen by no row
+])
+def test_backward_kernels_on_uneven_lengths(cuda, q_len, kv_len, window):
+    """K3 and K4 (no rope, GQA g = 4) with kv_len != q_len against their
+    plain versions; rows that see no key get dq = 0 and keys that no row
+    sees get dk = dv = 0, exactly."""
+    args = _backward_inputs(cuda, 9, 2, 8, 2, q_len, kv_len, False,
+                            (True, 128 ** -0.5, window, None))
+    dq, dk, dv = _check_backward_kernels(args)
+    off = kv_len - q_len
+    blind_rows = max(0, -off)
+    blind_keys = 0 if window is None else max(0, off - window + 1)
+    assert blind_rows or blind_keys
+    assert not dq[:, :, :blind_rows].any()
+    assert not dk[:, :, :blind_keys].any()
+    assert not dv[:, :, :blind_keys].any()
+
+
+@pytest.mark.parametrize("q_len,kv_len,rope", [
+    (300, 300, True),
+    (200, 333, False),  # kv_len > q_len: every row sees every key
+    (333, 200, False),
+])
+def test_backward_kernels_without_causality(cuda, q_len, kv_len, rope):
+    """K3 and K4 with causal=False (every tile live, the mask only at the
+    ragged ends) against their plain versions."""
+    _check_backward_kernels(_backward_inputs(
+        cuda, 11, 1, 8, 2, q_len, kv_len, rope, (False, 128 ** -0.5, None,
+                                                 None)))
+
+
+def test_backward_kernels_on_transposed_views(cuda):
+    """K3 and K4 with rope, each called on its own, on [B, S, H, D]
+    tensors passed as their [B, H, S, D] transposes (head stride D, row
+    stride H*D), with and without a window."""
+    for window in (None, 100):
+        args = _backward_inputs(cuda, 10, 2, 8, 4, 300, 300, True,
+                                (True, 128 ** -0.5, window, None),
+                                transposed=True)
+        assert args[0].stride() == (300 * 8 * 128, 128, 8 * 128, 1)
+        _check_backward_kernels(args)
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     q = torch.zeros(1, 2, 16, 64, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="head_dim"):
