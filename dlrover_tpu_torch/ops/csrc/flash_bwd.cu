@@ -37,9 +37,10 @@
 // cannot rope a tile as it lands, so the wrappers rope q and k once per
 // call with K1's pre-pass `flash_fwd_rope_k` (flash_fwd.cu) and pass the
 // roped buffers as q and k; the tables still come in, for the transpose
-// of rope that the epilogues apply to dq and dk. K10/K11 (flash_heads.cu)
-// and K13/K14 (flash_ring.cu) keep the WMMA loops `dq_tile`/`dkv_tile` of
-// flash_common.cuh.
+// of rope that the epilogues apply to dq and dk. The ring's K14
+// (flash_ring.cu) runs K4's loop with an f32 epilogue; K10/K11
+// (flash_heads.cu) and K13 (flash_ring.cu) keep the WMMA loops
+// `dq_tile`/`dkv_tile` of flash_common.cuh.
 #include "flash_bwd_sm90.cuh"
 
 namespace fa {
@@ -81,7 +82,7 @@ __global__ void __launch_bounds__(sm90::bwd::THREADS, 1)
 __global__ void __launch_bounds__(sm90::bwd::THREADS, 1)
     flash_bwd_dkv_kernel(const __grid_constant__ sm90::bwd::BwdParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  sm90::bwd::dkv_block(smem, p);
+  sm90::bwd::dkv_block<bf16>(smem, p);
 }
 
 }  // namespace fa

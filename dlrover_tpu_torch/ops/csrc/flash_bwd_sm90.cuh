@@ -1,9 +1,10 @@
 // The backward tile loops of K3 (flash_bwd_dq) and K4 (flash_bwd_dkv) for
 // Hopper: TMA loads, wgmma products, and P and dS formed in registers.
-// K10/K11 (flash_heads.cu) and K13/K14 (flash_ring.cu) keep the WMMA
-// loops `dq_tile`/`dkv_tile` of flash_common.cuh; the visibility rule
-// (Mask, keys_of, rows_of, kv_tiles, sees_all) is that header's, shared
-// by every loop.
+// K14 (flash_ring.cu) runs K4's loop with the ring's mask and an f32
+// epilogue; K10/K11 (flash_heads.cu) and K13 (flash_ring.cu) keep the
+// WMMA loops `dq_tile`/`dkv_tile` of flash_common.cuh. The visibility
+// rule (Mask, keys_of, rows_of, kv_tiles, sees_all) is that header's,
+// shared by every loop.
 //
 // What bounds them on the H100: tensor-core operations. At the slice's
 // shape (B8 H8 S2048 D128, causal) K3's three products are 103 GFLOP
@@ -56,7 +57,16 @@
 //   transpose of rope to dq and dk with the same tables, scale them, and
 //   stage each consumer's rows through its own rows of the resident tile
 //   for 16-byte row stores.
+// - K14's f32 dk and dv (the ring sums up to n of them per kv shard)
+//   leave the accumulators as float2 pairs, with no staging: each
+//   warp-wide store covers 32 whole bytes of 8 rows. Staging them one at
+//   a time through the consumer's rows of the resident tiles for 16-byte
+//   row stores measured 3-9% slower at the ring's block shape (H100 80GB
+//   HBM3, 700 W; kernel_ab.py). The dk/dv loop is templated on the output
+//   type, so K4's bf16 epilogue is unchanged.
 #pragma once
+
+#include <type_traits>
 
 #include "sm90_common.cuh"
 
@@ -228,6 +238,25 @@ __device__ __forceinline__ void store_rows(bf16* out, long long ss, const unsign
   }
 }
 
+// Write a consumer's 64 x D f32 accumulator times `scale` to out (this
+// (batch, head)'s base, row stride ss) in f32, positions below `len`
+// only: float2 pairs straight from the registers, columns 8j + 2 quad
+// and + 1 of rows row0 and row0 + 8.
+__device__ __forceinline__ void store_pairs(float* out, long long ss, const float (&acc)[64],
+                                            float scale, int row0, int pos0, int len,
+                                            int quad) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int pos = pos0 + row0 + 8 * hh;
+    if (pos >= len) continue;
+    float* row = out + pos * ss + 2 * quad;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(row + 8 * j) =
+          make_float2(acc[4 * j + 2 * hh] * scale, acc[4 * j + 2 * hh + 1] * scale);
+  }
+}
+
 // ------------------------------------------------------------------ K3
 // Consumer c of a dq block: query rows pos0 + 64c .. + 63 of head h
 // (batch b) against the live kv tiles. Tile t's S, tile t-1's dQ product
@@ -366,7 +395,9 @@ __device__ __forceinline__ void dq_block(unsigned char* smem, const BwdParams& p
 // (batch b) against the n = group * nq streamed (q, do) tiles. P is formed
 // while dP^T runs; P^T and dS are packed together once it is done, so
 // that S^T, dP^T and the accumulators fit the registers without the
-// P^T operand of an earlier product still held.
+// P^T operand of an earlier product still held. dk and dv are written
+// as T: bf16 (K4) or f32 (K14).
+template <typename T>
 __device__ __forceinline__ void dkv_consume(const Smem& sm, const AttnArgs& a, int kvh, int b,
                                             int k0, int i0, int nq, int c) {
   const Mask& m = a.mask;
@@ -435,21 +466,30 @@ __device__ __forceinline__ void dkv_consume(const Smem& sm, const AttnArgs& a, i
     if (tid == 0) mbar_arrive(sm.empty + st);
   }
 
-  // epilogue: dk = scale * unrope(dK), dv = dV, through this consumer's
-  // rows of the K and V tiles
-  consumer_sync(c);
-  stage_rows(sm.own[0], dk, a.scale, row0, k0, m.kv_len, table(a.cos, b, m.q_len),
-             table(a.sin, b, m.q_len), quad);
-  stage_rows(sm.own[1], dv, 1.f, row0, k0, m.kv_len, nullptr, nullptr, quad);
-  consumer_sync(c);
-  store_rows(static_cast<bf16*>(a.dk.ptr) + b * a.dk.sb + kvh * a.dk.sh, a.dk.ss, sm.own[0], c,
-             k0, m.kv_len, tid);
-  store_rows(static_cast<bf16*>(a.dv.ptr) + b * a.dv.sb + kvh * a.dv.sh, a.dv.ss, sm.own[1], c,
-             k0, m.kv_len, tid);
+  if constexpr (std::is_same<T, float>::value) {
+    // f32 epilogue (K14, no rope): dk = scale * dK, dv = dV from registers
+    store_pairs(static_cast<float*>(a.dk.ptr) + b * a.dk.sb + kvh * a.dk.sh, a.dk.ss, dk,
+                a.scale, row0, k0, m.kv_len, quad);
+    store_pairs(static_cast<float*>(a.dv.ptr) + b * a.dv.sb + kvh * a.dv.sh, a.dv.ss, dv, 1.f,
+                row0, k0, m.kv_len, quad);
+  } else {
+    // epilogue: dk = scale * unrope(dK), dv = dV, through this consumer's
+    // rows of the K and V tiles
+    consumer_sync(c);
+    stage_rows(sm.own[0], dk, a.scale, row0, k0, m.kv_len, table(a.cos, b, m.q_len),
+               table(a.sin, b, m.q_len), quad);
+    stage_rows(sm.own[1], dv, 1.f, row0, k0, m.kv_len, nullptr, nullptr, quad);
+    consumer_sync(c);
+    store_rows(static_cast<bf16*>(a.dk.ptr) + b * a.dk.sb + kvh * a.dk.sh, a.dk.ss, sm.own[0],
+               c, k0, m.kv_len, tid);
+    store_rows(static_cast<bf16*>(a.dv.ptr) + b * a.dv.sb + kvh * a.dv.sh, a.dv.ss, sm.own[1],
+               c, k0, m.kv_len, tid);
+  }
 }
 
-// dk and dv of one block: 128 key rows of one kv head. Every thread calls
-// it.
+// dk and dv of one block: 128 key rows of one kv head, written as T.
+// Every thread calls it.
+template <typename T>
 __device__ __forceinline__ void dkv_block(unsigned char* smem, const BwdParams& p) {
   const AttnArgs& a = p.a;
   const Mask& m = a.mask;
@@ -509,7 +549,7 @@ __device__ __forceinline__ void dkv_block(unsigned char* smem, const BwdParams& 
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
-    dkv_consume(sm, a, kvh, b, k0, i0, nq, threadIdx.x / 128 - 1);
+    dkv_consume<T>(sm, a, kvh, b, k0, i0, nq, threadIdx.x / 128 - 1);
   }
 }
 

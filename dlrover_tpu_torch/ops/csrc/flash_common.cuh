@@ -3,19 +3,19 @@
 // and the tile ranges it leaves live (the one visibility rule of every
 // loop, the wgmma/TMA loops of flash_fwd_sm90.cuh and flash_bwd_sm90.cuh
 // included), tile loads with in-kernel rope, the two WMMA products, and
-// three WMMA tile loops: forward (`fwd_tile`, K12's), dq (`dq_tile`, K10's
-// and K13's) and dk/dv (`dkv_tile`, K11's and K14's). K1 and K9 run the
-// wgmma/TMA forward of flash_fwd_sm90.cuh, K3 and K4 the wgmma/TMA
-// backward of flash_bwd_sm90.cuh.
+// two WMMA tile loops: dq (`dq_tile`, K10's and K13's) and dk/dv
+// (`dkv_tile`, K11's). K1, K9 and K12 run the wgmma/TMA forward of
+// flash_fwd_sm90.cuh, K3, K4 and K14 the wgmma/TMA backward of
+// flash_bwd_sm90.cuh.
 //
 // Layout: q/k/v/do are bf16 operands addressed as [B, heads, S, D] through
 // batch, head and row strides (elements). That covers the [B, H, S, D]
 // tensors of flash_attention and the [B, S, H*D] tensors of
 // flash_attention_bshd (head stride D, row stride H*D) alike. Each row of
 // D values is contiguous and 16-byte aligned (the Python wrapper checks).
-// Outputs are written through strides as well: o in bf16; dq, dk and dv
-// in bf16 or, for the ring kernels, f32 (the dq/dk/dv epilogues take the
-// element type as a template argument). Rope tables are [B, S, D]
+// Outputs are written through strides as well: dk and dv in bf16, dq in
+// bf16 or, for the ring's K13, f32 (`dq_tile` takes the element type as
+// a template argument). Rope tables are [B, S, D]
 // bf16, contiguous, full width (the first-half values repeated in the
 // second half). lse and delta are f32 [B, H, S].
 //
@@ -58,7 +58,6 @@ constexpr int LD_O = D + 4;      // f32  [64, D]
 constexpr int TILE_H = 64 * LD_H;   // elements
 constexpr int TILE_P = 64 * LD_P;
 constexpr int TILE_S = 64 * LD_S;
-constexpr int TILE_O = 64 * LD_O;
 constexpr float NEG_INF = -1e30f;
 
 // One [B, heads, S, D] operand: base pointer and element strides.
@@ -308,21 +307,13 @@ __device__ __forceinline__ void mm_ab_acc(FragC (&acc)[4], const bf16* P, const 
   }
 }
 
-// Move the [64][D] accumulator fragments to or from f32 shared memory.
+// Move the [64][D] accumulator fragments to f32 shared memory.
 __device__ __forceinline__ void store_acc(float* dst, FragC (&acc)[4]) {
   const int warp = threadIdx.x / 32, rg = warp & 3, ch = warp >> 2;
 #pragma unroll
   for (int n = 0; n < 4; ++n)
     wmma::store_matrix_sync(dst + rg * 16 * LD_O + ch * 64 + n * 16, acc[n], LD_O,
                             wmma::mem_row_major);
-}
-
-__device__ __forceinline__ void load_acc(FragC (&acc)[4], const float* src) {
-  const int warp = threadIdx.x / 32, rg = warp & 3, ch = warp >> 2;
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-    wmma::load_matrix_sync(acc[n], src + rg * 16 * LD_O + ch * 64 + n * 16, LD_O,
-                           wmma::mem_row_major);
 }
 
 // Write a [64][LD_O] f32 tile times `scale` to the rows of `map` (dst =
@@ -363,12 +354,6 @@ __device__ __forceinline__ void write_rows(T* dst, long long sh, long long ss,
   }
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -378,115 +363,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 // This batch's [S, D] rope table, or nullptr without rope.
 __device__ __forceinline__ const bf16* table(const bf16* t, int b, int S) {
   return t ? t + (long long)b * S * D : nullptr;
-}
-
-// ------------------------------------------------------------- forward
-constexpr size_t FWD_SMEM =
-    (3 * TILE_H + TILE_P) * sizeof(bf16) + (TILE_S + TILE_O + 2 * 64) * sizeof(float);
-
-// Forward of one 64-row query tile (rows by `map`, batch b) against kv
-// head kvh, for the ring block K12 (K1 and K9 run flash_fwd_sm90.cuh): online softmax over the live kv tiles with the running output
-// in shared memory, then o = acc / l and lse = m + log(l) per row. A row
-// that sees no key gets o = 0 and lse = -1e30; P is zero wherever a row
-// sees no key of a tile, so a window-edge tile that is some rows' first
-// adds nothing to them.
-__device__ __forceinline__ void fwd_tile(unsigned char* smem, const AttnArgs& a,
-                                         RowMap map, int kvh, int b) {
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + TILE_H;
-  bf16* sV = sK + TILE_H;
-  float* sS = reinterpret_cast<float*>(sV + TILE_H);
-  float* sO = sS + TILE_S;
-  float* sM = sO + TILE_O;
-  float* sL = sM + 64;
-  bf16* sP = reinterpret_cast<bf16*>(sL + 64);
-
-  const Mask& m = a.mask;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const bf16* k = a.k.ptr + b * a.k.sb + kvh * a.k.sh;
-  const bf16* v = a.v.ptr + b * a.v.sb + kvh * a.v.sh;
-  const bf16* cos = table(a.cos, b, m.q_len);
-  const bf16* sin = table(a.sin, b, m.q_len);
-
-  load_rows(sQ, a.q.ptr + b * a.q.sb, a.q.sh, a.q.ss, map, m.q_len, cos, sin);
-  for (int i = threadIdx.x; i < TILE_O; i += NTHREADS) sO[i] = 0.f;
-  if (threadIdx.x < 64) {
-    sM[threadIdx.x] = NEG_INF;
-    sL[threadIdx.x] = 0.f;
-  }
-
-  const TileRange tiles =
-      kv_tiles(m, map.pos0, min(map.pos0 + (1 << map.shift), m.q_len) - 1);
-  const int n = tiles.count();
-  for (int t = 0; t < n; ++t) {
-    const int k0 = tiles.tile(t) * BK;
-    __syncthreads();  // the previous tile's readers of sK/sV/sP are done
-    load_rows(sK, k, 0, a.k.ss, RowMap{k0, 6, 0}, m.kv_len, cos, sin);
-    load_rows(sV, v, 0, a.v.ss, RowMap{k0, 6, 0}, m.kv_len, nullptr, nullptr);
-    __syncthreads();
-    mm_abt(sS, sQ, sK);
-    __syncthreads();
-
-    // online softmax: warp w owns rows 8w..8w+7, two columns per lane
-    for (int rr = 0; rr < 8; ++rr) {
-      const int r = warp * 8 + rr;
-      const Keys keys = keys_of(m, map.pos(r));
-      float s[2];
-      bool ok[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = lane + 32 * e;
-        ok[e] = keys.has(k0 + c);
-        s[e] = ok[e] ? sS[r * LD_S + c] * a.scale : NEG_INF;
-      }
-      const float m_old = sM[r];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s[0], s[1])));
-      float p[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        p[e] = ok[e] ? __expf(s[e] - m_new) : 0.f;
-        sP[r * LD_P + lane + 32 * e] = __float2bfloat16(p[e]);
-      }
-      const float sum = warp_sum(p[0] + p[1]);
-      const float alpha = __expf(m_old - m_new);
-      for (int c = lane; c < D; c += 32) sO[r * LD_O + c] *= alpha;
-      __syncwarp();
-      if (lane == 0) {
-        sM[r] = m_new;
-        sL[r] = sL[r] * alpha + sum;
-      }
-    }
-    __syncthreads();
-
-    FragC acc[4];
-    load_acc(acc, sO);
-    mm_ab_acc(acc, sP, sV);
-    store_acc(sO, acc);
-  }
-  __syncthreads();
-
-  // epilogue: o = acc / l, lse = m + log(l); l == 0 (no visible key) -> 1
-  if (threadIdx.x < 64) {
-    const float l = sL[threadIdx.x];
-    sL[threadIdx.x] = l == 0.f ? 1.f : l;
-  }
-  __syncthreads();
-  bf16* o = static_cast<bf16*>(a.o.ptr) + b * a.o.sb;
-  for (int idx = threadIdx.x; idx < 64 * (D / 8); idx += NTHREADS) {
-    const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
-    const int pos = map.pos(r);
-    if (pos >= m.q_len) continue;
-    const float inv = 1.f / sL[r];
-    float f[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) f[e] = sO[r * LD_O + c + e] * inv;
-    *reinterpret_cast<uint4*>(o + map.head(r) * a.o.sh + pos * a.o.ss + c) = pack8(f);
-  }
-  if (threadIdx.x < 64) {
-    const int r = threadIdx.x, pos = map.pos(r);
-    if (pos < m.q_len)
-      a.lse[((long long)b * a.H + map.head(r)) * m.q_len + pos] = sM[r] + logf(sL[r]);
-  }
 }
 
 // ------------------------------------------------------------------ dq
@@ -573,8 +449,7 @@ constexpr size_t DKV_SMEM = (4 * TILE_H + 2 * TILE_P) * sizeof(bf16) +
 // tiles over the query rows that see it, recomputing S^T = K Q^T and
 // dP^T = V dO^T (no transposed copies) and accumulating dV += P^T dO and
 // dK += dS^T Q in registers. The sum over the group happens in those
-// registers, so dk/dv come out at kv-head width, written as T.
-template <typename T>
+// registers, so dk/dv come out at kv-head width, written in bf16.
 __device__ __forceinline__ void dkv_tile(unsigned char* smem, const AttnArgs& a, int k0,
                                          int kvh, int b) {
   bf16* sQ = reinterpret_cast<bf16*>(smem);
@@ -652,10 +527,10 @@ __device__ __forceinline__ void dkv_tile(unsigned char* smem, const AttnArgs& a,
   store_acc(sOutK, dk);
   store_acc(sOutV, dv);
   __syncthreads();
-  write_rows(static_cast<T*>(a.dk.ptr) + b * a.dk.sb, a.dk.sh, a.dk.ss, sOutK, a.scale,
+  write_rows(static_cast<bf16*>(a.dk.ptr) + b * a.dk.sb, a.dk.sh, a.dk.ss, sOutK, a.scale,
              kv_map, m.kv_len, cos, sin);
-  write_rows(static_cast<T*>(a.dv.ptr) + b * a.dv.sb, a.dv.sh, a.dv.ss, sOutV, 1.f, kv_map,
-             m.kv_len, nullptr, nullptr);
+  write_rows(static_cast<bf16*>(a.dv.ptr) + b * a.dv.sb, a.dv.sh, a.dv.ss, sOutV, 1.f,
+             kv_map, m.kv_len, nullptr, nullptr);
 }
 
 // ---------------------------------------------------------- host side

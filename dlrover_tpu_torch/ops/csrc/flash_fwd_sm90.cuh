@@ -1,8 +1,8 @@
-// The forward tile loop of K1 (flash_fwd.cu) and K9 (flash_heads.cu) for
-// Hopper: TMA loads, wgmma products and an online softmax held in
-// registers. K12 (flash_ring.cu) keeps the WMMA loop `fwd_tile` of
-// flash_common.cuh; the visibility rule (Mask, keys_of, kv_tiles,
-// sees_all) is that header's, shared by every loop. The PTX pieces
+// The forward tile loop of K1 (flash_fwd.cu), K9 (flash_heads.cu) and the
+// ring block K12 (flash_ring.cu) for Hopper: TMA loads, wgmma products
+// and an online softmax held in registers. The visibility rule (Mask,
+// keys_of, kv_tiles, sees_all) is flash_common.cuh's, shared by every
+// loop; K12 gives it the ring's global offset. The PTX pieces
 // (mbarriers, TMA, wgmma, descriptors) and the tensor maps are in
 // sm90_common.cuh, shared with the backward loop of flash_bwd_sm90.cuh.
 //
@@ -49,7 +49,9 @@
 //   a chunk's k/v stay in L2.
 // - Epilogue: o = acc / l goes through the consumer's own rows of the Q
 //   tile in shared memory and out as 16-byte row stores; lse = m + log l
-//   per row. A row that sees no key gets o = 0 and lse = -1e30.
+//   per row. A row that sees no key gets o = 0 and lse = -1e30, and so
+//   does every row of a block with no live tile (a ring block wholly in
+//   the future of its q shard), which loads only its Q tile.
 //
 // K1's rope: q is roped once, in shared memory, after its TMA load; k
 // is roped by a pre-pass kernel (flash_fwd.cu) into a [B, KVH, S, D]

@@ -33,7 +33,7 @@
 // warpgroups, online softmax in registers) on 128-row tiles of 128 / g
 // positions x g heads; its q tensor map's box spans (64 columns, 128 / g
 // positions, g heads) of the [B, S, H*D] view, which lands the rows in
-// that order. K10 and K11 still run K3's and K4's WMMA loops
+// that order. K10 and K11 still run the WMMA loops `dq_tile`/`dkv_tile`
 // (flash_common.cuh) on 64-row tiles: no wgmma, TMA or double buffering
 // yet.
 //
@@ -65,7 +65,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_heads_kernel(AttnArgs a
 // One block per (kv tile, kv head, batch).
 __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_heads_kernel(AttnArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  dkv_tile<bf16>(smem, a, blockIdx.x * BK, blockIdx.y, blockIdx.z);
+  dkv_tile(smem, a, blockIdx.x * BK, blockIdx.y, blockIdx.z);
 }
 
 // Grid of the packed q-major kernels: query tiles of 2^shift positions.

@@ -32,41 +32,57 @@
 // the output bytes), 10.1, 15.1 and 20.1 us at 3.35 TB/s. A diagonal
 // block does half the operations on the same bytes.
 //
-// What the design does about that: little yet. The tile loops are K1's,
-// K3's and K4's (flash_common.cuh) with the global offset: every output
-// element is written once, by one block, with 16-byte stores (no
-// atomics, no f32 scratch in device memory), and only live tiles are
-// staged, but each q tile stages its head's k/v tiles again (from the
-// 50 MB L2 mostly), and the WMMA loops run far from either bound, as
-// K1-K4 do. No rope: the ring path ropes q/k before attention, at
-// global positions, as the JAX model does. Not yet done: wgmma, TMA,
-// double buffering, and fusing the ring's merge and accumulation into
-// the epilogues (each block's o, dq, dk and dv now make one trip
-// through device memory that the merge or the sum reads back).
+// What the designs do about that. K12 and K14 run the Hopper loops of K1
+// and K4 (flash_fwd_sm90.cuh, flash_bwd_sm90.cuh): a TMA producer
+// warpgroup and two wgmma consumer warpgroups per 128-row block, the
+// score tiles and P (K14: S^T, P and dS) in registers, accumulators in
+// registers, each k/v tile (K12) or q/do tile (K14) loaded by TMA once
+// per 128-row block, and only live tiles loaded. The offset enters
+// through Mask.off, so a wholly visible block takes no per-element mask
+// and the diagonal masks only its diagonal tiles. The tensor maps span
+// the shard (its length, its strides), so rows past a ragged shard's end
+// arrive as TMA's zeros, never as the next shard's rows. K14 writes its
+// f32 dk/dv straight from the accumulators as float2 pairs. K13 still
+// runs the WMMA loop `dq_tile` of flash_common.cuh (synchronous staging
+// through registers, S, dP and dS through shared memory, 64-row tiles).
+// Every output element is written once, by one block (no atomics, no f32
+// scratch in device memory). No rope: the ring path ropes q/k before
+// attention, at global positions, as the JAX model does. Not yet done:
+// fusing the ring's merge and accumulation into the epilogues (each
+// block's o, dq, dk and dv now make one trip through device memory that
+// the merge or the sum reads back).
 //
 // Outputs: o bf16 [B, H, Sq, D] and lse f32 [B, H, Sq]; dq f32
 // [B, H, Sq, D]; dk and dv f32 [B, KVH, Sk, D]; all contiguous.
-#include "flash_common.cuh"
+#include "flash_bwd_sm90.cuh"
+#include "flash_fwd_sm90.cuh"
 
 namespace fa {
 
-// One block per (q tile, q head, batch).
-__global__ void __launch_bounds__(NTHREADS) flash_ring_fwd_kernel(AttnArgs a) {
+// K12: one block per (q tile of 128 positions, q head, batch), in sm90's
+// order.
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+    flash_ring_fwd_kernel(const __grid_constant__ sm90::FwdParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int h = blockIdx.y;
-  fwd_tile(smem, a, RowMap{(int)blockIdx.x * BQ, 6, h}, h / a.group, blockIdx.z);
+  int bh, qi;
+  sm90::block_tile(p, bh, qi);
+  const int h = bh % p.a.H;
+  sm90::fwd_block(smem, p, RowMap{qi * sm90::BQ, 7, h}, h / p.a.group, bh / p.a.H);
 }
 
+// K13: one block per (q tile of 64 positions, q head, batch).
 __global__ void __launch_bounds__(NTHREADS) flash_ring_dq_kernel(AttnArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int h = blockIdx.y;
   dq_tile<float>(smem, a, RowMap{(int)blockIdx.x * BQ, 6, h}, h / a.group, blockIdx.z);
 }
 
-// One block per (kv tile, kv head, batch).
-__global__ void __launch_bounds__(NTHREADS) flash_ring_dkv_kernel(AttnArgs a) {
+// K14: one block per (kv tile of 128 positions, kv head, batch), in
+// sm90's order; dk and dv in f32.
+__global__ void __launch_bounds__(sm90::bwd::THREADS, 1)
+    flash_ring_dkv_kernel(const __grid_constant__ sm90::bwd::BwdParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  dkv_tile<float>(smem, a, blockIdx.x * BK, blockIdx.y, blockIdx.z);
+  sm90::bwd::dkv_block<float>(smem, p);
 }
 
 // The shared arguments with the ring's mask: causal at global positions.
@@ -92,12 +108,13 @@ extern "C" int flash_ring_fwd(const void* q, const void* k, const void* v, void*
                               int B, int H, int KVH, int q_len, int kv_len,
                               const long long* strides, int q_start, int k_start,
                               float scale, void* stream) {
-  AttnArgs a = ring_args(q, k, v, nullptr, nullptr, nullptr, strides, H, KVH, q_len, kv_len,
-                         q_start, k_start, scale);
-  a.o = out_bhsd(o, H, q_len);
-  a.lse = static_cast<float*>(lse);
-  return launch(flash_ring_fwd_kernel, dim3((q_len + BQ - 1) / BQ, H, B), FWD_SMEM, stream,
-                a);
+  sm90::FwdParams p = {};
+  p.a = ring_args(q, k, v, nullptr, nullptr, nullptr, strides, H, KVH, q_len, kv_len, q_start,
+                  k_start, scale);
+  p.a.o = out_bhsd(o, H, q_len);
+  p.a.lse = static_cast<float*>(lse);
+  p.n_bh = B * H;
+  return sm90::launch_fwd(flash_ring_fwd_kernel, p, B, KVH, 7, stream);
 }
 
 extern "C" int flash_ring_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -114,10 +131,10 @@ extern "C" int flash_ring_dkv(const void* q, const void* k, const void* v, const
                               const void* lse, const void* delta, void* dk, void* dv, int B,
                               int H, int KVH, int q_len, int kv_len, const long long* strides,
                               int q_start, int k_start, float scale, void* stream) {
-  AttnArgs a = ring_args(q, k, v, dout, lse, delta, strides, H, KVH, q_len, kv_len, q_start,
-                         k_start, scale);
-  a.dk = out_bhsd(dk, KVH, kv_len);
-  a.dv = out_bhsd(dv, KVH, kv_len);
-  return launch(flash_ring_dkv_kernel, dim3((kv_len + BK - 1) / BK, KVH, B), DKV_SMEM, stream,
-                a);
+  sm90::bwd::BwdParams p = {};
+  p.a = ring_args(q, k, v, dout, lse, delta, strides, H, KVH, q_len, kv_len, q_start, k_start,
+                  scale);
+  p.a.dk = out_bhsd(dk, KVH, kv_len);
+  p.a.dv = out_bhsd(dv, KVH, kv_len);
+  return sm90::bwd::launch_bwd(flash_ring_dkv_kernel, p, B, KVH, true, stream);
 }

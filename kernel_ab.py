@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""A/B of the attention kernels K1, K3, K4 and K9-K11 between this
-checkout and another one, say the parent commit unpacked with ``git
-archive`` into a gitignored directory, or a copy of this tree with one
-constant changed, on one GPU:
+"""A/B of the attention kernels K1-K4, K9-K11 and the ring-block kernels
+K12-K14 between this checkout and another one, say the parent commit
+unpacked with ``git archive`` into a gitignored directory, or a copy of
+this tree with one constant changed, on one GPU:
 
     python3 kernel_ab.py --other _archive/parent [--pairs 20] [--calls 20]
+                         [--kernels flash_ring_fwd,flash_ring_dkv]
 
 Both checkouts' sources are compiled with this checkout's nvcc flags.
 For each kernel it prints one JSON line with:
@@ -23,11 +24,25 @@ For each kernel it prints one JSON line with:
   ``diff``: per output, the largest absolute difference and that over
   the other build's largest absolute value;
 - ``ms``: the time in ``--pairs`` alternating pairs (this, other; then
-  other, this; ...), each side the mean of CUDA-event times over
-  ``--calls`` launches, at the training slice's shape (B8 H8 KVH8 S2048
-  D128, causal; rope in K1/K3/K4, the [B, S, H*D] layout for K9-K11):
-  each side's median, min and max, and the other/this ratio of each
-  pair (median, min, max).
+  other, this; ...), each side one replay of a CUDA graph that holds
+  ``--calls`` calls of the wrapper, timed with CUDA events and divided
+  by the count (device time: a ring block runs a few tens of
+  microseconds, near the wrappers' host cost per call): each side's
+  median, min and max, and the other/this ratio of each pair (median,
+  min, max).
+
+Each kernel runs at the shapes of its path, one line per ``case``:
+
+- K1-K4 (with K1's rope pre-pass ``flash_fwd_rope_k`` on its own) and
+  K9-K11 at the training slice's shape (``slice``: B8 H8 KVH8 S2048 D128,
+  causal; rope in K1/K3/K4, the [B, S, H*D] layout for K9-K11);
+- K12-K14 at the [seq4] run's block shape (B8 H8 KVH8, 512-row shards)
+  for the wholly visible block (``visible``) and the diagonal one
+  (``diagonal``), and at a GQA block shape (``gqa-visible``: B2 H32
+  KVH8, 256-row shards), every operand the shard's view of a whole
+  [B, S, heads, D] sequence as the ring receives it (the q shard of
+  ring rank 1, the kv shard of rank 0 or 1), with the lse and delta of
+  the ring over the two visible blocks.
 
 K1's, K3's and K4's times include their rope pre-passes
 (``flash_fwd_rope_k``: k for K1, q and k for K3 and for K4); against a
@@ -60,12 +75,17 @@ import torch
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
 B, H, KVH, S, D = 8, 8, 8, 2048, 128
+# ring blocks: case -> (B, H, KVH, shard length, kv shard's ring rank)
+RING_CASES = {"visible": (8, 8, 8, 512, 0), "diagonal": (8, 8, 8, 512, 1),
+              "gqa-visible": (2, 32, 8, 256, 0)}
+SEQ = 4  # ring ranks of the whole sequence the shards are cut from
 # library -> the C entries compared (each launches <entry>_kernel)
 LIBRARIES = {
-    "flash_fwd": ("flash_fwd",),
-    "flash_bwd": ("flash_bwd_dq", "flash_bwd_dkv"),
+    "flash_fwd": ("flash_fwd", "flash_fwd_rope_k"),
+    "flash_bwd": ("flash_bwd_preprocess", "flash_bwd_dq", "flash_bwd_dkv"),
     "flash_heads": ("flash_fwd_heads", "flash_bwd_dq_heads",
                     "flash_bwd_dkv_heads"),
+    "flash_ring": ("flash_ring_fwd", "flash_ring_dq", "flash_ring_dkv"),
 }
 # entry -> the pre-pass its wrapper launches before it
 PREPASS = {"flash_fwd": "flash_fwd_rope_k", "flash_bwd_dq": "flash_fwd_rope_k",
@@ -218,8 +238,33 @@ def compare_sass(this: list[str], other: list[str]) -> dict:
     }
 
 
+def ring_calls(att, gen):
+    """entry -> {case: a call of its wrapper on one ring block}."""
+    calls = {name: {} for name in LIBRARIES["flash_ring"]}
+    scale = D ** -0.5
+    for case, (b, h, kvh, s, rank) in RING_CASES.items():
+        q, k, v, do = (
+            torch.randn(b, SEQ * s, heads, D, generator=gen, device="cuda")
+            .to(torch.bfloat16).transpose(1, 2) for heads in (h, kvh, kvh, h))
+        q, do = q[:, :, s:2 * s], do[:, :, s:2 * s]
+        k, v = (t[:, :, rank * s:(rank + 1) * s] for t in (k, v))
+        # the ring's lse and delta over the two visible blocks of rank 1
+        blocks = [att.flash_ring_fwd_plain(q, k, v, s, c * s, scale)
+                  for c in (0, 1)]
+        lse = torch.logaddexp(blocks[0][1], blocks[1][1])
+        o = sum(o_c.float() * (lse_c - lse).exp()[..., None]
+                for o_c, lse_c in blocks)
+        delta = att.flash_bwd_preprocess_plain(do, o.to(torch.bfloat16))
+        fwd = (q, k, v, s, rank * s, scale)
+        bwd = (q, k, v, do, lse, delta, s, rank * s, scale)
+        calls["flash_ring_fwd"][case] = lambda a=fwd: att.flash_ring_fwd(*a)
+        calls["flash_ring_dq"][case] = lambda a=bwd: att.flash_ring_dq(*a)
+        calls["flash_ring_dkv"][case] = lambda a=bwd: att.flash_ring_dkv(*a)
+    return calls
+
+
 def kernel_calls():
-    """entry -> a call of its wrapper at the slice's shape."""
+    """entry -> {case: a call of its wrapper at that case's shape}."""
     from dlrover_tpu_torch.models.llama import _rope_tables
     from dlrover_tpu_torch.ops import attention as att
 
@@ -242,8 +287,10 @@ def kernel_calls():
     delta_f = att.flash_bwd_preprocess_plain(
         att._split_heads(fused[3], H), att._split_heads(o_f, H))
     bwd_f = (*fused, lse_f, delta_f, H, True, scale)
-    return {
+    slice_calls = {
         "flash_fwd": lambda: att.flash_fwd(q, k, v, cos, sin, True, scale),
+        "flash_fwd_rope_k": lambda: att.flash_fwd_rope_k(k, cos, sin),
+        "flash_bwd_preprocess": lambda: att.flash_bwd_preprocess(do, o),
         "flash_bwd_dq": lambda: att.flash_bwd_dq(*bwd),
         "flash_bwd_dkv": lambda: att.flash_bwd_dkv(*bwd),
         "flash_fwd_heads": lambda: att.flash_fwd_heads(*fused[:3], H, True,
@@ -251,16 +298,33 @@ def kernel_calls():
         "flash_bwd_dq_heads": lambda: att.flash_bwd_dq_heads(*bwd_f),
         "flash_bwd_dkv_heads": lambda: att.flash_bwd_dkv_heads(*bwd_f),
     }
+    calls = {name: {"slice": fn} for name, fn in slice_calls.items()}
+    calls.update(ring_calls(att, gen))
+    return calls
 
 
-def mean_ms(fn, calls: int) -> float:
-    fn()
+def graph_of(fn, calls: int):
+    """A CUDA graph of ``calls`` calls of fn(), captured after a warm-up
+    call outside it and replayed once."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
     torch.cuda.synchronize()
+    return graph
+
+
+def replay_ms(graph, calls: int) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(calls):
-        fn()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / calls
@@ -271,13 +335,53 @@ def spread(values) -> dict:
             "max": max(values)}
 
 
+def compare(call, entry, fns, bare, args) -> dict:
+    """Bit-equality (or the largest difference) and alternating-pair times
+    of ``call`` through this checkout's entry and the other's."""
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.ops import attention as att
+
+    def run(side):
+        _build._bound[entry] = fns[side]
+        if side == "other" and bare:
+            with without_prepass(att, entry):
+                return call()
+        return call()
+
+    outs = {side: run(side) for side in fns}
+    flat = {side: out if isinstance(out, tuple) else (out,)
+            for side, out in outs.items()}
+    bit_equal = all(torch.equal(a, b) for a, b in
+                    zip(flat["this"], flat["other"]))
+    diff = None if bit_equal else difference(flat["this"], flat["other"])
+    del outs, flat
+    graphs = {side: graph_of(lambda side=side: run(side), args.calls)
+              for side in fns}
+    times = {"this": [], "other": []}
+    for pair in range(args.pairs):
+        order = ("this", "other") if pair % 2 == 0 else ("other", "this")
+        for side in order:
+            times[side].append(replay_ms(graphs[side], args.calls))
+    del graphs
+    torch.cuda.empty_cache()
+    return {"bit_equal": bit_equal, "diff": diff, "ms": {
+        "this": spread(times["this"]), "other": spread(times["other"]),
+        "ratio_other_over_this": spread(
+            [o / t for t, o in zip(times["this"], times["other"])]),
+        "pairs": args.pairs, "calls": args.calls}}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--other", type=Path, required=True,
                         help="root of the other checkout")
     parser.add_argument("--pairs", type=int, default=20)
     parser.add_argument("--calls", type=int, default=20)
+    parser.add_argument("--kernels", default=None,
+                        help="comma-separated C entries to compare "
+                        "(default: all)")
     args = parser.parse_args()
+    only = None if args.kernels is None else set(args.kernels.split(","))
     if not torch.cuda.is_available():
         log("kernel_ab: CUDA is not available")
         return 1
@@ -294,60 +398,32 @@ def main() -> int:
     for lib, entries in LIBRARIES.items():
         other_lib = ctypes.CDLL(str(other[lib][0]))
         for entry in entries:
+            if only is not None and entry not in only:
+                continue
             kernel = f"{entry}_kernel"
-            calls[entry]()  # binds this checkout's entry
+            next(iter(calls[entry].values()))()  # binds this checkout's entry
             fns = {"this": _build._bound[entry],
                    "other": getattr(other_lib, entry)}
             fns["other"].argtypes = (list(att._ENTRIES[entry][1])
                                      + [ctypes.c_void_p])
             fns["other"].restype = ctypes.c_int
-
             bare = (entry in PREPASS
                     and not runs_prepass(args.other.resolve(), entry))
-
-            def run(side, fn=calls[entry], symbol=entry, fns=fns, bare=bare):
-                _build._bound[symbol] = fns[side]
-                if side == "other" and bare:
-                    with without_prepass(att, symbol):
-                        return fn()
-                return fn()
-
-            outs = {side: run(side) for side in fns}
-            flat = {side: out if isinstance(out, tuple) else (out,)
-                    for side, out in outs.items()}
-            bit_equal = all(torch.equal(a, b) for a, b in
-                            zip(flat["this"], flat["other"]))
-            diff = (None if bit_equal
-                    else difference(flat["this"], flat["other"]))
-            del outs, flat
-            times = {"this": [], "other": []}
-            for pair in range(args.pairs):
-                order = ("this", "other") if pair % 2 == 0 else ("other",
-                                                                 "this")
-                for side in order:
-                    times[side].append(mean_ms(
-                        lambda side=side: run(side), args.calls))
-            _build._bound[entry] = fns["this"]
             codes = [sass(side[lib][0], kernel) for side in (this, other)]
-            line = {
-                "kernel": entry,
+            build = {
                 "ptxas": {"this": ptxas_report(this[lib][1], kernel),
                           "other": ptxas_report(other[lib][1], kernel)},
-                "sass": (None if None in codes else compare_sass(*codes)),
-                "tensor_core": (None if None in codes else {
+                "sass": None if None in codes else compare_sass(*codes),
+                "tensor_core": None if None in codes else {
                     side: tensor_core(code)
-                    for side, code in zip(("this", "other"), codes)}),
-                "bit_equal": bit_equal,
-                "diff": diff,
-                "ms": {"this": spread(times["this"]),
-                       "other": spread(times["other"]),
-                       "ratio_other_over_this": spread(
-                           [o / t for t, o in zip(times["this"],
-                                                  times["other"])]),
-                       "pairs": args.pairs, "calls": args.calls},
+                    for side, code in zip(("this", "other"), codes)},
             }
-            log(json.dumps({"kernel_ab": line}))
-            report.append(line)
+            for case, call in calls[entry].items():
+                line = {"kernel": entry, "case": case, **build,
+                        **compare(call, entry, fns, bare, args)}
+                log(json.dumps({"kernel_ab": line}))
+                report.append(line)
+            _build._bound[entry] = fns["this"]
     OUT.mkdir(exist_ok=True)
     (OUT / "kernel_ab.json").write_text(json.dumps(report, indent=1))
     return 0

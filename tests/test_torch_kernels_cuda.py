@@ -11,7 +11,8 @@ The attention kernels are checked per head layout (K1-K4 on [B, H, S, D],
 K9-K11 on [B, S, H*D] through flash_attention_bshd), with GQA, ragged
 lengths, a sliding window and a prefix; the ring-block kernels (K12-K14)
 at the diagonal, wholly visible and wholly future offsets (exact zeros),
-and through ring_attention over 4 in-process ranks.
+on contiguous shards and on shard views of a whole sequence, and through
+ring_attention over 4 in-process ranks.
 
 The optimizer kernels (K5-K8) do the plain versions' f32 operations in
 the same order, without FMA contraction: K5/K6 codes, scales and values
@@ -387,6 +388,68 @@ def test_ring_block_kernels_match_plain(cuda, B, H, KVH, S):
     after = att.launches()
     for name in ("flash_ring_fwd", "flash_ring_dq", "flash_ring_dkv"):
         assert after[name] == before[name] + 3
+
+
+@pytest.mark.parametrize("B,H,KVH,S,transposed", [
+    (2, 8, 4, 500, True),    # ragged 500-row shards, q_start = 500
+    (2, 8, 4, 500, False),   # the same cut from a [B, H, S, D] buffer
+    (1, 8, 2, 256, True),    # GQA g = 4: two 128-row kv blocks a head
+    (1, 2, 1, 77, True),     # ragged, shorter than one tile
+])
+def test_ring_block_kernels_on_shard_views(cuda, B, H, KVH, S, transposed):
+    """K12-K14 on shards of one sequence of 4 ring shards, as the [seq4]
+    run hands them: views at a row offset of a [B, 4S, heads, D] buffer
+    seen as [B, heads, 4S, D] (``transposed``) or of a [B, heads, 4S, D]
+    one. The q shard of rank 1 (q_start = S) against the kv shards of
+    ranks 1 (diagonal), 0 (visible) and 2 (future: exact zeros, lse
+    -1e30). Shard 2 of every operand is scaled by 1000, so a tile that
+    read past the end of shard 1 into it would show."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+
+    def whole(heads):
+        if transposed:
+            t = torch.randn(B, 4 * S, heads, 128, generator=gen,
+                            device=cuda).to(torch.bfloat16).transpose(1, 2)
+        else:
+            t = torch.randn(B, heads, 4 * S, 128, generator=gen,
+                            device=cuda).to(torch.bfloat16)
+        t[:, :, 2 * S:3 * S] *= 1000
+        return t
+
+    q_all, k_all, v_all, do_all = whole(H), whole(KVH), whole(KVH), whole(H)
+
+    def shard(t, rank):
+        return t[:, :, rank * S:(rank + 1) * S]
+
+    q, do = shard(q_all, 1), shard(do_all, 1)
+    assert not q.is_contiguous() and q.data_ptr() != q_all.data_ptr()
+    scale = 128 ** -0.5
+    ranks = {"diagonal": 1, "visible": 0, "future": 2}
+    plain = {}
+    for name, c in ranks.items():
+        k, v = shard(k_all, c), shard(v_all, c)
+        o, lse = att.flash_ring_fwd(q, k, v, S, c * S, scale)
+        if name == "future":
+            assert torch.all(o == 0) and torch.all(lse == att.NEG_INF)
+            continue
+        o_p, lse_p = att.flash_ring_fwd_plain(q, k, v, S, c * S, scale)
+        assert _rel(o, o_p) < 2e-2
+        assert (lse - lse_p).abs().max().item() < 2e-2
+        plain[name] = (o_p, lse_p)
+    o_g, lse_g = _merge(*plain["diagonal"], *plain["visible"])
+    delta = att.flash_bwd_preprocess_plain(do, o_g.to(torch.bfloat16))
+    for name, c in ranks.items():
+        args = (q, shard(k_all, c), shard(v_all, c), do, lse_g, delta, S,
+                c * S, scale)
+        dq = att.flash_ring_dq(*args)
+        dk, dv = att.flash_ring_dkv(*args)
+        if name == "future":
+            assert not dq.any() and not dk.any() and not dv.any()
+            continue
+        dk_p, dv_p = att.flash_ring_dkv_plain(*args)
+        assert _rel(dq, att.flash_ring_dq_plain(*args)) < 3e-2
+        assert _rel(dk, dk_p) < 3e-2
+        assert _rel(dv, dv_p) < 3e-2
 
 
 def test_ring_attention_through_the_kernels(cuda):
