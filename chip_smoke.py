@@ -24,7 +24,8 @@ Phases, each fatal on failure (no exception is caught):
    that the backward runs once for both, also timed alone; at the GQA
    shape K9 against K1 and K10 against K3, both without rope, as the
    measure of K9/K10's group packing (K10 against K3 also of the WMMA
-   loop against the wgmma one);
+   loop against the wgmma one), and K11 against K4 without rope, the
+   same loop, as the cost of K11's strided [B, S, H*D] tensor maps;
    then each ring-block kernel (K12-K14) against its plain version in
    bf16, for the q shard of ring rank 1 against the kv shards of ranks 1
    (the diagonal), 0 (wholly visible) and 2 (wholly in the future: exact
@@ -34,8 +35,9 @@ Phases, each fatal on failure (no exception is caught):
    shards), a GQA one (B2 H32 KVH8, 256-row shards) and a ragged one
    (B2 H8 KVH4, 500-row shards); at the slice's block shape, for the
    diagonal and the visible block, each kernel's ms (CUDA-graph
-   replays), its plain version's, its bound and SDPA's (causal on the
-   diagonal, not on the visible block) as the library yardstick;
+   replays), its plain version's, its bound and SDPA's forward and
+   backward (CUDA-graph replays; causal on the diagonal, not on the
+   visible block) as the library yardstick;
 4. each optimizer kernel (K5-K8) against its plain version on the
    slice's 12 parameter leaves plus a ragged 1000-element leaf and a
    leaf without a grad (all-zero rows), both given the same rounding
@@ -473,15 +475,15 @@ def time_kernels(inputs):
     return times, library, bwd_ms, prepass_ms
 
 
-def sdpa_bwd_ms(leaves, do, label):
-    """SDPA's backward (causal) on the leaves q/k/v with output gradient
-    do: the median of 5 CUDA-graph replays of forward and backward
-    together less that of the forward alone (a captured backward needs
-    its forward in the same capture). Both medians are logged."""
+def sdpa_bwd_ms(leaves, do, label, causal=True):
+    """SDPA's backward on the leaves q/k/v with output gradient do: the
+    median of 5 CUDA-graph replays of forward and backward together less
+    that of the forward alone (a captured backward needs its forward in
+    the same capture). Both medians are logged."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    fwd = graph_ms(lambda: sdpa(*leaves, is_causal=True), 20)
+    fwd = graph_ms(lambda: sdpa(*leaves, is_causal=causal), 20)
     both = graph_ms(lambda: torch.autograd.grad(
-        sdpa(*leaves, is_causal=True), leaves, do), 20)
+        sdpa(*leaves, is_causal=causal), leaves, do), 20)
     bwd = statistics.median(both) - statistics.median(fwd)
     log(json.dumps({"sdpa_graph_replays_ms": {
         "case": label, "fwd": fwd, "fwd_and_bwd": both, "bwd": bwd}}))
@@ -516,7 +518,9 @@ def time_packing(shape):
     """K9 against K1 and K10 against K3 at ``shape``, all without rope,
     on the same data: K1/K3 stage each k/v tile once per q head, K9/K10
     once per GQA group. K10 against K3 also holds the WMMA loop against
-    the wgmma one, until K10 moves onto it."""
+    the wgmma one, until K10 moves onto it. K11 against K4, the same
+    loop, from CUDA-graph replays: the cost of reading [B, S, H*D]
+    operands through strided tensor maps."""
     from dlrover_tpu_torch.ops import attention as att
 
     B, H, KVH, S = shape
@@ -541,6 +545,17 @@ def time_packing(shape):
         "shape_b_h_kvh_s": list(shape), **ms,
         "fwd_ratio_k9_over_k1": ms["flash_fwd_heads"] / ms["flash_fwd"],
         "dq_ratio_k10_over_k3": ms["flash_bwd_dq_heads"] / ms["flash_bwd_dq"],
+    }}))
+    dkv = {
+        "flash_bwd_dkv": graph_ms(lambda: att.flash_bwd_dkv(*per_head), 20),
+        "flash_bwd_dkv_heads": graph_ms(
+            lambda: att.flash_bwd_dkv_heads(*packed), 20),
+    }
+    medians = {name: statistics.median(val) for name, val in dkv.items()}
+    log(json.dumps({"dkv_strided_view_graph_replays_ms_no_rope": {
+        "shape_b_h_kvh_s": list(shape), **dkv,
+        "ratio_k11_over_k4_medians":
+            medians["flash_bwd_dkv_heads"] / medians["flash_bwd_dkv"],
     }}))
 
 
@@ -650,11 +665,11 @@ def ring_bounds(shape, rel):
 def time_ring(inputs):
     """K12-K14's ms at the slice's block shape, for the diagonal and the
     wholly visible block: device times of CUDA-graph replays (median of
-    5 replays of 20 calls; a block is ~0.1-0.3 ms, near the wrappers'
-    host cost), the plain versions' from CUDA events, SDPA forward and
-    backward on the same q/k/v (is_causal on the diagonal) as the
-    library yardstick. Returns {rel: {name: (ms, plain, bound, bound_by,
-    library)}}."""
+    5 replays of 20 calls; a block runs tens of microseconds, near the
+    wrappers' host cost), the plain versions' from CUDA events, SDPA
+    forward and backward on the same q/k/v (is_causal on the diagonal),
+    both from CUDA-graph replays, as the library yardstick. Returns
+    {rel: {name: (ms, plain, bound, bound_by, library)}}."""
     from dlrover_tpu_torch.ops import attention as att
 
     q, k, v, do, lse, delta = inputs
@@ -677,9 +692,7 @@ def time_ring(inputs):
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         fwd_ms = statistics.median(graph_ms(
             lambda: sdpa(q, k, v, is_causal=causal), 20))
-        out = sdpa(*leaves, is_causal=causal)
-        bwd_ms = cuda_ms(lambda: torch.autograd.grad(
-            out, leaves, do, retain_graph=True), 20)
+        bwd_ms = sdpa_bwd_ms(leaves, do, f"ring {rel}", causal)
         bound = ring_bounds((q.shape[0], q.shape[1], k.shape[1], S), rel)
         result[rel] = {}
         for name, (kernel, plain) in calls.items():
@@ -692,7 +705,7 @@ def time_ring(inputs):
                 "bound_ms": bound[name][0], "bound_by": bound[name][1]}
             torch.cuda.empty_cache()
         report[f"{rel}/sdpa"] = {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms}
-        del leaves, out
+        del leaves
     log(json.dumps({"ring_blocks_at_slice_block_shape": report}))
     return result
 

@@ -37,10 +37,10 @@
 // cannot rope a tile as it lands, so the wrappers rope q and k once per
 // call with K1's pre-pass `flash_fwd_rope_k` (flash_fwd.cu) and pass the
 // roped buffers as q and k; the tables still come in, for the transpose
-// of rope that the epilogues apply to dq and dk. The ring's K14
-// (flash_ring.cu) runs K4's loop with an f32 epilogue; K10/K11
-// (flash_heads.cu) and K13 (flash_ring.cu) keep the WMMA loops
-// `dq_tile`/`dkv_tile` of flash_common.cuh.
+// of rope that the epilogues apply to dq and dk. The ring's K13 and K14
+// (flash_ring.cu) run K3's and K4's loops with an f32 epilogue, K11
+// (flash_heads.cu) K4's on [B, S, KVH*D] views; only K10 (flash_heads.cu)
+// keeps the WMMA loop `dq_tile` of flash_common.cuh.
 #include "flash_bwd_sm90.cuh"
 
 namespace fa {
@@ -73,7 +73,7 @@ __global__ void __launch_bounds__(NTHREADS)
 __global__ void __launch_bounds__(sm90::bwd::THREADS, 1)
     flash_bwd_dq_kernel(const __grid_constant__ sm90::bwd::BwdParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  sm90::bwd::dq_block(smem, p);
+  sm90::bwd::dq_block<bf16>(smem, p);
 }
 
 // ---------------------------------------------------------------- K4

@@ -1,10 +1,11 @@
 // The backward tile loops of K3 (flash_bwd_dq) and K4 (flash_bwd_dkv) for
 // Hopper: TMA loads, wgmma products, and P and dS formed in registers.
-// K14 (flash_ring.cu) runs K4's loop with the ring's mask and an f32
-// epilogue; K10/K11 (flash_heads.cu) and K13 (flash_ring.cu) keep the
-// WMMA loops `dq_tile`/`dkv_tile` of flash_common.cuh. The visibility
-// rule (Mask, keys_of, rows_of, kv_tiles, sees_all) is that header's,
-// shared by every loop.
+// The ring's K13 and K14 (flash_ring.cu) run K3's and K4's loops with
+// the ring's mask and an f32 epilogue; K11 (flash_heads.cu) runs K4's on
+// [B, S, KVH*D] views, with K4's bf16 epilogue. Only K10 (flash_heads.cu)
+// keeps the WMMA loop `dq_tile` of flash_common.cuh. The visibility rule
+// (Mask, keys_of, rows_of, kv_tiles, sees_all) is that header's, shared
+// by every loop.
 //
 // What bounds them on the H100: tensor-core operations. At the slice's
 // shape (B8 H8 S2048 D128, causal) K3's three products are 103 GFLOP
@@ -57,13 +58,17 @@
 //   transpose of rope to dq and dk with the same tables, scale them, and
 //   stage each consumer's rows through its own rows of the resident tile
 //   for 16-byte row stores.
-// - K14's f32 dk and dv (the ring sums up to n of them per kv shard)
-//   leave the accumulators as float2 pairs, with no staging: each
-//   warp-wide store covers 32 whole bytes of 8 rows. Staging them one at
-//   a time through the consumer's rows of the resident tiles for 16-byte
-//   row stores measured 3-9% slower at the ring's block shape (H100 80GB
-//   HBM3, 700 W; kernel_ab.py). The dk/dv loop is templated on the output
-//   type, so K4's bf16 epilogue is unchanged.
+// - The ring's f32 outputs, K13's dq and K14's dk and dv (the ring sums
+//   up to n of them per shard), leave the accumulators as float2 pairs,
+//   with no staging and no consumer sync: each warp-wide store covers 32
+//   whole bytes of 8 rows. Staging K14's one at a time through the
+//   consumer's rows of the resident tiles for 16-byte row stores
+//   measured 3-9% slower at the ring's block shape (H100 80GB HBM3,
+//   700 W; kernel_ab.py). Both loops are templated on the output type,
+//   so K3's and K4's bf16 epilogues are unchanged.
+// - K11 reads [B, S, H*D] operands through the same 4-D tensor maps as
+//   K4 reads [B, H, S, D] ones: the maps take (batch, head, row) strides,
+//   here (S*H*D, D, H*D), so the loop is K4's unchanged.
 #pragma once
 
 #include <type_traits>
@@ -261,6 +266,8 @@ __device__ __forceinline__ void store_pairs(float* out, long long ss, const floa
 // Consumer c of a dq block: query rows pos0 + 64c .. + 63 of head h
 // (batch b) against the live kv tiles. Tile t's S, tile t-1's dQ product
 // and tile t's dP go out together; P is formed while the last two run.
+// dq is written as T: bf16 (K3) or f32 (K13).
+template <typename T>
 __device__ __forceinline__ void dq_consume(const Smem& sm, const AttnArgs& a, int h, int b,
                                            int pos0, const TileRange& tiles, int c) {
   const Mask& m = a.mask;
@@ -334,17 +341,25 @@ __device__ __forceinline__ void dq_consume(const Smem& sm, const AttnArgs& a, in
     if (tid == 0) mbar_arrive(sm.empty + pst);
   }
 
-  // epilogue: dq = scale * unrope(acc) through this consumer's rows of
-  // the Q tile
-  consumer_sync(c);
-  stage_rows(sm.own[0], acc, a.scale, row0, pos0, m.q_len, table(a.cos, b, m.q_len),
-             table(a.sin, b, m.q_len), quad);
-  consumer_sync(c);
-  store_rows(static_cast<bf16*>(a.dq.ptr) + b * a.dq.sb + h * a.dq.sh, a.dq.ss, sm.own[0], c,
-             pos0, m.q_len, tid);
+  if constexpr (std::is_same<T, float>::value) {
+    // f32 epilogue (K13, no rope): dq = scale * dQ from registers
+    store_pairs(static_cast<float*>(a.dq.ptr) + b * a.dq.sb + h * a.dq.sh, a.dq.ss, acc,
+                a.scale, row0, pos0, m.q_len, quad);
+  } else {
+    // epilogue: dq = scale * unrope(acc) through this consumer's rows of
+    // the Q tile
+    consumer_sync(c);
+    stage_rows(sm.own[0], acc, a.scale, row0, pos0, m.q_len, table(a.cos, b, m.q_len),
+               table(a.sin, b, m.q_len), quad);
+    consumer_sync(c);
+    store_rows(static_cast<bf16*>(a.dq.ptr) + b * a.dq.sb + h * a.dq.sh, a.dq.ss, sm.own[0],
+               c, pos0, m.q_len, tid);
+  }
 }
 
-// dq of one block: 128 query rows of one q head. Every thread calls it.
+// dq of one block: 128 query rows of one q head, written as T. Every
+// thread calls it.
+template <typename T>
 __device__ __forceinline__ void dq_block(unsigned char* smem, const BwdParams& p) {
   const AttnArgs& a = p.a;
   int bh, qi;
@@ -386,7 +401,7 @@ __device__ __forceinline__ void dq_block(unsigned char* smem, const BwdParams& p
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
-    dq_consume(sm, a, h, b, pos0, tiles, threadIdx.x / 128 - 1);
+    dq_consume<T>(sm, a, h, b, pos0, tiles, threadIdx.x / 128 - 1);
   }
 }
 

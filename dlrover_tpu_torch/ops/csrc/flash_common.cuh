@@ -2,27 +2,28 @@
 // flash_bwd.cu, flash_heads.cu, flash_ring.cu): tile geometry, the mask
 // and the tile ranges it leaves live (the one visibility rule of every
 // loop, the wgmma/TMA loops of flash_fwd_sm90.cuh and flash_bwd_sm90.cuh
-// included), tile loads with in-kernel rope, the two WMMA products, and
-// two WMMA tile loops: dq (`dq_tile`, K10's and K13's) and dk/dv
-// (`dkv_tile`, K11's). K1, K9 and K12 run the wgmma/TMA forward of
-// flash_fwd_sm90.cuh, K3, K4 and K14 the wgmma/TMA backward of
-// flash_bwd_sm90.cuh.
+// included), and the last WMMA tile loop, K10's dq (`dq_tile`), with its
+// tile loads, WMMA products and row writes. K10 passes no rope tables,
+// so the rope branches of `load_rows` and `write_rows` run in no kernel;
+// they go with `dq_tile` when K10 leaves it. K1, K9 and K12 run the
+// wgmma/TMA forward of flash_fwd_sm90.cuh; K3, K4, K11, K13 and K14 the
+// wgmma/TMA backward of flash_bwd_sm90.cuh.
 //
 // Layout: q/k/v/do are bf16 operands addressed as [B, heads, S, D] through
 // batch, head and row strides (elements). That covers the [B, H, S, D]
 // tensors of flash_attention and the [B, S, H*D] tensors of
 // flash_attention_bshd (head stride D, row stride H*D) alike. Each row of
 // D values is contiguous and 16-byte aligned (the Python wrapper checks).
-// Outputs are written through strides as well: dk and dv in bf16, dq in
-// bf16 or, for the ring's K13, f32 (`dq_tile` takes the element type as
-// a template argument). Rope tables are [B, S, D]
-// bf16, contiguous, full width (the first-half values repeated in the
-// second half). lse and delta are f32 [B, H, S].
+// Outputs are written through strides as well, in bf16 or, for the
+// ring's K13 and K14, f32. Rope tables are [B, S, D] bf16, contiguous,
+// full width (the first-half values repeated in the second half). lse
+// and delta are f32 [B, H, S].
 //
-// Tiles: 64 rows x D=128 columns, staged in shared memory; the products
-// run on the tensor cores through WMMA (bf16 in, f32 accumulate, 16x16x16
-// fragments). Eight warps per block; warp w owns the 16-row group
-// (w & 3) and the column half (w >> 2) of every product it computes.
+// `dq_tile`'s tiles: 64 rows x D=128 columns, staged in shared memory;
+// the products run on the tensor cores through WMMA (bf16 in, f32
+// accumulate, 16x16x16 fragments). Eight warps per block; warp w owns the
+// 16-row group (w & 3) and the column half (w >> 2) of every product it
+// computes.
 //
 // Row maps: a 64-row query tile holds 2^shift consecutive positions of
 // 64 >> shift heads; row r is position pos0 + r % 2^shift of head
@@ -209,14 +210,9 @@ __device__ __forceinline__ uint4 ld16(const bf16* p) {
   return *reinterpret_cast<const uint4*>(p);
 }
 
-// Store 8 f32 values as bf16 (one 16-byte store) or as f32 (two).
+// Store 8 f32 values as bf16 (one 16-byte store).
 __device__ __forceinline__ void store8(bf16* p, const float* f) {
   *reinterpret_cast<uint4*>(p) = pack8(f);
-}
-
-__device__ __forceinline__ void store8(float* p, const float* f) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(f[0], f[1], f[2], f[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(f[4], f[5], f[6], f[7]);
 }
 
 // Stage the 64 rows of `map` into dst [64][LD_H]: row r is read at
@@ -316,12 +312,11 @@ __device__ __forceinline__ void store_acc(float* dst, FragC (&acc)[4]) {
                             wmma::mem_row_major);
 }
 
-// Write a [64][LD_O] f32 tile times `scale` to the rows of `map` (dst =
-// this batch's base, head stride sh, row stride ss; T is bf16 or f32),
-// positions below `len` only, un-roping first when tables are given:
+// Write a [64][LD_O] f32 tile times `scale` as bf16 to the rows of `map`
+// (dst = this batch's base, head stride sh, row stride ss), positions
+// below `len` only, un-roping first when tables are given:
 // unrope(g) = [g1*c1 + g2*s2, g2*c2 - g1*s1], the transpose of rope.
-template <typename T>
-__device__ __forceinline__ void write_rows(T* dst, long long sh, long long ss,
+__device__ __forceinline__ void write_rows(bf16* dst, long long sh, long long ss,
                                            const float* src, float scale, RowMap map,
                                            int len, const bf16* cos, const bf16* sin) {
   for (int idx = threadIdx.x; idx < 64 * (HALF / 8); idx += NTHREADS) {
@@ -348,7 +343,7 @@ __device__ __forceinline__ void write_rows(T* dst, long long sh, long long ss,
         g2[e] = b * c2[e] - a * s1[e];
       }
     }
-    T* out = dst + map.head(r) * sh + pos * ss;
+    bf16* out = dst + map.head(r) * sh + pos * ss;
     store8(out + c, g1);
     store8(out + c + HALF, g2);
   }
@@ -372,8 +367,7 @@ constexpr size_t DQ_SMEM = (4 * TILE_H + TILE_P) * sizeof(bf16) +
 // dq of one 64-row query tile (rows by `map`, batch b) against kv head
 // kvh: recompute S = Q K^T and dP = dO V^T per live kv tile, form
 // dS = P * (dP - delta) and accumulate dQ += dS K in registers; the
-// epilogue scales, un-ropes (with tables) and writes the rows as T.
-template <typename T>
+// epilogue scales, un-ropes (with tables) and writes the rows in bf16.
 __device__ __forceinline__ void dq_tile(unsigned char* smem, const AttnArgs& a,
                                         RowMap map, int kvh, int b) {
   bf16* sQ = reinterpret_cast<bf16*>(smem);
@@ -436,101 +430,8 @@ __device__ __forceinline__ void dq_tile(unsigned char* smem, const AttnArgs& a,
   float* sOut = reinterpret_cast<float*>(smem);  // reuses sQ + sdO
   store_acc(sOut, acc);
   __syncthreads();
-  write_rows(static_cast<T*>(a.dq.ptr) + b * a.dq.sb, a.dq.sh, a.dq.ss, sOut, a.scale, map,
+  write_rows(static_cast<bf16*>(a.dq.ptr) + b * a.dq.sb, a.dq.sh, a.dq.ss, sOut, a.scale, map,
              m.q_len, cos, sin);
-}
-
-// --------------------------------------------------------------- dk, dv
-constexpr size_t DKV_SMEM = (4 * TILE_H + 2 * TILE_P) * sizeof(bf16) +
-                            (2 * TILE_S + 2 * 64) * sizeof(float);
-
-// dk and dv of the 64 kv rows from k0 (kv head kvh, batch b): the block
-// holds its k/v tile while the group's q heads stream past in 64-row
-// tiles over the query rows that see it, recomputing S^T = K Q^T and
-// dP^T = V dO^T (no transposed copies) and accumulating dV += P^T dO and
-// dK += dS^T Q in registers. The sum over the group happens in those
-// registers, so dk/dv come out at kv-head width, written in bf16.
-__device__ __forceinline__ void dkv_tile(unsigned char* smem, const AttnArgs& a, int k0,
-                                         int kvh, int b) {
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = sQ + TILE_H;
-  float* sS = reinterpret_cast<float*>(sdO + TILE_H);
-  float* sdP = sS + TILE_S;
-  bf16* sK = reinterpret_cast<bf16*>(sdP + TILE_S);
-  bf16* sV = sK + TILE_H;
-  bf16* sP = sV + TILE_H;
-  bf16* sdS = sP + TILE_P;
-  float* sLse = reinterpret_cast<float*>(sdS + TILE_P);
-  float* sDelta = sLse + 64;
-
-  const Mask& m = a.mask;
-  const bf16* k = a.k.ptr + b * a.k.sb + kvh * a.k.sh;
-  const bf16* v = a.v.ptr + b * a.v.sb + kvh * a.v.sh;
-  const bf16* cos = table(a.cos, b, m.q_len);
-  const bf16* sin = table(a.sin, b, m.q_len);
-  const RowMap kv_map{k0, 6, kvh};
-
-  load_rows(sK, k, 0, a.k.ss, RowMap{k0, 6, 0}, m.kv_len, cos, sin);
-  load_rows(sV, v, 0, a.v.ss, RowMap{k0, 6, 0}, m.kv_len, nullptr, nullptr);
-
-  const Rows live = rows_of(m, k0, min(k0 + BK, m.kv_len) - 1);
-  const int i0 = live.lo / BQ, i1 = live.lo <= live.hi ? live.hi / BQ + 1 : i0;
-
-  FragC dk[4], dv[4];
-#pragma unroll
-  for (int n = 0; n < 4; ++n) {
-    wmma::fill_fragment(dk[n], 0.f);
-    wmma::fill_fragment(dv[n], 0.f);
-  }
-
-  for (int g = 0; g < a.group; ++g) {
-    const int h = kvh * a.group + g;
-    // this head's bases, once per head: a head offset per staged row (a
-    // 64-bit multiply each) made this loop measurably slower on the H100
-    const bf16* q = a.q.ptr + b * a.q.sb + h * a.q.sh;
-    const bf16* dout = a.dout.ptr + b * a.dout.sb + h * a.dout.sh;
-    const long long row_base = ((long long)b * a.H + h) * m.q_len;
-    for (int i = i0; i < i1; ++i) {
-      const int q0 = i * BQ;
-      __syncthreads();
-      load_rows(sQ, q, 0, a.q.ss, RowMap{q0, 6, 0}, m.q_len, cos, sin);
-      load_rows(sdO, dout, 0, a.dout.ss, RowMap{q0, 6, 0}, m.q_len, nullptr, nullptr);
-      if (threadIdx.x < 64) {
-        const int row = q0 + threadIdx.x;
-        sLse[threadIdx.x] = row < m.q_len ? a.lse_in[row_base + row] : 0.f;
-        sDelta[threadIdx.x] = row < m.q_len ? a.delta[row_base + row] : 0.f;
-      }
-      __syncthreads();
-      mm_abt(sS, sK, sQ);    // S^T  = K Q^T   [kv, q]
-      mm_abt(sdP, sV, sdO);  // dP^T = V dO^T  [kv, q]
-      __syncthreads();
-      // this thread's query row is the same at every step of the loop
-      const Keys keys = keys_of(m, q0 + threadIdx.x % BQ);
-      for (int idx = threadIdx.x; idx < BK * BQ; idx += NTHREADS) {
-        const int r = idx / BQ, c = idx % BQ;  // r: key row, c: query row
-        float p = 0.f, ds = 0.f;
-        if (keys.has(k0 + r)) {
-          p = __expf(sS[r * LD_S + c] * a.scale - sLse[c]);
-          ds = p * (sdP[r * LD_S + c] - sDelta[c]);
-        }
-        sP[r * LD_P + c] = __float2bfloat16(p);
-        sdS[r * LD_P + c] = __float2bfloat16(ds);
-      }
-      __syncthreads();
-      mm_ab_acc(dv, sP, sdO);  // dV += P^T dO
-      mm_ab_acc(dk, sdS, sQ);  // dK += dS^T Q
-    }
-  }
-  __syncthreads();
-  float* sOutK = reinterpret_cast<float*>(sQ);  // reuses sQ + sdO
-  float* sOutV = sS;                            // reuses sS + sdP
-  store_acc(sOutK, dk);
-  store_acc(sOutV, dv);
-  __syncthreads();
-  write_rows(static_cast<bf16*>(a.dk.ptr) + b * a.dk.sb, a.dk.sh, a.dk.ss, sOutK, a.scale,
-             kv_map, m.kv_len, cos, sin);
-  write_rows(static_cast<bf16*>(a.dv.ptr) + b * a.dv.sb, a.dv.sh, a.dv.ss, sOutV, 1.f,
-             kv_map, m.kv_len, nullptr, nullptr);
 }
 
 // ---------------------------------------------------------- host side

@@ -33,12 +33,19 @@
 // warpgroups, online softmax in registers) on 128-row tiles of 128 / g
 // positions x g heads; its q tensor map's box spans (64 columns, 128 / g
 // positions, g heads) of the [B, S, H*D] view, which lands the rows in
-// that order. K10 and K11 still run the WMMA loops `dq_tile`/`dkv_tile`
+// that order. K11 runs K4's Hopper loop (flash_bwd_sm90.cuh `dkv_block`:
+// 128 kv rows resident, the group's (q, do) tiles streamed through a
+// 3-slot TMA ring, S^T, P and dS in registers, dK and dV summed over the
+// group in registers) with K4's bf16 epilogue and no rope tables; its
+// tensor maps read the [B, S, heads*D] operands through the (batch, head,
+// row) strides (S*heads*D, D, heads*D), and it packs no rows, so any
+// group size works. K10 still runs the WMMA loop `dq_tile`
 // (flash_common.cuh) on 64-row tiles: no wgmma, TMA or double buffering
 // yet.
 //
 // Outputs: o and dq [B, S, H*D], dk and dv [B, S, KVH*D], contiguous; lse
 // f32 [B, H, S]. A row that sees no key gets o = 0 and lse = -1e30.
+#include "flash_bwd_sm90.cuh"
 #include "flash_fwd_sm90.cuh"
 
 namespace fa {
@@ -58,14 +65,16 @@ __global__ void __launch_bounds__(sm90::THREADS, 1)
 __global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_heads_kernel(AttnArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int kvh = blockIdx.y;
-  dq_tile<bf16>(smem, a, RowMap{(int)blockIdx.x << a.shift, a.shift, kvh * a.group}, kvh,
+  dq_tile(smem, a, RowMap{(int)blockIdx.x << a.shift, a.shift, kvh * a.group}, kvh,
           blockIdx.z);
 }
 
-// One block per (kv tile, kv head, batch).
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_heads_kernel(AttnArgs a) {
+// One block per (kv tile of 128 positions, kv head, batch), in sm90's
+// order.
+__global__ void __launch_bounds__(sm90::bwd::THREADS, 1)
+    flash_bwd_dkv_heads_kernel(const __grid_constant__ sm90::bwd::BwdParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  dkv_tile(smem, a, blockIdx.x * BK, blockIdx.y, blockIdx.z);
+  sm90::bwd::dkv_block<bf16>(smem, p);
 }
 
 // Grid of the packed q-major kernels: query tiles of 2^shift positions.
@@ -80,7 +89,8 @@ using namespace fa;
 
 // C entries, bound with ctypes. Each returns cudaGetLastError() after its
 // launch, or cudaErrorInvalidValue when H / KVH is not a power of two up
-// to 64 (the packed kernels' row maps need one). `strides` holds the
+// to 64 (the packed kernels K9/K10's row maps need one) or a tensor map
+// is refused (K9, K11). `strides` holds the
 // (batch, head, row) strides of q, k, v and, for the backward, do, each
 // viewed as [B, heads, S, D].
 extern "C" int flash_fwd_heads(const void* q, const void* k, const void* v, void* o,
@@ -119,10 +129,10 @@ extern "C" int flash_bwd_dkv_heads(const void* q, const void* k, const void* v,
                                    void* dk, void* dv, int B, int H, int KVH, int q_len,
                                    int kv_len, const long long* strides, int causal,
                                    int window, int prefix, float scale, void* stream) {
-  AttnArgs a = attn_args(q, k, v, dout, lse, delta, strides, H, KVH, q_len, kv_len, causal,
-                         window, prefix, scale);
-  a.dk = out_bshd(dk, KVH, kv_len);
-  a.dv = out_bshd(dv, KVH, kv_len);
-  return launch(flash_bwd_dkv_heads_kernel, dim3((kv_len + BK - 1) / BK, KVH, B),
-                DKV_SMEM, stream, a);
+  sm90::bwd::BwdParams p = {};
+  p.a = attn_args(q, k, v, dout, lse, delta, strides, H, KVH, q_len, kv_len, causal, window,
+                  prefix, scale);
+  p.a.dk = out_bshd(dk, KVH, kv_len);
+  p.a.dv = out_bshd(dv, KVH, kv_len);
+  return sm90::bwd::launch_bwd(flash_bwd_dkv_heads_kernel, p, B, KVH, true, stream);
 }

@@ -32,19 +32,20 @@
 // the output bytes), 10.1, 15.1 and 20.1 us at 3.35 TB/s. A diagonal
 // block does half the operations on the same bytes.
 //
-// What the designs do about that. K12 and K14 run the Hopper loops of K1
-// and K4 (flash_fwd_sm90.cuh, flash_bwd_sm90.cuh): a TMA producer
-// warpgroup and two wgmma consumer warpgroups per 128-row block, the
-// score tiles and P (K14: S^T, P and dS) in registers, accumulators in
-// registers, each k/v tile (K12) or q/do tile (K14) loaded by TMA once
-// per 128-row block, and only live tiles loaded. The offset enters
-// through Mask.off, so a wholly visible block takes no per-element mask
-// and the diagonal masks only its diagonal tiles. The tensor maps span
-// the shard (its length, its strides), so rows past a ragged shard's end
-// arrive as TMA's zeros, never as the next shard's rows. K14 writes its
-// f32 dk/dv straight from the accumulators as float2 pairs. K13 still
-// runs the WMMA loop `dq_tile` of flash_common.cuh (synchronous staging
-// through registers, S, dP and dS through shared memory, 64-row tiles).
+// What the designs do about that. K12, K13 and K14 run the Hopper loops
+// of K1, K3 and K4 (flash_fwd_sm90.cuh, flash_bwd_sm90.cuh): a TMA
+// producer warpgroup and two wgmma consumer warpgroups per 128-row block,
+// the score tiles and P (K13: S, P, dP and dS; K14: S^T, P and dS) in
+// registers, accumulators in registers, each k/v tile (K12, K13) or q/do
+// tile (K14) loaded by TMA once per 128-row block, and only live tiles
+// loaded. The offset enters through Mask.off, so a wholly visible block
+// takes no per-element mask and the diagonal masks only its diagonal
+// tiles; a block wholly in the future has no live tile, so its producer
+// loads only the resident tiles and its consumers skip the loop. The
+// tensor maps span the shard (its length, its strides), so rows past a
+// ragged shard's end arrive as TMA's zeros, never as the next shard's
+// rows, and take lse = +inf (P = 0). K13 and K14 write their f32
+// gradients straight from the accumulators as float2 pairs.
 // Every output element is written once, by one block (no atomics, no f32
 // scratch in device memory). No rope: the ring path ropes q/k before
 // attention, at global positions, as the JAX model does. Not yet done:
@@ -70,11 +71,12 @@ __global__ void __launch_bounds__(sm90::THREADS, 1)
   sm90::fwd_block(smem, p, RowMap{qi * sm90::BQ, 7, h}, h / p.a.group, bh / p.a.H);
 }
 
-// K13: one block per (q tile of 64 positions, q head, batch).
-__global__ void __launch_bounds__(NTHREADS) flash_ring_dq_kernel(AttnArgs a) {
+// K13: one block per (q tile of 128 positions, q head, batch), in
+// sm90's order; dq in f32.
+__global__ void __launch_bounds__(sm90::bwd::THREADS, 1)
+    flash_ring_dq_kernel(const __grid_constant__ sm90::bwd::BwdParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int h = blockIdx.y;
-  dq_tile<float>(smem, a, RowMap{(int)blockIdx.x * BQ, 6, h}, h / a.group, blockIdx.z);
+  sm90::bwd::dq_block<float>(smem, p);
 }
 
 // K14: one block per (kv tile of 128 positions, kv head, batch), in
@@ -121,10 +123,11 @@ extern "C" int flash_ring_dq(const void* q, const void* k, const void* v, const 
                              const void* lse, const void* delta, void* dq, int B, int H,
                              int KVH, int q_len, int kv_len, const long long* strides,
                              int q_start, int k_start, float scale, void* stream) {
-  AttnArgs a = ring_args(q, k, v, dout, lse, delta, strides, H, KVH, q_len, kv_len, q_start,
-                         k_start, scale);
-  a.dq = out_bhsd(dq, H, q_len);
-  return launch(flash_ring_dq_kernel, dim3((q_len + BQ - 1) / BQ, H, B), DQ_SMEM, stream, a);
+  sm90::bwd::BwdParams p = {};
+  p.a = ring_args(q, k, v, dout, lse, delta, strides, H, KVH, q_len, kv_len, q_start, k_start,
+                  scale);
+  p.a.dq = out_bhsd(dq, H, q_len);
+  return sm90::bwd::launch_bwd(flash_ring_dq_kernel, p, B, KVH, false, stream);
 }
 
 extern "C" int flash_ring_dkv(const void* q, const void* k, const void* v, const void* dout,

@@ -12,7 +12,9 @@ K9-K11 on [B, S, H*D] through flash_attention_bshd), with GQA, ragged
 lengths, a sliding window and a prefix; the ring-block kernels (K12-K14)
 at the diagonal, wholly visible and wholly future offsets (exact zeros),
 on contiguous shards and on shard views of a whole sequence, and through
-ring_attention over 4 in-process ranks.
+ring_attention over 4 in-process ranks. Kernels that run another one's
+loop are held to it bit for bit: K13's dq (rounded to bf16) to K3's on
+the same mask, K11's dk/dv on [B, S, H*D] to K4's on [B, H, S, D].
 
 The optimizer kernels (K5-K8) do the plain versions' f32 operations in
 the same order, without FMA contraction: K5/K6 codes, scales and values
@@ -313,6 +315,57 @@ def test_backward_kernels_on_transposed_views(cuda):
         _check_backward_kernels(args)
 
 
+@pytest.mark.parametrize("B,H,KVH,S", [
+    (2, 8, 8, 512),    # the [seq4] run's block shape (at B2), diagonal
+    (1, 8, 2, 1000),   # GQA g = 4, ragged against 64- and 128-row tiles
+    (1, 4, 1, 77),     # MQA, shorter than one tile
+])
+def test_ring_dq_runs_the_dq_loop(cuda, B, H, KVH, S):
+    """K13 on the diagonal block (q_start == k_start: causal with offset
+    0) against K3 without rope on the same inputs (end-aligned causality
+    at q_len == kv_len: the same mask). K13 runs K3's loop with an f32
+    epilogue, so its dq rounded to bf16 is bit-equal to K3's."""
+    scale = 128 ** -0.5
+    args = _backward_inputs(cuda, 12, B, H, KVH, S, S, False,
+                            (True, scale, None, None))
+    q, k, v, do, lse, delta = args[:6]
+    before = att.launches()
+    dq3 = att.flash_bwd_dq(*args)
+    dq13 = att.flash_ring_dq(q, k, v, do, lse, delta, S, S, scale)
+    torch.cuda.synchronize()
+    after = att.launches()
+    for name in ("flash_bwd_dq", "flash_ring_dq"):
+        assert after[name] == before[name] + 1
+    assert dq3.dtype == torch.bfloat16 and dq13.dtype == torch.float32
+    assert torch.equal(dq13.to(torch.bfloat16), dq3)
+
+
+@pytest.mark.parametrize("B,H,KVH,S,window,prefix", [
+    (2, 8, 8, 256, None, None),
+    (1, 32, 8, 512, None, None),   # GQA g = 4: 4 x nq q tiles a block
+    (1, 8, 2, 1024, 512, 128),     # window 512 and prefix 128
+    (1, 8, 4, 1000, None, None),   # ragged against 64- and 128-row tiles
+])
+def test_dkv_heads_runs_the_dkv_loop(cuda, B, H, KVH, S, window, prefix):
+    """K11 on [B, S, H*D] operands against K4 without rope on contiguous
+    [B, H, S, D] copies of the same data. K11 runs K4's loop through
+    strided tensor maps, so dk and dv are bit-equal."""
+    mask = (True, 128 ** -0.5, window, prefix)
+    q, k, v, do, lse, delta = _backward_inputs(cuda, 13, B, H, KVH, S, S,
+                                               False, mask)[:6]
+    before = att.launches()
+    dk4, dv4 = att.flash_bwd_dkv(q, k, v, do, lse, delta, None, None, *mask)
+    fused = [att._merge_heads(t) for t in (q, k, v, do)]
+    dk11, dv11 = att.flash_bwd_dkv_heads(*fused, lse, delta, H, *mask)
+    torch.cuda.synchronize()
+    after = att.launches()
+    for name in ("flash_bwd_dkv", "flash_bwd_dkv_heads"):
+        assert after[name] == before[name] + 1
+    assert dk11.shape == fused[1].shape and dv11.shape == fused[2].shape
+    assert torch.equal(dk11, att._merge_heads(dk4))
+    assert torch.equal(dv11, att._merge_heads(dv4))
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     q = torch.zeros(1, 2, 16, 64, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="head_dim"):
@@ -395,6 +448,7 @@ def test_ring_block_kernels_match_plain(cuda, B, H, KVH, S):
     (2, 8, 4, 500, False),   # the same cut from a [B, H, S, D] buffer
     (1, 8, 2, 256, True),    # GQA g = 4: two 128-row kv blocks a head
     (1, 2, 1, 77, True),     # ragged, shorter than one tile
+    (2, 8, 2, 200, True),    # ragged against 128-row q and 64-row kv boxes
 ])
 def test_ring_block_kernels_on_shard_views(cuda, B, H, KVH, S, transposed):
     """K12-K14 on shards of one sequence of 4 ring shards, as the [seq4]
@@ -403,7 +457,10 @@ def test_ring_block_kernels_on_shard_views(cuda, B, H, KVH, S, transposed):
     one. The q shard of rank 1 (q_start = S) against the kv shards of
     ranks 1 (diagonal), 0 (visible) and 2 (future: exact zeros, lse
     -1e30). Shard 2 of every operand is scaled by 1000, so a tile that
-    read past the end of shard 1 into it would show."""
+    read past the end of shard 1 into it would show: K12's and K13's
+    tensor maps read q (and K13's do) in 128-row boxes and k/v in 128-
+    (K12) or 64-row (K13) boxes, K14's the other way round, each map
+    bounded by the shard's length."""
     gen = torch.Generator(device=cuda).manual_seed(5)
 
     def whole(heads):
