@@ -22,10 +22,9 @@ Phases, each fatal on failure (no exception is caught):
    pre-pass, which is also checked against the plain rope and timed
    alone, and K3's and K4's each including the two pre-passes (q and k)
    that the backward runs once for both, also timed alone; at the GQA
-   shape K9 against K1 and K10 against K3, both without rope, as the
-   measure of K9/K10's group packing (K10 against K3 also of the WMMA
-   loop against the wgmma one), and K11 against K4 without rope, the
-   same loop, as the cost of K11's strided [B, S, H*D] tensor maps;
+   shape K9 against K1 without rope, as the measure of K9's group
+   packing, and K10 against K3 and K11 against K4 without rope, the
+   same loops, as the cost of their strided [B, S, H*D] tensor maps;
    then each ring-block kernel (K12-K14) against its plain version in
    bf16, for the q shard of ring rank 1 against the kv shards of ranks 1
    (the diagonal), 0 (wholly visible) and 2 (wholly in the future: exact
@@ -515,12 +514,11 @@ def time_heads(inputs):
 
 
 def time_packing(shape):
-    """K9 against K1 and K10 against K3 at ``shape``, all without rope,
-    on the same data: K1/K3 stage each k/v tile once per q head, K9/K10
-    once per GQA group. K10 against K3 also holds the WMMA loop against
-    the wgmma one, until K10 moves onto it. K11 against K4, the same
-    loop, from CUDA-graph replays: the cost of reading [B, S, H*D]
-    operands through strided tensor maps."""
+    """At ``shape``, all without rope, on the same data: K9 against K1,
+    the measure of K9's group packing (K1 stages each k/v tile once per q
+    head, K9 once per GQA group); then K10 against K3 and K11 against K4,
+    the same loops, from CUDA-graph replays: the cost of reading
+    [B, S, H*D] operands through strided tensor maps."""
     from dlrover_tpu_torch.ops import attention as att
 
     B, H, KVH, S = shape
@@ -531,29 +529,30 @@ def time_packing(shape):
     q3, k3, v3, do3 = (t.transpose(1, 2).reshape(B, S, -1).contiguous()
                        for t in (q, k, v, do))
     per_head = (q, k, v, do, lse, delta, None, None, True, scale)
-    packed = (q3, k3, v3, do3, lse, delta, H, True, scale)
+    fused = (q3, k3, v3, do3, lse, delta, H, True, scale)
     ms = {
         "flash_fwd": cuda_ms(lambda: att.flash_fwd(*per_head[:3],
                                                    *per_head[6:]), 20),
         "flash_fwd_heads": cuda_ms(lambda: att.flash_fwd_heads(
-            *packed[:3], *packed[6:]), 20),
-        "flash_bwd_dq": cuda_ms(lambda: att.flash_bwd_dq(*per_head), 20),
-        "flash_bwd_dq_heads": cuda_ms(lambda: att.flash_bwd_dq_heads(
-            *packed), 20),
+            *fused[:3], *fused[6:]), 20),
     }
     log(json.dumps({"group_packing_ms_no_rope": {
         "shape_b_h_kvh_s": list(shape), **ms,
         "fwd_ratio_k9_over_k1": ms["flash_fwd_heads"] / ms["flash_fwd"],
-        "dq_ratio_k10_over_k3": ms["flash_bwd_dq_heads"] / ms["flash_bwd_dq"],
     }}))
-    dkv = {
+    strided = {
+        "flash_bwd_dq": graph_ms(lambda: att.flash_bwd_dq(*per_head), 20),
+        "flash_bwd_dq_heads": graph_ms(
+            lambda: att.flash_bwd_dq_heads(*fused), 20),
         "flash_bwd_dkv": graph_ms(lambda: att.flash_bwd_dkv(*per_head), 20),
         "flash_bwd_dkv_heads": graph_ms(
-            lambda: att.flash_bwd_dkv_heads(*packed), 20),
+            lambda: att.flash_bwd_dkv_heads(*fused), 20),
     }
-    medians = {name: statistics.median(val) for name, val in dkv.items()}
-    log(json.dumps({"dkv_strided_view_graph_replays_ms_no_rope": {
-        "shape_b_h_kvh_s": list(shape), **dkv,
+    medians = {name: statistics.median(val) for name, val in strided.items()}
+    log(json.dumps({"strided_view_graph_replays_ms_no_rope": {
+        "shape_b_h_kvh_s": list(shape), **strided,
+        "dq_ratio_k10_over_k3":
+            medians["flash_bwd_dq_heads"] / medians["flash_bwd_dq"],
         "ratio_k11_over_k4_medians":
             medians["flash_bwd_dkv_heads"] / medians["flash_bwd_dkv"],
     }}))

@@ -16,12 +16,14 @@ K3 and K4 load q and k roped by the same pre-pass, run once per
 backward for both.
 
 On the model-native [B, S, H*Dh] layout (:func:`flash_attention_bshd`,
-the JAX package's fused-heads family), each q-major kernel packing the q
-heads of one GQA group into its tiles:
+the JAX package's fused-heads family):
 
-- ``flash_fwd_heads`` (K9): o [B, S, H*Dh] and lse.
-- ``flash_bwd_dq_heads`` (K10): dq [B, S, H*Dh].
-- ``flash_bwd_dkv_heads`` (K11): dk and dv [B, S, KVH*Dh].
+- ``flash_fwd_heads`` (K9): o [B, S, H*Dh] and lse, packing the q heads
+  of one GQA group into the rows of each tile.
+- ``flash_bwd_dq_heads`` (K10): dq [B, S, H*Dh], K3's loop on the
+  [B, H, S, Dh] views.
+- ``flash_bwd_dkv_heads`` (K11): dk and dv [B, S, KVH*Dh], K4's loop on
+  the views.
 
 Their backward takes delta from K2, over [B, H, S, Dh] views.
 
@@ -56,7 +58,7 @@ from dlrover_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 HEAD_DIM = 128  # the head_dim the CUDA kernels are built for
-TILE_ROWS = 64  # query rows per tile of the packed kernels (K9, K10)
+TILE_ROWS = 64  # K9 packs a GQA group into its tiles: the group divides this
 
 
 # ---------------------------------------------------------------------------
@@ -349,7 +351,7 @@ def _check(name, q, k, *others):
 
 
 def _check_packing(name, heads, kv_heads):
-    """K9/K10 put a GQA group's q heads in the rows of one 64-row tile."""
+    """K9 puts a GQA group's q heads in the rows of one tile."""
     group = heads // kv_heads
     if TILE_ROWS % group != 0:
         raise NotImplementedError(
@@ -512,14 +514,14 @@ def flash_fwd_heads(q, k, v, heads, causal, sm_scale, window=None,
 
 def flash_bwd_dq_heads(q, k, v, do, lse, delta, heads, causal, sm_scale,
                        window=None, prefix=None):
-    """K10: dq [B,S,H*D] in q.dtype."""
+    """K10: dq [B,S,H*D] in q.dtype (K3's loop on the [B,H,S,D] views:
+    one q head per tile, any GQA group)."""
     if q.device.type == "cpu":
         return flash_bwd_dq_heads_plain(q, k, v, do, lse, delta, heads,
                                         causal, sm_scale, window, prefix)
-    views = _heads_views(q, k, v, do, heads)
-    _check_packing("flash_bwd_dq_heads", heads, views[1].shape[1])
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch_attn("flash_bwd_dq_heads", views, (lse, delta), None, (dq,),
+    _launch_attn("flash_bwd_dq_heads", _heads_views(q, k, v, do, heads),
+                 (lse, delta), None, (dq,),
                  _mask_args(causal, window, prefix, sm_scale))
     flash_bwd_dq_heads.launches += 1
     return dq

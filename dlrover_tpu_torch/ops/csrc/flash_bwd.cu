@@ -38,9 +38,8 @@
 // call with K1's pre-pass `flash_fwd_rope_k` (flash_fwd.cu) and pass the
 // roped buffers as q and k; the tables still come in, for the transpose
 // of rope that the epilogues apply to dq and dk. The ring's K13 and K14
-// (flash_ring.cu) run K3's and K4's loops with an f32 epilogue, K11
-// (flash_heads.cu) K4's on [B, S, KVH*D] views; only K10 (flash_heads.cu)
-// keeps the WMMA loop `dq_tile` of flash_common.cuh.
+// (flash_ring.cu) run K3's and K4's loops with an f32 epilogue, K10 and
+// K11 (flash_heads.cu) run them on [B, S, heads*D] views.
 #include "flash_bwd_sm90.cuh"
 
 namespace fa {

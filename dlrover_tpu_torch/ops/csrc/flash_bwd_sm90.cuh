@@ -1,20 +1,19 @@
 // The backward tile loops of K3 (flash_bwd_dq) and K4 (flash_bwd_dkv) for
 // Hopper: TMA loads, wgmma products, and P and dS formed in registers.
 // The ring's K13 and K14 (flash_ring.cu) run K3's and K4's loops with
-// the ring's mask and an f32 epilogue; K11 (flash_heads.cu) runs K4's on
-// [B, S, KVH*D] views, with K4's bf16 epilogue. Only K10 (flash_heads.cu)
-// keeps the WMMA loop `dq_tile` of flash_common.cuh. The visibility rule
-// (Mask, keys_of, rows_of, kv_tiles, sees_all) is that header's, shared
-// by every loop.
+// the ring's mask and an f32 epilogue; K10 and K11 (flash_heads.cu) run
+// them on [B, S, heads*D] views, with K3's and K4's bf16 epilogues. The
+// visibility rule (Mask, keys_of, rows_of, kv_tiles, sees_all) is
+// flash_common.cuh's, shared by every loop.
 //
 // What bounds them on the H100: tensor-core operations. At the slice's
 // shape (B8 H8 S2048 D128, causal) K3's three products are 103 GFLOP
 // (0.10 ms at 989 TFLOP/s) and K4's four 137 GFLOP (0.14 ms), against
-// ~50 MB of operands. The WMMA loops reached 6-7% of that: synchronous
-// staging through registers with rope applied per element on every tile
-// visit (K4 re-roped each q tile once per kv block that sees it), S, dP,
-// P and dS through shared memory, and WMMA fragments reloaded from
-// shared memory on every 16-wide step.
+// ~50 MB of operands. The first WMMA loops reached 6-7% of that:
+// synchronous staging through registers with rope applied per element on
+// every tile visit (K4 re-roped each q tile once per kv block that sees
+// it), S, dP, P and dS through shared memory, and WMMA fragments
+// reloaded from shared memory on every 16-wide step.
 //
 // What these loops do about it:
 // - Warp specialisation, as the forward (flash_fwd_sm90.cuh). A block
@@ -66,9 +65,10 @@
 //   measured 3-9% slower at the ring's block shape (H100 80GB HBM3,
 //   700 W; kernel_ab.py). Both loops are templated on the output type,
 //   so K3's and K4's bf16 epilogues are unchanged.
-// - K11 reads [B, S, H*D] operands through the same 4-D tensor maps as
-//   K4 reads [B, H, S, D] ones: the maps take (batch, head, row) strides,
-//   here (S*H*D, D, H*D), so the loop is K4's unchanged.
+// - K10 and K11 read [B, S, heads*D] operands through the same 4-D tensor
+//   maps as K3 and K4 read [B, H, S, D] ones: the maps take (batch, head,
+//   row) strides, here (S*heads*D, D, heads*D), so the loops are K3's and
+//   K4's unchanged.
 #pragma once
 
 #include <type_traits>

@@ -22,7 +22,7 @@
 // is roped again for every q tile that visits it. The pre-pass is bound
 // by bytes: k read, k written and the cos/sin tables read once, ~23 us
 // at the slice's shape at 3.35 TB/s. Both round roped values to bf16
-// once, from f32, as the WMMA loop's `load_rows` does.
+// once, from f32.
 //
 // Output: o (bf16 [B, H, S, D], contiguous) and lse (f32 [B, H, S]). The
 // TPU kernel's 128-lane lse padding is a TPU layout artifact and is

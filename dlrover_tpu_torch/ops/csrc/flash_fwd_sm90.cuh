@@ -9,10 +9,10 @@
 // What bounds the forward on the H100: tensor-core operations. At the
 // slice's shape (B8 H8 S2048 D128, causal) the two products are 69 GFLOP
 // against 34 MB of q/k/v/o, ~2000 operations per byte: 0.07 ms at
-// 989 TFLOP/s. The WMMA loop reached ~5% of that: its products reloaded
-// both operands from shared memory on every 16-wide step, the running
-// output and the score tile went through shared memory on every kv
-// tile, copies were synchronous, and one warp walked the softmax rows
+// 989 TFLOP/s. The first WMMA loop reached ~5% of that: its products
+// reloaded both operands from shared memory on every 16-wide step, the
+// running output and the score tile went through shared memory on every
+// kv tile, copies were synchronous, and one warp walked the softmax rows
 // one after another.
 //
 // What this loop does about it:
@@ -188,7 +188,7 @@ __device__ __forceinline__ void consume(const Smem& sm, const AttnArgs& a, RowMa
   mbar_wait(sm.bar_q, 0);
   if (a.cos != nullptr) {
     // rope this consumer's rows in place: rope(x) = x * C +
-    // rotate_half(x) * S in f32, rounded once to bf16 (load_rows' math);
+    // rotate_half(x) * S in f32, rounded once to bf16 (the pre-pass's math);
     // columns j and j + 64 sit at the same offset of the two boxes
     const bf16* cos = table(a.cos, b, m.q_len);
     const bf16* sin = table(a.sin, b, m.q_len);

@@ -13,13 +13,16 @@
 // spans every head of a row block, so one kv block read from HBM feeds all
 // q heads. On Hopper all heads of a row tile do not fit one block's
 // 227 KB of shared memory. The reuse that survives is within a GQA
-// group, whose q heads share one kv head. K9 and K10 pack the group's
-// g = H / KVH q heads as the rows of one tile (positions x g heads,
-// head-major), so each k/v tile is staged in shared memory once per group
-// where K1/K3 stage it once per q head. K11 is kv-major, as K4: one block
-// holds its k/v tile while the group's q heads stream past, and sums
-// dk/dv over the group in registers, so they come out at kv-head width
-// with no group-sum pass.
+// group, whose q heads share one kv head. K9 packs the group's g = H /
+// KVH q heads as the rows of one tile (positions x g heads, head-major),
+// so each k/v tile is staged in shared memory once per group where K1
+// stages it once per q head. K10 packs none: each block owns 128 rows of
+// one q head, as K3's do, and a group's blocks run next to one another
+// (chunks of (batch, head) pairs), so the repeated k/v reads come from
+// L2; packing would end every block on a masked diagonal tile. K11 is
+// kv-major, as K4: one block holds its k/v tile while the group's q
+// heads stream past, and sums dk/dv over the group in registers, so they
+// come out at kv-head width with no group-sum pass.
 //
 // What bounds them on the H100: tensor-core operations, as K1/K3/K4: 4, 6
 // and 8 * D operations per visible (q, k) pair, at B8 H8 S2048 D128
@@ -33,15 +36,13 @@
 // warpgroups, online softmax in registers) on 128-row tiles of 128 / g
 // positions x g heads; its q tensor map's box spans (64 columns, 128 / g
 // positions, g heads) of the [B, S, H*D] view, which lands the rows in
-// that order. K11 runs K4's Hopper loop (flash_bwd_sm90.cuh `dkv_block`:
-// 128 kv rows resident, the group's (q, do) tiles streamed through a
-// 3-slot TMA ring, S^T, P and dS in registers, dK and dV summed over the
-// group in registers) with K4's bf16 epilogue and no rope tables; its
-// tensor maps read the [B, S, heads*D] operands through the (batch, head,
-// row) strides (S*heads*D, D, heads*D), and it packs no rows, so any
-// group size works. K10 still runs the WMMA loop `dq_tile`
-// (flash_common.cuh) on 64-row tiles: no wgmma, TMA or double buffering
-// yet.
+// that order. K10 and K11 run K3's and K4's Hopper loops
+// (flash_bwd_sm90.cuh `dq_block` and `dkv_block`: 128 own rows resident,
+// the other two operands streamed in 64-row tiles through a 3-slot TMA
+// ring, S, P and dS in registers, dQ or dK and dV accumulated in
+// registers) with their bf16 epilogues and no rope tables; their tensor
+// maps read the [B, S, heads*D] operands through the (batch, head, row)
+// strides (S*heads*D, D, heads*D), so any group size works.
 //
 // Outputs: o and dq [B, S, H*D], dk and dv [B, S, KVH*D], contiguous; lse
 // f32 [B, H, S]. A row that sees no key gets o = 0 and lse = -1e30.
@@ -62,11 +63,12 @@ __global__ void __launch_bounds__(sm90::THREADS, 1)
                   bh / (p.a.H / p.a.group));
 }
 
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_heads_kernel(AttnArgs a) {
+// One block per (q tile of 128 positions, q head, batch), in sm90's
+// order, last tiles first.
+__global__ void __launch_bounds__(sm90::bwd::THREADS, 1)
+    flash_bwd_dq_heads_kernel(const __grid_constant__ sm90::bwd::BwdParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int kvh = blockIdx.y;
-  dq_tile(smem, a, RowMap{(int)blockIdx.x << a.shift, a.shift, kvh * a.group}, kvh,
-          blockIdx.z);
+  sm90::bwd::dq_block<bf16>(smem, p);
 }
 
 // One block per (kv tile of 128 positions, kv head, batch), in sm90's
@@ -77,29 +79,21 @@ __global__ void __launch_bounds__(sm90::bwd::THREADS, 1)
   sm90::bwd::dkv_block<bf16>(smem, p);
 }
 
-// Grid of the packed q-major kernels: query tiles of 2^shift positions.
-static dim3 packed_grid(const AttnArgs& a, int KVH, int B) {
-  const int per_tile = 1 << a.shift;
-  return dim3((a.mask.q_len + per_tile - 1) / per_tile, KVH, B);
-}
-
 }  // namespace fa
 
 using namespace fa;
 
 // C entries, bound with ctypes. Each returns cudaGetLastError() after its
-// launch, or cudaErrorInvalidValue when H / KVH is not a power of two up
-// to 64 (the packed kernels K9/K10's row maps need one) or a tensor map
-// is refused (K9, K11). `strides` holds the
-// (batch, head, row) strides of q, k, v and, for the backward, do, each
-// viewed as [B, heads, S, D].
+// launch, or cudaErrorInvalidValue when a tensor map is refused or, for
+// K9, H / KVH is not a power of two up to 64 (its packed row maps need
+// one). `strides` holds the (batch, head, row) strides of q, k, v and,
+// for the backward, do, each viewed as [B, heads, S, D].
 extern "C" int flash_fwd_heads(const void* q, const void* k, const void* v, void* o,
                                void* lse, int B, int H, int KVH, int q_len, int kv_len,
                                const long long* strides, int causal, int window,
                                int prefix, float scale, void* stream) {
-  // 128-row tiles: one more position bit than the 64-row K10 tiles
-  const int shift = pack_shift(H / KVH) + 1;
-  if (shift < 1) return (int)cudaErrorInvalidValue;
+  const int shift = pack_shift(H / KVH);
+  if (shift < 0) return (int)cudaErrorInvalidValue;
   sm90::FwdParams p = {};
   p.a = attn_args(q, k, v, nullptr, nullptr, nullptr, strides, H, KVH, q_len, kv_len, causal,
                   window, prefix, scale);
@@ -115,13 +109,11 @@ extern "C" int flash_bwd_dq_heads(const void* q, const void* k, const void* v,
                                   void* dq, int B, int H, int KVH, int q_len, int kv_len,
                                   const long long* strides, int causal, int window,
                                   int prefix, float scale, void* stream) {
-  const int shift = pack_shift(H / KVH);
-  if (shift < 0) return (int)cudaErrorInvalidValue;
-  AttnArgs a = attn_args(q, k, v, dout, lse, delta, strides, H, KVH, q_len, kv_len, causal,
-                         window, prefix, scale);
-  a.shift = shift;
-  a.dq = out_bshd(dq, H, q_len);
-  return launch(flash_bwd_dq_heads_kernel, packed_grid(a, KVH, B), DQ_SMEM, stream, a);
+  sm90::bwd::BwdParams p = {};
+  p.a = attn_args(q, k, v, dout, lse, delta, strides, H, KVH, q_len, kv_len, causal, window,
+                  prefix, scale);
+  p.a.dq = out_bshd(dq, H, q_len);
+  return sm90::bwd::launch_bwd(flash_bwd_dq_heads_kernel, p, B, KVH, false, stream);
 }
 
 extern "C" int flash_bwd_dkv_heads(const void* q, const void* k, const void* v,

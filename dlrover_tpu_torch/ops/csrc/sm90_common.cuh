@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the wgmma/TMA attention loops:
 // the forward of flash_fwd_sm90.cuh (K1, K9, K12) and the backward of
-// flash_bwd_sm90.cuh (K3, K4, K11, K13, K14). mbarriers and TMA loads,
-// the warpgroup's named barriers and wgmma fences, shared-memory matrix
+// flash_bwd_sm90.cuh (K3, K4, K10, K11, K13, K14). mbarriers and TMA
+// loads, the warpgroup's named barriers and wgmma fences, shared-memory matrix
 // descriptors and the 128-byte swizzle TMA writes, the wgmma products
 // (m64n128k16 and m64n64k16 with both operands in shared memory,
 // m64n128k16 with A in registers), and on the host the 4-D tensor maps,

@@ -18,8 +18,9 @@ For each kernel it prints one JSON line with:
   move when a kernel argument struct grows);
 - ``tensor_core``: each build's count of HGMMA (wgmma), UTMALDG (TMA
   load) and HMMA (mma.sync / WMMA) instructions, the tensor-core path
-  the kernel takes (HGMMA and UTMALDG for K1, K3, K4, K9 and K11-K14;
-  HMMA for K10, the last kernel on the WMMA loop);
+  the kernel takes (HGMMA and UTMALDG for every attention kernel but
+  K2, which uses no tensor cores; HMMA only where a checkout still has
+  a WMMA loop);
 - ``bit_equal``: whether the two builds give bit-equal outputs on the
   same inputs, and when they do not (a loop that sums in another order),
   ``diff``: per output, the largest absolute difference and that over

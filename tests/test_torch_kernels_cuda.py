@@ -14,7 +14,8 @@ at the diagonal, wholly visible and wholly future offsets (exact zeros),
 on contiguous shards and on shard views of a whole sequence, and through
 ring_attention over 4 in-process ranks. Kernels that run another one's
 loop are held to it bit for bit: K13's dq (rounded to bf16) to K3's on
-the same mask, K11's dk/dv on [B, S, H*D] to K4's on [B, H, S, D].
+the same mask, K10's dq and K11's dk/dv on [B, S, H*D] to K3's and K4's
+on [B, H, S, D].
 
 The optimizer kernels (K5-K8) do the plain versions' f32 operations in
 the same order, without FMA contraction: K5/K6 codes, scales and values
@@ -364,6 +365,33 @@ def test_dkv_heads_runs_the_dkv_loop(cuda, B, H, KVH, S, window, prefix):
     assert dk11.shape == fused[1].shape and dv11.shape == fused[2].shape
     assert torch.equal(dk11, att._merge_heads(dk4))
     assert torch.equal(dv11, att._merge_heads(dv4))
+
+
+@pytest.mark.parametrize("B,H,KVH,S,window,prefix", [
+    (2, 8, 8, 256, None, None),
+    (1, 32, 8, 512, None, None),   # GQA g = 4
+    (1, 32, 4, 512, None, None),   # GQA g = 8
+    (1, 8, 2, 1024, 512, 128),     # window 512 and prefix 128
+    (1, 8, 4, 1000, None, None),   # ragged against 64- and 128-row tiles
+    (1, 6, 2, 300, None, None),    # g = 3: K10 packs no heads, any group
+])
+def test_dq_heads_runs_the_dq_loop(cuda, B, H, KVH, S, window, prefix):
+    """K10 on [B, S, H*D] operands against K3 without rope on contiguous
+    [B, H, S, D] copies of the same data. K10 runs K3's loop through
+    strided tensor maps, so dq is bit-equal."""
+    mask = (True, 128 ** -0.5, window, prefix)
+    q, k, v, do, lse, delta = _backward_inputs(cuda, 14, B, H, KVH, S, S,
+                                               False, mask)[:6]
+    before = att.launches()
+    dq3 = att.flash_bwd_dq(q, k, v, do, lse, delta, None, None, *mask)
+    fused = [att._merge_heads(t) for t in (q, k, v, do)]
+    dq10 = att.flash_bwd_dq_heads(*fused, lse, delta, H, *mask)
+    torch.cuda.synchronize()
+    after = att.launches()
+    for name in ("flash_bwd_dq", "flash_bwd_dq_heads"):
+        assert after[name] == before[name] + 1
+    assert dq10.shape == fused[0].shape
+    assert torch.equal(dq10, att._merge_heads(dq3))
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
