@@ -47,8 +47,23 @@ Phases, each fatal on failure (no exception is caught):
 5. the training slice: ``auto_accelerate`` on nano-350m at full width
    (16 layers, dim 1024, 8 heads, vocab 32000), B=8, S=2048, lr 3e-4,
    5 steps on one seeded synthetic batch, once with each optimizer:
-   adamw (torch.optim.AdamW, the earlier slice; then a profiled step
-   and, logged only, 5 steps on the example's token stream),
+   adamw (torch.optim.AdamW, the earlier slice; then a profiled step),
+   a ``[trainer]`` run, the example's chain
+   (dlrover_tpu_torch/examples/llama_pretrain.py): ``auto_strategy(1,
+   hbm_gb=the card's memory)``, which must plan remat "none", the
+   ``ElasticSampler``/``ElasticDataLoader`` over the example's token
+   stream and ``Trainer(...).train()`` for 6 steps, whose losses must
+   equal a bare ``auto_accelerate`` loop's on the same batches within
+   1e-5 relative, with K1-K4 launched 16 times a step and the
+   runtime-metrics file reading step 6 (its ms per step against the bare
+   loop's, and the host time per step between two train steps),
+   ``[remat-minimal]``, ``[remat-full]`` and ``[remat-offload]``: adamw
+   under ``Strategy(remat=...)`` with the model's default per-layer
+   "dots_attn" policy, losses within 1e-5 of the adamw run's (remat
+   "none") at every step, K1 launched twice per layer and step (the
+   strategy's recompute reruns the forward; the per-layer recompute
+   takes the saved (o, lse)), K2-K4 once, and "full"'s peak memory below
+   "none"'s,
    a ``[bshd]`` run with adamw and ``attn_impl="bshd"`` (K9-K11 and
    K2 on every layer, with a profiled step),
    (a) ``build_optimizer("adam8bit")`` (K5/K6 per leaf),
@@ -79,6 +94,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -176,6 +192,14 @@ HEADS_KERNELS = ("flash_fwd_heads", "flash_bwd_preprocess",
                  "flash_bwd_dq_heads", "flash_bwd_dkv_heads")
 RING_KERNELS = ("flash_ring_fwd", "flash_bwd_preprocess", "flash_ring_dq",
                 "flash_ring_dkv")
+# K1 runs per layer and step under each Strategy.remat, with the model's
+# default per-layer "dots_attn" policy: as the JAX package saves, the
+# strategy's checkpoint keeps no attention output, so its recompute runs
+# the forward again, and the per-layer recompute takes the saved (o, lse)
+REMAT_FWD_RUNS = {"none": 1, "minimal": 2, "full": 2, "offload": 2}
+TRAINER_STEPS = 6
+# [trainer] vs the bare loop (relative), remat vs none (absolute)
+LOSS_TOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -1044,15 +1068,17 @@ def release() -> None:
     torch.cuda.empty_cache()
 
 
-def attention_launches(cfg, steps, seq=1):
+def attention_launches(cfg, steps, seq=1, fwd_runs=1):
     """The launches of each attention kernel a run of ``steps`` steps
     must show: one per layer and step for the kernels of
-    ``cfg.attn_impl``'s route; under a seq axis of ``seq`` ranks, for
-    each ring-block kernel n(n+1)/2 per layer and step (the blocks not
-    wholly in a shard's future) and for K2 n (one per rank); none for
+    ``cfg.attn_impl``'s route, ``fwd_runs`` for its forward kernel (a
+    remat recompute runs it again); under a seq axis of ``seq`` ranks,
+    for each ring-block kernel n(n+1)/2 per layer and step (the blocks
+    not wholly in a shard's future) and for K2 n (one per rank); none for
     the other routes' kernels."""
-    per_step = {name: 1 for name in (
-        FLASH_KERNELS if cfg.attn_impl == "flash" else HEADS_KERNELS)}
+    route = FLASH_KERNELS if cfg.attn_impl == "flash" else HEADS_KERNELS
+    per_step = {name: 1 for name in route}
+    per_step[route[0]] = fwd_runs
     if seq > 1:
         per_step = {name: seq * (seq + 1) // 2 for name in RING_KERNELS}
         per_step["flash_bwd_preprocess"] = seq
@@ -1062,7 +1088,7 @@ def attention_launches(cfg, steps, seq=1):
 
 
 def train_run(cfg, label, factory, strategy, steps=5, B=8, S=2048,
-              optimizer=None):
+              optimizer=None, fwd_runs=1):
     """``steps`` train steps on one repeated seeded batch; returns (res,
     state, batch, losses, launches, summary). Uniform random tokens hold
     nothing a model can learn across batches, so only a repeated batch
@@ -1105,8 +1131,8 @@ def train_run(cfg, label, factory, strategy, steps=5, B=8, S=2048,
         raise SystemExit(f"{label}: non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
         raise SystemExit(f"{label}: loss did not fall: {losses}")
-    for name, want in attention_launches(cfg, steps,
-                                         strategy.mesh.seq).items():
+    for name, want in attention_launches(cfg, steps, strategy.mesh.seq,
+                                         fwd_runs).items():
         if launches[name] != want:
             raise SystemExit(f"{label}: {name} launched {launches[name]} "
                              f"times, want {want}")
@@ -1115,7 +1141,8 @@ def train_run(cfg, label, factory, strategy, steps=5, B=8, S=2048,
                                        cfg.n_layers, cfg.dim, S)
     summary = {
         "config": "nano-350m", "attn_impl": cfg.attn_impl,
-        "optimizer": optimizer or label, "batch": B, "seq": S,
+        "optimizer": optimizer or label, "remat": strategy.remat,
+        "batch": B, "seq": S,
         "seq_transport": res.mesh.ring.describe() if res.mesh.ring else None,
         "steps": steps, "step_ms_median_2_to_5": steady * 1e3,
         "host_enqueue_ms_median_2_to_5":
@@ -1145,14 +1172,15 @@ def train_slice(steps: int = 5):
     cfg = slice_config()
     B, S = 8, 2048
     model_check(cfg)
-    res, state, batch, adamw_losses, launches, _ = train_run(
+    res, state, batch, adamw_losses, launches, none_summary = train_run(
         cfg, "adamw", build_optimizer("adamw", SLICE_LR, weight_decay=0.0),
         Strategy(remat="none"), steps)
     profile_step(res, state, batch)
     del res, state
     release()
-    stream_losses(cfg, B, S, steps)
+    trainer_run(cfg, B, S)
     release()
+    remat_runs(cfg, steps, adamw_losses, none_summary)
 
     # the model-native layout: K9-K11 (and K2) on every layer
     bshd = dataclasses.replace(cfg, attn_impl="bshd")
@@ -1212,35 +1240,185 @@ def train_slice(steps: int = 5):
     return launches
 
 
-def loss_gap(label, losses, adamw_losses, limit=2e-2):
-    """Fail when a run's losses leave the adamw run's by more than
-    ``limit`` at any step."""
-    gap = max(abs(a - b) for a, b in zip(losses, adamw_losses))
-    log(f"  [{label}] largest loss gap to adamw: {gap:.3e}")
+def loss_gap(label, losses, adamw_losses, limit=2e-2, relative=False,
+             to="adamw"):
+    """Fail when a run's losses leave the adamw run's (or another run's,
+    named by ``to``) by more than ``limit`` at any step (relative to the
+    other loss if ``relative``)."""
+    gap = max(abs(a - b) / (abs(b) if relative else 1.0)
+              for a, b in zip(losses, adamw_losses))
+    log(f"  [{label}] largest loss gap to {to}"
+        f"{' (relative)' if relative else ''}: {gap:.3e}")
     if gap > limit:
         raise SystemExit(f"{label}: losses {losses} leave adamw's "
                          f"{adamw_losses} by {gap}")
+    return gap
 
 
-def stream_losses(cfg, B, S, steps):
-    """Log (no assertion) the losses of ``steps`` fresh steps on the
-    example's token stream, a new batch each step as
-    examples/llama_pretrain.py draws them."""
-    from dlrover_tpu_torch.models import llama_init, llama_loss_fn
-    from dlrover_tpu_torch.parallel import Strategy, auto_accelerate
+def remat_runs(cfg, steps, none_losses, none_summary):
+    """[remat-minimal], [remat-full], [remat-offload]: the adamw run under
+    each Strategy.remat with the model's default per-layer "dots_attn"
+    policy, on the same fixed batch. Losses within LOSS_TOL of the
+    remat "none" run's (the adamw run), K1 REMAT_FWD_RUNS[mode] times per
+    layer and step, and "full"'s peak memory below "none"'s."""
+    from dlrover_tpu_torch.parallel import Strategy
     from dlrover_tpu_torch.trainer import build_optimizer
+
+    report = {"none": {
+        "step_ms_median_2_to_5": none_summary["step_ms_median_2_to_5"],
+        "host_enqueue_ms_median_2_to_5":
+            none_summary["host_enqueue_ms_median_2_to_5"],
+        "peak_mem_gib": none_summary["peak_mem_gib"],
+        "flash_fwd_per_step": cfg.n_layers * REMAT_FWD_RUNS["none"]}}
+    for mode in ("minimal", "full", "offload"):
+        label = f"remat-{mode}"
+        res, state, _b, losses, counts, summary = train_run(
+            cfg, label, build_optimizer("adamw", SLICE_LR, weight_decay=0.0),
+            Strategy(remat=mode), steps, optimizer="adamw",
+            fwd_runs=REMAT_FWD_RUNS[mode])
+        del res, state
+        release()
+        gap = loss_gap(label, losses, none_losses, LOSS_TOL,
+                       to="remat none")
+        report[mode] = {
+            "step_ms_median_2_to_5": summary["step_ms_median_2_to_5"],
+            "host_enqueue_ms_median_2_to_5":
+                summary["host_enqueue_ms_median_2_to_5"],
+            "peak_mem_gib": summary["peak_mem_gib"],
+            "flash_fwd_per_step": counts["flash_fwd"] // steps,
+            "loss_gap": gap}
+    log(json.dumps({"remat": report}))
+    if not report["full"]["peak_mem_gib"] < report["none"]["peak_mem_gib"]:
+        raise SystemExit(f"remat-full: peak {report['full']['peak_mem_gib']} "
+                         f"GiB not below none's "
+                         f"{report['none']['peak_mem_gib']}")
+
+
+def trainer_run(cfg, B, S, steps=TRAINER_STEPS):
+    """[trainer]: the example's chain on the card. auto_strategy for one
+    card of this card's memory (it must plan remat "none"), the elastic
+    loader over the example's token stream, Trainer(...).train() for
+    ``steps`` steps; then a bare auto_accelerate loop over the same
+    batches from the same seed. Fails unless the losses agree within
+    LOSS_TOL (relative), K1-K4 ran 16 times a step and the
+    runtime-metrics file reads the last step."""
+    from dlrover_tpu_torch.examples.llama_pretrain import (
+        synthetic_token_stream,
+    )
+    from dlrover_tpu_torch.models import llama_init, llama_loss_fn
+    from dlrover_tpu_torch.parallel import auto_accelerate, auto_strategy
+    from dlrover_tpu_torch.trainer import (
+        Trainer,
+        TrainingArgs,
+        build_optimizer,
+    )
+    from dlrover_tpu_torch.trainer.elastic import (
+        ElasticDataLoader,
+        ElasticSampler,
+    )
+
+    hbm_gb = torch.cuda.get_device_properties(0).total_memory / 2**30
+    strategy = auto_strategy(1, param_count=cfg.param_count(), seq_len=S,
+                             hbm_gb=hbm_gb, devices_per_host=1)
+    log(f"  [trainer] auto_strategy(1, hbm_gb={hbm_gb:.2f}): "
+        f"{strategy.describe()}")
+    if strategy.remat != "none":
+        raise SystemExit(f"trainer: auto_strategy planned remat "
+                         f"{strategy.remat!r} for nano-350m, want 'none'")
+    dataset = synthetic_token_stream(cfg.vocab_size, S, n_samples=1 << 16)
+    loader = ElasticDataLoader(
+        dataset, batch_size=B,
+        sampler=ElasticSampler(len(dataset), num_replicas=1, rank=0,
+                               shuffle=True),
+        collate_fn=lambda rows: {"tokens": np.stack(rows)}, config_file="")
+    metrics_file = OUT / "runtime_metrics.json"
+    OUT.mkdir(exist_ok=True)
+    os.environ["DLROVER_RUNTIME_METRICS_PATH"] = str(metrics_file)
+    trainer = Trainer(
+        llama_loss_fn(cfg), lambda seed, device: llama_init(cfg, seed, device),
+        None, TrainingArgs(
+            output_dir=str(OUT / "trainer"), max_steps=steps,
+            num_epochs=1_000_000, learning_rate=SLICE_LR, optimizer="adamw",
+            strategy=strategy, flash_checkpoint=False, log_steps=10),
+        train_data=loader, device="cuda")
+    # each step's batch, loss (kept on the device: no host sync) and the
+    # host clock at entry to and exit from the train step
+    inner, batches, losses, spans = trainer._accel.train_step, [], [], []
+
+    def recording(state, batch, rng):
+        t0 = time.perf_counter()
+        state, metrics = inner(state, batch, rng)
+        spans.append((t0, time.perf_counter()))
+        batches.append(batch)
+        losses.append(metrics["loss"])
+        return state, metrics
+
+    trainer._accel.train_step = recording
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    trainer.train()
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    trainer_losses = [x.item() for x in losses]
+    # the host's time per step in train() outside the train step: from
+    # one step's return to the next one's call (loader, span, rng,
+    # telemetry, gauges, runtime-metrics file)
+    gaps_ms = [(spans[i][0] - spans[i - 1][1]) * 1e3
+               for i in range(1, len(spans))]
+    trainer_ms = (t_end - spans[1][0]) * 1e3 / (steps - 1)
+    step_file = json.loads(metrics_file.read_text())["step"]
+    # of the host time between steps, the loader's: the example's
+    # stream draws each sample from its own RandomState
+    draws = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        loader.collate_fn([dataset[i] for i in range(B)])
+        draws.append((time.perf_counter() - t0) * 1e3)
+    del trainer, inner
+    release()
 
     res = auto_accelerate(
         llama_loss_fn(cfg), lambda seed, device: llama_init(cfg, seed, device),
-        build_optimizer("adamw", 3e-4, weight_decay=0.0),
-        Strategy(remat="none"), device="cuda", seed=0)
-    state, losses = res.state, []
-    for s in range(steps):
-        state, metrics = res.train_step(
-            state, synthetic_batch(cfg.vocab_size, S, B, s), None)
-        losses.append(metrics["loss"].item())
-    log(f"  losses on the example's stream (a new batch per step, logged "
-        f"only): {losses}")
+        build_optimizer("adamw", SLICE_LR, weight_decay=0.0), strategy,
+        device="cuda", seed=0)
+    state, bare, starts = res.state, [], []
+    torch.cuda.synchronize()
+    for batch in batches:
+        starts.append(time.perf_counter())
+        state, metrics = res.train_step(state, batch, None)
+        bare.append(metrics["loss"])
+    torch.cuda.synchronize()
+    bare_ms = (time.perf_counter() - starts[1]) * 1e3 / (steps - 1)
+    bare_losses = [x.item() for x in bare]
+    del res, state
+    log(f"  [trainer] losses: {trainer_losses}")
+    log(f"  [trainer] bare loop losses on the same batches: {bare_losses}")
+    log(f"  [trainer] launches over {steps} steps: {launches}")
+    summary = {
+        "config": "nano-350m", "batch": B, "seq": S, "steps": steps,
+        "strategy": strategy.describe(),
+        "trainer_ms_per_step_2_to_6": trainer_ms,
+        "bare_loop_ms_per_step_2_to_6": bare_ms,
+        "trainer_host_ms_between_steps": gaps_ms,
+        "trainer_host_ms_between_steps_median": statistics.median(gaps_ms),
+        "loader_batch_ms_median": statistics.median(draws),
+        "peak_mem_gib": peak_gib, "runtime_metrics_step": step_file,
+        "loss_first": trainer_losses[0], "loss_last": trainer_losses[-1]}
+    log(json.dumps({"trainer": summary}))
+    for name, want in attention_launches(cfg, steps).items():
+        if launches[name] != want:
+            raise SystemExit(f"trainer: {name} launched {launches[name]} "
+                             f"times, want {want}")
+    if step_file != steps:
+        raise SystemExit(f"trainer: runtime metrics read step {step_file}, "
+                         f"want {steps}")
+    if not all(math.isfinite(x) for x in trainer_losses):
+        raise SystemExit(f"trainer: non-finite loss: {trainer_losses}")
+    loss_gap("trainer", trainer_losses, bare_losses, LOSS_TOL, relative=True,
+             to="the bare loop")
 
 
 def profile_step(res, state, batch, label="adamw", top=16):

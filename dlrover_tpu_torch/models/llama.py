@@ -18,9 +18,12 @@ to [B,H,S,Dh], then ring attention over the ring-block kernels
 (parallel/sequence.py). What the port does not run yet raises
 ``NotImplementedError`` naming its ROADMAP item.
 
-Rematerialisation (``config.remat``) is not applied: every layer keeps
-its activations, which is what ``auto_accelerate`` with
-``Strategy.remat="none"`` asks of the JAX model as well.
+Rematerialisation: with ``config.remat`` (and gradients on) each layer
+runs under a non-reentrant checkpoint whose policy is
+``config.remat_policy`` (parallel/remat.py: ``"dots_attn"``,
+``"dots_attn_offload"``, ``"dots_no_batch"``, ``"dots"``), the JAX
+layer scan's table. ``Strategy.remat="none"`` suppresses it
+(``remat.no_remat``), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from dlrover_tpu_torch.ops.attention import (
     mha_reference,
 )
 from dlrover_tpu_torch.ops.cross_entropy import softmax_cross_entropy
+from dlrover_tpu_torch.parallel import remat as remat_lib
 from dlrover_tpu_torch.parallel.mesh import axis_index, seq_ring
 from dlrover_tpu_torch.parallel.sequence import sequence_sharded_attention
 
@@ -58,8 +62,8 @@ class LlamaConfig:
     # kernels, [B,S,H,Dh]) | "reference"; a seq mesh axis runs the ring
     # whatever this says; the JAX package's "ulysses" is not ported yet
     attn_impl: str = "flash"
-    # accepted and ignored: the port keeps every layer's activations
-    # (Strategy.remat must be "none"), which changes memory, not results
+    # checkpoint each layer under remat_policy: dots_attn |
+    # dots_attn_offload | dots_no_batch | dots (parallel/remat.py)
     remat: bool = True
     remat_policy: str = "dots_attn"
     # accepted and ignored: TPU block tunings of the JAX kernels, kept so
@@ -153,6 +157,8 @@ def check_supported(config: LlamaConfig) -> None:
         raise NotImplementedError(
             "pipeline schedules are not ported yet (ROADMAP Queue 1 "
             "item 10)")
+    if config.remat:
+        remat_lib.layer_policy(config.remat_policy)  # raises if unknown
     if config.attn_impl not in ("flash", "bshd", "reference"):
         raise NotImplementedError(
             f"attn_impl={config.attn_impl!r} is not ported yet (ROADMAP "
@@ -314,9 +320,18 @@ def llama_apply(config: LlamaConfig, params: dict, tokens, positions=None):
 
     stacks = {k: params["layers." + k].to(dtype).unbind(0)
               for k in LAYER_KEYS}
+    # under remat each layer keeps only what its policy saves; without
+    # gradients there is nothing to keep
+    remat = (config.remat and torch.is_grad_enabled()
+             and not remat_lib.remat_disabled())
+    policy = remat_lib.layer_policy(config.remat_policy) if remat else None
     for i in range(config.n_layers):
-        x = _layer(config, x, {k: v[i] for k, v in stacks.items()}, cos, sin,
-                   ring)
+        p = {k: v[i] for k, v in stacks.items()}
+        if remat:
+            x = remat_lib.checkpoint(_layer, config, x, p, cos, sin, ring,
+                                     policy=policy)
+        else:
+            x = _layer(config, x, p, cos, sin, ring)
 
     x = _rms_norm(x, params["final_norm"], config.norm_eps)
     return (x @ params["lm_head"].to(dtype)).float()

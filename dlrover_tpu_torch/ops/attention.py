@@ -605,54 +605,96 @@ def launches() -> dict[str, int]:
 # ---------------------------------------------------------------------------
 
 
-class _FlashAttention(torch.autograd.Function):
-    """K1-K4 on [B, H, S, D]."""
+# K1 and K9 (and the ring's K12, parallel/sequence.py) are dispatcher
+# ops (``torch.ops.dlrover_tpu_torch.*``) returning (o, lse), so that a
+# selective-checkpoint policy sees them and can save their outputs: the
+# counterpart of the JAX package's "attn_out" anchor
+# (dlrover_tpu/ops/attention.py ``_anchor``), where the Pallas forward
+# sits in the primal graph under ``checkpoint_name``. A policy
+# that saves K1's (o, lse) spares the recompute its launch. The kernel
+# allocates and fills its outputs inside the op, so no policy ever sees
+# (or caches) a bare ``empty``. The backward (K2-K4, K2/K10/K11) is the
+# op's registered autograd formula; lse takes no gradient, as in the
+# anchor's VJP.
 
-    @staticmethod
-    def forward(ctx, q, k, v, rope_cos, rope_sin, causal, sm_scale, window,
-                prefix):
-        o, lse = flash_fwd(q, k, v, rope_cos, rope_sin, causal, sm_scale,
-                           window, prefix)
-        ctx.save_for_backward(q, k, v, o, lse, rope_cos, rope_sin)
-        ctx.opts = (causal, sm_scale, window, prefix)
-        return o
-
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse, rope_cos, rope_sin = ctx.saved_tensors
-        delta = flash_bwd_preprocess(do, o)
-        args = (q, k, v, do, lse, delta, rope_cos, rope_sin, *ctx.opts)
-        roped = None
-        if rope_cos is not None and q.device.type == "cuda":
-            # K3 and K4 load q and k roped: one pre-pass each for both
-            roped = (flash_fwd_rope_k(q, rope_cos, rope_sin),
-                     flash_fwd_rope_k(k, rope_cos, rope_sin))
-        dq = flash_bwd_dq(*args, roped=roped)
-        dk, dv = flash_bwd_dkv(*args, roped=roped)
-        return dq, dk, dv, None, None, None, None, None, None
+_NS = "dlrover_tpu_torch"
+_MASK_SCHEMA = "bool causal, float sm_scale, int? window, int? prefix"
 
 
-class _FlashAttentionHeads(torch.autograd.Function):
-    """K9-K11 (and K2 for delta) on [B, S, H*D]."""
+@torch.library.custom_op(
+    f"{_NS}::flash_fwd", mutates_args=(),
+    schema=f"(Tensor q, Tensor k, Tensor v, Tensor? rope_cos, "
+           f"Tensor? rope_sin, {_MASK_SCHEMA}) -> (Tensor, Tensor)")
+def flash_fwd_op(q, k, v, rope_cos, rope_sin, causal, sm_scale, window,
+                 prefix):
+    """K1 (or its plain version on the CPU) as a dispatcher op."""
+    return flash_fwd(q, k, v, rope_cos, rope_sin, causal, sm_scale, window,
+                     prefix)
 
-    @staticmethod
-    def forward(ctx, q, k, v, heads, causal, sm_scale, window, prefix):
-        o, lse = flash_fwd_heads(q, k, v, heads, causal, sm_scale, window,
-                                 prefix)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.args = (heads, causal, sm_scale, window, prefix)
-        return o
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        heads = ctx.args[0]
-        delta = flash_bwd_preprocess(_split_heads(do, heads),
-                                     _split_heads(o, heads))
-        args = (q, k, v, do, lse, delta, *ctx.args)
-        dq = flash_bwd_dq_heads(*args)
-        dk, dv = flash_bwd_dkv_heads(*args)
-        return dq, dk, dv, None, None, None, None, None
+@flash_fwd_op.register_fake
+def _(q, k, v, rope_cos, rope_sin, causal, sm_scale, window, prefix):
+    B, H, S, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((B, H, S), dtype=torch.float32)
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, rope_cos, rope_sin, *opts = inputs
+    ctx.save_for_backward(q, k, v, output[0], output[1], rope_cos, rope_sin)
+    ctx.opts = tuple(opts)
+
+
+def _flash_backward(ctx, do, _dlse):
+    q, k, v, o, lse, rope_cos, rope_sin = ctx.saved_tensors
+    delta = flash_bwd_preprocess(do, o)
+    args = (q, k, v, do, lse, delta, rope_cos, rope_sin, *ctx.opts)
+    roped = None
+    if rope_cos is not None and q.device.type == "cuda":
+        # K3 and K4 load q and k roped: one pre-pass each for both
+        roped = (flash_fwd_rope_k(q, rope_cos, rope_sin),
+                 flash_fwd_rope_k(k, rope_cos, rope_sin))
+    dq = flash_bwd_dq(*args, roped=roped)
+    dk, dv = flash_bwd_dkv(*args, roped=roped)
+    return dq, dk, dv, None, None, None, None, None, None
+
+
+flash_fwd_op.register_autograd(_flash_backward, setup_context=_flash_setup)
+
+
+@torch.library.custom_op(
+    f"{_NS}::flash_fwd_heads", mutates_args=(),
+    schema=f"(Tensor q, Tensor k, Tensor v, int heads, {_MASK_SCHEMA}) -> "
+           "(Tensor, Tensor)")
+def flash_fwd_heads_op(q, k, v, heads, causal, sm_scale, window, prefix):
+    """K9 (or its plain version on the CPU) as a dispatcher op."""
+    return flash_fwd_heads(q, k, v, heads, causal, sm_scale, window, prefix)
+
+
+@flash_fwd_heads_op.register_fake
+def _(q, k, v, heads, causal, sm_scale, window, prefix):
+    return q.new_empty(q.shape), q.new_empty((q.shape[0], heads, q.shape[1]),
+                                             dtype=torch.float32)
+
+
+def _heads_setup(ctx, inputs, output):
+    q, k, v, *args = inputs
+    ctx.save_for_backward(q, k, v, output[0], output[1])
+    ctx.args = tuple(args)
+
+
+def _heads_backward(ctx, do, _dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    heads = ctx.args[0]
+    delta = flash_bwd_preprocess(_split_heads(do, heads),
+                                 _split_heads(o, heads))
+    args = (q, k, v, do, lse, delta, *ctx.args)
+    dq = flash_bwd_dq_heads(*args)
+    dk, dv = flash_bwd_dkv_heads(*args)
+    return dq, dk, dv, None, None, None, None, None
+
+
+flash_fwd_heads_op.register_autograd(_heads_backward,
+                                     setup_context=_heads_setup)
 
 
 def _check_mask_extras(causal, window, prefix_len):
@@ -716,9 +758,9 @@ def flash_attention(q, k, v, causal: bool = True,
                 f"{tuple(rope_cos.shape)} / {tuple(rope_sin.shape)}")
         rope_cos, rope_sin = rope_cos.detach(), rope_sin.detach()
     _same_device("flash_attention", q, k, v, rope_cos, rope_sin)
-    return _FlashAttention.apply(q, k, v, rope_cos, rope_sin, bool(causal),
-                                 float(sm_scale), _int_or_none(window),
-                                 _int_or_none(prefix_len))
+    return flash_fwd_op(q, k, v, rope_cos, rope_sin, bool(causal),
+                        float(sm_scale), _int_or_none(window),
+                        _int_or_none(prefix_len))[0]
 
 
 def flash_attention_bshd(q, k, v, causal: bool = True,
@@ -763,10 +805,10 @@ def flash_attention_bshd(q, k, v, causal: bool = True,
     opts = (bool(causal), float(sm_scale), _int_or_none(window),
             _int_or_none(prefix_len))
     if not fused:
-        o = _FlashAttention.apply(q.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2), None, None, *opts)
+        o, _ = flash_fwd_op(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), None, None, *opts)
         return o.transpose(1, 2)
-    o = _FlashAttentionHeads.apply(
+    o, _ = flash_fwd_heads_op(
         q.reshape(B, S, H * hd), k.reshape(B, Skv, KVH * hd),
         v.reshape(B, Skv, KVH * hd), H, *opts)
     return o.view(B, S, H, hd)

@@ -1,5 +1,6 @@
-"""Strategy and auto_accelerate, which makes the train step; the mesh
-and its seq axis' ring attention."""
+"""Strategy, its planner auto_strategy, and auto_accelerate, which makes
+the train step (with remat, parallel/remat.py); the mesh and its seq
+axis' ring attention."""
 
 from dlrover_tpu_torch.parallel.accelerate import (  # noqa: F401
     AccelerateResult,
@@ -17,4 +18,8 @@ from dlrover_tpu_torch.parallel.sequence import (  # noqa: F401
     ring_attention,
     sequence_sharded_attention,
 )
-from dlrover_tpu_torch.parallel.strategy import MeshConfig, Strategy  # noqa: F401
+from dlrover_tpu_torch.parallel.strategy import (  # noqa: F401
+    MeshConfig,
+    Strategy,
+    auto_strategy,
+)

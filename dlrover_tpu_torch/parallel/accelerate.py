@@ -3,9 +3,12 @@
 ``seq`` mesh axis).
 
 The step keeps the JAX step's semantics: fp32 master params are cast to
-the compute dtype for the forward and backward, gradients land in fp32
-on the masters, ``grad_accum`` microbatches are averaged, the optimizer
-steps and ``step`` advances. PyTorch is stateful, so the step updates the
+the compute dtype for the forward and backward, the loss runs under the
+strategy's remat (parallel/remat.py: ``"minimal"``, ``"offload"`` and
+``"full"`` checkpoint it whole; ``"none"`` also turns off the model's
+per-layer checkpoints), gradients land in fp32 on the masters,
+``grad_accum`` microbatches are averaged, the optimizer steps and
+``step`` advances. PyTorch is stateful, so the step updates the
 state in place (params, optimizer moments) instead of returning fresh
 buffers; that keeps one copy of the model state in device memory, which
 is what ``Strategy.donate`` buys the JAX step.
@@ -21,6 +24,7 @@ global loss and applies the same update.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Optional
 
@@ -30,6 +34,7 @@ from dlrover_tpu_torch.common.log import get_logger
 from dlrover_tpu_torch.device import resolve_device
 from dlrover_tpu_torch.ops.cross_entropy import IGNORE_INDEX
 from dlrover_tpu_torch.ops.fused_optim import tree_order
+from dlrover_tpu_torch.parallel import remat as remat_lib
 from dlrover_tpu_torch.parallel.mesh import (
     Mesh,
     ProcessGroupRing,
@@ -77,9 +82,7 @@ def _check_strategy(strategy: Strategy) -> None:
             f"mesh axes {wide}: only the seq axis is ported; data, fsdp, "
             "tensor, expert and pipe parallelism are ROADMAP Queue 1 item 7")
     if strategy.remat != "none":
-        raise NotImplementedError(
-            f"remat={strategy.remat!r}: only 'none' is ported (numerics do "
-            "not depend on remat; ROADMAP Queue 1 item 7)")
+        remat_lib.strategy_policy(strategy.remat)  # raises if unknown
     if strategy.compute_dtype not in _COMPUTE_DTYPES:
         raise NotImplementedError(
             f"compute_dtype={strategy.compute_dtype!r} is not ported yet "
@@ -103,6 +106,22 @@ def _check_strategy(strategy: Strategy) -> None:
             "Queue 1 item 7)")
     if int(strategy.grad_accum) < 1:
         raise ValueError(f"grad_accum must be >= 1, got {strategy.grad_accum}")
+
+
+def _remat_wrap(loss_fn: Callable, mode: str) -> Callable:
+    """``loss_fn`` under the strategy's remat: the whole loss in one
+    checkpoint that keeps what ``mode`` saves (the JAX package's
+    ``jax.checkpoint(loss_fn, policy)``); ``"none"`` leaves it as it
+    is."""
+    if mode == "none":
+        return loss_fn
+    policy = remat_lib.strategy_policy(mode)
+
+    def wrapped(params, batch, rng):
+        return remat_lib.checkpoint(loss_fn, params, batch, rng,
+                                    policy=policy)
+
+    return wrapped
 
 
 def _seq_slice(batch, ring):
@@ -157,6 +176,7 @@ def auto_accelerate(
     group = mesh.ring if isinstance(mesh.ring, ProcessGroupRing) else None
     compute_dtype = _COMPUTE_DTYPES[strategy.compute_dtype]
     accum = int(strategy.grad_accum)
+    inner_loss = _remat_wrap(loss_fn, strategy.remat)
 
     params = {
         name: p.to(device=device, dtype=torch.float32).requires_grad_()
@@ -186,6 +206,9 @@ def auto_accelerate(
             for i in range(accum)
         ]
         loss_sum = torch.zeros((), device=device)
+        # remat="none" means none: the model checkpoints no layer either
+        rctx = (remat_lib.no_remat if strategy.remat == "none"
+                else contextlib.nullcontext)
         for mb in micro:
             cparams = {n: p.to(compute_dtype)
                        for n, p in state.params.items()}
@@ -194,9 +217,10 @@ def auto_accelerate(
                 valid = (mb["labels"] != IGNORE_INDEX).sum().float()
                 # this rank's mean, weighted by its share of the labels
                 share = valid / group.all_reduce(valid.clone()).clamp(min=1)
-                loss = loss_fn(cparams, mb, rng) * share
-            else:
-                loss = loss_fn(cparams, mb, rng)
+            with rctx():
+                loss = inner_loss(cparams, mb, rng)
+            if group is not None:
+                loss = loss * share
             # grads accumulate in fp32 on the masters; /accum averages
             (loss / accum).backward()
             loss_sum += loss.detach().float()

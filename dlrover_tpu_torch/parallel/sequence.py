@@ -10,7 +10,8 @@ ranks this process holds, in order (one shard with the process-group
 transport, the whole sequence with the in-process one; parallel/mesh.py).
 
 - Causal rings run :class:`_RingFlash`: each visible block through
-  ``flash_ring_fwd`` (K12), merged as normalized (o, lse) pairs; the
+  ``flash_ring_fwd`` (K12, as the dispatcher op ``flash_ring_fwd_op``
+  that a checkpoint policy can name), merged as normalized (o, lse) pairs; the
   backward is a second ring through ``flash_ring_dq`` (K13) and
   ``flash_ring_dkv`` (K14) against the global lse and delta (from K2),
   with the f32 dk/dv rotating home with k/v. Blocks wholly in a shard's
@@ -86,6 +87,23 @@ def _einsum_ring(q, k, v, ring, sm_scale):
     return torch.cat([(o / l).to(q.dtype) for o, _, l in acc], dim=2)
 
 
+@torch.library.custom_op(
+    "dlrover_tpu_torch::flash_ring_fwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, int q_start, int k_start, "
+           "float sm_scale) -> (Tensor, Tensor)")
+def flash_ring_fwd_op(q, k, v, q_start, k_start, sm_scale):
+    """K12 (or its plain version on the CPU) as a dispatcher op, named
+    as ops/attention.py names K1 and K9; :class:`_RingFlash` holds the
+    backward."""
+    return flash_ring_fwd(q, k, v, q_start, k_start, sm_scale)
+
+
+@flash_ring_fwd_op.register_fake
+def _(q, k, v, q_start, k_start, sm_scale):
+    B, H, S, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((B, H, S), dtype=torch.float32)
+
+
 def _merge_block(o_acc, lse_acc, o_blk, lse_blk):
     """Merge a normalized block (o_blk in the model dtype, lse_blk) into
     the running f32 (o, lse): the JAX ring's merge, in f32, written with
@@ -116,8 +134,8 @@ class _RingFlash(torch.autograd.Function):
                 c = (r - t) % n
                 if c > r:  # wholly in the future of this q shard
                     continue
-                o_blk, lse_blk = flash_ring_fwd(qs[i], *kv[i], r * sq, c * sk,
-                                                sm_scale)
+                o_blk, lse_blk = flash_ring_fwd_op(qs[i], *kv[i], r * sq,
+                                                   c * sk, sm_scale)
                 # tick 0 is the diagonal, visible to every shard: merging
                 # it into the empty pair would give it back unchanged
                 acc[i] = ((o_blk.float(), lse_blk) if acc[i] is None

@@ -1,5 +1,8 @@
 """Serializable acceleration plans (a copy of the ``Strategy`` dataclass of
-dlrover_tpu/parallel/strategy.py, with its fields and JSON round-trip).
+dlrover_tpu/parallel/strategy.py, with its fields and JSON round-trip),
+and its deterministic planner ``auto_strategy`` (the same heuristics, so
+that both packages plan the same ``Strategy`` from the same inputs; the
+caller passes the card's memory as ``hbm_gb``).
 
 ``MeshConfig`` keeps every field, so that a plan written by the JAX
 package loads here; of its axes the port runs ``seq`` (ring attention,
@@ -13,6 +16,10 @@ from __future__ import annotations
 import dataclasses
 import json
 from typing import Sequence, Tuple
+
+from dlrover_tpu_torch.common.log import get_logger
+
+logger = get_logger(__name__)
 
 AXIS_ORDER: Tuple[str, ...] = (
     "pipe", "data", "fsdp", "expert", "seq", "tensor")
@@ -113,3 +120,94 @@ class Strategy:
             f"Strategy(mesh={active or 'dp-only'}, dtype={self.compute_dtype},"
             f" remat={self.remat}, accum={self.grad_accum}{extras})"
         )
+
+
+def _remat_for(param_bytes_per_device: float, hbm_bytes: float) -> str:
+    # Params + optimizer state (Adam: 2x fp32) + grads ~ 4x param bytes.
+    if param_bytes_per_device * 4 > hbm_bytes * 0.6:
+        return "full"
+    if param_bytes_per_device * 4 > hbm_bytes * 0.3:
+        return "minimal"
+    return "none"
+
+
+def auto_strategy(
+    n_devices: int,
+    param_count: int,
+    seq_len: int = 2048,
+    hbm_gb: float = 16.0,
+    devices_per_host: int = 4,
+    moe: bool = False,
+    n_experts: int = 1,
+    long_context_threshold: int = 32768,
+    n_slices: int = 1,
+) -> Strategy:
+    """Deterministic planner (the atorch auto_config analogue).
+
+    Heuristics, TPU-first:
+    - Prefer FSDP (ZeRO-3 on the ``fsdp`` axis) until per-device param+opt
+      state fits comfortably; it has the best compute/communication ratio
+      on ICI and no model-code requirements.
+    - Add tensor parallelism only when a single FSDP shard of the layer
+      activations/params would still blow HBM, capping ``tensor`` at the
+      per-host device count so TP collectives never cross DCN.
+    - Activate ``seq`` (ring attention) for very long sequences.
+    - Activate ``expert`` for MoE models (expert count capped at device
+      count).
+    - Multi-slice (``n_slices > 1``): the slice boundary rides the
+      ``data`` axis (pure DP over DCN — one gradient allreduce per
+      step), carved out of the fsdp extent; per-slice FSDP stays on
+      ICI. For finer control use the search engine's DCN-aware
+      candidates (engine.candidate_strategies(n_slices=...)).
+    """
+    param_bytes = param_count * 4.0  # fp32 master params
+    hbm = hbm_gb * (1 << 30)
+
+    tensor = 1
+    # With pure FSDP over all devices IN ONE SLICE (params replicate
+    # across slices), per-device footprint:
+    sharded_devices = n_devices // max(n_slices, 1)
+    per_dev = param_bytes * 4 / max(sharded_devices, 1)
+    if per_dev > hbm * 0.5:
+        tensor = min(devices_per_host, n_devices)
+
+    seq = 1
+    if seq_len >= long_context_threshold:
+        # shard sequence enough that activations fit; activations scale
+        # ~seq^2 in attention score blocks but ring attention keeps them
+        # linear; 1 axis step per 32k tokens is a safe default.
+        seq = min(max(seq_len // long_context_threshold, 1), n_devices // tensor)
+        while (n_devices // tensor) % seq != 0:
+            seq -= 1
+
+    expert = 1
+    if moe and n_experts > 1:
+        expert = min(n_experts, max(n_devices // (tensor * seq), 1))
+        while (n_devices // (tensor * seq)) % expert != 0:
+            expert -= 1
+
+    fsdp = n_devices // (tensor * seq * expert)
+    data = 1
+    dcn_data = 1
+    if n_slices > 1:
+        if fsdp % n_slices != 0:
+            raise ValueError(
+                f"{n_slices} slices do not divide the fsdp extent "
+                f"{fsdp} (n_devices={n_devices}, tensor={tensor}, "
+                f"seq={seq}, expert={expert})"
+            )
+        # DP across slices (gradient allreduce tolerates DCN), FSDP
+        # within each slice (param all-gathers stay on ICI)
+        data = n_slices
+        dcn_data = n_slices
+        fsdp //= n_slices
+    mesh = MeshConfig(
+        pipe=1, data=data, fsdp=fsdp, expert=expert, seq=seq,
+        tensor=tensor, dcn_data=dcn_data,
+    )
+    # params are REPLICATED across the data (slice) axis: the per-device
+    # model-state share divides by the sharded extents only
+    remat = _remat_for(param_bytes / (n_devices // max(n_slices, 1)), hbm)
+    strategy = Strategy(mesh=mesh, remat=remat)
+    logger.info("auto_strategy: %s", strategy.describe())
+    return strategy

@@ -1,5 +1,6 @@
-"""Training helpers of the PyTorch port: distributed init from the
-agent's env contract, and the optimizer factory."""
+"""Trainer-process APIs of the PyTorch port: distributed init from the
+agent's env contract, the optimizer factory, and the ``Trainer`` loop
+with its ``TrainingArgs`` (elastic data: ``trainer.elastic``)."""
 
 from __future__ import annotations
 
@@ -54,3 +55,9 @@ def local_rank() -> int:
 
 def node_rank() -> int:
     return int(os.environ.get(NodeEnv.NODE_RANK, "0"))
+
+
+from dlrover_tpu_torch.trainer.trainer import (  # noqa: E402,F401
+    Trainer,
+    TrainingArgs,
+)

@@ -112,13 +112,11 @@ def test_strategy_json_round_trip_and_jax_plans_load():
 @pytest.mark.parametrize("strategy", [
     Strategy(mesh=MeshConfig(data=2), remat="none"),
     Strategy(mesh=MeshConfig(fsdp=4), remat="none"),
-    Strategy(remat="minimal"),
     Strategy(remat="none", compute_dtype="int8"),
     Strategy(remat="none", donate=False),
     Strategy(remat="none", quant_sites="mlp"),
     Strategy(remat="none", rules=(("batch", "data"),)),
-], ids=["data2", "fsdp4", "remat", "int8", "donate", "quant_sites",
-        "rules"])
+], ids=["data2", "fsdp4", "int8", "donate", "quant_sites", "rules"])
 def test_unported_strategies_raise(strategy):
     tc = LlamaConfig(**SMALL)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -641,3 +641,52 @@ def test_fused_adamw_kernels_match_plain(cuda, bits, clip, wd):
         assert (diff != 0).float().mean().item() <= 1e-4
     for got, want in ((sk[1], sp[1]), (sk[3], sp[3])):
         assert ((got - want).abs() / want.abs()).max().item() <= 1e-6
+
+
+class _Recorder(torch.optim.Optimizer):
+    """Keeps a copy of every gradient its step sees; updates nothing."""
+
+    def __init__(self, params):
+        super().__init__(params, {})
+        self.grads = []
+
+    def step(self, closure=None):
+        self.grads.append([p.grad.detach().clone()
+                           for g in self.param_groups for p in g["params"]])
+
+
+@pytest.mark.parametrize("mode", ["full", "minimal", "offload"])
+def test_remat_gradients_are_bit_equal_on_the_kernels(cuda, mode):
+    """2 layers at the slice's width (nano-350m, bf16), per-layer
+    "dots_attn": under each Strategy.remat the loss and every gradient
+    through K1-K4 equal remat "none"'s bit for bit; K1 runs twice per
+    layer (the strategy's recompute), K3 and K4 once."""
+    import dataclasses
+
+    import numpy as np
+
+    from dlrover_tpu_torch.models import PRESETS, llama_init, llama_loss_fn
+    from dlrover_tpu_torch.parallel import Strategy, auto_accelerate
+
+    cfg = dataclasses.replace(PRESETS["nano-350m"], n_layers=2)
+    assert cfg.remat and cfg.remat_policy == "dots_attn"
+    tokens = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (2, 1025)).astype(np.int32)
+    out = {}
+    for remat in ("none", mode):
+        res = auto_accelerate(
+            llama_loss_fn(cfg), lambda s, d: llama_init(cfg, s, d),
+            _Recorder, Strategy(remat=remat), device=cuda)
+        att.reset_launches()
+        _, metrics = res.train_step(res.state, {"tokens": tokens}, None)
+        torch.cuda.synchronize()
+        out[remat] = (metrics["loss"], res.state.optimizer.grads[0],
+                      att.launches())
+    loss, grads, counts = out[mode]
+    base_loss, base_grads, base_counts = out["none"]
+    assert base_counts["flash_fwd"] == 2 and counts["flash_fwd"] == 4
+    for name in ("flash_bwd_preprocess", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert base_counts[name] == counts[name] == 2
+    assert torch.equal(loss, base_loss)
+    for g, b in zip(grads, base_grads):
+        assert torch.equal(g, b)
