@@ -57,6 +57,23 @@ Phases, each fatal on failure (no exception is caught):
    1e-5 relative, with K1-K4 launched 16 times a step and the
    runtime-metrics file reading step 6 (its ms per step against the bare
    loop's, and the host time per step between two train steps),
+   ``[ckpt]``, Flash Checkpoint through the same chain with
+   ``flash_checkpoint=True``: an async save on the card followed at once
+   by in-place updates must store the pre-update values; 6 steps with
+   saves every 2 steps, every 2nd persisted (each save's blocking ms with
+   its materialize and fill legs and bytes, each one copied into a
+   segment registered with the card; each persist's seconds, and
+   one pinned D2H copy of the same bytes as the yardstick; the losses
+   equal [trainer]'s, K1-K4 16 launches a step); a second Trainer over a
+   fresh engine restores from shm and a third from storage with shm
+   unlinked (seconds to the device; every leaf ``torch.equal`` to the
+   saved state), and after 2 more steps each their losses must agree
+   with the first Trainer's own continuation within 1e-5 (relative); a
+   child process killed by ``DLROVER_CHAOS`` right after its step-4 save
+   and a second child resuming from the shm segment it left and training
+   to step 6 (losses as the first Trainer's; its saves timed); the
+   segments and step
+   directories removed at the end, also when a check fails,
    ``[remat-minimal]``, ``[remat-full]`` and ``[remat-offload]``: adamw
    under ``Strategy(remat=...)`` with the model's default per-layer
    "dots_attn" policy, losses within 1e-5 of the adamw run's (remat
@@ -85,7 +102,8 @@ Phases, each fatal on failure (no exception is caught):
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero with no result line when CUDA is missing. Longer reports
-(per-op profile of one step) go to ``chiprun_out/``.
+(per-op profile of one step) go to ``chiprun_out/``. The job's shm
+segments are unlinked at the end, also when a phase fails.
 """
 
 from __future__ import annotations
@@ -1178,7 +1196,9 @@ def train_slice(steps: int = 5):
     profile_step(res, state, batch)
     del res, state
     release()
-    trainer_run(cfg, B, S)
+    trainer_summary, trainer_losses = trainer_run(cfg, B, S)
+    release()
+    ckpt_phase(cfg, trainer_summary, trainer_losses)
     release()
     remat_runs(cfg, steps, adamw_losses, none_summary)
 
@@ -1419,6 +1439,473 @@ def trainer_run(cfg, B, S, steps=TRAINER_STEPS):
         raise SystemExit(f"trainer: non-finite loss: {trainer_losses}")
     loss_gap("trainer", trainer_losses, bare_losses, LOSS_TOL, relative=True,
              to="the bare loop")
+    return summary, trainer_losses
+
+
+# --------------------------------------------------------------- [ckpt]
+
+# the [ckpt] runs: saves every CKPT_SAVE_STEPS steps, every
+# CKPT_STORAGE_EVERY-th one persisted; the in-process run takes
+# CKPT_STEPS steps and each resumed Trainer CKPT_MORE more; the killed
+# child dies right after its step-CKPT_KILL_STEP save
+CKPT_STEPS = 6
+CKPT_MORE = 2
+CKPT_SAVE_STEPS = 2
+CKPT_STORAGE_EVERY = 2
+CKPT_KILL_STEP = 4
+CKPT_DIR = ROOT / "_ckpt_smoke"
+CARD = {"line": ""}  # nvidia-smi's name and power limit, for the records
+
+
+def example_argv(out, steps: int) -> list:
+    """The example's arguments for the slice's run: nano-350m, B=8,
+    S=2048, adamw, saves every CKPT_SAVE_STEPS steps."""
+    return ["--preset", "nano-350m", "--steps", str(steps),
+            "--batch-size", "8", "--seq-len", "2048", "--lr", str(SLICE_LR),
+            "--optimizer", "adamw", "--save-steps", str(CKPT_SAVE_STEPS),
+            "--save-storage-every", str(CKPT_STORAGE_EVERY),
+            "--output-dir", str(out)]
+
+
+def record_losses(trainer) -> list:
+    """Keep each step's loss (on the device: no host sync)."""
+    inner, losses = trainer._accel.train_step, []
+
+    def recording(state, batch, rng):
+        state, metrics = inner(state, batch, rng)
+        losses.append(metrics["loss"])
+        return state, metrics
+
+    trainer._accel.train_step = recording
+    return losses
+
+
+def ckpt_leaves(trainer) -> dict:
+    """The Trainer's checkpoint tree, flat by leaf name."""
+    from dlrover_tpu_torch.trainer.flash_checkpoint.engine import (
+        _tree_flatten_with_names,
+    )
+
+    names, leaves, _ = _tree_flatten_with_names(trainer._ckpt_tree())
+    return dict(zip(names, leaves))
+
+
+def check_restored(label: str, got: dict, want: dict) -> int:
+    """Every leaf of the restored tree equal to the saved one, on the same
+    device with the same dtype; returns the tree's bytes."""
+    if list(got) != list(want):
+        raise SystemExit(f"ckpt {label}: restored leaves {list(got)[:4]}... "
+                         f"differ from the saved {list(want)[:4]}...")
+    nbytes = 0
+    for name, w in want.items():
+        g = got[name]
+        if isinstance(w, torch.Tensor):
+            same = (g.device == w.device and g.dtype == w.dtype
+                    and torch.equal(g, w))
+            nbytes += w.numel() * w.element_size()
+        else:
+            same = np.array_equal(np.asarray(g), np.asarray(w))
+            nbytes += np.asarray(w).nbytes
+        if not same:
+            raise SystemExit(f"ckpt {label}: restored leaf {name} differs "
+                             "from the saved one")
+    log(f"  [ckpt] {label}: {len(want)} leaves ({nbytes / 1e9:.3f} GB) "
+        "torch.equal to the state saved at its step")
+    return nbytes
+
+
+def pinned_d2h_ms(tensors, chunk=1 << 30) -> float:
+    """The yardstick: the same bytes copied card -> pinned host memory back
+    to back into one pinned buffer (each tensor in pieces of at most
+    ``chunk`` bytes), one synchronisation at the end."""
+    pinned = torch.empty(chunk, dtype=torch.uint8, pin_memory=True)
+    views = [t.reshape(-1).view(torch.uint8) for t in tensors]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for v in views:
+        for pos in range(0, v.numel(), chunk):
+            n = min(chunk, v.numel() - pos)
+            pinned[:n].copy_(v[pos:pos + n], non_blocking=True)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    del pinned
+    return ms
+
+
+def ckpt_child(spec: dict) -> int:
+    """A child of the [ckpt] phase: the example's main() for
+    ``spec["steps"]`` steps into ``spec["out"]``, writing the step it
+    resumed from, its losses and the kernels' launches to
+    ``spec["report"]``. Under a DLROVER_CHAOS kill rule it dies inside
+    train() instead."""
+    from dlrover_tpu_torch.examples import llama_pretrain
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.trainer import Trainer
+
+    _build.build()
+    seen = {"saves": []}
+    inner, inner_save = Trainer.maybe_resume, Trainer.save_checkpoint
+
+    def maybe_resume(self):
+        seen["resumed_from"] = inner(self)
+        seen["losses"] = record_losses(self)
+        return seen["resumed_from"]
+
+    def save_checkpoint(self, persist=False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = inner_save(self, persist=persist)
+        if ok:
+            seen["saves"].append({
+                "step": self.global_step,
+                "blocking_ms": (time.perf_counter() - t0) * 1e3,
+                **self._engine.last_save_stats})
+        return ok
+
+    Trainer.maybe_resume = maybe_resume
+    Trainer.save_checkpoint = save_checkpoint
+    reset_launches()
+    trainer = llama_pretrain.main(example_argv(spec["out"], spec["steps"]),
+                                  device="cuda")
+    Path(spec["report"]).write_text(json.dumps({
+        "resumed_from": seen["resumed_from"],
+        "global_step": trainer.global_step,
+        "losses": [x.item() for x in seen["losses"]],
+        "saves": seen["saves"], "launches": launch_counts()}))
+    return 0
+
+
+def run_child(spec: dict, env: dict, label: str) -> int:
+    """Run one child to its end (or its time limit, which kills it)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--ckpt-child",
+         json.dumps(spec)], env=env, cwd=str(ROOT), capture_output=True,
+        text=True, timeout=300)
+    log(f"  [ckpt] {label}: exit {proc.returncode} after "
+        f"{time.perf_counter() - t0:.1f} s")
+    for line in (proc.stdout + proc.stderr).splitlines():
+        if any(k in line for k in ("chaos[kill]", "resumed from", "saved step",
+                                   "persisted step", "Error", "error")):
+            log(f"    {line.strip()}")
+    return proc.returncode
+
+
+def unlink_segments(job: str) -> list:
+    """Unlink the checkpoint and timer segments of ``job``; returns the
+    names that existed."""
+    from dlrover_tpu_torch.common.ipc import PersistentSharedMemory
+
+    gone = []
+    for name in (f"dlrtpu_torch_ckpt_{job}_0", f"dlrtpu_torch_timer_{job}"):
+        try:
+            seg = PersistentSharedMemory(name=name)
+        except FileNotFoundError:
+            continue
+        seg.close()
+        seg.unlink()
+        gone.append(name)
+    return gone
+
+
+def ckpt_phase(cfg, trainer_summary, trainer_losses):
+    """[ckpt]: Flash Checkpoint on the card, through the example's chain
+    with flash_checkpoint=True.
+
+    First an async save of a 0.57 GB tree on the card followed at once by
+    in-place updates must store the pre-update values. A: CKPT_STEPS
+    steps with saves, timed per save (the materialize and
+    fill legs and the bytes from the engine) and per persist; its losses
+    must equal [trainer]'s. B, a second Trainer over a fresh engine,
+    restores from shm; C, another, from storage with shm unlinked; each
+    restored leaf must be torch.equal to A's (the state of the step
+    saved), and after CKPT_MORE more steps each, B's and C's losses must
+    agree with A's own continuation within LOSS_TOL (relative). Then a
+    child process is killed by DLROVER_CHAOS right after its
+    step-CKPT_KILL_STEP save, and a second child resumes from the shm
+    segment it left and trains to CKPT_STEPS: its losses must agree with
+    A's. The segments and the step directories are removed at the end,
+    also when a check fails."""
+    import shutil
+    import tempfile
+
+    from dlrover_tpu_torch import native
+    from dlrover_tpu_torch.agent.ckpt_saver import AsyncCheckpointSaver
+    from dlrover_tpu_torch.common.ipc import SOCKET_DIR_ENV
+
+    if not native.native_available():
+        raise SystemExit("ckpt: the native copy library did not build or "
+                         "load; the save would fall back to numpy copies")
+    # main() names the job: the segments (and the step timer's ring,
+    # which [trainer] created) carry its name
+    job = os.environ["ELASTIC_JOB_NAME"]
+    sockets = tempfile.mkdtemp(prefix="dlck")
+    saved_env = {k: os.environ.get(k) for k in
+                 (SOCKET_DIR_ENV, "DLROVER_PARAL_CONFIG_PATH")}
+    os.environ.update({SOCKET_DIR_ENV: sockets,
+                       "DLROVER_PARAL_CONFIG_PATH": ""})
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    run_dir = CKPT_DIR / "run"
+    t_phase = time.perf_counter()
+    try:
+        report = ckpt_runs(cfg, run_dir, job, trainer_summary,
+                           trainer_losses)
+    finally:
+        AsyncCheckpointSaver.reset()
+        gone = unlink_segments(job)
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+        shutil.rmtree(sockets, ignore_errors=True)
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        log(f"  [ckpt] cleanup: unlinked {gone}, removed {CKPT_DIR.name}/")
+    if CKPT_DIR.exists() or unlink_segments(job):
+        raise SystemExit("ckpt: the cleanup left segments or step "
+                         "directories behind")
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"ckpt": report}))
+
+
+def ckpt_async_check(run_dir):
+    """An async save followed at once by in-place updates on the compute
+    stream stores the values it was called with: the copies run on a
+    side stream that the compute stream waits on. Returns the save's
+    dispatch ms (what the loop pays) and its total ms."""
+    from dlrover_tpu_torch.agent.ckpt_saver import AsyncCheckpointSaver
+    from dlrover_tpu_torch.trainer.flash_checkpoint.engine import (
+        ShardedCheckpointEngine,
+    )
+
+    engine = ShardedCheckpointEngine(str(run_dir / "async"))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    state = {"w": torch.randn(1 << 27, device="cuda", generator=gen),
+             "h": torch.randn(4096, 4096, device="cuda",
+                              generator=gen).bfloat16(),
+             "step": torch.tensor(3.0)}
+    want = {k: v.clone() for k, v in state.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if not engine.save_to_memory_async(1, state):
+        raise SystemExit("ckpt: the async save was skipped")
+    dispatch_ms = (time.perf_counter() - t0) * 1e3
+    state["w"].add_(1.0)
+    state["h"].mul_(2)
+    state["step"].add_(1)
+    if not engine.wait_for_shm_save(timeout=120):
+        raise SystemExit("ckpt: the async save did not finish")
+    total_ms = (time.perf_counter() - t0) * 1e3
+    restored, step = engine.load(
+        target={k: torch.zeros_like(v) for k, v in want.items()})
+    bad = [k for k in want if not torch.equal(restored[k], want[k])]
+    if step != 1 or bad:
+        raise SystemExit(f"ckpt: the async save stored {bad} after the "
+                         "in-place update")
+    engine.close()
+    AsyncCheckpointSaver.reset()
+    log(f"  [ckpt] async save of {engine.last_save_stats['bytes'] / 1e9:.3f}"
+        f" GB then an in-place update at once: the saved values are the "
+        f"pre-update ones (dispatch {dispatch_ms:.1f} ms, done after "
+        f"{total_ms:.1f} ms) ({CARD['line']})")
+    return {"dispatch_ms": dispatch_ms, "total_ms": total_ms,
+            "bytes": engine.last_save_stats["bytes"]}
+
+
+def ckpt_runs(cfg, run_dir, job, trainer_summary, trainer_losses):
+    from dlrover_tpu_torch.agent.ckpt_saver import (
+        AsyncCheckpointSaver,
+        shm_name,
+    )
+    from dlrover_tpu_torch.common.ipc import PersistentSharedMemory
+    from dlrover_tpu_torch.examples.llama_pretrain import build_trainer
+
+    card = CARD["line"]
+    steps = CKPT_STEPS
+    async_save = ckpt_async_check(run_dir)
+    # A: the run with saves
+    a = build_trainer(example_argv(run_dir, steps), device="cuda")
+    a_losses = record_losses(a)
+    saves, persists, spans = [], [], []
+    inner_save, inner_step = a.save_checkpoint, a._accel.train_step
+
+    def timed_save(persist=False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = inner_save(persist=persist)
+        t1 = time.perf_counter()
+        rec = {"step": a.global_step, "persist": persist, "saved": ok,
+               "blocking_ms": (t1 - t0) * 1e3, "end": t1}
+        if ok:
+            rec.update(a._engine.last_save_stats)
+        saves.append(rec)
+        return ok
+
+    def timed_step(state, batch, rng):
+        t0 = time.perf_counter()
+        out = inner_step(state, batch, rng)
+        spans.append((t0, time.perf_counter()))
+        return out
+
+    a.save_checkpoint = timed_save
+    a._accel.train_step = timed_step
+    saver = AsyncCheckpointSaver.get_ckpt_saver()
+    inner_persist = saver.save_step_checkpoint
+
+    def timed_persist(event, local_rank):
+        t0 = time.perf_counter()
+        inner_persist(event, local_rank)
+        persists.append({"step": event.step,
+                         "seconds": time.perf_counter() - t0})
+
+    saver.save_step_checkpoint = timed_persist
+    torch.cuda.synchronize()
+    reset_launches()
+    t_train = time.perf_counter()
+    a.train()
+    torch.cuda.synchronize()
+    a_train_s = time.perf_counter() - t_train
+    launches = launch_counts()
+    a_vals = [x.item() for x in a_losses]
+    log(f"  [ckpt] A losses: {a_vals}")
+    log(f"  [ckpt] A launches over {steps} steps: {launches}")
+    for name, want in attention_launches(cfg, steps).items():
+        if launches[name] != want:
+            raise SystemExit(f"ckpt: {name} launched {launches[name]} "
+                             f"times, want {want}")
+    loss_gap("ckpt-A", a_vals, trainer_losses, LOSS_TOL, relative=True,
+             to="[trainer] (no saves)")
+    # the loop with saves, from step 3 (after the first save, which
+    # creates the segment) to the end of step 6's cadence save
+    cadence = [r for r in saves if r["step"] == steps]
+    t_end = max([spans[-1][1]] + [r["end"] for r in cadence[:1]])
+    a_ms = (t_end - spans[2][0]) * 1e3 / (steps - 2)
+    for rec in saves:
+        rec.pop("end")
+        log(f"  [ckpt] save {json.dumps(rec)}  ({card})")
+    for rec in persists:
+        log(f"  [ckpt] persist step {rec['step']}: {rec['seconds']:.3f} s "
+            f"({card})")
+    done = [r for r in saves if r["saved"]]
+    if not done or any(r["card_bytes"] == 0 or not r["registered"]
+                       for r in done):
+        raise SystemExit(f"ckpt: a save moved no card bytes or copied "
+                         f"into an unregistered segment: {saves}")
+    want = ckpt_leaves(a)
+    state_bytes = done[-1]["bytes"]
+    card_tensors = [t for t in want.values()
+                    if isinstance(t, torch.Tensor) and t.is_cuda]
+    yardstick_ms = pinned_d2h_ms(card_tensors)
+    log(f"  [ckpt] yardstick: one pinned D2H copy of the card's "
+        f"{sum(t.numel() * t.element_size() for t in card_tensors) / 1e9:.3f}"
+        f" GB: {yardstick_ms:.1f} ms ({card})")
+    a.close()
+    a._engine = None
+
+    # B: a fresh engine restores from shm
+    AsyncCheckpointSaver.reset()
+    restored = {}
+    for label in ("shm", "storage"):
+        if label == "storage":
+            seg = PersistentSharedMemory(name=shm_name(0))
+            seg.close()
+            seg.unlink()
+            AsyncCheckpointSaver.reset()
+        t = build_trainer(example_argv(run_dir, steps + CKPT_MORE),
+                          device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step = t.maybe_resume()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        stats = {k: v for k, v in t._engine.last_restore_stats.items()
+                 if not k.startswith("_")}
+        log(f"  [ckpt] restore from {label}: step {step} in {seconds:.3f} s "
+            f"to the device, engine legs {stats} ({card})")
+        if step != steps:
+            raise SystemExit(f"ckpt: restored step {step} from {label}, "
+                             f"want {steps}")
+        check_restored(f"restore from {label}", ckpt_leaves(t), want)
+        t.close()
+        t._engine = None
+        restored[label] = (t, seconds, stats)
+    del want
+
+    # A's own continuation, then B's and C's, CKPT_MORE steps each
+    a.args.max_steps = steps + CKPT_MORE
+    a.train()
+    ref = [x.item() for x in a_losses[steps:]]
+    del a
+    gaps = {}
+    for label, (t, _s, _st) in restored.items():
+        losses = record_losses(t)
+        t.args.max_steps = steps + CKPT_MORE
+        t.train()
+        got = [x.item() for x in losses]
+        log(f"  [ckpt] after the restore from {label}: losses {got}, "
+            f"uninterrupted {ref}")
+        gaps[label] = loss_gap(f"ckpt-{label}", got, ref, LOSS_TOL,
+                               relative=True, to="the uninterrupted run")
+        if len(got) != CKPT_MORE:
+            raise SystemExit(f"ckpt: {label} took {len(got)} steps after "
+                             f"its restore, want {CKPT_MORE}")
+    restore = {k: {"seconds": v[1], **v[2]} for k, v in restored.items()}
+    del restored
+    release()
+
+    # the kill: a child dies right after its step-4 save, a second one
+    # resumes from the shm segment it left
+    AsyncCheckpointSaver.reset()
+    unlink_segments(job)
+    kill_dir = CKPT_DIR / "kill"
+    env = dict(os.environ)
+    env["DLROVER_CHAOS"] = json.dumps({"seed": 7, "rules": [
+        {"site": "ckpt.save", "action": "kill", "step": CKPT_KILL_STEP}]})
+    rc = run_child({"steps": CKPT_KILL_STEP, "out": str(kill_dir),
+                    "report": str(CKPT_DIR / "killed.json")}, env,
+                   "child 1 (DLROVER_CHAOS kill at ckpt.save)")
+    if rc != 137:
+        raise SystemExit(f"ckpt: the killed child exited {rc}, want 137")
+    env.pop("DLROVER_CHAOS")
+    report_path = CKPT_DIR / "resumed.json"
+    rc = run_child({"steps": steps, "out": str(kill_dir),
+                    "report": str(report_path)}, env,
+                   "child 2 (resumes from the surviving shm segment)")
+    if rc != 0:
+        raise SystemExit(f"ckpt: the resuming child exited {rc}")
+    child = json.loads(report_path.read_text())
+    log(f"  [ckpt] child 2: resumed from step {child['resumed_from']}, "
+        f"losses {child['losses']}, launches {child['launches']}")
+    for rec in child["saves"]:
+        log(f"  [ckpt] child 2 save {json.dumps(rec)}  ({card})")
+    if child["resumed_from"] != CKPT_KILL_STEP:
+        raise SystemExit(f"ckpt: child 2 resumed from "
+                         f"{child['resumed_from']}, want {CKPT_KILL_STEP}")
+    if any(child["launches"][n] == 0 for n in FLASH_KERNELS):
+        raise SystemExit(f"ckpt: child 2 ran without K1-K4: "
+                         f"{child['launches']}")
+    kill_gap = loss_gap("ckpt-kill", child["losses"],
+                        a_vals[CKPT_KILL_STEP:], LOSS_TOL, relative=True,
+                        to="the uninterrupted run")
+    steady = [r for r in done if r is not done[0]]
+    return {
+        "card": card, "config": "nano-350m", "batch": 8, "seq": 2048,
+        "steps": steps, "save_steps": CKPT_SAVE_STEPS,
+        "save_storage_every": CKPT_STORAGE_EVERY,
+        "state_bytes": state_bytes,
+        "saves": saves, "persists": persists, "async_save": async_save,
+        "blocking_ms_first_save": done[0]["blocking_ms"],
+        "blocking_ms_later_saves": [r["blocking_ms"] for r in steady],
+        "pinned_d2h_yardstick_ms": yardstick_ms,
+        "restore": restore,
+        "trainer_ms_per_step_3_to_6_with_saves": a_ms,
+        "trainer_ms_per_step_2_to_6_without": trainer_summary[
+            "trainer_ms_per_step_2_to_6"],
+        "a_train_s_with_final_persist": a_train_s,
+        "loss_gap_after_restore": gaps, "loss_gap_after_kill": kill_gap,
+        "restarted_worker_saves": child["saves"],
+    }
 
 
 def profile_step(res, state, batch, label="adamw", top=16):
@@ -1460,10 +1947,24 @@ def profile_step(res, state, batch, label="adamw", top=16):
 
 
 def main() -> int:
+    """All phases. The job's name keys its shm segments (the step
+    timer's ring, which every Trainer feeds, and the checkpoint's): they
+    are unlinked at the end, also when a phase fails."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); this script runs on the GPU only", file=sys.stderr)
         return 2
+    job = f"chipsmoke{os.getpid()}"
+    os.environ["ELASTIC_JOB_NAME"] = job
+    try:
+        return run_phases()
+    finally:
+        gone = unlink_segments(job)
+        if gone:
+            log(f"cleanup: unlinked {gone}")
+
+
+def run_phases() -> int:
     from dlrover_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1476,7 +1977,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    CARD["line"] = smi.stdout.strip().splitlines()[0]
+    print(CARD["line"], flush=True)
 
     # 2. build
     t0 = time.perf_counter()
@@ -1572,4 +2074,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ckpt-child"]:
+        sys.exit(ckpt_child(json.loads(sys.argv[2])))
     sys.exit(main())

@@ -6,6 +6,9 @@ Equivalent capability: reference dlrover/python/common/constants.py
 for a TPU/JAX stack.
 """
 
+import os
+import tempfile
+
 
 class PlatformType:
     LOCAL = "local"
@@ -197,14 +200,17 @@ class NodeEnv:
 
 
 class ConfigPath:
-    """Well-known runtime file paths (paral-config hot-reload contract)."""
+    """Well-known runtime file paths (paral-config hot-reload contract),
+    by default in a directory of the port's own under the temp dir, so a
+    JAX-package agent on the same host never reads or writes them."""
 
+    _DIR = os.path.join(tempfile.gettempdir(), "dlrover_tpu_torch")
     ENV_PARAL_CONFIG = "DLROVER_PARAL_CONFIG_PATH"
-    PARAL_CONFIG = "/tmp/dlrover_tpu/auto_paral_config.json"
+    PARAL_CONFIG = os.path.join(_DIR, "auto_paral_config.json")
     ENV_RUNTIME_METRICS = "DLROVER_RUNTIME_METRICS_PATH"
-    RUNTIME_METRICS = "/tmp/dlrover_tpu/runtime_metrics.json"
+    RUNTIME_METRICS = os.path.join(_DIR, "runtime_metrics.json")
     ENV_KERNEL_METRICS = "DLROVER_KERNEL_METRICS_PATH"
-    KERNEL_METRICS = "/tmp/dlrover_tpu/kernel_metrics.json"
+    KERNEL_METRICS = os.path.join(_DIR, "kernel_metrics.json")
 
 
 class CheckpointConstant:

@@ -3,19 +3,29 @@ examples/llama_pretrain.py, with the same arguments and the same chain
 (``init_distributed``, ``auto_strategy``, ``ElasticSampler`` and
 ``ElasticDataLoader`` over a seeded synthetic token stream,
 ``Trainer(...).train()`` through ``auto_accelerate`` and the flash
-kernels).
+kernels, with Flash Checkpoint on).
 
     python -m dlrover_tpu_torch.examples.llama_pretrain --steps 20
 
 One process per card; a job of several takes its place from the agent's
 env contract (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` and the
-coordinator's address). Flash Checkpoint is not ported yet (ROADMAP
-Queue 1 item 5), so ``--save-steps`` is accepted and not used.
+coordinator's address). The state goes to shm every ``--save-steps``
+steps and every ``--save-storage-every``-th save (default every one, as
+``TrainingArgs``) is persisted under ``--output-dir`` (default
+``<temp dir>/dlrover_tpu_torch/llama_pretrain``). A rerun into the same
+output dir resumes from the newest step: the shm segment is named for
+``ELASTIC_JOB_NAME`` or, without one, for the output dir, and outlives
+the run (a killed worker resumes from it), so remove it when done:
+
+    ELASTIC_JOB_NAME=twin python -m dlrover_tpu_torch.examples.llama_pretrain --steps 20
+    rm -f /dev/shm/dlrtpu_torch_ckpt_twin_0 /dev/shm/dlrtpu_torch_timer_twin
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import tempfile
 
 import numpy as np
 import torch
@@ -30,8 +40,11 @@ def parse_args(argv=None):
     p.add_argument("--lr", type=float, default=3e-4)
     p.add_argument("--optimizer", default="adamw",
                    choices=["adamw", "sgd", "agd", "adam8bit"])
-    p.add_argument("--output-dir", default="/tmp/llama_pretrain")
+    p.add_argument("--output-dir", default=os.path.join(
+        tempfile.gettempdir(), "dlrover_tpu_torch", "llama_pretrain"))
     p.add_argument("--save-steps", type=int, default=50)
+    p.add_argument("--save-storage-every", type=int, default=1,
+                   help="persist every Nth shm save")
     p.add_argument("--search-strategy", action="store_true",
                    help="measured strategy search instead of heuristics")
     return p.parse_args(argv)
@@ -53,7 +66,10 @@ def synthetic_token_stream(vocab_size: int, seq_len: int, n_samples: int):
     return DS()
 
 
-def main(argv=None, device=None):
+def build_trainer(argv=None, device=None):
+    """The example's chain up to its ``Trainer``: distributed init,
+    ``auto_strategy`` for the card, the elastic loader over the token
+    stream, and the Trainer with Flash Checkpoint on."""
     args = parse_args(argv)
 
     from dlrover_tpu_torch import trainer as torch_trainer
@@ -110,17 +126,26 @@ def main(argv=None, device=None):
             learning_rate=args.lr,
             optimizer=args.optimizer,
             strategy=strategy,
-            # Flash Checkpoint (and with it save_steps) is ROADMAP Queue 1
-            # item 5
-            flash_checkpoint=False,
+            flash_checkpoint=True,
+            save_steps=args.save_steps,
+            save_storage_every=args.save_storage_every,
             log_steps=10,
         ),
         train_data=loader,
         device=device,
     )
+    return trainer
+
+
+def main(argv=None, device=None):
+    trainer = build_trainer(argv, device)
     state, metrics = trainer.train()
-    loss = float(metrics.get("loss", float("nan")))
-    print(f"done: step={trainer.global_step} loss={loss:.4f}")
+    if "loss" in metrics:
+        print(f"done: step={trainer.global_step} "
+              f"loss={float(metrics['loss']):.4f}")
+    else:
+        print(f"done: step={trainer.global_step}, resumed at the last "
+              f"step: nothing to train")
     trainer.close()
     return trainer
 

@@ -81,6 +81,17 @@ class Adam8bit(torch.optim.Optimizer):
             }
         self._generators: dict = {}
 
+    def load_state_dict(self, state_dict):
+        """torch casts each param's state tensors to the param's dtype on
+        load, which would leave the codes in f32: put them back in their
+        8-bit dtypes (their values are integers, so the round trip is
+        exact)."""
+        super().load_state_dict(state_dict)
+        for p in self.param_groups[0]["params"]:
+            st = self.state[p]
+            st["mu_q"] = st["mu_q"].to(torch.int8)
+            st["nu_q"] = st["nu_q"].to(torch.uint8)
+
     def _draw_uniform(self, count: int, index: int, rows: int, device):
         shape = (rows, BLOCK)
         if self.uniform is not None:

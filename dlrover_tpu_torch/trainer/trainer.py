@@ -9,23 +9,35 @@ control plane reads (``compile`` for the first step, ``step.end`` after,
 ``train.step.seconds``, ``train.step.last_s``, ``train.steps_per_s``,
 ``train.tokens_per_s``, ``train.mfu``, ``device.hbm.*``) and the
 runtime-metrics file for the agent. The loss is read on the host only at
-``log_steps``: no other per-step host sync.
+``log_steps``: no other per-step host sync. The data wait and the step
+go into the shm timing ring (``trainer/timer.py``) as in the JAX loop.
+
+Flash Checkpoint (``flash_checkpoint=True``, the default): the Trainer
+saves its state to shm every ``save_steps`` (blocking only for the
+save), persists every ``save_storage_every``-th save to ``output_dir``
+through the saver, makes a final persisted save, and ``maybe_resume``
+(called by ``train``) restores the newest step, shm before storage,
+with the elastic loader's position. The checkpoint tree is the JAX
+Trainer's ``{"train": state, "data": loader state as uint8}``; the
+train state is ``{"step", "params", "opt"}``, with ``opt`` the
+optimizer's ``state_dict()`` keyed by param name.
 
 What the port does not run yet raises ``NotImplementedError`` naming its
-ROADMAP Queue 1 item: Flash Checkpoint (``flash_checkpoint=True``,
-``save_steps``, ``maybe_resume``, ``save_checkpoint``; item 5, which also
-brings the shm step timer the JAX loop feeds where shm exists, and the
-brain's checkpoint-cadence adoption that rides on ``save_steps``),
-profiling (``profile=True`` and the device-time sampler; item 12), and
-the in-process reshape channel (``reshape_channel``,
-``NodeEnv.RESHAPE_DIR``; item 8).
+ROADMAP Queue 1 item: profiling (``profile=True`` and the device-time
+sampler; item 12) and the in-process reshape channel
+(``reshape_channel``, ``NodeEnv.RESHAPE_DIR``; item 8). The brain's
+checkpoint cadence reaches the Trainer through a master (item 6); until
+then ``adopt_cadence`` keeps the configured ``save_steps``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import inspect
+import json
 import os
+import tempfile
 import time
 from typing import Any, Callable, Iterable, Optional
 
@@ -34,11 +46,20 @@ import torch
 
 from dlrover_tpu_torch.agent.monitor import write_runtime_metrics
 from dlrover_tpu_torch.common import flight, mfu, telemetry, tracing
+from dlrover_tpu_torch.common.chaos import chaos_point
 from dlrover_tpu_torch.common.constants import NodeEnv
+from dlrover_tpu_torch.common.ipc import set_default_job_name
 from dlrover_tpu_torch.common.log import get_logger
 from dlrover_tpu_torch.parallel.accelerate import auto_accelerate
 from dlrover_tpu_torch.parallel.strategy import Strategy
+from dlrover_tpu_torch.trainer.fault_tolerance import notify_progress_reset
+from dlrover_tpu_torch.trainer.optim import (
+    materialize_optimizer_state,
+    optimizer_state_tree,
+    restore_optimizer_state,
+)
 from dlrover_tpu_torch.trainer.optim import build_optimizer
+from dlrover_tpu_torch.trainer.timer import Tag
 
 logger = get_logger(__name__)
 
@@ -47,7 +68,9 @@ logger = get_logger(__name__)
 class TrainingArgs:
     """The JAX package's ``TrainingArgs``, field for field."""
 
-    output_dir: str = "/tmp/dlrover_tpu/output"
+    # under the caller's temp dir, in a directory of the port's own
+    output_dir: str = dataclasses.field(default_factory=lambda: os.path.join(
+        tempfile.gettempdir(), "dlrover_tpu_torch", "output"))
     max_steps: int = 0               # 0 = run the data out
     num_epochs: int = 1
     micro_batch_size: int = 8
@@ -59,12 +82,12 @@ class TrainingArgs:
     # None = keep the strategy's compute dtype (default bfloat16)
     compute_dtype: Optional[str] = None
     seed: int = 0
-    # checkpointing: Flash Checkpoint is ROADMAP Queue 1 item 5; until
-    # then pass flash_checkpoint=False (and save_steps=0)
+    # checkpointing
     flash_checkpoint: bool = True
     save_steps: int = 0              # 0 = only at end
     save_storage_every: int = 1      # persist every Nth shm save
-    # the brain's checkpoint cadence; acts only on save_steps (item 5)
+    # the brain's checkpoint cadence, acting on save_steps; it comes
+    # through a master (ROADMAP Queue 1 item 6)
     adopt_cadence: bool = True
     # logging/eval
     log_steps: int = 10
@@ -103,6 +126,16 @@ def _is_integer(dtype) -> bool:
     return np.issubdtype(np.dtype(dtype), np.integer)
 
 
+def default_job_name(output_dir: str) -> str:
+    """The job name of a run without ``ELASTIC_JOB_NAME`` (no agent):
+    one of its resolved output dir, so two runs that write different
+    dirs never meet in a shm segment, and a rerun into the same dir
+    resumes from its own."""
+    digest = hashlib.sha1(
+        os.path.realpath(output_dir).encode()).hexdigest()[:12]
+    return f"local{digest}"
+
+
 class Trainer:
     """Train a (loss_fn, init_fn) model over a batch iterable.
 
@@ -131,14 +164,6 @@ class Trainer:
         reshape_devices_fn: Optional[Callable] = None,
         device=None,
     ):
-        if args.flash_checkpoint:
-            raise _unported(
-                "flash_checkpoint=True (Flash Checkpoint)", 5,
-                "; pass TrainingArgs(flash_checkpoint=False) until then")
-        if args.save_steps:
-            raise _unported(
-                f"save_steps={args.save_steps} (checkpoint saves, and the "
-                "brain's cadence adoption on them)", 5)
         if args.profile:
             raise _unported("profile=True (the step profiler and the "
                             "device-time sampler)", 12)
@@ -146,6 +171,8 @@ class Trainer:
                 or os.environ.get(NodeEnv.RESHAPE_DIR, "")):
             raise _unported("the in-process reshape channel", 8)
         self.args = args
+        # the shm segments' job name where no agent set one
+        set_default_job_name(default_job_name(args.output_dir))
         self.loss_fn = loss_fn
         self.init_fn = init_fn
         self.param_logical_axes = param_logical_axes
@@ -184,14 +211,331 @@ class Trainer:
         # the per-step rng: one generator on the device, seeded from
         # (seed, step) before each step
         self._rng = torch.Generator(device=self.device)
+        # step the on-disk pending/latest prestep sidecar was last
+        # serialized at (skip-rewrite cache; None = dirty)
+        self._prestep_sidecar_step = None
+        self._engine = None
+        if args.flash_checkpoint:
+            from dlrover_tpu_torch.trainer.flash_checkpoint.engine import (
+                ShardedCheckpointEngine,
+            )
 
-    # -------------------------------------------------------- checkpoints
+            # lazily created moments (torch AdamW's) exist from here on,
+            # so a restore target built before step 1 names every leaf
+            # a checkpoint holds
+            materialize_optimizer_state(self.state.optimizer)
+            self._engine = ShardedCheckpointEngine(
+                os.path.join(args.output_dir, "checkpoints"))
+        self._timer = None
+        try:
+            from dlrover_tpu_torch.trainer.timer import get_step_timer
+
+            self._timer = get_step_timer()
+        except Exception:  # noqa: BLE001 - shm unavailable (bare env)
+            pass
+
+    # -------------------------------------------------------------- resume
+
+    _DATA_STATE_BYTES = 4096
+
+    def _pack_data_state(self):
+        """Dataloader/sampler progress as a fixed-size JSON leaf so it
+        rides the same checkpoint tree (and target matching) as the
+        train state."""
+        sd = self.train_data.state_dict()
+        raw = json.dumps(sd).encode()
+        if len(raw) > self._DATA_STATE_BYTES:
+            logger.warning(
+                "dataloader state too large to checkpoint (%d bytes)",
+                len(raw),
+            )
+            return None
+        buf = np.zeros(self._DATA_STATE_BYTES, np.uint8)
+        buf[: len(raw)] = np.frombuffer(raw, np.uint8)
+        return buf
+
+    def _state_tree(self) -> dict:
+        """The train state as a checkpoint tree: the step, the fp32
+        master params by name, the optimizer's state by param name."""
+        st = self.state
+        return {
+            "step": np.asarray(st.step, np.int64),
+            "params": {name: p.detach() for name, p in st.params.items()},
+            "opt": optimizer_state_tree(st.optimizer, st.params),
+        }
+
+    def _load_state_tree(self, tree: dict):
+        st = self.state
+        with torch.no_grad():
+            for name, p in st.params.items():
+                p.copy_(tree["params"][name])
+        restore_optimizer_state(st.optimizer, st.params, tree["opt"])
+        st.step = int(tree["step"])
+
+    def _ckpt_tree(self):
+        tree = {"train": self._state_tree()}
+        if hasattr(self.train_data, "state_dict"):
+            packed = self._pack_data_state()
+            if packed is not None:
+                tree["data"] = packed
+        return tree
 
     def maybe_resume(self) -> int:
-        raise _unported("maybe_resume (Flash Checkpoint restore)", 5)
+        """Restore the newest checkpoint (shm preferred, then storage),
+        including dataloader/sampler progress so a restarted job picks
+        up mid-epoch instead of replaying from offset 0.
+        Returns the restored step (0 = fresh)."""
+        if self._engine is None:
+            return 0
+        # fallback targets: a checkpoint written without the data leaf
+        # (oversized loader state) and the bare train state must both
+        # keep restoring
+        targets = [self._ckpt_tree()]
+        if "data" in targets[0]:
+            targets.append({"train": targets[0]["train"]})
+        targets.append(targets[0]["train"])
+        restored = None
+        first_err = None
+        for tgt in targets:
+            try:
+                restored = self._engine.load(target=tgt)
+            except ValueError as err:
+                if first_err is None:
+                    first_err = err
+                continue
+            if restored is not None:
+                break
+        if restored is None:
+            if first_err is not None:
+                if os.environ.get("DLROVER_TPU_IGNORE_CKPT"):
+                    logger.warning(
+                        "ignoring incompatible checkpoint "
+                        "(DLROVER_TPU_IGNORE_CKPT set): %s", first_err,
+                    )
+                    return 0
+                raise ValueError(
+                    f"existing checkpoint is incompatible with the "
+                    f"current model/optimizer layout: {first_err}. "
+                    f"Delete the checkpoint dir or set "
+                    f"DLROVER_TPU_IGNORE_CKPT=1 to start fresh."
+                ) from first_err
+            return 0
+        tree, step = restored
+        if "train" in tree:
+            self._load_state_tree(tree["train"])
+            if "data" in tree and hasattr(self.train_data,
+                                          "load_state_dict"):
+                raw = np.asarray(tree["data"]).tobytes().rstrip(b"\x00")
+                if raw:
+                    self.train_data.load_state_dict(
+                        json.loads(raw.decode()))
+        else:
+            self._load_state_tree(tree)
+        self.global_step = int(step)
+        self._restore_prestep_state()
+        # a multi-GB restore takes wall time with zero step progress;
+        # any active hang detector must restart its stall clock
+        notify_progress_reset("checkpoint-restore")
+        logger.info("resumed from checkpoint step %s", step)
+        return self.global_step
+
+    # --------------------------------------------------------- checkpoints
 
     def save_checkpoint(self, persist: bool = False):
-        raise _unported("save_checkpoint (Flash Checkpoint)", 5)
+        """Save the state to shm (and persist it when ``persist``);
+        False when the save was skipped (a persist still holds the shm
+        lock) or checkpointing is off."""
+        if self._engine is None:
+            return False
+        tree = self._ckpt_tree()
+        # PENDING sidecar before the engine commit, promoted to latest
+        # only after the save succeeds: a crash on either side of the
+        # engine's two-phase shm publish leaves the restored step
+        # matching either the pending sidecar or the promoted one
+        self._write_prestep_pending()
+        if persist:
+            ok = self._engine.save_to_storage(self.global_step, tree)
+        else:
+            ok = self._engine.save_to_memory(self.global_step, tree)
+        if ok:
+            self._promote_prestep_pending(persist)
+        return ok
+
+    # three sidecars: the latest SUCCESSFUL (memory-cadence) save, the
+    # pre-commit PENDING one (crash bracket, see save_checkpoint), and
+    # the latest PERSISTED save — a restore can land on any of those
+    # steps, and the hook's state must pair with the exact step
+    _PRESTEP_FILES = (
+        "prestep_state.npy",
+        "prestep_state_pending.npy",
+        "prestep_state_persist.npy",
+    )
+    _PRESTEP_STEP_PREFIX = "prestep_state_step"
+    _PRESTEP_KEEP_STEPS = 4
+
+    def _prestep_stateful(self) -> bool:
+        """Save and restore gate on the SAME capability check."""
+        return hasattr(self.prestep, "state_dict") and hasattr(
+            self.prestep, "load_state_dict"
+        )
+
+    def _write_prestep_pending(self):
+        """Sidecar for stateful prestep hooks: variable-sized host state
+        can't ride the engine's shape-matched tree, so it is written
+        next to the checkpoint at every save, tagged with the step, to
+        the PENDING slot (promoted on success)."""
+        if not self._prestep_stateful():
+            return
+        # the prestep state cannot change while global_step stands
+        # still: retries of the same step must not re-serialize it
+        if self._prestep_sidecar_step == self.global_step:
+            return
+        os.makedirs(self.args.output_dir, exist_ok=True)
+        payload = np.array(
+            {"step": self.global_step,
+             "state": self.prestep.state_dict()},
+            dtype=object,
+        )
+        pending = os.path.join(
+            self.args.output_dir, self._PRESTEP_FILES[1]
+        )
+        chaos_point("ckpt.prestep", step=self.global_step)
+        tmp = pending + ".tmp"
+        with open(tmp, "wb") as f:  # np.save(str) appends .npy
+            np.save(f, payload, allow_pickle=True)
+        os.replace(tmp, pending)
+        self._prestep_sidecar_step = self.global_step
+
+    def _promote_prestep_pending(self, persist: bool):
+        """The save landed: the pending sidecar becomes the latest (and
+        a per-step persist snapshot when the save persisted), by rename
+        and hard link."""
+        if not self._prestep_stateful():
+            return
+        pending = os.path.join(
+            self.args.output_dir, self._PRESTEP_FILES[1]
+        )
+        latest = os.path.join(
+            self.args.output_dir, self._PRESTEP_FILES[0]
+        )
+        if os.path.exists(pending):
+            os.replace(pending, latest)
+        if not os.path.exists(latest):
+            return
+        if persist:
+            for dst in (
+                os.path.join(
+                    self.args.output_dir, self._PRESTEP_FILES[2]
+                ),
+                # one snapshot PER persisted step: a verified restore
+                # may fall back past the newest step
+                os.path.join(
+                    self.args.output_dir,
+                    self._PRESTEP_STEP_PREFIX
+                    + f"{self.global_step}.npy",
+                ),
+            ):
+                tmp = dst + ".tmp"
+                try:
+                    os.link(latest, tmp)
+                except OSError:
+                    import shutil
+
+                    shutil.copyfile(latest, tmp)
+                os.replace(tmp, dst)
+            self._prune_prestep_steps()
+
+    def _prestep_keep_steps(self) -> int:
+        """Per-step sidecar retention follows the checkpoint retention
+        policy when one is configured."""
+        try:
+            keep = int(
+                os.environ.get("DLROVER_TPU_MAX_CKPTS_TO_KEEP", "0")
+            )
+        except ValueError:
+            keep = 0
+        return max(keep, self._PRESTEP_KEEP_STEPS)
+
+    def _prestep_step_files(self) -> list[str]:
+        """Per-persisted-step sidecar snapshots, newest step first."""
+        import glob
+
+        def step_of(p):
+            stem = os.path.basename(p)[
+                len(self._PRESTEP_STEP_PREFIX):-len(".npy")
+            ]
+            try:
+                return int(stem)
+            except ValueError:
+                return -1
+
+        return sorted(
+            glob.glob(os.path.join(
+                self.args.output_dir,
+                self._PRESTEP_STEP_PREFIX + "*.npy",
+            )),
+            key=step_of,
+            reverse=True,
+        )
+
+    def _prune_prestep_steps(self):
+        for path in self._prestep_step_files()[
+            self._prestep_keep_steps():
+        ]:
+            try:
+                os.remove(path)
+            except OSError:
+                pass
+
+    def _restore_prestep_state(self):
+        """Load the sidecar whose step matches the restored checkpoint
+        exactly; no match raises unless DLROVER_TPU_IGNORE_CKPT opts into
+        starting the hook from empty state."""
+        if not self._prestep_stateful():
+            return
+        seen_steps = []
+        candidates = [
+            os.path.join(self.args.output_dir, name)
+            for name in self._PRESTEP_FILES
+        ] + self._prestep_step_files()
+        for path in candidates:
+            if not os.path.exists(path):
+                continue
+            try:
+                payload = np.load(path, allow_pickle=True).item()
+                step = int(payload["step"])
+            except Exception as e:  # noqa: BLE001 - torn/bit-rotted
+                logger.warning(
+                    "unreadable prestep sidecar %s (%s); skipping", path, e
+                )
+                continue
+            if step == self.global_step:
+                self.prestep.load_state_dict(payload["state"])
+                return
+            seen_steps.append(step)
+        seen_steps = sorted(set(seen_steps))
+        if os.environ.get("DLROVER_TPU_IGNORE_CKPT"):
+            logger.warning(
+                "no prestep sidecar matches restored step %s (found "
+                "steps %s); starting the prestep hook from empty state "
+                "(DLROVER_TPU_IGNORE_CKPT set)",
+                self.global_step, seen_steps,
+            )
+            return
+        raise ValueError(
+            f"checkpoint restored step {self.global_step} but the "
+            f"prestep sidecar(s) in {self.args.output_dir} hold steps "
+            f"{seen_steps}: loading a mismatched state would silently "
+            f"corrupt the restored model. Delete the checkpoint dir or "
+            f"set DLROVER_TPU_IGNORE_CKPT=1 to start the prestep hook "
+            f"from empty state."
+        )
+
+    def _maybe_adopt_cadence(self):
+        """The brain's goodput-aware ``save_steps`` arrives over the
+        master's run-config channel, through the master client of the
+        control plane (ROADMAP Queue 1 item 6). Without one this keeps
+        the configured value, as the JAX Trainer does with no master."""
 
     # -------------------------------------------------------------- train
 
@@ -206,16 +550,36 @@ class Trainer:
         # post-mortem coverage for the worker: a SIGTERM (preemption,
         # agent stop) dumps the last spans/events + thread stacks
         flight.install()
+        resumed = self.maybe_resume()
         metrics = {}
+        shm_saves = 0
+        # a job resumed at/after max_steps is already done: don't train
+        # an extra step or overwrite the final checkpoint
         stop = bool(args.max_steps) and self.global_step >= args.max_steps
         sampler = getattr(self.train_data, "sampler", None)
-        for epoch in range(args.num_epochs):
+        # resume into the restored sampler epoch; don't set_epoch on the
+        # resumed epoch itself (it would clear the mid-epoch offset)
+        start_epoch = 0
+        if resumed and sampler is not None:
+            start_epoch = min(int(getattr(sampler, "epoch", 0)),
+                              args.num_epochs - 1)
+        for epoch in range(start_epoch, args.num_epochs):
             if stop:
                 break
-            if epoch and sampler is not None and hasattr(sampler,
-                                                         "set_epoch"):
+            if epoch != start_epoch and sampler is not None and hasattr(
+                    sampler, "set_epoch"):
                 sampler.set_epoch(epoch)
-            for batch in self.train_data:
+            data_iter = iter(self.train_data)
+            while True:
+                # the input pipeline's stall, timed into the shm ring
+                t_wait = time.time_ns()
+                try:
+                    batch = next(data_iter)
+                except StopIteration:
+                    break
+                if self._timer is not None:
+                    self._timer.record(Tag.DATA_WAIT, t_wait,
+                                       time.time_ns() - t_wait)
                 t0 = time.time_ns()
                 with tracing.span("train.step", step=self.global_step + 1):
                     rng = self._step_rng()
@@ -224,22 +588,54 @@ class Trainer:
                     self.state, metrics = self._accel.train_step(
                         self.state, batch, rng)
                     self.global_step += 1
-                dur_s = (time.time_ns() - t0) / 1e9
-                self._step_telemetry(batch, dur_s)
+                dur_ns = time.time_ns() - t0
+                if self._timer is not None:
+                    self._timer.record(Tag.STEP, t0, dur_ns)
+                self._step_telemetry(batch, dur_ns / 1e9)
                 if args.log_steps and self.global_step % args.log_steps == 0:
                     loss = float(metrics.get("loss", float("nan")))
                     logger.info("step %d epoch %d loss %.5f",
                                 self.global_step, epoch, loss)
                     telemetry.flush()
+                    self._maybe_adopt_cadence()
                 write_runtime_metrics(self.global_step)
+                if (self._engine is not None and args.save_steps
+                        and self.global_step % args.save_steps == 0):
+                    shm_saves += 1
+                    self.save_checkpoint(
+                        persist=shm_saves % max(args.save_storage_every, 1)
+                        == 0)
                 if args.eval_steps and self.eval_data is not None \
                         and self.global_step % args.eval_steps == 0:
                     self.evaluate()
                 if args.max_steps and self.global_step >= args.max_steps:
                     stop = True
                     break
+        if self._engine is not None:
+            self._final_save()
         telemetry.flush()
         return self.state, metrics
+
+    def _final_save(self):
+        """The final persisted save. A cadence save's persist may still
+        hold the shm lock, and a silently skipped save here would drop
+        the end-of-run state: retry, woken by the saver's persist-done
+        queue, within a deadline; then wait for the persist."""
+        deadline = time.time() + 120
+        while not self.save_checkpoint(persist=True):
+            remaining = deadline - time.time()
+            if remaining <= 0:
+                logger.error(
+                    "final checkpoint save at step %d kept getting "
+                    "skipped; giving up", self.global_step,
+                )
+                return
+            self._engine.wait_for_persist_progress(min(remaining, 2.0))
+        t_wait = time.monotonic()
+        self._engine.wait_for_persist(self.global_step, timeout=300)
+        # the ONLY persist the training loop blocks on
+        telemetry.event("ckpt.persist.wait", step=self.global_step,
+                        dur=time.monotonic() - t_wait)
 
     def _step_telemetry(self, batch, dur_s: float):
         steady = self._compiled_once
@@ -335,5 +731,5 @@ class Trainer:
         return loss
 
     def close(self):
-        """Nothing to release until Flash Checkpoint and the profiler are
-        ported (items 5 and 12); kept for the JAX API."""
+        if self._engine is not None:
+            self._engine.close()

@@ -42,7 +42,36 @@ def _imported_modules(path):
             yield node.module
 
 
+# calls that take a path, and whose string arguments are path parts
+_PATH_CALLS = {"join", "Path", "PurePath", "open", "CDLL", "LoadLibrary",
+               "exists", "isdir", "isfile", "listdir", "getmtime", "stat",
+               "memmap", "fromfile", "load"}
+
+
+def _path_parts(path):
+    """String constants the module builds paths from: the arguments of
+    path calls and the operands of ``/``, split into components."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call):
+            func = node.func
+            name = func.attr if isinstance(func, ast.Attribute) else getattr(
+                func, "id", "")
+            operands = node.args if name in _PATH_CALLS else []
+        elif isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div):
+            operands = [node.left, node.right]
+        else:
+            continue
+        for arg in operands:
+            if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
+                yield from arg.value.replace("\\", "/").split("/")
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
+    """Nor does it read the JAX package's files: no port module builds a
+    path through the repo's ``native/`` or ``dlrover_tpu/``, and the
+    port's native library is built from its own copy of the source into
+    its own directory."""
     files = sorted((ROOT / "dlrover_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
@@ -51,6 +80,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "flax", "optax",
                                "dlrover_tpu"), f"{path}: imports {mod}"
+        parts = set(_path_parts(path))
+        assert not parts & {"native", "dlrover_tpu"}, (
+            f"{path}: builds a path through {parts & {'native', 'dlrover_tpu'}}")
+    from dlrover_tpu_torch import native as port_native
+
+    own = ROOT / "dlrover_tpu_torch" / "native"
+    assert pathlib.Path(port_native._SRC_DIR) == own
+    assert (own / "dlrtpu.cc").is_file()
+    assert pathlib.Path(port_native._LIB_PATH).parent == own / "build"
 
 
 def test_mfu_uses_the_h100_bf16_peak(monkeypatch):

@@ -10,7 +10,8 @@ every step within 1e-5 (absolute), ``global_step`` and ``max_steps``
 stopping, ``evaluate()`` within 1e-5, the runtime-metrics file reading
 the last step, and the telemetry timeline (one ``compile`` event, then
 ``step.end`` events). Each option the port does not run yet raises
-``NotImplementedError`` naming its ROADMAP item.
+``NotImplementedError`` naming its ROADMAP item. (Flash Checkpoint in
+the Trainer: tests/test_torch_trainer_ckpt.py.)
 """
 
 import json
@@ -68,21 +69,38 @@ def _few_threads():
 
 @pytest.fixture(autouse=True)
 def _isolate(isolated_ckpt_env, tmp_path, monkeypatch):
-    """The JAX Trainer's shm isolation (tests/conftest.py), no
-    paral-config file, fresh telemetry registries, and both process-global
-    meshes put back."""
+    """The JAX Trainer's shm isolation (tests/conftest.py) and the port's
+    (its socket dir, saver singleton, checkpoint and step-timer segments
+    of this job), no paral-config file, fresh telemetry registries, and
+    both process-global meshes put back."""
     from dlrover_tpu.parallel import mesh
+    from dlrover_tpu_torch.agent.ckpt_saver import AsyncCheckpointSaver
+    from dlrover_tpu_torch.common.ipc import (
+        SOCKET_DIR_ENV,
+        PersistentSharedMemory,
+    )
     from dlrover_tpu_torch.parallel import set_mesh
 
     monkeypatch.setattr(mesh, "_global_mesh", mesh._global_mesh)
     monkeypatch.setenv("DLROVER_PARAL_CONFIG_PATH", "")
+    monkeypatch.setenv(SOCKET_DIR_ENV, str(tmp_path / "port-socks"))
     monkeypatch.delenv(NodeEnv.RESHAPE_DIR, raising=False)
+    AsyncCheckpointSaver.reset()
     prev = (telemetry.active_registry(), jax_telemetry.active_registry())
     telemetry.enable("port")
     jax_telemetry.enable("jax")
     yield
     telemetry._REGISTRY, jax_telemetry._REGISTRY = prev
     set_mesh(None)
+    AsyncCheckpointSaver.reset()
+    for name in (f"dlrtpu_torch_ckpt_{isolated_ckpt_env}_0",
+                 f"dlrtpu_torch_timer_{isolated_ckpt_env}"):
+        try:
+            seg = PersistentSharedMemory(name=name)
+        except FileNotFoundError:
+            continue
+        seg.close()
+        seg.unlink()
 
 
 class TokenDataset:
@@ -235,22 +253,25 @@ def _tiny_trainer(args, **kw):
 
 
 @pytest.mark.parametrize("args,kw,item", [
-    (TrainingArgs(), {}, 5),
-    (TrainingArgs(flash_checkpoint=False, save_steps=5), {}, 5),
     (TrainingArgs(flash_checkpoint=False, profile=True), {}, 12),
     (TrainingArgs(flash_checkpoint=False), {"reshape_channel": object()}, 8),
     (TrainingArgs(flash_checkpoint=False, optimizer="agd"), {}, 9),
-], ids=["flash_checkpoint", "save_steps", "profile", "reshape_channel",
-        "agd"])
+], ids=["profile", "reshape_channel", "agd"])
 def test_unported_options_raise(args, kw, item):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP Queue 1 item {item}"):
         _tiny_trainer(args, **kw)
 
 
-def test_default_args_name_the_flash_checkpoint_way_out():
-    with pytest.raises(NotImplementedError, match="flash_checkpoint=False"):
-        _tiny_trainer(TrainingArgs())
+def test_default_args_name_the_flash_checkpoint_way_out(tmp_path):
+    """The default ``TrainingArgs()`` (``flash_checkpoint=True``), which
+    raised until Flash Checkpoint was ported, builds the Trainer with its
+    checkpoint engine under ``output_dir``; ``flash_checkpoint=False`` is
+    the way out of checkpointing."""
+    trainer = _tiny_trainer(TrainingArgs(output_dir=str(tmp_path)))
+    assert trainer._engine.checkpoint_dir == str(tmp_path / "checkpoints")
+    trainer.close()
+    assert _tiny_trainer(TrainingArgs(flash_checkpoint=False))._engine is None
 
 
 def test_reshape_dir_and_checkpoint_calls_raise(monkeypatch, tmp_path):
@@ -258,10 +279,11 @@ def test_reshape_dir_and_checkpoint_calls_raise(monkeypatch, tmp_path):
     with pytest.raises(NotImplementedError, match="item 8"):
         _tiny_trainer(TrainingArgs(flash_checkpoint=False))
     monkeypatch.delenv(NodeEnv.RESHAPE_DIR)
+    # with checkpointing off, as in the JAX Trainer: nothing to restore,
+    # and a save is refused
     trainer = _tiny_trainer(TrainingArgs(flash_checkpoint=False))
-    for call in (trainer.maybe_resume, trainer.save_checkpoint):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            call()
+    assert trainer.maybe_resume() == 0
+    assert trainer.save_checkpoint() is False
 
 
 def test_prestep_runs_before_every_step_and_eval(tmp_path, monkeypatch):
