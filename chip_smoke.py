@@ -74,6 +74,21 @@ Phases, each fatal on failure (no exception is caught):
    to step 6 (losses as the first Trainer's; its saves timed); the
    segments and step
    directories removed at the end, also when a check fails,
+   ``[agent]``, the control plane: ``python -m
+   dlrover_tpu_torch.trainer.run`` (its local master, the elastic agent)
+   runs the example for 8 steps with the same saves, the kernels built
+   into a fresh ``--compilation-cache-dir``, and a ``DLROVER_CHAOS``
+   kill right after the worker's step-4 save; the agent must classify
+   the exit, restart the worker once (restart count 1) and exit 0; the
+   new incarnation must restore step 4 from the segment the agent's
+   saver kept (not from storage), train steps 5-8 with the losses of
+   [ckpt]'s uninterrupted run within 1e-5 (relative) and K1-K4 16
+   launches a step; the agent must persist a step whose CRC verifies;
+   nvidia-smi must never count more CUDA contexts than the live
+   workers (and the probe's child) hold; printed: the master's goodput
+   ledger, the restart's legs from the kill to the first step,
+   each save's blocking ms and each persist's seconds; every file, the
+   sockets and the segments removed at the end, also when a check fails,
    ``[remat-minimal]``, ``[remat-full]`` and ``[remat-offload]``: adamw
    under ``Strategy(remat=...)`` with the model's default per-layer
    "dots_attn" policy, losses within 1e-5 of the adamw run's (remat
@@ -764,8 +779,9 @@ def reset_launches() -> None:
 
 
 def launch_counts() -> dict:
-    return {kernel.__name__: kernel.launches for mod in kernel_modules()
-            for kernel in mod.KERNELS}
+    from dlrover_tpu_torch.ops import launch_counts as counts
+
+    return counts()
 
 
 def opt_tree(cfg):
@@ -1198,7 +1214,9 @@ def train_slice(steps: int = 5):
     release()
     trainer_summary, trainer_losses = trainer_run(cfg, B, S)
     release()
-    ckpt_phase(cfg, trainer_summary, trainer_losses)
+    ckpt = ckpt_phase(cfg, trainer_summary, trainer_losses)
+    release()
+    agent_phase(cfg, ckpt["uninterrupted_losses"])
     release()
     remat_runs(cfg, steps, adamw_losses, none_summary)
 
@@ -1666,6 +1684,7 @@ def ckpt_phase(cfg, trainer_summary, trainer_losses):
                          "directories behind")
     report["phase_s"] = time.perf_counter() - t_phase
     log(json.dumps({"ckpt": report}))
+    return report
 
 
 def ckpt_async_check(run_dir):
@@ -1905,6 +1924,386 @@ def ckpt_runs(cfg, run_dir, job, trainer_summary, trainer_losses):
         "a_train_s_with_final_persist": a_train_s,
         "loss_gap_after_restore": gaps, "loss_gap_after_kill": kill_gap,
         "restarted_worker_saves": child["saves"],
+        "uninterrupted_losses": a_vals + ref,
+    }
+
+
+
+# -------------------------------------------------------------- [agent]
+
+# the [agent] run: the launcher twin with its local master and the
+# elastic agent, the example's defaults (nano-350m, B8, S2048, adamw)
+# for AGENT_STEPS steps, saves every CKPT_SAVE_STEPS, every
+# CKPT_STORAGE_EVERY-th persisted; DLROVER_CHAOS kills incarnation 0
+# right after its step-CKPT_KILL_STEP save
+AGENT_STEPS = 8
+AGENT_TIMEOUT_S = 420
+
+
+def agent_argv(log_dir, cache_dir) -> list:
+    return [sys.executable, "-m", "dlrover_tpu_torch.trainer.run",
+            "--nnodes", "1", "--nproc_per_node", "1", "--max-restarts", "1",
+            "--log-dir", str(log_dir), "--compilation-cache-dir",
+            str(cache_dir), "dlrover_tpu_torch/examples/llama_pretrain.py",
+            "--steps", str(AGENT_STEPS), "--save-steps", str(CKPT_SAVE_STEPS),
+            "--save-storage-every", str(CKPT_STORAGE_EVERY)]
+
+
+def process_tree(root: int) -> dict:
+    """pid -> command line of ``root`` and every process below it."""
+    parents, cmds = {}, {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        parents[int(entry)] = int(stat.rsplit(")", 1)[1].split()[1])
+        cmds[int(entry)] = cmd.strip()
+    tree, todo = {}, [root]
+    while todo:
+        pid = todo.pop()
+        if pid in cmds and pid not in tree:
+            tree[pid] = cmds[pid]
+            todo += [p for p, ppid in parents.items() if ppid == pid]
+    return tree
+
+
+def compute_apps() -> list:
+    """(pid, MiB) of every CUDA context nvidia-smi lists. Under gVisor
+    nvidia-smi shows every process as pid 1, so the contexts are told
+    apart by their count, not by their pids."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=30).stdout
+    return [tuple(p.strip() for p in line.split(","))
+            for line in out.strip().splitlines() if "," in line]
+
+
+class ContextWatch:
+    """Polls, while the launcher runs, the number of CUDA contexts
+    nvidia-smi lists against the launcher's processes that may hold one
+    (workers, the probe's child), read from /proc before and after each
+    listing."""
+
+    def __init__(self, proc):
+        import threading
+
+        self.proc = proc
+        self.roles: dict = {}      # pid -> agent | master | worker | probe
+        # (contexts listed, MiB, holders alive: [(pid, role)])
+        self.samples: list = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def _classify(self) -> set:
+        tree = process_tree(self.proc.pid)
+        for pid, cmd in tree.items():
+            if pid == self.proc.pid:
+                role = "agent"
+            elif "master.main" in cmd:
+                role = "master"
+            elif "agent.probe" in cmd:
+                role = "probe"
+            elif "llama_pretrain" in cmd:
+                role = "worker"
+            else:
+                role = "other: " + cmd[:80]
+            # a child shows its parent's command line until it execs
+            if self.roles.get(pid, "other").startswith("other"):
+                self.roles[pid] = role
+        return set(tree)
+
+    def _loop(self):
+        while not self._stop.is_set():
+            before = self._classify()
+            apps = compute_apps()
+            alive = before | self._classify()
+            holders = sorted((pid, self.roles[pid]) for pid in alive
+                             if self.roles[pid] in ("worker", "probe"))
+            self.samples.append((len(apps), sum(
+                float(mib) for _pid, mib in apps if mib.isdigit()),
+                holders))
+            self._stop.wait(0.5)
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=60)
+
+
+def telemetry_snapshots(tele_dir) -> list:
+    """The snapshots each process flushed to the telemetry dir, as
+    (role, source, snapshot), oldest process first."""
+    from dlrover_tpu_torch.common import telemetry
+
+    snaps = []
+    for path, source in telemetry.snapshot_files(str(tele_dir)):
+        with open(path) as f:
+            snap = json.load(f)
+        snaps.append((snap.get("role"), source, snap))
+    return sorted(snaps, key=lambda s: s[2].get("created", 0.0))
+
+
+def events(snap, kind) -> list:
+    return [e for e in snap.get("events", ()) if e.get("kind") == kind]
+
+
+def one_event(snap, kind, label) -> dict:
+    found = events(snap, kind)
+    if len(found) != 1:
+        raise SystemExit(f"agent: {label} has {len(found)} {kind} events, "
+                         "want 1")
+    return found[0]
+
+
+def agent_phase(cfg, uninterrupted):
+    """[agent]: the launcher twin, its local master and the elastic agent
+    train nano-350m through the example; DLROVER_CHAOS kills the worker
+    right after its step-CKPT_KILL_STEP save, the agent restarts it, and
+    the new incarnation restores that step from the segment the agent's
+    saver kept. ``uninterrupted``: the [ckpt] run's losses of steps 1 to
+    AGENT_STEPS, which the resumed steps must equal. Every run file, the
+    sockets and the step directories live in one temp dir, removed at
+    the end with the job's segments, also when a check fails."""
+    import shutil
+    import tempfile
+
+    job = os.environ["ELASTIC_JOB_NAME"] + "agent"
+    run_tmp = Path(tempfile.mkdtemp(prefix="dlag"))
+    t_phase = time.perf_counter()
+    try:
+        report = agent_run(cfg, run_tmp, job, uninterrupted)
+    finally:
+        gone = unlink_segments(job)
+        shutil.rmtree(run_tmp, ignore_errors=True)
+        log(f"  [agent] cleanup: unlinked {gone}, removed {run_tmp}")
+    if run_tmp.exists() or unlink_segments(job):
+        raise SystemExit("agent: the cleanup left segments or files behind")
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"agent": report}))
+
+
+def agent_run(cfg, run_tmp, job, uninterrupted) -> dict:
+    import re
+    import signal
+
+    from dlrover_tpu_torch.agent.ckpt_saver import (
+        list_step_numbers,
+        verify_step_dir,
+    )
+    from dlrover_tpu_torch.common.constants import CheckpointConstant
+
+    card = CARD["line"]
+    log_dir, tele_dir = run_tmp / "logs", run_tmp / "telemetry"
+    cache_dir = run_tmp / "kernels"
+    env = dict(os.environ)
+    for key in ("DLROVER_TPU_TORCH_SOCKET_DIR", "DLROVER_RUNTIME_METRICS_PATH",
+                "DLROVER_PARAL_CONFIG_PATH", "DLROVER_MASTER_ADDR"):
+        env.pop(key, None)
+    # the run's temp dir holds the example's default output dir, the
+    # sockets, the runtime files and the agent's log dir defaults
+    env.update({"TMPDIR": str(run_tmp), "ELASTIC_JOB_NAME": job,
+                "DLROVER_TELEMETRY_DIR": str(tele_dir),
+                "DLROVER_CHAOS": json.dumps({"seed": 7, "rules": [
+                    {"site": "ckpt.save", "action": "kill",
+                     "step": CKPT_KILL_STEP}]})})
+    run_log = run_tmp / "tpu_run.log"
+    baseline = len(compute_apps())
+    t0 = time.perf_counter()
+    with open(run_log, "wb") as out:
+        proc = subprocess.Popen(agent_argv(log_dir, cache_dir), cwd=str(ROOT),
+                                env=env, stdout=out, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    watch = ContextWatch(proc)
+    try:
+        rc = proc.wait(timeout=AGENT_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        rc = None
+    finally:
+        watch.stop()
+        try:  # the launcher's group: agent, master, workers, probe
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+    run_s = time.perf_counter() - t0
+    text = run_log.read_text(errors="replace")
+    log(f"  [agent] tpu-run exit {rc} after {run_s:.1f} s")
+    for line in text.splitlines():
+        if any(k in line for k in (
+                "hardware probe", "rendezvous round", "started ", "exited rc",
+                "persisted step", "succeeded", "Error", "error")):
+            log(f"    {line.strip()[:240]}")
+    worker_logs = sorted(log_dir.glob("worker_*.log"))
+    if rc != 0:
+        for path in worker_logs:
+            log(f"  [agent] {path.name} (tail):")
+            for line in path.read_text(errors="replace").splitlines()[-25:]:
+                log(f"    {line[:240]}")
+        raise SystemExit(f"agent: tpu-run exited {rc}, want 0")
+    if "worker 0 exited rc=137" not in text or text.count("started 1 worker") != 2:
+        raise SystemExit("agent: the agent did not classify the kill and "
+                         "restart the worker once")
+    if [p.name for p in worker_logs] != ["worker_0_restart0.log",
+                                         "worker_0_restart1.log"]:
+        raise SystemExit(f"agent: worker logs {worker_logs}")
+    relog = worker_logs[1].read_text(errors="replace")
+    log("  [agent] the restarted worker's log:")
+    for line in relog.splitlines():
+        if any(k in line for k in (
+                "auto_strategy", "built mesh", "auto_accelerate ready",
+                "checkpoint saver", "libdlrtpu loaded", "restored step",
+                "resumed from", "saved step", "done:")):
+            log(f"    {line.strip()[:200]}")
+    for want in ("checkpoint saver: the agent's",
+                 f"restored step {CKPT_KILL_STEP} from shared memory"):
+        if want not in relog:
+            raise SystemExit(f"agent: the restarted worker's log lacks "
+                             f"{want!r}")
+
+    # the launcher's CUDA contexts: never more than its live workers and
+    # probe child hold, so none in the agent or the master; and each
+    # worker's is seen
+    roles = {pid: role for pid, role in watch.roles.items()
+             if not role.startswith("other")}
+    log(f"  [agent] processes: {roles}")
+    over = [s for s in watch.samples if s[0] > baseline + len(s[2])]
+    seen = {pid for n, _mib, holders in watch.samples
+            if n == baseline + len(holders) for pid, role in holders
+            if role == "worker"}
+    counts = sorted({(n - baseline, tuple(r for _p, r in holders))
+                     for n, _mib, holders in watch.samples})
+    log(f"  [agent] CUDA contexts beyond this script's {baseline} over "
+        f"{len(watch.samples)} nvidia-smi samples (contexts, holders "
+        f"alive): {counts}; most MiB {max(s[1] for s in watch.samples)}")
+    workers = {pid for pid, role in roles.items() if role == "worker"}
+    if over or seen != workers:
+        raise SystemExit(f"agent: contexts beyond the workers' and the "
+                         f"probe's: {over[:3]}; workers seen holding one "
+                         f"{sorted(seen)} of {sorted(workers)}")
+
+    # the processes' telemetry: two worker incarnations, the agent
+    snaps = telemetry_snapshots(tele_dir)
+    inc = [s for role, _src, s in snaps if role == "worker"]
+    agent = [s for role, _src, s in snaps
+             if events(s, "worker.exit")]
+    if len(inc) != 2 or len(agent) != 1:
+        raise SystemExit(f"agent: telemetry sources "
+                         f"{[src for _r, src, _s in snaps]}")
+    first, second, agent = inc[0], inc[1], agent[0]
+    start0 = one_event(first, "worker.startup", "incarnation 0")
+    start1 = one_event(second, "worker.startup", "incarnation 1")
+    if (start0["restart"], start1["restart"]) != (0, 1):
+        raise SystemExit(f"agent: restart counts {start0['restart']}, "
+                         f"{start1['restart']}, want 0, 1")
+    restore = one_event(second, "ckpt.restore", "incarnation 1")
+    if (restore["step"], restore["source_kind"]) != (CKPT_KILL_STEP, "shm"):
+        raise SystemExit(f"agent: incarnation 1 restored {restore}, want "
+                         f"step {CKPT_KILL_STEP} from shm")
+    losses = {e["step"]: e["loss"] for e in events(second, "train.loss")}
+    steps = list(range(CKPT_KILL_STEP + 1, AGENT_STEPS + 1))
+    if sorted(losses) != steps:
+        raise SystemExit(f"agent: incarnation 1 trained steps "
+                         f"{sorted(losses)}, want {steps}")
+    got = [losses[s] for s in steps]
+    log(f"  [agent] incarnation 1 losses {got}, uninterrupted "
+        f"{uninterrupted[CKPT_KILL_STEP:AGENT_STEPS]}")
+    gap = loss_gap("agent", got, uninterrupted[CKPT_KILL_STEP:AGENT_STEPS],
+                   LOSS_TOL, relative=True, to="the uninterrupted run")
+    launches = {g["labels"]["kernel"]: g["value"]
+                for g in second.get("gauges", ())
+                if g.get("name") == "kernel.launches"}
+    want = attention_launches(cfg, len(steps))
+    log(f"  [agent] incarnation 1 launches {launches}")
+    if any(launches.get(n, 0) != w for n, w in want.items()):
+        raise SystemExit(f"agent: incarnation 1 launched {launches}, "
+                         f"want {want}")
+
+    # the agent's saver persisted steps that verify
+    ckpt_dir = (run_tmp / "dlrover_tpu_torch" / "llama_pretrain"
+                / "checkpoints")
+    persisted = {}
+    for step in list_step_numbers(str(ckpt_dir)):
+        step_dir = ckpt_dir / f"{CheckpointConstant.STEP_DIR_PREFIX}{step}"
+        persisted[step] = verify_step_dir(str(step_dir), deep=True)
+    log(f"  [agent] persisted step dirs (deep CRC verify): {persisted}")
+    if not persisted or not all(ok for ok, _why in persisted.values()):
+        raise SystemExit(f"agent: persisted steps {persisted}")
+
+    # the restart's legs, from the kill to the first step of incarnation 1
+    kill = one_event(first, "chaos.fire", "incarnation 0")["t"]
+    noticed = one_event(agent, "worker.exit", "the agent")["t"]
+    spawn1 = [e for e in events(agent, "worker.spawn")
+              if e.get("restart") == 1]
+    rdzv = events(agent, "rdzv.wait")
+    step1 = [e for e in events(second, "compile")]
+    if len(spawn1) != 1 or len(rdzv) != 2 or len(step1) != 1:
+        raise SystemExit(f"agent: spawn {spawn1}, rdzv {rdzv}, first step "
+                         f"{step1}")
+    spawn1, step1 = spawn1[0]["t"], step1[0]
+    restore_start = restore["t"] - restore["dur"]
+    legs = {
+        "agent_notices_death_s": noticed - kill,
+        "re_rendezvous_s": spawn1 - noticed,
+        "rdzv_wait_s": rdzv[1]["dur"],
+        "process_start_and_import_torch_s": start1["imported_at"] - spawn1,
+        "cuda_init_and_kernel_load_s": start1["t"] - start1["imported_at"],
+        "cuda_init_s": start1["cuda_init_s"],
+        "kernel_load_s": start1["kernel_load_s"],
+        "model_and_trainer_build_s": restore_start - start1["t"],
+        "restore_from_shm_s": restore["dur"],
+        "to_first_step_s": (step1["t"] - step1["dur"]) - restore["t"],
+        "first_step_s": step1["dur"],
+    }
+    legs["total_s"] = step1["t"] - kill
+    log(f"  [agent] restart latency {legs['total_s']:.3f} s: "
+        f"{json.dumps(legs)} ({card})")
+    saves = [{"incarnation": i, "step": e["step"], "blocking_ms":
+              e["dur"] * 1e3} for i, s in enumerate(inc)
+             for e in events(s, "ckpt.save")]
+    persists = [{"step": e["step"], "seconds": e["dur"]}
+                for e in events(agent, "ckpt.persist")]
+    for rec in saves:
+        log(f"  [agent] save {json.dumps(rec)} ({card})")
+    for rec in persists:
+        log(f"  [agent] persist {json.dumps(rec)} ({card})")
+    # the job's ledger: the master's, which the agent queried once the
+    # last worker's snapshot had reached it, just before the job's end
+    found = re.search(r"job goodput ledger \(master\): (\{.*\})", text)
+    if not found:
+        raise SystemExit("agent: the agent logged no goodput ledger")
+    ledger = json.loads(found.group(1))
+    log(f"  [agent] master's ledger at the job's end: {json.dumps(ledger)}")
+    cats = ledger.get("categories") or {}
+    if not (cats.get("productive", 0) > 0 and cats.get("restart", 0) > 0):
+        raise SystemExit(f"agent: the master's ledger {ledger} lacks the "
+                         f"training or the restart")
+    probe = [line for line in text.splitlines() if "hardware probe" in line]
+    return {
+        "card": card, "config": "nano-350m", "batch": 8, "seq": 2048,
+        "steps": AGENT_STEPS, "kill_after_save_at": CKPT_KILL_STEP,
+        "tpu_run_s": run_s,
+        "goodput_pct": 100.0 * ledger.get("goodput", 0.0),
+        "ledger_s": ledger.get("categories"),
+        "ledger_total_s": ledger.get("total_s"),
+        "restart_latency": legs,
+        "kernel_load_s": {"incarnation_0_cold_cache":
+                          start0["kernel_load_s"],
+                          "incarnation_1": start1["kernel_load_s"],
+                          "built_by_incarnation_0":
+                          start0["kernels_built"]},
+        "saves": saves, "persists": persists,
+        "persisted_steps": sorted(persisted),
+        "probe": probe[0].split("hardware probe:", 1)[1].strip()
+        if probe else None,
+        "cuda_contexts_beyond_workers": len(over),
+        "loss_gap": gap,
     }
 
 

@@ -53,6 +53,10 @@ logger = get_logger(__name__)
 _META_LEN_SIZE = 8
 
 SAVER_FACTORY_QUEUE = "ckpt_factory"
+# set ("1") in a worker's env by the agent that hosts its saver: the
+# worker's engine must then reach the factory queue and never fall back
+# to a saver of its own
+AGENT_SAVER_ENV = "DLROVER_TORCH_AGENT_SAVER"
 
 
 def _pid_alive(pid: str) -> bool:

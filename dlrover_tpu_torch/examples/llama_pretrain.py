@@ -19,6 +19,16 @@ the run (a killed worker resumes from it), so remove it when done:
 
     ELASTIC_JOB_NAME=twin python -m dlrover_tpu_torch.examples.llama_pretrain --steps 20
     rm -f /dev/shm/dlrtpu_torch_ckpt_twin_0 /dev/shm/dlrtpu_torch_timer_twin
+
+Under the elastic agent, which restarts a dead worker and keeps its shm
+segment (and unlinks it after a clean finish):
+
+    python -m dlrover_tpu_torch.trainer.run --nnodes 1 --nproc_per_node 1 \
+        dlrover_tpu_torch/examples/llama_pretrain.py --steps 20
+
+On the card the twin creates its CUDA context and loads every kernel
+library before the Trainer is built, and records those legs in a
+``worker.startup`` telemetry event.
 """
 
 from __future__ import annotations
@@ -26,9 +36,14 @@ from __future__ import annotations
 import argparse
 import os
 import tempfile
+import time
 
 import numpy as np
 import torch
+
+# when this process had torch imported: a restarted worker's start-up
+# legs (process start and import, CUDA init, kernel load) start here
+IMPORTED_AT = time.time()
 
 
 def parse_args(argv=None):
@@ -73,10 +88,27 @@ def build_trainer(argv=None, device=None):
     args = parse_args(argv)
 
     from dlrover_tpu_torch import trainer as torch_trainer
+    from dlrover_tpu_torch.common import telemetry
+    from dlrover_tpu_torch.common.constants import NodeEnv
     from dlrover_tpu_torch.device import resolve_device
 
     device = resolve_device(device)
     torch_trainer.init_distributed(device)
+    startup = {"imported_at": IMPORTED_AT,
+               "restart": int(os.environ.get(NodeEnv.RESTART_COUNT, "0"))}
+    if device.type == "cuda":
+        from dlrover_tpu_torch.ops import _build
+
+        # the CUDA context, then every kernel library (built where the
+        # build dir lacks it) before the first step needs one
+        t0 = time.perf_counter()
+        torch.empty(1, device=device)
+        torch.cuda.synchronize(device)
+        startup["cuda_init_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        startup["kernels_built"] = _build.load_all()
+        startup["kernel_load_s"] = time.perf_counter() - t0
+    telemetry.event("worker.startup", **startup)
 
     from dlrover_tpu_torch.models import PRESETS, llama_init, llama_loss_fn
     from dlrover_tpu_torch.parallel import auto_strategy

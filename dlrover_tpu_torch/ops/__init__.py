@@ -14,3 +14,12 @@ from dlrover_tpu_torch.ops.quantization import (  # noqa: F401
     quantize_int8,
     quantize_pos_log,
 )
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count in this process, by kernel."""
+    from dlrover_tpu_torch.ops import attention, fused_optim, quantization
+
+    return {kernel.__name__: kernel.launches
+            for mod in (attention, quantization, fused_optim)
+            for kernel in mod.KERNELS}

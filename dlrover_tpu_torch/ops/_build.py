@@ -4,7 +4,8 @@ Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds). The library name carries a hash of the sources and
 flags, so an edited source is rebuilt and an unchanged one is reused.
-Builds go to ``ops/build/`` (listed in ``.gitignore``) and happen at first
+Builds go to ``ops/build/`` (listed in ``.gitignore``), or to the
+directory ``DLROVER_TORCH_KERNEL_BUILD_DIR`` names, and happen at first
 use; :func:`build` starts every missing ``nvcc`` at once, so the
 libraries compile in parallel. :func:`launch` binds a C entry at first
 use and calls it on the current stream; every op module launches
@@ -24,7 +25,11 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent / "build"
+# the launcher points this at the kernel cache it shares across worker
+# restarts (``--compilation-cache-dir``); unset, the package's own dir
+BUILD_DIR_ENV = "DLROVER_TORCH_KERNEL_BUILD_DIR"
+BUILD_DIR = Path(os.environ.get(BUILD_DIR_ENV)
+                 or Path(__file__).resolve().parent / "build")
 # library name -> its source; the shared headers are hashed with each
 SOURCES = {
     "flash_fwd": "flash_fwd.cu",
@@ -106,6 +111,15 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def load_all() -> dict[str, float]:
+    """Build (where missing) and load every library: what a worker does
+    before its first step. Returns the seconds of each library built."""
+    built = build()
+    for name in SOURCES:
+        load(name)
+    return built
 
 
 def launch(symbol: str, library: str, argtypes, *args) -> None:

@@ -59,6 +59,7 @@ import torch
 
 from dlrover_tpu_torch import native as dlrtpu_native
 from dlrover_tpu_torch.agent.ckpt_saver import (
+    AGENT_SAVER_ENV,
     AsyncCheckpointSaver,
     CheckpointMeta,
     LeafMeta,
@@ -412,7 +413,10 @@ class CheckpointEngine:
         self._file_source = _FileSource(self._stager)
         # An agent hosts the saver behind the factory queue; without one
         # (plain `python train.py`) the engine runs its own in-process
-        # saver so the API still works.
+        # saver so the API still works. A worker whose agent said it
+        # hosts the saver (AGENT_SAVER_ENV) never falls back: a saver
+        # in the worker would die with it, and its shm with no one to
+        # persist it.
         local_world = int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
         saver_config = dict(
             checkpoint_dir=checkpoint_dir,
@@ -420,10 +424,16 @@ class CheckpointEngine:
             host_rank=host_rank,
             num_hosts=num_hosts,
         )
+        agent_saver = os.environ.get(AGENT_SAVER_ENV) == "1"
         if standalone is None:
             standalone = not SharedQueue(
                 SAVER_FACTORY_QUEUE, create=False
             ).is_available()
+            if standalone and agent_saver:
+                raise RuntimeError(
+                    f"{AGENT_SAVER_ENV} says the agent hosts the "
+                    f"checkpoint saver, but its factory queue "
+                    f"{SAVER_FACTORY_QUEUE!r} is not there")
         if not standalone:
             # A stale socket file from a dead agent must not brick the
             # engine: fall back to standalone if the queue is dead.
@@ -432,11 +442,16 @@ class CheckpointEngine:
                     saver_config
                 )
             except (ConnectionError, OSError):
+                if agent_saver:
+                    raise
                 logger.warning(
                     "checkpoint factory queue is dead; running the saver "
                     "in-process"
                 )
                 standalone = True
+        if not standalone:
+            logger.info("checkpoint saver: the agent's (factory queue %s)",
+                        SAVER_FACTORY_QUEUE)
         self._standalone = standalone
         if standalone:
             if AsyncCheckpointSaver.get_ckpt_saver() is None:

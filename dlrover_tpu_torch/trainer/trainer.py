@@ -24,10 +24,17 @@ optimizer's ``state_dict()`` keyed by param name.
 
 What the port does not run yet raises ``NotImplementedError`` naming its
 ROADMAP Queue 1 item: profiling (``profile=True`` and the device-time
-sampler; item 12) and the in-process reshape channel
-(``reshape_channel``, ``NodeEnv.RESHAPE_DIR``; item 8). The brain's
-checkpoint cadence reaches the Trainer through a master (item 6); until
-then ``adopt_cadence`` keeps the configured ``save_steps``.
+sampler; item 12) and the in-process reshape (``reshape_channel``,
+``reshape_devices_fn``; item 8). The channel an agent offers through
+``NodeEnv.RESHAPE_DIR`` is declined: the Trainer installs no watcher and
+never marks the channel ready, so the agent restarts the worker on a
+membership change. Under a master, ``adopt_cadence`` adopts the brain's
+checkpoint cadence (``save_steps``) at log boundaries.
+
+With ``log_steps`` set, each step's loss stays on the device until the
+next log boundary (or the end of ``train()``), where it is read and
+published as a ``train.loss`` telemetry event, with the kernels' launch
+counts as ``kernel.launches`` gauges.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from dlrover_tpu_torch.common.chaos import chaos_point
 from dlrover_tpu_torch.common.constants import NodeEnv
 from dlrover_tpu_torch.common.ipc import set_default_job_name
 from dlrover_tpu_torch.common.log import get_logger
+from dlrover_tpu_torch.ops import launch_counts
 from dlrover_tpu_torch.parallel.accelerate import auto_accelerate
 from dlrover_tpu_torch.parallel.strategy import Strategy
 from dlrover_tpu_torch.trainer.fault_tolerance import notify_progress_reset
@@ -86,8 +94,7 @@ class TrainingArgs:
     flash_checkpoint: bool = True
     save_steps: int = 0              # 0 = only at end
     save_storage_every: int = 1      # persist every Nth shm save
-    # the brain's checkpoint cadence, acting on save_steps; it comes
-    # through a master (ROADMAP Queue 1 item 6)
+    # adopt the brain's checkpoint cadence (save_steps) from the master
     adopt_cadence: bool = True
     # logging/eval
     log_steps: int = 10
@@ -167,9 +174,12 @@ class Trainer:
         if args.profile:
             raise _unported("profile=True (the step profiler and the "
                             "device-time sampler)", 12)
-        if (reshape_channel is not None or reshape_devices_fn is not None
-                or os.environ.get(NodeEnv.RESHAPE_DIR, "")):
+        if reshape_channel is not None or reshape_devices_fn is not None:
             raise _unported("the in-process reshape channel", 8)
+        if os.environ.get(NodeEnv.RESHAPE_DIR, ""):
+            logger.info("the agent's reshape channel is declined (the "
+                        "in-process reshape is ROADMAP Queue 1 item 8): "
+                        "a membership change restarts this worker")
         self.args = args
         # the shm segments' job name where no agent set one
         set_default_job_name(default_job_name(args.output_dir))
@@ -214,6 +224,11 @@ class Trainer:
         # step the on-disk pending/latest prestep sidecar was last
         # serialized at (skip-rewrite cache; None = dirty)
         self._prestep_sidecar_step = None
+        # brain cadence adoption: the master client, probed lazily on
+        # the first log boundary (None = unprobed, False = no master)
+        self._cadence_client = None
+        # (step, loss on the device) since the last log boundary
+        self._pending_losses: list = []
         self._engine = None
         if args.flash_checkpoint:
             from dlrover_tpu_torch.trainer.flash_checkpoint.engine import (
@@ -532,10 +547,63 @@ class Trainer:
         )
 
     def _maybe_adopt_cadence(self):
-        """The brain's goodput-aware ``save_steps`` arrives over the
-        master's run-config channel, through the master client of the
-        control plane (ROADMAP Queue 1 item 6). Without one this keeps
-        the configured value, as the JAX Trainer does with no master."""
+        """Adopt the master brain's goodput-aware checkpoint cadence
+        (Young/Daly-tuned ``save_steps``) from the run-config channel.
+        Polled at log cadence, fail-fast and best-effort: no master
+        (or an unreachable one) just keeps the configured value, and
+        adoption never stalls the step loop."""
+        if (
+            not self.args.adopt_cadence
+            or self._engine is None
+            or not self.args.save_steps
+            or self._cadence_client is False
+        ):
+            return
+        if self._cadence_client is None:
+            try:
+                from dlrover_tpu_torch.agent.master_client import (
+                    build_master_client,
+                )
+
+                self._cadence_client = build_master_client() or False
+            except Exception:  # noqa: BLE001 - env without a master
+                self._cadence_client = False
+            if self._cadence_client is False:
+                return
+        try:
+            configs = self._cadence_client.get_elastic_run_config(
+                retries=1
+            )
+        except (ConnectionError, OSError):
+            return
+        except Exception:  # noqa: BLE001 - advisory channel
+            return
+        from dlrover_tpu_torch.master.brain import CADENCE_CONFIG_KEY
+
+        steps = int(configs.get(CADENCE_CONFIG_KEY, 0) or 0)
+        if steps <= 0 or steps == self.args.save_steps:
+            return
+        was = self.args.save_steps
+        self.args.save_steps = steps
+        telemetry.event(
+            "brain.cadence.adopted", save_steps=steps, was=was
+        )
+        telemetry.gauge_set("train.save_steps", steps)
+        logger.info(
+            "adopted brain checkpoint cadence: save_steps %d -> %d",
+            was, steps,
+        )
+
+    def _publish_losses(self):
+        """Read the losses kept since the last log boundary (one host
+        sync) into ``train.loss`` events, and the kernels' launch counts
+        into ``kernel.launches`` gauges."""
+        for step, loss in self._pending_losses:
+            telemetry.event("train.loss", step=step, loss=float(loss))
+        self._pending_losses = []
+        for name, count in launch_counts().items():
+            if count:
+                telemetry.gauge_set("kernel.launches", count, kernel=name)
 
     # -------------------------------------------------------------- train
 
@@ -588,6 +656,9 @@ class Trainer:
                     self.state, metrics = self._accel.train_step(
                         self.state, batch, rng)
                     self.global_step += 1
+                if args.log_steps and "loss" in metrics:
+                    self._pending_losses.append(
+                        (self.global_step, metrics["loss"]))
                 dur_ns = time.time_ns() - t0
                 if self._timer is not None:
                     self._timer.record(Tag.STEP, t0, dur_ns)
@@ -596,6 +667,7 @@ class Trainer:
                     loss = float(metrics.get("loss", float("nan")))
                     logger.info("step %d epoch %d loss %.5f",
                                 self.global_step, epoch, loss)
+                    self._publish_losses()
                     telemetry.flush()
                     self._maybe_adopt_cadence()
                 write_runtime_metrics(self.global_step)
@@ -611,6 +683,7 @@ class Trainer:
                 if args.max_steps and self.global_step >= args.max_steps:
                     stop = True
                     break
+        self._publish_losses()
         if self._engine is not None:
             self._final_save()
         telemetry.flush()

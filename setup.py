@@ -1,7 +1,8 @@
 """Package metadata for dlrover_tpu.
 
 Console entry points mirror the reference's ``dlrover-run``
-(setup.py:63-69): ``tpu-run`` is the elastic launcher.
+(setup.py:63-69): ``tpu-run`` is the elastic launcher, and
+``tpu-run-torch`` the PyTorch port's.
 """
 
 from setuptools import find_packages, setup
@@ -20,6 +21,7 @@ setup(
         "console_scripts": [
             "tpu-run = dlrover_tpu.trainer.run:main",
             "dlrover-tpu-master = dlrover_tpu.master.main:main",
+            "tpu-run-torch = dlrover_tpu_torch.trainer.run:main",
         ]
     },
 )

@@ -75,6 +75,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "dlrover_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    # the control plane's modules are among them
+    for rel in ("agent/training_agent.py", "agent/probe.py",
+                "master/servicer.py", "master/main.py", "trainer/run.py"):
+        assert ROOT / "dlrover_tpu_torch" / rel in files
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

@@ -275,9 +275,19 @@ def test_default_args_name_the_flash_checkpoint_way_out(tmp_path):
 
 
 def test_reshape_dir_and_checkpoint_calls_raise(monkeypatch, tmp_path):
+    """The reshape channel the agent offers every worker
+    (``NodeEnv.RESHAPE_DIR``) is declined: the Trainer builds but never
+    marks the channel ready, so the agent keeps the restart path; an
+    explicit ``reshape_channel`` raises (item 8)."""
+    from dlrover_tpu_torch.trainer.elastic.reshape import ReshapeChannel
+
     monkeypatch.setenv(NodeEnv.RESHAPE_DIR, str(tmp_path))
+    _tiny_trainer(TrainingArgs(flash_checkpoint=False))
+    channel = ReshapeChannel(str(tmp_path))
+    assert not channel.worker_ready()
     with pytest.raises(NotImplementedError, match="item 8"):
-        _tiny_trainer(TrainingArgs(flash_checkpoint=False))
+        _tiny_trainer(TrainingArgs(flash_checkpoint=False),
+                      reshape_channel=channel)
     monkeypatch.delenv(NodeEnv.RESHAPE_DIR)
     # with checkpointing off, as in the JAX Trainer: nothing to restore,
     # and a save is refused
