@@ -112,7 +112,27 @@ Phases, each fatal on failure (no exception is caught):
    ranks held in this process (the in-process transport), every
    attention on the ring-block kernels (n(n+1)/2 = 10 blocks per layer
    for each of K12-K14, K2 once per rank), losses within 2e-2 of adamw's,
-   with a profiled step;
+   with a profiled step; then the train step's other options:
+   ``[agd]``, ``build_optimizer("agd")`` on the slice's repeated batch
+   (``optimizer.step`` device ms and state bytes against adamw's, losses
+   finite and falling), then the example's chain with ``--optimizer
+   agd`` (5 steps, a cadence save at the last; its ms per step against
+   ``[trainer]``'s, K1-K4 16 a step; a fresh Trainer restores the step
+   from shm, every leaf ``torch.equal``, and its 2 more steps' losses
+   within 1e-5 (relative) of the first Trainer's continuation),
+   ``[ce-chunks]``, adamw at ``ce_chunks`` 4 and 8 on the adamw run's
+   weights and batch (which is the ce_chunks=1 run): each step's loss
+   within 2e-3 (relative) of it, step ms, tokens/s, MFU and peak memory,
+   the profiler's CE rows at 4 chunks beside the adamw run's at 1; and
+   llama2-1b (dim 2048, 16 layers, mlp 5504) at B4 S2048 with 4 chunks,
+   bench.py's headline arm, which must fit the card under remat "none",
+   and ``[optimizers]``: 4 steps each of ``mup_adam`` (after
+   ``mup_rescale_init``, width_mult 4), ``group_adam``, ``OffloadAdam``
+   (its device-to-host wait, host math and host-to-device tail per
+   step, its state off the card, the peak memory it saves against
+   adamw) and the decoupled WSAM step over torch AdamW (two passes: K1-K4
+   32 a step), each with losses finite and falling and K1-K4 16 a step
+   per pass;
 6. one JSON line with every kernel's numbers, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -123,6 +143,7 @@ segments are unlinked at the end, also when a phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -1065,10 +1086,13 @@ def model_check(cfg):
                 raise SystemExit(f"model check failed ({impl})")
 
 
-def state_bytes(optimizer) -> int:
-    """Bytes of the tensors an optimizer keeps in its state."""
+def state_bytes(optimizer, device_only=False) -> int:
+    """Bytes of the tensors an optimizer keeps in its state (on the card
+    only, with ``device_only``)."""
     def walk(value):
         if isinstance(value, torch.Tensor):
+            if device_only and not value.is_cuda:
+                return 0
             return value.numel() * value.element_size()
         if isinstance(value, dict):
             return sum(walk(v) for v in value.values())
@@ -1122,21 +1146,25 @@ def attention_launches(cfg, steps, seq=1, fwd_runs=1):
 
 
 def train_run(cfg, label, factory, strategy, steps=5, B=8, S=2048,
-              optimizer=None, fwd_runs=1):
+              optimizer=None, fwd_runs=1, init=None, config="nano-350m",
+              time_opt=None):
     """``steps`` train steps on one repeated seeded batch; returns (res,
     state, batch, losses, launches, summary). Uniform random tokens hold
     nothing a model can learn across batches, so only a repeated batch
     makes a falling loss show that the step learns. ``optimizer`` names
-    the optimizer in the summary (default: ``label``)."""
+    the optimizer in the summary (default: ``label``); ``init`` replaces
+    ``llama_init`` (same signature); ``config`` names the model in the
+    summary; ``time_opt`` replaces ``time_optimizer_steps``."""
     from dlrover_tpu_torch.common import mfu
     from dlrover_tpu_torch.models import llama_init, llama_loss_fn
     from dlrover_tpu_torch.parallel import auto_accelerate
 
     res = auto_accelerate(
-        llama_loss_fn(cfg), lambda seed, device: llama_init(cfg, seed, device),
+        llama_loss_fn(cfg),
+        init or (lambda seed, device: llama_init(cfg, seed, device)),
         factory, strategy, device="cuda", seed=0)
     state = res.state
-    opt_events = time_optimizer_steps(state.optimizer)
+    opt_events = (time_opt or time_optimizer_steps)(state.optimizer)
     batch = synthetic_batch(cfg.vocab_size, S, B, 0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1156,7 +1184,9 @@ def train_run(cfg, label, factory, strategy, steps=5, B=8, S=2048,
     # drop the wrapper: it refers back to the optimizer, and the cycle
     # would keep this run's state alive into the next run's peak
     del state.optimizer.step
-    opt_ms = [a.elapsed_time(b) for a, b in opt_events]
+    # CUDA event pairs, or legs measured on the host (time_offload_steps)
+    opt_ms = [e["ms"] if isinstance(e, dict) else e[0].elapsed_time(e[1])
+              for e in opt_events]
     log(f"  [{label}] losses: {losses}")
     log(f"  [{label}] step seconds: {step_s}")
     log(f"  [{label}] optimizer.step ms: {opt_ms}")
@@ -1174,7 +1204,8 @@ def train_run(cfg, label, factory, strategy, steps=5, B=8, S=2048,
     flops = mfu.transformer_step_flops(cfg.param_count(), B * S,
                                        cfg.n_layers, cfg.dim, S)
     summary = {
-        "config": "nano-350m", "attn_impl": cfg.attn_impl,
+        "config": config, "attn_impl": cfg.attn_impl,
+        "ce_chunks": cfg.ce_chunks,
         "optimizer": optimizer or label, "remat": strategy.remat,
         "batch": B, "seq": S,
         "seq_transport": res.mesh.ring.describe() if res.mesh.ring else None,
@@ -1186,9 +1217,13 @@ def train_run(cfg, label, factory, strategy, steps=5, B=8, S=2048,
         "mfu": mfu.mfu(flops, steady), "mfu_peak_flops": mfu.peak_flops(),
         "peak_mem_gib": peak_bytes / 2**30,
         "opt_state_gb": state_bytes(state.optimizer) / 1e9,
+        "opt_state_gb_on_device": state_bytes(state.optimizer,
+                                              device_only=True) / 1e9,
         "opt_step_ms_median_2_to_5": statistics.median(opt_ms[1:]),
         "loss_first": losses[0], "loss_last": losses[-1],
     }
+    if opt_events and isinstance(opt_events[0], dict):
+        summary["opt_step_legs"] = opt_events
     log(json.dumps({"slice": summary}))
     return res, state, batch, losses, launches, summary
 
@@ -1209,7 +1244,7 @@ def train_slice(steps: int = 5):
     res, state, batch, adamw_losses, launches, none_summary = train_run(
         cfg, "adamw", build_optimizer("adamw", SLICE_LR, weight_decay=0.0),
         Strategy(remat="none"), steps)
-    profile_step(res, state, batch)
+    ce1_rows = profile_step(res, state, batch)
     del res, state
     release()
     trainer_summary, trainer_losses = trainer_run(cfg, B, S)
@@ -1275,6 +1310,13 @@ def train_slice(steps: int = 5):
     launches.update({name: counts[name] for name in RING_KERNELS
                      if name != "flash_bwd_preprocess"})
     loss_gap("seq4", losses, adamw_losses)
+
+    # the train step's other options: AGD through the example's chain,
+    # the chunked CE, and the rest of the optimizers
+    agd_phase(cfg, steps, trainer_summary, none_summary)
+    release()
+    ce_chunk_runs(cfg, steps, adamw_losses, none_summary, ce1_rows)
+    optimizer_runs(cfg, none_summary)
     return launches
 
 
@@ -1458,6 +1500,347 @@ def trainer_run(cfg, B, S, steps=TRAINER_STEPS):
     loss_gap("trainer", trainer_losses, bare_losses, LOSS_TOL, relative=True,
              to="the bare loop")
     return summary, trainer_losses
+
+
+# ----------------------------------------------- [ce-chunks], [optimizers]
+
+# [ce-chunks]: the chunk counts run at nano-350m beside the adamw run
+# (ce_chunks=1), and the llama2-1b arm of bench.py's headline (B4, 4
+# chunks); each step's loss within CE_REL_TOL of the ce_chunks=1 run's
+CE_CHUNKS = (4, 8)
+CE_REL_TOL = 2e-3
+HEADLINE = {"preset": "llama2-1b", "batch": 4, "ce_chunks": 4}
+# [optimizers]: steps of each run (WSAM and OffloadAdam cost more than a
+# step by design) and muP's width multiplier
+OPT_STEPS = 4
+MUP_WIDTH_MULT = 4.0
+
+
+def ce_chunk_runs(cfg, steps, adamw_losses, none_summary, ce1_rows):
+    """[ce-chunks]: adamw under remat "none" at ce_chunks 4 and 8 on the
+    adamw run's weights and batch (that run is the ce_chunks=1 one), each
+    loss within CE_REL_TOL (relative) of it, K1-K4 16 a step, the
+    profiler's CE rows at 4 chunks beside 1; then llama2-1b at B4 S2048
+    with 4 chunks (bench.py's headline arm), which must fit the card."""
+    from dlrover_tpu_torch.models import PRESETS
+    from dlrover_tpu_torch.parallel import Strategy
+    from dlrover_tpu_torch.trainer import build_optimizer
+
+    report = {"ce_chunks=1": {
+        k: none_summary[k] for k in ("step_ms_median_2_to_5", "tokens_per_s",
+                                     "mfu", "peak_mem_gib")}}
+    report["ce_chunks=1"]["ce_rows"] = ce1_rows
+    for n in CE_CHUNKS:
+        label = f"ce{n}"
+        res, state, batch, losses, _c, summary = train_run(
+            dataclasses.replace(cfg, ce_chunks=n), label,
+            build_optimizer("adamw", SLICE_LR, weight_decay=0.0),
+            Strategy(remat="none"), steps, optimizer="adamw")
+        rows = profile_step(res, state, batch, label, top=0) if n == 4 \
+            else None
+        del res, state
+        release()
+        report[f"ce_chunks={n}"] = {
+            k: summary[k] for k in ("step_ms_median_2_to_5", "tokens_per_s",
+                                    "mfu", "peak_mem_gib")}
+        report[f"ce_chunks={n}"]["loss_gap"] = loss_gap(
+            label, losses, adamw_losses, CE_REL_TOL, relative=True,
+            to="ce_chunks=1")
+        if rows is not None:
+            report[f"ce_chunks={n}"]["ce_rows"] = rows
+    big = dataclasses.replace(PRESETS[HEADLINE["preset"]],
+                              ce_chunks=HEADLINE["ce_chunks"])
+    _r, _s, _b, losses, _c, summary = train_run(
+        big, "llama2-1b-ce4", build_optimizer("adamw", SLICE_LR,
+                                              weight_decay=0.0),
+        Strategy(remat="none"), steps, B=HEADLINE["batch"],
+        optimizer="adamw", config=HEADLINE["preset"])
+    del _r, _s
+    release()
+    report["llama2-1b B4 ce4"] = {
+        k: summary[k] for k in ("step_ms_median_2_to_5", "tokens_per_s",
+                                "mfu", "peak_mem_gib", "opt_state_gb")}
+    report["llama2-1b B4 ce4"]["card_gib"] = (
+        torch.cuda.get_device_properties(0).total_memory / 2**30)
+    log(json.dumps({"ce_chunks": report, "card": CARD["line"]}))
+
+
+def time_offload_steps(optimizer) -> list:
+    """OffloadAdam's legs per step: the device drained first, then the
+    step's own wait for the grads' copies to the host, its host math, and
+    the tail from its return to the device finishing the copies up and
+    the updates (``h2d_tail_ms``); the step's whole time on the host's
+    clock as ``ms``."""
+    legs, inner = [], optimizer.step
+
+    def step(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*args, **kwargs)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        legs.append({"ms": (t2 - t0) * 1e3,
+                     "d2h_wait_ms": optimizer.last_legs["d2h_wait_s"] * 1e3,
+                     "host_math_ms": optimizer.last_legs["host_math_s"] * 1e3,
+                     "h2d_tail_ms": (t2 - t1) * 1e3})
+        return out
+
+    optimizer.step = step
+    return legs
+
+
+def wsam_run(cfg, steps, B=8, S=2048):
+    """The decoupled WSAM step over torch AdamW (remat "none", bf16 over
+    f32 masters, as the slice's step): two forward and backward passes a
+    step, so K1-K4 32 times a step. Returns (losses, step seconds)."""
+    from dlrover_tpu_torch.models import llama_init, llama_loss_fn
+    from dlrover_tpu_torch.optimizers import make_wsam_step_fn
+    from dlrover_tpu_torch.parallel import remat as remat_lib
+
+    params = {n: p.requires_grad_() for n, p in
+              llama_init(cfg, 0, "cuda").items()}
+    base = torch.optim.AdamW(params.values(), lr=SLICE_LR, weight_decay=0.0)
+    inner = llama_loss_fn(cfg)
+
+    def loss_fn(p, batch, rng):
+        with remat_lib.no_remat():
+            return inner({n: t.to(torch.bfloat16) for n, t in p.items()},
+                         batch, rng)
+
+    step = make_wsam_step_fn(loss_fn, base, SLICE_LR)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in
+             synthetic_batch(cfg.vocab_size, S, B, 0).items()}
+    torch.cuda.synchronize()
+    reset_launches()
+    losses, step_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(step(params, batch, None).item())
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches = launch_counts()
+    for name, want in attention_launches(cfg, 2 * steps).items():
+        if launches[name] != want:
+            raise SystemExit(f"wsam: {name} launched {launches[name]} "
+                             f"times, want {want} (two passes a step)")
+    del params, base, step
+    return losses, step_s
+
+
+def optimizer_runs(cfg, none_summary):
+    """[optimizers]: OPT_STEPS steps each of mup_adam (after
+    mup_rescale_init at MUP_WIDTH_MULT), group_adam, OffloadAdam (with
+    its legs and the device memory it saves against adamw) and the
+    decoupled WSAM step over adamw; losses finite and falling, K1-K4 16
+    a step a pass."""
+    from dlrover_tpu_torch.models import llama_init, llama_logical_axes
+    from dlrover_tpu_torch.optimizers import (
+        OffloadAdam,
+        group_adam,
+        mup_adam,
+        mup_rescale_init,
+    )
+    from dlrover_tpu_torch.parallel import Strategy
+
+    axes = llama_logical_axes(cfg)
+    report = {"adamw": {k: none_summary[k] for k in (
+        "step_ms_median_2_to_5", "opt_step_ms_median_2_to_5",
+        "peak_mem_gib", "opt_state_gb")}}
+    runs = (
+        ("mup_adam", mup_adam(SLICE_LR, axes, MUP_WIDTH_MULT),
+         lambda seed, device: mup_rescale_init(
+             llama_init(cfg, seed, device), axes, MUP_WIDTH_MULT), None),
+        ("group_adam", group_adam(SLICE_LR), None, None),
+        ("offload_adam", lambda params: OffloadAdam(params, lr=SLICE_LR),
+         None, time_offload_steps),
+    )
+    for label, factory, init, time_opt in runs:
+        res, state, _b, _l, _c, summary = train_run(
+            cfg, label, factory, Strategy(remat="none"), OPT_STEPS,
+            init=init, time_opt=time_opt)
+        del res, state
+        release()
+        report[label] = {k: summary[k] for k in (
+            "step_ms_median_2_to_5", "opt_step_ms_median_2_to_5",
+            "peak_mem_gib", "opt_state_gb", "opt_state_gb_on_device")}
+        if label == "offload_adam":
+            report[label]["legs"] = summary["opt_step_legs"]
+            report[label]["device_mem_saved_gib_vs_adamw"] = (
+                none_summary["peak_mem_gib"] - summary["peak_mem_gib"])
+            if summary["opt_state_gb_on_device"] != 0:
+                raise SystemExit("offload_adam: optimizer state on the card")
+    losses, step_s = wsam_run(cfg, OPT_STEPS)
+    log(f"  [wsam] losses: {losses}")
+    log(f"  [wsam] step seconds: {step_s}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise SystemExit(f"wsam: losses {losses} not finite and falling")
+    report["wsam_adamw"] = {
+        "step_ms_median_from_2": statistics.median(step_s[1:]) * 1e3,
+        "step_ratio_to_adamw": statistics.median(step_s[1:]) * 1e3
+        / none_summary["step_ms_median_2_to_5"]}
+    release()
+    log(json.dumps({"optimizers": report, "card": CARD["line"]}))
+
+
+# [agd]: the example's chain with --optimizer agd for AGD_STEPS steps, a
+# cadence save at the last one (to shm only; the final save persists),
+# then a restore into a fresh Trainer and AGD_MORE more steps on each side
+AGD_STEPS = 5
+AGD_MORE = 2
+
+
+def agd_argv(out, steps: int) -> list:
+    """The example's arguments for [agd]: ``example_argv`` with
+    ``--optimizer agd``, a save every AGD_STEPS steps, none persisted but
+    the final one."""
+    argv = example_argv(out, steps)
+    for flag, value in (("--optimizer", "agd"),
+                        ("--save-steps", str(AGD_STEPS)),
+                        ("--save-storage-every", "1000")):
+        argv[argv.index(flag) + 1] = value
+    return argv
+
+
+def agd_phase(cfg, steps, trainer_summary, none_summary):
+    """[agd]: first ``build_optimizer("agd")`` in the slice's run (the
+    repeated batch: losses finite and falling, K1-K4 16 a step, its
+    ``optimizer.step`` device ms and state bytes against the adamw
+    run's); then AGD through the example's chain (``build_trainer`` with
+    ``--optimizer agd``): ms per step against [trainer]'s adamw, K1-K4 16
+    a step, losses finite (the example's stream gives fresh uniform
+    tokens every step: nothing to learn beyond their frequencies); a
+    fresh Trainer restores the step from shm, every leaf (AGD's moments
+    and count among them) ``torch.equal`` to the saved one, and its
+    losses over AGD_MORE more steps within LOSS_TOL (relative) of the
+    first Trainer's own continuation. Segments and directories removed
+    at the end."""
+    from dlrover_tpu_torch.parallel import Strategy
+    from dlrover_tpu_torch.trainer import build_optimizer
+
+    _r, _s, _b, _l, _c, summary = train_run(
+        cfg, "agd", build_optimizer("agd", SLICE_LR, weight_decay=0.0),
+        Strategy(remat="none"), steps)
+    del _r, _s
+    release()
+    job = os.environ["ELASTIC_JOB_NAME"]
+    t_phase = time.perf_counter()
+    with flash_env("agd", job):
+        report = agd_runs(cfg, CKPT_DIR / "agd", trainer_summary,
+                          none_summary)
+    report["phase_s"] = time.perf_counter() - t_phase
+    report["slice_run"] = {k: summary[k] for k in (
+        "step_ms_median_2_to_5", "opt_step_ms_median_2_to_5",
+        "opt_state_gb", "peak_mem_gib", "loss_first", "loss_last")}
+    log(json.dumps({"agd": report}))
+
+
+def agd_runs(cfg, run_dir, trainer_summary, none_summary) -> dict:
+    from dlrover_tpu_torch.agent.ckpt_saver import AsyncCheckpointSaver
+    from dlrover_tpu_torch.examples.llama_pretrain import build_trainer
+    from dlrover_tpu_torch.optimizers import AGD
+
+    steps = AGD_STEPS
+    a = build_trainer(agd_argv(run_dir, steps), device="cuda")
+    if not isinstance(a.state.optimizer, AGD):
+        raise SystemExit(f"agd: the Trainer built "
+                         f"{type(a.state.optimizer).__name__}")
+    opt_events = time_optimizer_steps(a.state.optimizer)
+    losses = record_losses(a)
+    starts, saves = [], []
+    inner_step, inner_save = a._accel.train_step, a.save_checkpoint
+
+    def timed_step(state, batch, rng):
+        starts.append(time.perf_counter())
+        return inner_step(state, batch, rng)
+
+    def timed_save(persist=False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = inner_save(persist=persist)
+        saves.append({"step": a.global_step, "persist": persist,
+                      "saved": ok, "start": t0,
+                      "blocking_ms": (time.perf_counter() - t0) * 1e3})
+        return ok
+
+    a._accel.train_step, a.save_checkpoint = timed_step, timed_save
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    a.train()
+    launches = launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    vals = [x.item() for x in losses]
+    # steps 2 to AGD_STEPS, to the cadence save's start (after a sync)
+    ms_per_step = (saves[0]["start"] - starts[1]) * 1e3 / (steps - 1)
+    del a.state.optimizer.step
+    opt_ms = [s.elapsed_time(e) for s, e in opt_events]
+    opt_gb = state_bytes(a.state.optimizer) / 1e9
+    log(f"  [agd] losses: {vals}")
+    log(f"  [agd] optimizer.step ms: {opt_ms}")
+    log(f"  [agd] launches over {steps} steps: {launches}")
+    for name, want in attention_launches(cfg, steps).items():
+        if launches[name] != want:
+            raise SystemExit(f"agd: {name} launched {launches[name]} "
+                             f"times, want {want}")
+    if not all(math.isfinite(x) for x in vals):
+        raise SystemExit(f"agd: non-finite loss: {vals}")
+    if not all(r["saved"] for r in saves):
+        raise SystemExit(f"agd: a save was skipped: {saves}")
+    want = ckpt_leaves(a)
+    a.close()
+    a._engine = None
+
+    AsyncCheckpointSaver.reset()
+    b = build_trainer(agd_argv(run_dir, steps + AGD_MORE), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = b.maybe_resume()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if step != steps:
+        raise SystemExit(f"agd: restored step {step}, want {steps}")
+    restored_bytes = check_restored("agd: restore from shm", ckpt_leaves(b),
+                                    want)
+    if b.state.optimizer.state["count"] != steps:
+        raise SystemExit(f"agd: restored count "
+                         f"{b.state.optimizer.state['count']}")
+    del want
+    b.close()
+    b._engine = None
+    a.args.max_steps = b.args.max_steps
+    a.train()
+    ref = [x.item() for x in losses[steps:]]
+    del a
+    b_losses = record_losses(b)
+    b.train()
+    got = [x.item() for x in b_losses]
+    log(f"  [agd] after the restore: losses {got}, uninterrupted {ref}")
+    if len(got) != AGD_MORE:
+        raise SystemExit(f"agd: {len(got)} steps after the restore, want "
+                         f"{AGD_MORE}")
+    gap = loss_gap("agd-restore", got, ref, LOSS_TOL, relative=True,
+                   to="the uninterrupted run")
+    del b
+    release()
+    for rec in saves:
+        rec.pop("start")
+    return {
+        "card": CARD["line"], "config": "nano-350m", "batch": 8,
+        "seq": 2048, "steps": steps,
+        "trainer_ms_per_step_2_to_5": ms_per_step,
+        "adamw_trainer_ms_per_step_2_to_6": trainer_summary[
+            "trainer_ms_per_step_2_to_6"],
+        "opt_step_ms": opt_ms,
+        "opt_step_ms_median_2_to_5": statistics.median(opt_ms[1:]),
+        "adamw_opt_step_ms_median_2_to_5": none_summary[
+            "opt_step_ms_median_2_to_5"],
+        "opt_state_gb": opt_gb,
+        "adamw_opt_state_gb": none_summary["opt_state_gb"],
+        "peak_mem_gib": peak_gib, "saves": saves,
+        "restore_from_shm_s": restore_s, "restored_bytes": restored_bytes,
+        "loss_gap_after_restore": gap, "losses": vals + ref,
+    }
 
 
 # --------------------------------------------------------------- [ckpt]
@@ -1644,12 +2027,7 @@ def ckpt_phase(cfg, trainer_summary, trainer_losses):
     segment it left and trains to CKPT_STEPS: its losses must agree with
     A's. The segments and the step directories are removed at the end,
     also when a check fails."""
-    import shutil
-    import tempfile
-
     from dlrover_tpu_torch import native
-    from dlrover_tpu_torch.agent.ckpt_saver import AsyncCheckpointSaver
-    from dlrover_tpu_torch.common.ipc import SOCKET_DIR_ENV
 
     if not native.native_available():
         raise SystemExit("ckpt: the native copy library did not build or "
@@ -1657,17 +2035,35 @@ def ckpt_phase(cfg, trainer_summary, trainer_losses):
     # main() names the job: the segments (and the step timer's ring,
     # which [trainer] created) carry its name
     job = os.environ["ELASTIC_JOB_NAME"]
+    t_phase = time.perf_counter()
+    with flash_env("ckpt", job):
+        report = ckpt_runs(cfg, CKPT_DIR / "run", job, trainer_summary,
+                           trainer_losses)
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"ckpt": report}))
+    return report
+
+
+@contextlib.contextmanager
+def flash_env(label: str, job: str):
+    """A Flash Checkpoint phase's surroundings: its own socket dir, no
+    paral-config file, the step directories under CKPT_DIR; at the end,
+    also when a check fails, the saver reset, the job's segments
+    unlinked, the directories removed and the env put back."""
+    import shutil
+    import tempfile
+
+    from dlrover_tpu_torch.agent.ckpt_saver import AsyncCheckpointSaver
+    from dlrover_tpu_torch.common.ipc import SOCKET_DIR_ENV
+
     sockets = tempfile.mkdtemp(prefix="dlck")
     saved_env = {k: os.environ.get(k) for k in
                  (SOCKET_DIR_ENV, "DLROVER_PARAL_CONFIG_PATH")}
     os.environ.update({SOCKET_DIR_ENV: sockets,
                        "DLROVER_PARAL_CONFIG_PATH": ""})
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
-    run_dir = CKPT_DIR / "run"
-    t_phase = time.perf_counter()
     try:
-        report = ckpt_runs(cfg, run_dir, job, trainer_summary,
-                           trainer_losses)
+        yield
     finally:
         AsyncCheckpointSaver.reset()
         gone = unlink_segments(job)
@@ -1678,13 +2074,11 @@ def ckpt_phase(cfg, trainer_summary, trainer_losses):
                 os.environ.pop(key, None)
             else:
                 os.environ[key] = value
-        log(f"  [ckpt] cleanup: unlinked {gone}, removed {CKPT_DIR.name}/")
+        log(f"  [{label}] cleanup: unlinked {gone}, removed "
+            f"{CKPT_DIR.name}/")
     if CKPT_DIR.exists() or unlink_segments(job):
-        raise SystemExit("ckpt: the cleanup left segments or step "
+        raise SystemExit(f"{label}: the cleanup left segments or step "
                          "directories behind")
-    report["phase_s"] = time.perf_counter() - t_phase
-    log(json.dumps({"ckpt": report}))
-    return report
 
 
 def ckpt_async_check(run_dir):
@@ -2330,10 +2724,18 @@ def profile_step(res, state, batch, label="adamw", top=16):
     busy_us = sum(e.self_device_time_total for e in averages
                   if e.device_type == DeviceType.CUDA
                   and not e.is_user_annotation)
+    # the loss's rows: logsumexp and its backward (one call), or the
+    # chunked CE's forward and backward (the function's own rows, their
+    # device time inclusive of what they launch)
+    ce_rows = {e.key: {"calls": e.count,
+                       "self_device_ms": e.self_device_time_total / 1e3,
+                       "device_ms": e.device_time_total / 1e3}
+               for e in averages
+               if "logsumexp" in e.key.lower() or "ChunkedCE" in e.key}
     log(json.dumps({"profiled_step": {
         "run": label, "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy_us / 1e3,
-        "device_idle_share": 1 - busy_us / wall_us}}))
+        "device_idle_share": 1 - busy_us / wall_us, "ce_rows": ce_rows}}))
     table = averages.table(sort_by="cuda_time_total", row_limit=60)
     name = ("profile_step.txt" if label == "adamw"
             else f"profile_step_{label}.txt")
@@ -2343,6 +2745,7 @@ def profile_step(res, state, batch, label="adamw", top=16):
         f"chiprun_out/{name}):")
     for line in table.splitlines()[:top]:
         log("    " + line)
+    return ce_rows
 
 
 def main() -> int:

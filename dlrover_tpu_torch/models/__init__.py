@@ -9,5 +9,6 @@ from dlrover_tpu_torch.models.llama import (  # noqa: F401
     LlamaConfig,
     llama_apply,
     llama_init,
+    llama_logical_axes,
     llama_loss_fn,
 )

@@ -3,7 +3,7 @@ port's.
 
 ``params_from_jax`` takes the pytree that ``dlrover_tpu.models.llama_init``
 returns and ``opt_state_from_jax`` an optax state of the JAX package's
-8-bit or fused Adam, each with its leaves already turned into numpy
+8-bit or fused Adam or AGD, each with its leaves already turned into numpy
 arrays (for example ``jax.tree.map(np.asarray, tree)``), so that this
 module needs neither jax nor the JAX package.
 """
@@ -27,6 +27,12 @@ def params_from_jax(params_np: dict, device="cpu") -> dict:
     differ only in how the projections' outputs are viewed. ``device`` is
     where the tensors are placed (the CPU unless the caller asks
     otherwise)."""
+    return {name: torch.from_numpy(np.array(leaf, copy=True)).to(device)
+            for name, leaf in _by_name(params_np).items()}
+
+
+def _by_name(tree) -> dict:
+    """A nested dict's leaves by dotted name (``"layers.wq"``)."""
     out = {}
 
     def walk(prefix, node):
@@ -34,10 +40,9 @@ def params_from_jax(params_np: dict, device="cpu") -> dict:
             for key, child in node.items():
                 walk(f"{prefix}{key}.", child)
         else:
-            out[prefix[:-1]] = torch.from_numpy(
-                np.array(node, copy=True)).to(device)
+            out[prefix[:-1]] = node
 
-    walk("", params_np)
+    walk("", tree)
     return out
 
 
@@ -59,7 +64,7 @@ def _named(name):
 
 
 _STATE_KINDS = ("ScaleByAdam8bitState", "FusedAdamState",
-                "FusedAdam8bitState")
+                "FusedAdam8bitState", "ScaleByAgdState")
 
 
 def opt_state_from_jax(state_np, optimizer) -> dict:
@@ -68,12 +73,16 @@ def opt_state_from_jax(state_np, optimizer) -> dict:
 
     ``state_np`` is the state of ``optimizers.adam8bit`` (a chain that
     holds a ``ScaleByAdam8bitState``: a ``QuantizedMoment`` per leaf),
-    or of ``fused_adamw(bits=32)`` / ``fused_adamw(bits=8)``
-    (``FusedAdamState`` / ``FusedAdam8bitState``, flat). ``optimizer`` is
-    the port's ``Adam8bit`` or ``FusedAdamW`` over the same params, given
-    in the JAX leaf order (as ``auto_accelerate`` gives them). The flat
-    arrays lose the TPU grid's tail rows; codes and scales are copied
-    unchanged, onto the params' device."""
+    of ``fused_adamw(bits=32)`` / ``fused_adamw(bits=8)``
+    (``FusedAdamState`` / ``FusedAdam8bitState``, flat), or of ``agd``
+    (a chain that holds a ``ScaleByAgdState``: moment trees and one
+    count). ``optimizer`` is the port's ``Adam8bit``, ``FusedAdamW`` or
+    ``AGD`` over the same params. The first two take them in the JAX leaf
+    order (as ``auto_accelerate`` gives them); ``AGD``'s moments are
+    matched by name, so its params must be named (``param_names`` in its
+    groups, as ``auto_accelerate`` gives them). The flat arrays lose the
+    TPU grid's tail rows; codes, scales and moments are copied unchanged,
+    onto the params' device."""
     found = [node for kind in _STATE_KINDS
              for node in _jax_leaves(state_np, _named(kind))]
     if len(found) != 1:
@@ -94,7 +103,20 @@ def opt_state_from_jax(state_np, optimizer) -> dict:
 
     out = optimizer.state_dict()
     state = {"count": int(np.asarray(st.count))}
-    if type(st).__name__ == "ScaleByAdam8bitState":
+    if type(st).__name__ == "ScaleByAgdState":
+        slots = {"mu": _by_name(st.mu), "nu": _by_name(st.nu)}
+        if isinstance(st.max_nu, dict):
+            slots["max_nu"] = _by_name(st.max_nu)
+        names = [n for g in optimizer.param_groups
+                 for n in g.get("param_names", ())]
+        if len(names) != sum(len(g["params"])
+                             for g in optimizer.param_groups):
+            raise ValueError("AGD's moments are matched by param name: "
+                             "build the optimizer over named params")
+        for i, name in enumerate(names):
+            state[i] = {slot: tensor(tree[name])
+                        for slot, tree in slots.items()}
+    elif type(st).__name__ == "ScaleByAdam8bitState":
         is_qm = _named("QuantizedMoment")
         mus = list(_jax_leaves(st.mu, is_qm))
         nus = list(_jax_leaves(st.nu, is_qm))

@@ -40,7 +40,10 @@ from dlrover_tpu_torch.ops.attention import (
     flash_attention_bshd,
     mha_reference,
 )
-from dlrover_tpu_torch.ops.cross_entropy import softmax_cross_entropy
+from dlrover_tpu_torch.ops.cross_entropy import (
+    fused_linear_cross_entropy,
+    softmax_cross_entropy,
+)
 from dlrover_tpu_torch.parallel import remat as remat_lib
 from dlrover_tpu_torch.parallel.mesh import axis_index, seq_ring
 from dlrover_tpu_torch.parallel.sequence import sequence_sharded_attention
@@ -149,10 +152,6 @@ def check_supported(config: LlamaConfig) -> None:
     if config.is_moe:
         raise NotImplementedError(
             "MoE FFN is not ported yet (ROADMAP Queue 1 item 10)")
-    if config.ce_chunks > 1:
-        raise NotImplementedError(
-            "ce_chunks > 1 (fused_linear_cross_entropy) is not ported yet "
-            "(ROADMAP Queue 1 item 2)")
     if config.pipe_schedule != "gpipe" or config.pipe_virtual_stages != 1:
         raise NotImplementedError(
             "pipeline schedules are not ported yet (ROADMAP Queue 1 "
@@ -204,6 +203,29 @@ def llama_init(config: LlamaConfig, seed: int = 0, device=None) -> dict:
         "layers.w_down": normal((L, m, d), m ** -0.5),
         "final_norm": ones(d),
         "lm_head": normal((d, config.vocab_size), 0.02),
+    }
+
+
+def llama_logical_axes(config: LlamaConfig) -> dict:
+    """Logical axis names of each param, by the port's param names (the
+    JAX package's ``llama_logical_axes`` tree, flattened by dots)."""
+    check_supported(config)
+    layer = {
+        "attn_norm": ("layer", "embed"),
+        "wq": ("layer", "embed", "heads"),
+        "wk": ("layer", "embed", "kv_heads"),
+        "wv": ("layer", "embed", "kv_heads"),
+        "wo": ("layer", "heads", "embed"),
+        "mlp_norm": ("layer", "embed"),
+        "w_gate": ("layer", "embed", "mlp"),
+        "w_up": ("layer", "embed", "mlp"),
+        "w_down": ("layer", "mlp", "embed"),
+    }
+    return {
+        "embed": ("vocab", "embed"),
+        **{f"layers.{k}": v for k, v in layer.items()},
+        "final_norm": ("embed",),
+        "lm_head": ("embed", "vocab"),
     }
 
 
@@ -294,14 +316,18 @@ def _layer(config: LlamaConfig, x, p, rope_cos, rope_sin, ring=None):
     return x + mlp @ p["w_down"]
 
 
-def llama_apply(config: LlamaConfig, params: dict, tokens, positions=None):
+def llama_apply(config: LlamaConfig, params: dict, tokens, positions=None,
+                return_hidden: bool = False):
     """tokens [B, S] int -> logits [B, S, vocab] float32.
 
     ``params`` are used in their own dtype except that every weight is
     cast to ``config.dtype`` at its use, as the JAX forward does. Under a
     seq mesh axis ``tokens`` are the sequence shards this process holds
     (all of them with the in-process transport, this rank's with a
-    process group), and positions default to their global positions."""
+    process group), and positions default to their global positions.
+    ``return_hidden=True`` returns the hidden states before the final
+    norm, [B, S, dim] in ``config.dtype``, instead of logits (the chunked
+    CE applies the norm and the head itself, chunk by chunk)."""
     check_supported(config)
     dtype = getattr(torch, config.dtype)
     B, S = tokens.shape
@@ -333,6 +359,8 @@ def llama_apply(config: LlamaConfig, params: dict, tokens, positions=None):
         else:
             x = _layer(config, x, p, cos, sin, ring)
 
+    if return_hidden:
+        return x
     x = _rms_norm(x, params["final_norm"], config.norm_eps)
     return (x @ params["lm_head"].to(dtype)).float()
 
@@ -341,16 +369,46 @@ def llama_loss_fn(config: LlamaConfig):
     """Next-token CE loss closure for auto_accelerate:
     ``loss_fn(params, batch, rng) -> scalar``, the mean over valid
     labels. ``batch["tokens"]`` [B, S+1] is shifted into inputs and
-    labels, unless ``batch["labels"]`` [B, S] comes with them."""
-    check_supported(config)
+    labels, unless ``batch["labels"]`` [B, S] comes with them.
 
-    def loss_fn(params, batch, rng):
+    At ``config.ce_chunks > 1`` the final norm, the head and the CE run
+    chunked (``fused_linear_cross_entropy`` over the hidden states), as
+    the JAX loss does. That loss recomputes its logits in its own
+    backward, so the closure names its two halves as ``remat_split``:
+    ``(body, head)``, ``body(params, batch, rng) -> hidden`` and
+    ``head(params, batch, hidden) -> loss``. A strategy remat then
+    checkpoints the body only (parallel/accelerate.py ``_remat_wrap``),
+    and the chunked loss's forward runs once a step."""
+    check_supported(config)
+    dtype = getattr(torch, config.dtype)
+
+    def split(batch):
         tokens = batch["tokens"]
         if "labels" in batch:
             # already shifted (a seq rank's slice, parallel/accelerate.py)
-            inputs, labels = tokens, batch["labels"]
-        else:
-            inputs, labels = tokens[:, :-1], tokens[:, 1:]
+            return tokens, batch["labels"]
+        return tokens[:, :-1], tokens[:, 1:]
+
+    if config.ce_chunks > 1:
+        def body(params, batch, rng):
+            return llama_apply(config, params, split(batch)[0],
+                               return_hidden=True)
+
+        def head(params, batch, hidden):
+            loss_sum, valid_sum = fused_linear_cross_entropy(
+                hidden, params["lm_head"].to(dtype), split(batch)[1],
+                n_chunks=config.ce_chunks, norm_scale=params["final_norm"],
+                norm_eps=config.norm_eps)
+            return loss_sum / valid_sum.clamp(min=1)
+
+        def chunked_loss_fn(params, batch, rng):
+            return head(params, batch, body(params, batch, rng))
+
+        chunked_loss_fn.remat_split = (body, head)
+        return chunked_loss_fn
+
+    def loss_fn(params, batch, rng):
+        inputs, labels = split(batch)
         logits = llama_apply(config, params, inputs)
         loss, valid = softmax_cross_entropy(logits, labels)
         return loss.sum() / valid.sum().clamp(min=1)

@@ -112,10 +112,27 @@ def _remat_wrap(loss_fn: Callable, mode: str) -> Callable:
     """``loss_fn`` under the strategy's remat: the whole loss in one
     checkpoint that keeps what ``mode`` saves (the JAX package's
     ``jax.checkpoint(loss_fn, policy)``); ``"none"`` leaves it as it
-    is."""
+    is.
+
+    A loss whose tail recomputes itself in its own backward names its
+    halves as ``loss_fn.remat_split = (body, head)`` (the chunked CE,
+    models/llama.py): only the body is checkpointed, and the head runs
+    once forward, outside. Checkpointed whole, the backward would run
+    the head's forward again to recompute what the head saved; in the
+    JAX package that recompute's outputs are dead and XLA drops it."""
     if mode == "none":
         return loss_fn
     policy = remat_lib.strategy_policy(mode)
+    split = getattr(loss_fn, "remat_split", None)
+    if split is not None:
+        body, head = split
+
+        def wrapped_split(params, batch, rng):
+            hidden = remat_lib.checkpoint(body, params, batch, rng,
+                                          policy=policy)
+            return head(params, batch, hidden)
+
+        return wrapped_split
 
     def wrapped(params, batch, rng):
         return remat_lib.checkpoint(loss_fn, params, batch, rng,
@@ -144,7 +161,7 @@ def _seq_slice(batch, ring):
 def auto_accelerate(
     loss_fn: Callable,  # (params, batch, rng) -> scalar loss
     init_fn: Callable,  # (seed, device) -> dict of fp32 params
-    optimizer_factory: Callable,  # iterable of params -> torch Optimizer
+    optimizer_factory: Callable,  # named params -> torch Optimizer
     strategy: Optional[Strategy] = None,
     device=None,
     seed: int = 0,
@@ -153,8 +170,9 @@ def auto_accelerate(
     (``cuda`` unless ``device`` says otherwise), and set its mesh as the
     active one; each ``train_step`` sets it again before it runs.
 
-    ``optimizer_factory`` receives the params in the JAX package's leaf
-    order (``ops.fused_optim.tree_order`` of their names).
+    ``optimizer_factory`` receives the params as ``(name, tensor)``
+    pairs (torch's named parameters) in the JAX package's leaf order
+    (``ops.fused_optim.tree_order`` of their names).
     ``strategy.fused_optim`` is recorded, as in the JAX package: the
     optimizer factory acts on it (``adam8bit(fused=True)``,
     ``fused_adamw``), the step does not change.
@@ -183,9 +201,10 @@ def auto_accelerate(
         for name, p in init_fn(seed, device).items()
     }
     # the optimizer sees the params in the JAX package's leaf order, so
-    # that flat optimizer state and per-leaf seeds line up with JAX's
+    # that flat optimizer state and per-leaf seeds line up with JAX's, and
+    # by name, so that what keys on names (muP's multipliers) finds them
     state = TrainState(step=0, params=params, optimizer=optimizer_factory(
-        [params[name] for name in tree_order(params)]))
+        [(name, params[name]) for name in tree_order(params)]))
 
     def to_device(x):
         return torch.as_tensor(x).to(device, non_blocking=True)

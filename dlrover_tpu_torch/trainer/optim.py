@@ -1,5 +1,5 @@
 """Optimizer factory (the counterpart of ``_build_optimizer`` in
-dlrover_tpu/trainer/trainer.py for adamw, sgd and adam8bit), and the
+dlrover_tpu/trainer/trainer.py), and the
 optimizer's state as a checkpoint tree (the Trainer's Flash Checkpoint).
 """
 
@@ -10,7 +10,7 @@ from typing import Callable, Iterable
 import numpy as np
 import torch
 
-from dlrover_tpu_torch.optimizers import adam8bit
+from dlrover_tpu_torch.optimizers import adam8bit, agd
 
 
 def build_optimizer(
@@ -26,8 +26,8 @@ def build_optimizer(
     default). Betas (0.9, 0.999) and eps 1e-8 are optax's defaults too.
     ``sgd`` is plain SGD, as ``optax.sgd(lr)``. ``adam8bit`` is
     ``optimizers.adam8bit(lr, weight_decay=weight_decay)``, per-leaf
-    8-bit moments on the K5/K6 kernels. ``agd`` is not ported yet
-    (ROADMAP Queue 1 item 9)."""
+    8-bit moments on the K5/K6 kernels. ``agd`` is
+    ``optimizers.agd(lr, weight_decay=weight_decay)``."""
     if optimizer == "adamw":
         return lambda params: torch.optim.AdamW(
             params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
@@ -37,9 +37,7 @@ def build_optimizer(
     if optimizer == "adam8bit":
         return adam8bit(learning_rate, weight_decay=weight_decay)
     if optimizer == "agd":
-        raise NotImplementedError(
-            f"optimizer {optimizer!r} is not ported yet (ROADMAP Queue 1 "
-            "item 9)")
+        return agd(learning_rate, weight_decay=weight_decay)
     raise ValueError(f"unknown optimizer {optimizer!r}")
 
 

@@ -85,7 +85,7 @@ class TrainingArgs:
     grad_accum: int = 1
     learning_rate: float = 1e-3
     weight_decay: float = 0.0
-    optimizer: str = "adamw"         # adamw | sgd | adam8bit (agd: item 9)
+    optimizer: str = "adamw"         # adamw | sgd | agd | adam8bit
     strategy: Optional[Strategy] = None
     # None = keep the strategy's compute dtype (default bfloat16)
     compute_dtype: Optional[str] = None

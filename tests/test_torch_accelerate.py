@@ -29,7 +29,7 @@ from dlrover_tpu.parallel.accelerate import auto_accelerate as jax_accelerate
 from dlrover_tpu.parallel.mesh import MeshConfig as JaxMesh
 from dlrover_tpu.parallel.strategy import Strategy as JaxStrategy
 from dlrover_tpu_torch.models import LlamaConfig, llama_loss_fn, params_from_jax
-from dlrover_tpu_torch.optimizers import Adam8bit, FusedAdamW, fused_adamw
+from dlrover_tpu_torch.optimizers import AGD, Adam8bit, FusedAdamW, fused_adamw
 from dlrover_tpu_torch.parallel import MeshConfig, Strategy, auto_accelerate
 from dlrover_tpu_torch.trainer import build_optimizer
 
@@ -146,7 +146,7 @@ def test_build_optimizer():
     assert isinstance(build_optimizer("sgd", 0.1)(p), torch.optim.SGD)
     a8 = build_optimizer("adam8bit", 1e-3, weight_decay=0.1)(p)
     assert isinstance(a8, Adam8bit) and a8.weight_decay == 0.1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_optimizer("agd")
+    agd = build_optimizer("agd", 1e-3, weight_decay=0.1)(p)
+    assert isinstance(agd, AGD) and agd.param_groups[0]["weight_decay"] == 0.1
     with pytest.raises(ValueError):
         build_optimizer("lion")

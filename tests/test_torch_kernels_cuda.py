@@ -690,3 +690,53 @@ def test_remat_gradients_are_bit_equal_on_the_kernels(cuda, mode):
     assert torch.equal(loss, base_loss)
     for g, b in zip(grads, base_grads):
         assert torch.equal(g, b)
+
+
+def test_agd_step_and_chunked_ce_on_the_card_match_the_cpu(cuda):
+    """No kernel of their own: AGD's foreach step and the chunked CE's
+    forward and backward on the card against the same code on the CPU.
+    AGD in f32 within 1e-5 of the largest param (the card's foreach
+    kernels may contract into FMAs, the CPU's not); the CE in bf16 at
+    the slice's vocab and width, 4 chunks of an odd sequence, the loss
+    within 1e-2 relative and the gradients within 3e-2 of each largest
+    value (bf16 head products, f32 softmax on both sides)."""
+    from dlrover_tpu_torch.ops.cross_entropy import fused_linear_cross_entropy
+    from dlrover_tpu_torch.optimizers import AGD
+
+    gen = torch.Generator().manual_seed(0)
+    leaves = [torch.randn(shape, generator=gen)
+              for shape in ((64, 33), (1000,), (3, 7, 5))]
+    grads = [[torch.randn(p.shape, generator=gen) for p in leaves]
+             for _ in range(3)]
+    out = []
+    for dev in ("cpu", cuda):
+        params = [p.clone().to(dev) for p in leaves]
+        opt = AGD(params, lr=1e-2, weight_decay=0.01, clip=0.5,
+                  amsgrad=True)
+        for gs in grads:
+            for p, g in zip(params, gs):
+                p.grad = g.to(dev)
+            opt.step()
+        out.append([p.cpu() for p in params])
+    for got, want in zip(*reversed(out)):
+        assert _rel(got, want) <= 1e-5
+
+    B, S, D, V = 2, 511, 1024, 32000
+    h = torch.randn(B, S, D, generator=gen).bfloat16()
+    w = (torch.randn(D, V, generator=gen) * 0.02).bfloat16()
+    ns = (1 + 0.1 * torch.randn(D, generator=gen)).bfloat16()
+    labels = torch.randint(0, V, (B, S), generator=gen)
+    labels[0, :7] = -100
+    res = []
+    for dev in ("cpu", cuda):
+        leaves = [t.clone().to(dev).requires_grad_() for t in (h, w, ns)]
+        loss_sum, valid = fused_linear_cross_entropy(
+            *leaves[:2], labels.to(dev), n_chunks=4, norm_scale=leaves[2])
+        loss_sum.backward()
+        res.append((loss_sum.item(), int(valid),
+                    [t.grad.float().cpu() for t in leaves]))
+    (l_cpu, v_cpu, g_cpu), (l_gpu, v_gpu, g_gpu) = res
+    assert v_gpu == v_cpu == B * S - 7
+    assert abs(l_gpu - l_cpu) <= 1e-2 * abs(l_cpu)
+    for got, want in zip(g_gpu, g_cpu):
+        assert torch.isfinite(got).all() and _rel(got, want) <= 3e-2

@@ -4,7 +4,7 @@ each package's own ``ElasticDataLoader`` over the same seeded token
 dataset, ``flash_checkpoint=False``.
 
 Over optimizers adamw and sgd and grad_accum 1 and 2 under the default
-``Strategy()`` (remat "minimal"), and adamw under remat "none", 4 steps
+``Strategy()`` (remat "minimal"), and adamw and agd under remat "none", 4 steps
 across an epoch boundary with ``log_steps=2``, both must agree on: the loss of
 every step within 1e-5 (absolute), ``global_step`` and ``max_steps``
 stopping, ``evaluate()`` within 1e-5, the runtime-metrics file reading
@@ -185,7 +185,7 @@ def _step_events(snapshot):
 
 @pytest.mark.parametrize("optimizer,grad_accum,remat", [
     ("adamw", 1, "minimal"), ("adamw", 2, "minimal"), ("sgd", 1, "minimal"),
-    ("sgd", 2, "minimal"), ("adamw", 1, "none"),
+    ("sgd", 2, "minimal"), ("adamw", 1, "none"), ("agd", 1, "none"),
 ])
 def test_trainer_matches_jax(tmp_path, monkeypatch, optimizer, grad_accum,
                              remat):
@@ -255,8 +255,7 @@ def _tiny_trainer(args, **kw):
 @pytest.mark.parametrize("args,kw,item", [
     (TrainingArgs(flash_checkpoint=False, profile=True), {}, 12),
     (TrainingArgs(flash_checkpoint=False), {"reshape_channel": object()}, 8),
-    (TrainingArgs(flash_checkpoint=False, optimizer="agd"), {}, 9),
-], ids=["profile", "reshape_channel", "agd"])
+], ids=["profile", "reshape_channel"])
 def test_unported_options_raise(args, kw, item):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP Queue 1 item {item}"):
@@ -346,3 +345,25 @@ def test_the_example_twin_trains_on_the_cpu(monkeypatch, tmp_path):
     assert trainer.global_step == 3
     assert trainer._accel.strategy.remat == "none"
     assert json.loads(metrics.read_text())["step"] == 3
+
+
+def test_the_example_twin_trains_with_agd_on_the_cpu(monkeypatch,
+                                                     tmp_path):
+    """``--optimizer agd``, the example's last choice, through the same
+    chain: the Trainer steps AGD, and its state rides the checkpoint."""
+    from dlrover_tpu_torch.examples import llama_pretrain
+    from dlrover_tpu_torch.optimizers import AGD
+
+    monkeypatch.setenv("DLROVER_RUNTIME_METRICS_PATH",
+                       str(tmp_path / "metrics.json"))
+    trainer = llama_pretrain.main(
+        ["--preset", "tiny", "--steps", "3", "--batch-size", "2",
+         "--seq-len", "16", "--optimizer", "agd", "--save-steps", "2",
+         "--output-dir", str(tmp_path / "out")],
+        device="cpu")
+    assert trainer.global_step == 3
+    opt = trainer.state.optimizer
+    assert isinstance(opt, AGD) and opt.state["count"] == 3
+    tree = trainer._state_tree()["opt"]
+    assert int(tree["extra"]["count"]) == 3
+    assert set(tree["state"]) == set(trainer.state.params)

@@ -7,7 +7,8 @@ Llama config (2 layers, dim 64), float32, adamw unless named.
   bit-equal to an uninterrupted run's at every step.
 - Optimizer state restores bit-equal, moments included: torch AdamW's
   (created lazily by torch, up front by the Trainer), a save taken
-  before the first step, and 8-bit Adam's (codes, scales, its count).
+  before the first step, 8-bit Adam's (codes, scales, its count) and
+  AGD's (its moments and its global count).
 - The elastic loader resumes mid-epoch: the batches before and after
   the resume are the uninterrupted run's, none replayed or lost, across
   an epoch boundary.
@@ -169,8 +170,9 @@ def test_saving_changes_no_loss(tmp_path):
 
 
 @pytest.mark.parametrize("optimizer,steps", [
-    ("adamw", 3), ("adamw", 0), ("adam8bit", 3),
-], ids=["adamw", "adamw-before-step-1", "adam8bit"])
+    ("adamw", 3), ("adamw", 0), ("adam8bit", 3), ("agd", 3), ("agd", 0),
+], ids=["adamw", "adamw-before-step-1", "adam8bit", "agd",
+        "agd-before-step-1"])
 def test_optimizer_state_restores_bit_equal(tmp_path, optimizer, steps):
     a = make_trainer(tmp_path / "out", steps, optimizer=optimizer,
                      save_steps=0)
@@ -189,6 +191,11 @@ def test_optimizer_state_restores_bit_equal(tmp_path, optimizer, steps):
     want, got = opt_tensors(a.state.optimizer), opt_tensors(
         b.state.optimizer)
     assert set(got) == set(want) and len(want) >= 12
+    if optimizer == "agd":
+        # created with the optimizer: a save before step 1 names them too
+        assert all(set(s) == {"mu", "nu"}
+                   for s in b.state.optimizer.state.values()
+                   if isinstance(s, dict))
     for key, w in want.items():
         g = got[key]
         if isinstance(w, torch.Tensor):
