@@ -37,6 +37,15 @@ Phases, each fatal on failure (no exception is caught):
    replays), its plain version's, its bound and SDPA's forward and
    backward (CUDA-graph replays; causal on the diagonal, not on the
    visible block) as the library yardstick;
+   ``[kernels-d64]``: K1-K4's head_dim 64 build against its plain
+   versions with the same gates, at gpt2-1.5b's attention shape (B8 H25
+   S1024 D64, causal, no rope), a roped GQA shape (B2 H16 KVH4 S1024), a
+   roped ragged one (S1000) and the masked case on the GQA shape,
+   ``flash_attention_bshd`` at head_dim 64 (it must take K1-K4 on
+   transposed views, one launch each, and no K9-K11), then at gpt2-1.5b's
+   shape each kernel's ms (CUDA-graph replays), its plain version's, its
+   bound and SDPA's forward (and its backward beside K2 + K3 + K4) as the
+   library yardstick;
 4. each optimizer kernel (K5-K8) against its plain version on the
    slice's 12 parameter leaves plus a ragged 1000-element leaf and a
    leaf without a grad (all-zero rows), both given the same rounding
@@ -132,8 +141,20 @@ Phases, each fatal on failure (no exception is caught):
    step, its state off the card, the peak memory it saves against
    adamw) and the decoupled WSAM step over torch AdamW (two passes: K1-K4
    32 a step), each with losses finite and falling and K1-K4 16 a step
-   per pass;
-6. one JSON line with every kernel's numbers, then the last line
+   per pass; then ``[gpt2]``: gpt2-124m's logits (12 layers, full width,
+   head_dim 64) through the flash branch and the bshd route against the
+   reference branch; gpt2-1.5b at full width and depth (48 layers, dim
+   1600, 25 heads, mlp 6400, vocab 50257) through ``Trainer``: B8 S1024,
+   bf16 over f32 masters, remat "none", adamw, 5 steps on one repeated
+   seeded batch (losses finite and falling, K1-K4 48 launches a step
+   each at head_dim 64 and no other attention kernel; step ms, tokens/s,
+   MFU, peak memory); one Flash Checkpoint save of its 18.7 GB state to
+   shm, 2 more steps, a fresh engine's restore of the save (every leaf
+   ``torch.equal``) and the same 2 steps again, losses within 1e-5
+   (relative); a profiled step;
+6. one JSON line with every kernel's numbers (K1-K4's head_dim 64
+   instantiations as ``<name>_d64``, their launches from ``[gpt2]``),
+   then the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero with no result line when CUDA is missing. Longer reports
@@ -213,6 +234,9 @@ KERNEL_INFO = {
     "flash_ring_dkv": ("dlrover_tpu_torch/ops/csrc/flash_ring.cu",
                        "dlrover_tpu/ops/attention.py:1612"),
 }
+# K1-K4's head_dim 64 instantiations: the same sources and TPU kernels
+KERNEL_INFO.update({name + "_d64": KERNEL_INFO[name] for name in (
+    "flash_fwd", "flash_bwd_preprocess", "flash_bwd_dq", "flash_bwd_dkv")})
 # ring blocks (B, H, KVH, shard length): the slice's block shape first
 RING_SHAPES = {
     "ring": (8, 8, 8, 512),
@@ -220,6 +244,14 @@ RING_SHAPES = {
     "ring-ragged": (2, 8, 4, 500),
 }
 SEQ = 4  # ranks of the [seq4] run's seq axis
+# [kernels-d64]: K1-K4 at head_dim 64, (B, H, KVH, S): gpt2-1.5b's
+# attention (B8 S1024, 25 heads, causal, no rope) first, then a GQA and a
+# ragged shape, both with rope (the JAX kernels rope at any width)
+D64_SHAPES = {
+    "gpt2": (8, 25, 25, 1024),
+    "gqa": (2, 16, 4, 1024),
+    "ragged": (2, 8, 4, 1000),
+}
 
 # Optimizer kernels against their plain versions. K5/K6 do the plain
 # versions' f32 operations in their order: codes, scales and values must
@@ -303,24 +335,24 @@ def graph_ms(fn, iters: int, replays: int = 5) -> list[float]:
     return per_call
 
 
-def rope_tables(B, S, dtype):
+def rope_tables(B, S, dtype, D=HEAD_DIM):
     from dlrover_tpu_torch.models.llama import _rope_tables
 
     pos = torch.arange(S, device="cuda").expand(B, S)
-    cos, sin = _rope_tables(pos, HEAD_DIM // 2, 10000.0, dtype)
+    cos, sin = _rope_tables(pos, D // 2, 10000.0, dtype)
     return torch.cat([cos, cos], -1), torch.cat([sin, sin], -1)
 
 
-def make_inputs(shape, seed):
+def make_inputs(shape, seed, D=HEAD_DIM):
     B, H, KVH, S = shape
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(heads):
-        return torch.randn(B, heads, S, HEAD_DIM, generator=gen,
+        return torch.randn(B, heads, S, D, generator=gen,
                            device="cuda").to(torch.bfloat16)
 
     q, k, v, do = randn(H), randn(KVH), randn(KVH), randn(H)
-    cos, sin = rope_tables(B, S, torch.bfloat16)
+    cos, sin = rope_tables(B, S, torch.bfloat16, D)
     return q, k, v, do, cos, sin
 
 
@@ -332,15 +364,18 @@ def rel_err(got, want) -> tuple[float, float]:
 class Judge:
     """Holds kernel outputs against plain ones at one case, logging each
     comparison; ``worst`` collects each kernel's largest absolute error
-    (end-to-end checks are logged and judged, not collected)."""
+    under its name and ``suffix`` (end-to-end checks are logged and
+    judged, not collected)."""
 
-    def __init__(self, name, worst):
+    def __init__(self, name, worst, suffix=""):
         self.name, self.worst, self.failures = name, worst, []
+        self.suffix = suffix
 
     def __call__(self, kernel, what, got, want, collect=True):
         abs_err, rel = rel_err(got, want)
         if collect:
-            self.worst[kernel] = max(self.worst.get(kernel, 0.0), abs_err)
+            key = kernel + self.suffix
+            self.worst[key] = max(self.worst.get(key, 0.0), abs_err)
         ok = abs_err <= LSE_ABS_TOL if what == "lse" else rel <= REL_TOL[what]
         log(f"  {self.name:6s} {kernel:21s} {what:5s} max_abs_err="
             f"{abs_err:.3e} rel={rel:.3e} {'ok' if ok else 'FAIL'}")
@@ -353,15 +388,19 @@ class Judge:
             raise SystemExit(f"kernel check failed: {self.failures}")
 
 
-def check_shape(name, shape, seed, worst, window=None, prefix=None):
-    """K1-K4 vs plain versions at one shape (with rope; the mask extras
-    when given); fills ``worst`` with each kernel's largest absolute
-    error. Returns the inputs for timing."""
+def check_shape(name, shape, seed, worst, window=None, prefix=None,
+                D=HEAD_DIM, rope=True):
+    """K1-K4 vs plain versions at one shape of head width ``D`` (with
+    rope unless ``rope`` is False; the mask extras when given); fills
+    ``worst`` with each kernel's largest absolute error (under
+    ``<kernel>_d64`` at D = 64). Returns the inputs for timing."""
     from dlrover_tpu_torch.ops import attention as att
 
-    q, k, v, do, cos, sin = make_inputs(shape, seed)
-    mask = (True, HEAD_DIM ** -0.5, window, prefix)
-    judge = Judge(name, worst)
+    q, k, v, do, cos, sin = make_inputs(shape, seed, D)
+    if not rope:
+        cos = sin = None
+    mask = (True, D ** -0.5, window, prefix)
+    judge = Judge(name, worst, "" if D == HEAD_DIM else f"_d{D}")
 
     # each kernel on shared inputs (the kernel chain's own o/lse/delta)
     o, lse = att.flash_fwd(q, k, v, cos, sin, *mask)
@@ -369,8 +408,9 @@ def check_shape(name, shape, seed, worst, window=None, prefix=None):
     judge("flash_fwd", "o", o, o_p)
     judge("flash_fwd", "lse", lse, lse_p)
     del o_p, lse_p
-    judge("flash_fwd", "k_rope", att.flash_fwd_rope_k(k, cos, sin),
-          att._rope(k, cos, sin).to(k.dtype), collect=False)
+    if rope:
+        judge("flash_fwd", "k_rope", att.flash_fwd_rope_k(k, cos, sin),
+              att._rope(k, cos, sin).to(k.dtype), collect=False)
     delta = att.flash_bwd_preprocess(do, o)
     judge("flash_bwd_preprocess", "delta", delta,
           att.flash_bwd_preprocess_plain(do, o))
@@ -469,16 +509,16 @@ def check_heads(name, shape, seed, worst, window=None, prefix=None):
     return q, k, v, do, o, lse, delta
 
 
-def bounds(shape):
-    """Least time (ms) per kernel at ``shape``: the larger of bytes moved
-    (each input read once, each output written once) over HBM bandwidth
+def bounds(shape, D=HEAD_DIM, rope=True):
+    """Least time (ms) per kernel at ``shape`` and head width ``D``: the
+    larger of bytes moved (each input read once, each output written
+    once; K1/K3/K4 read the rope tables when ``rope``) over HBM bandwidth
     and the products' operations over the peak for their type. Causal
     work counts only the S(S+1)/2 visible (query, key) pairs."""
     B, H, KVH, S = shape
-    D = HEAD_DIM
     pairs = B * H * S * (S + 1) / 2
     q_b, kv_b, row_b = B * H * S * D * 2, B * KVH * S * D * 2, B * H * S * 4
-    tab_b = 2 * B * S * D * 2
+    tab_b = 2 * B * S * D * 2 if rope else 0
     fwd_b = 2 * q_b + 2 * kv_b + row_b
     dq_b = 3 * q_b + 2 * kv_b + 2 * row_b
     dkv_b = 2 * q_b + 4 * kv_b + 2 * row_b
@@ -634,6 +674,108 @@ def time_packing(shape):
         "ratio_k11_over_k4_medians":
             medians["flash_bwd_dkv_heads"] / medians["flash_bwd_dkv"],
     }}))
+
+
+def check_bshd_d64(shape, seed):
+    """flash_attention_bshd at head_dim 64 with its default fused=True:
+    the bhsd route, K1-K4 on the [B, H, S, D] views of the [B, S, H, D]
+    operands, as the JAX package routes head_dim % 128 != 0; held against
+    the plain chain, and K1-K4 must launch once each, K9-K11 never."""
+    from dlrover_tpu_torch.ops import attention as att
+
+    q, k, v, do = make_inputs(shape, seed, 64)[:4]
+    mask = (True, 64 ** -0.5, None, None)
+    want = plain_chain(q, k, v, do, lambda *a: a + (None, None, *mask),
+                       att.flash_fwd_plain, att.flash_bwd_preprocess_plain,
+                       att.flash_bwd_dq_plain, att.flash_bwd_dkv_plain)
+    leaves = [t.transpose(1, 2).contiguous().requires_grad_()
+              for t in (q, k, v)]
+    reset_launches()
+    out = att.flash_attention_bshd(*leaves)
+    out.backward(do.transpose(1, 2))
+    counts = launch_counts()
+    judge = Judge("d64", {})
+    got = [out.detach()] + [t.grad for t in leaves]
+    for what, g, ref in zip(("o", "dq", "dk", "dv"), got, want):
+        judge("bshd fused", what, g.transpose(1, 2), ref, collect=False)
+    judge.done()
+    want_counts = {name: int(name in FLASH_KERNELS) for name in
+                   FLASH_KERNELS + HEADS_KERNELS}
+    got_counts = {name: counts[name] for name in want_counts}
+    log(f"  d64    bshd fused launches: {got_counts}")
+    if got_counts != want_counts:
+        raise SystemExit(f"bshd at head_dim 64 launched {got_counts}, "
+                         f"want {want_counts}")
+
+
+def time_d64(inputs):
+    """K1-K4 at gpt2-1.5b's attention shape (head_dim 64, causal, no
+    rope): each kernel's ms from CUDA-graph replays (median of 5; the
+    kernels run tens of microseconds, near their wrappers' host cost),
+    its plain version's, and SDPA's forward as K1's library yardstick and
+    its backward from graph replays beside K2 + K3 + K4 (timed here
+    only; the port never calls it). Returns (times, library)."""
+    from dlrover_tpu_torch.ops import attention as att
+
+    q, k, v, do, _cos, _sin, o, lse, delta = inputs
+    scale = 64 ** -0.5
+    args = (q, k, v, do, lse, delta, None, None, True, scale)
+    calls = {
+        "flash_fwd": (lambda: att.flash_fwd(q, k, v, None, None, True, scale),
+                      lambda: att.flash_fwd_plain(q, k, v, None, None, True,
+                                                  scale)),
+        "flash_bwd_preprocess": (
+            lambda: att.flash_bwd_preprocess(do, o),
+            lambda: att.flash_bwd_preprocess_plain(do, o)),
+        "flash_bwd_dq": (lambda: att.flash_bwd_dq(*args),
+                         lambda: att.flash_bwd_dq_plain(*args)),
+        "flash_bwd_dkv": (lambda: att.flash_bwd_dkv(*args),
+                          lambda: att.flash_bwd_dkv_plain(*args)),
+    }
+    replays, times = {}, {}
+    for name, (kernel, plain) in calls.items():
+        replays[name] = graph_ms(kernel, 20)
+        times[name + "_d64"] = (statistics.median(replays[name]),
+                                cuda_ms(plain, 3))
+    log(json.dumps({"d64_graph_replays_ms": replays}))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    library = {
+        "flash_fwd_d64": statistics.median(graph_ms(
+            lambda: sdpa(*leaves, is_causal=True), 20)),
+        "flash_bwd_preprocess_d64": statistics.median(graph_ms(
+            lambda: torch.linalg.vecdot(do, o, dim=-1), 50)),
+    }
+    sdpa_bwd = sdpa_bwd_ms(leaves, do, "gpt2 d64")
+    log(json.dumps({"backward_at_gpt2_shape": {
+        "port_bwd_ms": sum(times[n + "_d64"][0] for n in FLASH_KERNELS[1:]),
+        "sdpa_bwd_ms": sdpa_bwd}}))
+    return times, library
+
+
+def kernels_d64_phase():
+    """[kernels-d64]: K1-K4 at head_dim 64 against their plain versions
+    (the D = 128 gates) at gpt2-1.5b's shape (no rope), a roped GQA shape,
+    a roped ragged one and the masked case (the GQA shape with MASKED);
+    flash_attention_bshd at head_dim 64 through K1-K4; then the times at
+    gpt2-1.5b's shape. Returns (worst, times, library, bound), keyed by
+    ``<kernel>_d64``."""
+    worst: dict[str, float] = {}
+    for i, (name, shape) in enumerate(D64_SHAPES.items()):
+        inputs = check_shape(name, shape, 20 + i, worst, D=64,
+                             rope=name != "gpt2")
+        if name == "gpt2":
+            gpt2_inputs = inputs
+        del inputs
+    check_shape("masked", D64_SHAPES["gqa"], 23, worst, D=64, **MASKED)
+    check_bshd_d64(D64_SHAPES["gqa"], 24)
+    times, library = time_d64(gpt2_inputs)
+    del gpt2_inputs
+    bound = {name + "_d64": b for name, b in bounds(
+        D64_SHAPES["gpt2"], D=64, rope=False).items()
+        if name in FLASH_KERNELS}
+    torch.cuda.empty_cache()
+    return worst, times, library, bound
 
 
 def ring_inputs(shape, seed):
@@ -2701,6 +2843,203 @@ def agent_run(cfg, run_tmp, job, uninterrupted) -> dict:
     }
 
 
+# ------------------------------------------------------------------ [gpt2]
+
+# gpt2-1.5b at full width and depth (48 layers, dim 1600, 25 heads of 64,
+# mlp 6400, vocab 50257) through Trainer: B8 at the preset's max_seq_len,
+# bf16 over f32 masters, remat "none", adamw; then GPT2_MORE more steps
+# after a save, twice: the Trainer's own continuation and the one after
+# the restore
+GPT2_PRESET = "gpt2-1.5b"
+GPT2_B, GPT2_S, GPT2_STEPS, GPT2_MORE = 8, 1024, 5, 2
+
+
+def gpt2_logits_check():
+    """gpt2-124m (12 layers, full width) logits on the card through the
+    flash branch (K1-K4 at head_dim 64) and the bshd route (K1-K4 on
+    transposed views at this width) against the reference branch, same
+    weights, bf16 compute, B2 S512."""
+    from dlrover_tpu_torch.models import GPT2_PRESETS, gpt2_apply, gpt2_init
+
+    cfg = GPT2_PRESETS["gpt2-124m"]
+    params = gpt2_init(cfg, seed=1, device="cuda")
+    tokens = torch.as_tensor(
+        synthetic_batch(cfg.vocab_size, 512, 2, 98)["tokens"][:, :-1],
+        device="cuda")
+    with torch.no_grad():
+        ref = gpt2_apply(dataclasses.replace(cfg, attn_impl="reference"),
+                         params, tokens)
+        for impl in ("flash", "bshd"):
+            reset_launches()
+            out = gpt2_apply(dataclasses.replace(cfg, attn_impl=impl),
+                             params, tokens)
+            k1 = launch_counts()["flash_fwd"]
+            abs_err, rel = rel_err(out, ref)
+            ok = (bool(torch.isfinite(out).all()) and rel <= 5e-2
+                  and k1 == cfg.n_layers)
+            log(f"  [gpt2] logits gpt2-124m {impl} vs reference (12 layers, "
+                f"B2 S512): max_abs_err={abs_err:.3e} rel={rel:.3e} "
+                f"K1 launches={k1} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"gpt2 logits check failed ({impl})")
+
+
+def gpt2_phase() -> dict:
+    """[gpt2]: the logits check, then gpt2-1.5b through Trainer on one
+    repeated seeded batch for GPT2_STEPS steps (the launches counted from
+    0 over exactly these steps: K1-K4 once per layer and step, no other
+    attention kernel; losses finite and falling); step ms (median of
+    steps 2-5, each step ended by a sync), tokens/s, MFU (6N plus the
+    causal attention term, common/mfu.py's peak) and peak GiB. Then the
+    checkpoint leg: one Flash Checkpoint save of the state to shm, the
+    Trainer's own GPT2_MORE more steps, a fresh engine's restore of the
+    save into the Trainer (every leaf torch.equal to the saved state) and
+    the same GPT2_MORE steps again, whose losses must agree within
+    LOSS_TOL (relative); last a profiled step. Returns the run's launch
+    counts."""
+    from dlrover_tpu_torch.common import mfu
+    from dlrover_tpu_torch.models import GPT2_PRESETS, gpt2_init, gpt2_loss_fn
+    from dlrover_tpu_torch.parallel import Strategy
+    from dlrover_tpu_torch.trainer import Trainer, TrainingArgs
+    from dlrover_tpu_torch.trainer.flash_checkpoint.engine import (
+        ShardedCheckpointEngine,
+    )
+
+    gpt2_logits_check()
+    release()
+    cfg = GPT2_PRESETS[GPT2_PRESET]
+    B, S, steps = GPT2_B, GPT2_S, GPT2_STEPS
+    batch = synthetic_batch(cfg.vocab_size, S, B, 0)
+    job = os.environ["ELASTIC_JOB_NAME"]
+    t_phase = time.perf_counter()
+    with flash_env("gpt2", job):
+        run_dir = CKPT_DIR / "gpt2"
+        trainer = Trainer(
+            gpt2_loss_fn(cfg), lambda seed, device: gpt2_init(cfg, seed,
+                                                              device),
+            None, TrainingArgs(
+                output_dir=str(run_dir), max_steps=steps, num_epochs=1,
+                learning_rate=SLICE_LR, optimizer="adamw",
+                strategy=Strategy(remat="none"), flash_checkpoint=False,
+                log_steps=0),
+            train_data=[batch] * (steps + GPT2_MORE), device="cuda")
+        inner, losses, step_s = trainer._accel.train_step, [], []
+
+        def timed(state, batch, rng):
+            t0 = time.perf_counter()
+            state, metrics = inner(state, batch, rng)
+            losses.append(metrics["loss"].item())
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            return state, metrics
+
+        trainer._accel.train_step = timed
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        trainer.train()
+        launches = launch_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        log(f"  [gpt2] losses: {losses}")
+        log(f"  [gpt2] step seconds: {step_s}")
+        log(f"  [gpt2] launches over {steps} steps: {launches}")
+        want = {name: cfg.n_layers * steps * int(name in FLASH_KERNELS)
+                for name in FLASH_KERNELS + HEADS_KERNELS + RING_KERNELS}
+        for name, n in want.items():
+            if launches[name] != n:
+                raise SystemExit(f"gpt2: {name} launched {launches[name]} "
+                                 f"times, want {n}")
+        if not all(math.isfinite(x) for x in losses):
+            raise SystemExit(f"gpt2: non-finite loss: {losses}")
+        if not losses[-1] < losses[0]:
+            raise SystemExit(f"gpt2: loss did not fall: {losses}")
+        steady = statistics.median(step_s[1:])
+        flops = mfu.transformer_step_flops(cfg.param_count(), B * S,
+                                           cfg.n_layers, cfg.dim, S)
+        summary = {
+            "config": GPT2_PRESET, "n_layers": cfg.n_layers, "dim": cfg.dim,
+            "n_heads": cfg.n_heads, "head_dim": cfg.head_dim,
+            "params": cfg.param_count(), "batch": B, "seq": S,
+            "optimizer": "adamw", "remat": "none", "steps": steps,
+            "step_ms_median_2_to_5": steady * 1e3,
+            "first_step_ms": step_s[0] * 1e3,
+            "tokens_per_s": B * S / steady, "mfu": mfu.mfu(flops, steady),
+            "mfu_peak_flops": mfu.peak_flops(), "peak_mem_gib": peak_gib,
+            "loss_first": losses[0], "loss_last": losses[-1],
+        }
+
+        # the checkpoint leg
+        trainer._engine = ShardedCheckpointEngine(str(run_dir / "checkpoints"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = trainer.save_checkpoint(persist=False)
+        torch.cuda.synchronize()
+        save_s = time.perf_counter() - t0
+        stats = dict(trainer._engine.last_save_stats)
+        log(f"  [gpt2] save to shm at step {steps}: {save_s:.3f} s {stats}")
+        if not ok or not stats.get("registered"):
+            raise SystemExit(f"gpt2: the save was skipped or copied into an "
+                             f"unregistered segment: {ok} {stats}")
+        # host copies (the optimizer's step counts already live on the
+        # host, where the continuation updates them in place)
+        saved = {name: leaf.to("cpu", copy=True)
+                 if isinstance(leaf, torch.Tensor)
+                 else np.array(leaf, copy=True)
+                 for name, leaf in ckpt_leaves(trainer).items()}
+        trainer.close()
+        trainer._engine = None
+        trainer.args.max_steps = steps + GPT2_MORE
+        trainer.train()
+        ref = losses[steps:]
+
+        trainer._engine = ShardedCheckpointEngine(str(run_dir / "checkpoints"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step = trainer.maybe_resume()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if step != steps or trainer.global_step != steps:
+            raise SystemExit(f"gpt2: restored step {step}, want {steps}")
+        got = ckpt_leaves(trainer)
+        if list(got) != list(saved):
+            raise SystemExit("gpt2: the restored tree's leaves differ from "
+                             "the saved tree's")
+        nbytes = 0
+        for name, w in saved.items():
+            g = got[name]
+            if isinstance(w, torch.Tensor):
+                same = g.dtype == w.dtype and torch.equal(g, w.to(g.device))
+                nbytes += w.numel() * w.element_size()
+            else:
+                same = np.array_equal(np.asarray(g), w)
+            if not same:
+                raise SystemExit(f"gpt2: restored leaf {name} differs from "
+                                 "the saved one")
+        log(f"  [gpt2] restore from shm: {restore_s:.3f} s, {len(saved)} "
+            f"leaves ({nbytes / 1e9:.3f} GB) torch.equal to the state saved "
+            f"at step {steps}")
+        del saved, got
+        trainer.close()
+        trainer._engine = None
+        trainer.train()
+        again = losses[steps + GPT2_MORE:]
+        log(f"  [gpt2] losses after the restore: {again} (the Trainer's own "
+            f"continuation: {ref})")
+        gap = loss_gap("gpt2 restore", again, ref, LOSS_TOL, relative=True,
+                       to="the continuation without a restore")
+        trainer._accel.train_step = inner
+        profile_step(trainer._accel, trainer.state, batch, "gpt2", top=12)
+        del trainer, inner
+        release()
+    summary["ckpt"] = {"state_gb": nbytes / 1e9, "save_s": save_s,
+                       **{k: stats[k] for k in ("materialize_s", "fill_s",
+                                                "registered")},
+                       "restore_s": restore_s, "loss_gap": gap}
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"gpt2": summary}))
+    return launches
+
+
 def profile_step(res, state, batch, label="adamw", top=16):
     """Per-op device time of one more step, written to chiprun_out/
     (``profile_step.txt`` for adamw, ``profile_step_<label>.txt``
@@ -2841,6 +3180,12 @@ def run_phases() -> int:
         "sdpa_bwd_ms_rope_free_views": sdpa_bwd_plain_ms}}))
     torch.cuda.empty_cache()
 
+    # 3b. K1-K4 at head_dim 64 vs plain versions, and their times
+    log("phase kernels-d64:")
+    d64 = kernels_d64_phase()
+    for acc, part in zip((worst, times, library, bound), d64):
+        acc.update(part)
+
     # 4. optimizer kernels vs plain versions, and their times
     log("phase optimizer kernels:")
     opt_worst, opt_times, opt_library, opt_bound = optimizer_phase(
@@ -2854,6 +3199,13 @@ def run_phases() -> int:
     # 5. the training slice through the kernels, once per optimizer
     log("phase slice:")
     launches = train_slice()
+    release()
+
+    # 5b. the GPT-2 family: gpt2-1.5b through Trainer, K1-K4 at head_dim 64
+    log("phase gpt2:")
+    gpt2_launches = gpt2_phase()
+    launches.update({name + "_d64": gpt2_launches[name]
+                     for name in FLASH_KERNELS})
 
     # 6. kernel line, then the result line
     kernels = []

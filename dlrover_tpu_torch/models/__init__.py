@@ -4,6 +4,14 @@ from dlrover_tpu_torch.models.convert import (  # noqa: F401
     opt_state_from_jax,
     params_from_jax,
 )
+from dlrover_tpu_torch.models.gpt2 import (  # noqa: F401
+    GPT2_PRESETS,
+    GPT2Config,
+    gpt2_apply,
+    gpt2_init,
+    gpt2_logical_axes,
+    gpt2_loss_fn,
+)
 from dlrover_tpu_torch.models.llama import (  # noqa: F401
     PRESETS,
     LlamaConfig,

@@ -2,7 +2,7 @@
 port's.
 
 ``params_from_jax`` takes the pytree that ``dlrover_tpu.models.llama_init``
-returns and ``opt_state_from_jax`` an optax state of the JAX package's
+or ``gpt2_init`` returns and ``opt_state_from_jax`` an optax state of the JAX package's
 8-bit or fused Adam or AGD, each with its leaves already turned into numpy
 arrays (for example ``jax.tree.map(np.asarray, tree)``), so that this
 module needs neither jax nor the JAX package.
@@ -15,12 +15,15 @@ import torch
 
 
 def params_from_jax(params_np: dict, device="cpu") -> dict:
-    """Nested JAX Llama params (numpy leaves) -> the port's flat dict.
+    """Nested JAX Llama or GPT-2 params (numpy leaves) -> the port's flat
+    dict.
 
     Names map one to one, with nesting flattened by dots
-    (``params["layers"]["wq"]`` -> ``"layers.wq"``). The stacked layer
-    axis is KEPT: ``"layers.wq"`` stays [n_layers, dim, heads*head_dim],
-    exactly as ``llama_init`` lays it out, and ``llama_apply`` unbinds it.
+    (``params["layers"]["wq"]`` -> ``"layers.wq"``; GPT-2's
+    ``params["layers"]["w_qkv"]`` -> ``"layers.w_qkv"``). The stacked
+    layer axis is KEPT: ``"layers.wq"`` stays [n_layers, dim,
+    heads*head_dim], exactly as ``llama_init`` (``gpt2_init``) lays it
+    out, and ``llama_apply`` (``gpt2_apply``) unbinds it.
     Shapes and dtypes are unchanged, values are copied, so both packages
     compute the same function from the same numbers. Every ``attn_impl``
     ("flash", "bshd", "reference") uses these same leaves: the layouts

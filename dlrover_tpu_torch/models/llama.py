@@ -261,6 +261,21 @@ def _rope_apply(x, cos, sin):
     return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
 
 
+def _first_position(S, ring) -> int:
+    """The global position of the first of this process's S tokens: 0,
+    or under a seq axis its first shard's (all shards with the
+    in-process transport, this rank's with a process group)."""
+    return 0 if ring is None else axis_index("seq") * (S // len(ring.ranks))
+
+
+def _positions(tokens, ring):
+    """The global positions of ``tokens`` [B, S] (see
+    :func:`_first_position`)."""
+    B, S = tokens.shape
+    start = _first_position(S, ring)
+    return torch.arange(start, start + S, device=tokens.device).expand(B, S)
+
+
 def _flash_path(config, ring) -> bool:
     """Whether the einsum-form flash branch applies (the JAX package's
     ``flash_einsum_path``): ``attn_impl="flash"`` and no seq axis."""
@@ -273,6 +288,22 @@ def _maybe_full_rope(config, cos, sin, ring=None):
     if _flash_path(config, ring):
         return torch.cat([cos, cos], dim=-1), torch.cat([sin, sin], dim=-1)
     return cos, sin
+
+
+def _attention(config, q, k, v, ring=None):
+    """Attention off the einsum-form flash branch (the JAX package's
+    ``_attention``, shared with models/gpt2.py): q [B,S,H,Dh], k/v
+    [B,S,KVH,Dh] -> [B,S,H,Dh]. Under a seq axis (``ring``) the ring over
+    [B,H,S,Dh]; with ``attn_impl="bshd"`` the model-native layout end to
+    end (no q/k/v/o transposes); else plain attention."""
+    if ring is not None:
+        return sequence_sharded_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=True).transpose(1, 2)
+    if config.attn_impl == "bshd":
+        return flash_attention_bshd(q, k, v, causal=True)
+    return mha_reference(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), causal=True).transpose(1, 2)
 
 
 def _layer(config: LlamaConfig, x, p, rope_cos, rope_sin, ring=None):
@@ -297,18 +328,7 @@ def _layer(config: LlamaConfig, x, p, rope_cos, rope_sin, ring=None):
         v = (y @ p["wv"]).view(B, S, kvh, hd)
         q = _rope_apply(q, rope_cos, rope_sin)
         k = _rope_apply(k, rope_cos, rope_sin)
-        if ring is not None:
-            # sequence sharded on the mesh: the ring over [B,H,S,Dh]
-            attn = sequence_sharded_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                causal=True).transpose(1, 2)
-        elif config.attn_impl == "bshd":
-            # model-native layout end to end: no q/k/v/o transposes
-            attn = flash_attention_bshd(q, k, v, causal=True)
-        else:
-            attn = mha_reference(q.transpose(1, 2), k.transpose(1, 2),
-                                 v.transpose(1, 2), causal=True)
-            attn = attn.transpose(1, 2)
+        attn = _attention(config, q, k, v, ring)
         x = x + attn.reshape(B, S, h * hd) @ p["wo"]
 
     y = _rms_norm(x, p["mlp_norm"], config.norm_eps)
@@ -330,14 +350,9 @@ def llama_apply(config: LlamaConfig, params: dict, tokens, positions=None,
     CE applies the norm and the head itself, chunk by chunk)."""
     check_supported(config)
     dtype = getattr(torch, config.dtype)
-    B, S = tokens.shape
     ring = seq_ring()
     if positions is None:
-        # this process's first shard starts at its rank's global position
-        start = (0 if ring is None
-                 else axis_index("seq") * (S // len(ring.ranks)))
-        positions = torch.arange(start, start + S,
-                                 device=tokens.device).expand(B, S)
+        positions = _positions(tokens, ring)
 
     x = F.embedding(tokens, params["embed"].to(dtype))
     cos, sin = _rope_tables(positions, config.head_dim // 2,

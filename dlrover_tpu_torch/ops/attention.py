@@ -41,11 +41,16 @@ shard against one visiting kv shard, causal at global positions
 - ``flash_ring_dkv`` (K14): its dk and dv parts, f32, summed over each
   GQA group.
 
+Head widths: K1-K4 (with K1's rope pre-pass) are built for head_dim 64
+and 128 (``HEAD_DIMS``), each width its own instantiation, picked by the
+C entry; K9-K14 for 128 only (``FIXED_HEAD_DIM``). Other widths are
+ROADMAP R8.
+
 Each wrapper launches its kernel for CUDA tensors and counts the launch
 in its ``launches`` attribute; for CPU tensors it runs the kernel's
-plain PyTorch version (``*_plain``), which holds the same math in f32.
-There is no fallback from one to the other: a CUDA tensor the kernel
-does not take (dtype, head_dim, head grouping) raises.
+plain PyTorch version (``*_plain``), which holds the same math in f32
+at any width. There is no fallback from one to the other: a CUDA tensor
+the kernel does not take (dtype, head_dim, head grouping) raises.
 """
 
 from __future__ import annotations
@@ -57,7 +62,8 @@ import torch
 from dlrover_tpu_torch.ops import _build
 
 NEG_INF = -1e30
-HEAD_DIM = 128  # the head_dim the CUDA kernels are built for
+HEAD_DIMS = (64, 128)  # the head widths K1-K4 are built for
+FIXED_HEAD_DIM = 128  # the one head width K9-K14 are built for
 TILE_ROWS = 64  # K9 packs a GQA group into its tiles: the group divides this
 
 
@@ -283,13 +289,16 @@ _F = ctypes.c_float
 _S = ctypes.POINTER(_L)
 _MASK = [_I, _I, _I, _F]  # causal, window, prefix, scale
 _RING = [_I, _I, _F]  # q_start, k_start, scale
-# C entry -> (library, argtypes before the stream)
+# C entry -> (library, argtypes before the stream); the entries of K1-K4
+# (``_BY_WIDTH``) take the head width first
 _ENTRIES = {
-    "flash_fwd": ("flash_fwd", [_P] * 7 + [_I] * 5 + [_S] + _MASK),
-    "flash_fwd_rope_k": ("flash_fwd", [_P] * 4 + [_I] * 3 + [_L] * 3),
-    "flash_bwd_preprocess": ("flash_bwd", [_P] * 3 + [_I] * 3 + [_L] * 6),
-    "flash_bwd_dq": ("flash_bwd", [_P] * 9 + [_I] * 5 + [_S] + _MASK),
-    "flash_bwd_dkv": ("flash_bwd", [_P] * 10 + [_I] * 5 + [_S] + _MASK),
+    "flash_fwd": ("flash_fwd", [_I] + [_P] * 7 + [_I] * 5 + [_S] + _MASK),
+    "flash_fwd_rope_k": ("flash_fwd", [_I] + [_P] * 4 + [_I] * 3 + [_L] * 3),
+    "flash_bwd_preprocess": ("flash_bwd",
+                             [_I] + [_P] * 3 + [_I] * 3 + [_L] * 6),
+    "flash_bwd_dq": ("flash_bwd", [_I] + [_P] * 9 + [_I] * 5 + [_S] + _MASK),
+    "flash_bwd_dkv": ("flash_bwd",
+                      [_I] + [_P] * 10 + [_I] * 5 + [_S] + _MASK),
     "flash_fwd_heads": ("flash_heads", [_P] * 5 + [_I] * 5 + [_S] + _MASK),
     "flash_bwd_dq_heads": ("flash_heads", [_P] * 7 + [_I] * 5 + [_S] + _MASK),
     "flash_bwd_dkv_heads": ("flash_heads",
@@ -298,6 +307,8 @@ _ENTRIES = {
     "flash_ring_dq": ("flash_ring", [_P] * 7 + [_I] * 5 + [_S] + _RING),
     "flash_ring_dkv": ("flash_ring", [_P] * 8 + [_I] * 5 + [_S] + _RING),
 }
+_BY_WIDTH = ("flash_fwd", "flash_fwd_rope_k", "flash_bwd_preprocess",
+             "flash_bwd_dq", "flash_bwd_dkv")
 
 
 def _launch(symbol: str, *args) -> None:
@@ -332,7 +343,7 @@ def _mask_args(causal, window, prefix, sm_scale):
 
 
 def _check(name, q, k, *others):
-    """Raise for what the CUDA kernels do not take."""
+    """Raise for what the CUDA kernel of entry ``name`` does not take."""
     for t in (q, k) + others:
         if t is None:
             continue
@@ -341,10 +352,12 @@ def _check(name, q, k, *others):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{name}: the CUDA kernel takes bfloat16, got "
                             f"{t.dtype}")
-    if q.shape[-1] != HEAD_DIM or k.shape[-1] != HEAD_DIM:
+    widths = HEAD_DIMS if name in _BY_WIDTH else (FIXED_HEAD_DIM,)
+    if q.shape[-1] not in widths or k.shape[-1] != q.shape[-1]:
         raise NotImplementedError(
-            f"{name}: the CUDA kernel is built for head_dim {HEAD_DIM}, got "
-            f"{q.shape[-1]}")
+            f"{name}: the CUDA kernel is built for head_dim "
+            f"{' and '.join(map(str, widths))}, got {q.shape[-1]} (other "
+            f"widths: ROADMAP R8)")
     if q.shape[1] % k.shape[1] != 0:
         raise ValueError(f"{name}: q heads {q.shape[1]} not divisible by "
                          f"kv heads {k.shape[1]}")
@@ -397,8 +410,9 @@ def _launch_attn(symbol, operands, inputs, tables, outs, tail):
     table_ptrs = ()
     if tables is not None:
         _tables, table_ptrs = _table_ptrs(q, k, *tables)
-    B, H, q_len, _ = q.shape
-    _launch(symbol, *(t.data_ptr() for t, _ in ops),
+    B, H, q_len, head_dim = q.shape
+    width = (head_dim,) if symbol in _BY_WIDTH else ()
+    _launch(symbol, *width, *(t.data_ptr() for t, _ in ops),
             *(t.data_ptr() for t in inputs), *table_ptrs,
             *(t.data_ptr() for t in outs), B, H, k.shape[1], q_len,
             k.shape[2], _strides(*ops), *tail)
@@ -413,9 +427,9 @@ def flash_fwd_rope_k(k, rope_cos, rope_sin):
     k, st = _rows(k)
     (cos, sin), _ = _table_ptrs(k, k, rope_cos, rope_sin)
     out = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    B, KVH, S, _ = k.shape
-    _launch("flash_fwd_rope_k", k.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-            out.data_ptr(), B, KVH, S, *st)
+    B, KVH, S, D = k.shape
+    _launch("flash_fwd_rope_k", D, k.data_ptr(), cos.data_ptr(),
+            sin.data_ptr(), out.data_ptr(), B, KVH, S, *st)
     return out
 
 
@@ -447,9 +461,9 @@ def flash_bwd_preprocess(do, o):
         raise ValueError(f"flash_bwd_preprocess: do {tuple(do.shape)} and "
                          f"o {tuple(o.shape)} differ")
     (do, sd), (o, so) = _rows(do), _rows(o)
-    B, H, S, _ = do.shape
+    B, H, S, D = do.shape
     delta = torch.empty((B, H, S), dtype=torch.float32, device=do.device)
-    _launch("flash_bwd_preprocess", do.data_ptr(), o.data_ptr(),
+    _launch("flash_bwd_preprocess", D, do.data_ptr(), o.data_ptr(),
             delta.data_ptr(), B, H, S, *sd, *so)
     flash_bwd_preprocess.launches += 1
     return delta
@@ -772,20 +786,21 @@ def flash_attention_bshd(q, k, v, causal: bool = True,
     """Flash attention on the model-native [B, S, H, Dh] layout, with no
     transposes on either side of the fused kernels.
 
-    - ``fused=True`` (default) with heads <= 128: the heads fold into
-      the minor dimension ([B, S, H*Dh], a free view) and K9-K11 run
-      there, each staging a k/v tile once for the q heads of its GQA
-      group.
-    - ``fused=False``, or heads > 128 (as in the JAX package): K1-K4 on
-      the [B, H, S, Dh] strided views, without rope; only the output is
-      laid back as [B, S, H, Dh].
+    - ``fused=True`` (default) with heads <= 128 and head_dim 128: the
+      heads fold into the minor dimension ([B, S, H*Dh], a free view)
+      and K9-K11 run there, each staging a k/v tile once for the q heads
+      of its GQA group.
+    - ``fused=False``, heads > 128, or on the card a head_dim other
+      than 128 (as the JAX package routes head_dim % 128 != 0 on the
+      TPU, outside interpret mode): K1-K4 on the [B, H, S, Dh] strided
+      views, without rope; only the output is laid back as
+      [B, S, H, Dh]. K1-K4 take head_dim 64 and 128 and raise for other
+      widths (ROADMAP R8).
 
     ``block_*`` are accepted and ignored: they are TPU VMEM tunings of
     the JAX kernels; the port's kernels fix their own tiles, and no block
     size changes the function computed. ``window``/``prefix_len`` as in
-    :func:`flash_attention`. On the card, head_dim must be 128 (the JAX
-    package's transposing fallback for other widths is not ported; the
-    kernels raise).
+    :func:`flash_attention`.
 
     Args:
       q: [batch, q_len, heads, head_dim]
@@ -796,7 +811,7 @@ def flash_attention_bshd(q, k, v, causal: bool = True,
     KVH, Skv = k.shape[2], k.shape[1]
     if H % KVH != 0:
         raise ValueError(f"q heads {H} not divisible by kv {KVH}")
-    if H > 128:
+    if H > 128 or (q.is_cuda and hd != FIXED_HEAD_DIM):
         fused = False
     if sm_scale is None:
         sm_scale = hd ** -0.5

@@ -28,6 +28,9 @@
 //      at 989 TFLOP/s): tensor-core bound.
 //   K4 recomputes S^T and dP^T and forms dV = P^T dO and dK = dS^T Q: four
 //      products, 137 GFLOP (0.14 ms): tensor-core bound.
+// Head width: D = 64 or 128, each its own instantiation of K2, K3 and
+// K4; the C entries take the width and pick one.
+//
 // What the design does about that: K3 and K4 run the Hopper loops of
 // flash_bwd_sm90.cuh (a TMA producer warpgroup streaming 64-row tiles,
 // two wgmma consumer warpgroups of 64 rows each, P and dS formed in
@@ -46,6 +49,7 @@ namespace fa {
 
 // ---------------------------------------------------------------- K2
 // delta[b, h, s] = sum_d do[b, h, s, d] * o[b, h, s, d]; one warp per row.
+template <int D>
 __global__ void __launch_bounds__(NTHREADS)
     flash_bwd_preprocess_kernel(Operand dout, Operand o, float* delta, int H, int S) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -54,7 +58,7 @@ __global__ void __launch_bounds__(NTHREADS)
   const bf16* pd = dout.ptr + b * dout.sb + h * dout.sh + s * dout.ss;
   const bf16* po = o.ptr + b * o.sb + h * o.sh + s * o.ss;
   float acc = 0.f;
-  // D = 128: 16 chunks of 8 values, lanes 0..15 take one chunk each
+  // D / 8 chunks of 8 values (16 at D = 128, 8 at D = 64), one a lane
   if (lane < D / 8) {
     float x[8], y[8];
     unpack8(ld16(pd + lane * 8), x);
@@ -69,68 +73,80 @@ __global__ void __launch_bounds__(NTHREADS)
 // ---------------------------------------------------------------- K3
 // One block per (q tile of 128 positions, q head, batch), last tiles
 // first.
+template <int D>
 __global__ void __launch_bounds__(sm90::bwd::THREADS, 1)
     flash_bwd_dq_kernel(const __grid_constant__ sm90::bwd::BwdParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  sm90::bwd::dq_block<bf16>(smem, p);
+  sm90::bwd::dq_block<bf16, D>(smem, p);
 }
 
 // ---------------------------------------------------------------- K4
 // One block per (kv tile of 128 positions, kv head, batch), first tiles
 // first.
+template <int D>
 __global__ void __launch_bounds__(sm90::bwd::THREADS, 1)
     flash_bwd_dkv_kernel(const __grid_constant__ sm90::bwd::BwdParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  sm90::bwd::dkv_block<bf16>(smem, p);
+  sm90::bwd::dkv_block<bf16, D>(smem, p);
 }
 
 }  // namespace fa
 
 using namespace fa;
 
-// C entries, bound with ctypes. Each returns cudaGetLastError() after its
-// launch (or the error of the attribute call that precedes it).
-extern "C" int flash_bwd_preprocess(const void* dout, const void* o, void* delta, int B,
-                                    int H, int S, long long do_sb, long long do_sh,
+// C entries, bound with ctypes. Each takes the head width first (64 or
+// 128; cudaErrorInvalidValue otherwise) and returns cudaGetLastError()
+// after its launch (or the error of the attribute call that precedes it).
+extern "C" int flash_bwd_preprocess(int head_dim, const void* dout, const void* o, void* delta,
+                                    int B, int H, int S, long long do_sb, long long do_sh,
                                     long long do_ss, long long o_sb, long long o_sh,
                                     long long o_ss, void* stream) {
-  Operand d{static_cast<const bf16*>(dout), do_sb, do_sh, do_ss};
-  Operand out{static_cast<const bf16*>(o), o_sb, o_sh, o_ss};
-  dim3 grid((S + NWARPS - 1) / NWARPS, H, B);
-  flash_bwd_preprocess_kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      d, out, static_cast<float*>(delta), H, S);
-  return (int)cudaGetLastError();
+  return by_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    Operand dd{static_cast<const bf16*>(dout), do_sb, do_sh, do_ss};
+    Operand out{static_cast<const bf16*>(o), o_sb, o_sh, o_ss};
+    dim3 grid((S + NWARPS - 1) / NWARPS, H, B);
+    flash_bwd_preprocess_kernel<D><<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        dd, out, static_cast<float*>(delta), H, S);
+    return (int)cudaGetLastError();
+  });
 }
 
 // flash_bwd_dq / flash_bwd_dkv: `strides` holds 12 values, the (batch,
 // head, row) strides of q, k, v and do. With rope tables, q and k must
 // come roped already, from flash_fwd_rope_k on the same tables; the
 // tables un-rope dq and dk.
-extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                            const void* lse, const void* delta, const void* cos,
-                            const void* sin, void* dq, int B, int H, int KVH, int q_len,
-                            int kv_len, const long long* strides, int causal, int window,
-                            int prefix, float scale, void* stream) {
-  sm90::bwd::BwdParams p = {};
-  p.a = attn_args(q, k, v, dout, lse, delta, strides, H, KVH, q_len, kv_len, causal, window,
-                  prefix, scale);
-  p.a.cos = static_cast<const bf16*>(cos);
-  p.a.sin = static_cast<const bf16*>(sin);
-  p.a.dq = out_bhsd(dq, H, q_len);
-  return sm90::bwd::launch_bwd(flash_bwd_dq_kernel, p, B, KVH, false, stream);
+extern "C" int flash_bwd_dq(int head_dim, const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse, const void* delta,
+                            const void* cos, const void* sin, void* dq, int B, int H, int KVH,
+                            int q_len, int kv_len, const long long* strides, int causal,
+                            int window, int prefix, float scale, void* stream) {
+  return by_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    sm90::bwd::BwdParams p = {};
+    p.a = attn_args(q, k, v, dout, lse, delta, strides, H, KVH, q_len, kv_len, causal, window,
+                    prefix, scale);
+    p.a.cos = static_cast<const bf16*>(cos);
+    p.a.sin = static_cast<const bf16*>(sin);
+    p.a.dq = out_bhsd<D>(dq, H, q_len);
+    return sm90::bwd::launch_bwd<D>(flash_bwd_dq_kernel<D>, p, B, KVH, false, stream);
+  });
 }
 
-extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                             const void* lse, const void* delta, const void* cos,
-                             const void* sin, void* dk, void* dv, int B, int H, int KVH,
-                             int q_len, int kv_len, const long long* strides, int causal,
-                             int window, int prefix, float scale, void* stream) {
-  sm90::bwd::BwdParams p = {};
-  p.a = attn_args(q, k, v, dout, lse, delta, strides, H, KVH, q_len, kv_len, causal, window,
-                  prefix, scale);
-  p.a.cos = static_cast<const bf16*>(cos);
-  p.a.sin = static_cast<const bf16*>(sin);
-  p.a.dk = out_bhsd(dk, KVH, kv_len);
-  p.a.dv = out_bhsd(dv, KVH, kv_len);
-  return sm90::bwd::launch_bwd(flash_bwd_dkv_kernel, p, B, KVH, true, stream);
+extern "C" int flash_bwd_dkv(int head_dim, const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse, const void* delta,
+                             const void* cos, const void* sin, void* dk, void* dv, int B, int H,
+                             int KVH, int q_len, int kv_len, const long long* strides,
+                             int causal, int window, int prefix, float scale, void* stream) {
+  return by_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    sm90::bwd::BwdParams p = {};
+    p.a = attn_args(q, k, v, dout, lse, delta, strides, H, KVH, q_len, kv_len, causal, window,
+                    prefix, scale);
+    p.a.cos = static_cast<const bf16*>(cos);
+    p.a.sin = static_cast<const bf16*>(sin);
+    p.a.dk = out_bhsd<D>(dk, KVH, kv_len);
+    p.a.dv = out_bhsd<D>(dv, KVH, kv_len);
+    return sm90::bwd::launch_bwd<D>(flash_bwd_dkv_kernel<D>, p, B, KVH, true, stream);
+  });
 }

@@ -65,6 +65,11 @@
 //   measured 3-9% slower at the ring's block shape (H100 80GB HBM3,
 //   700 W; kernel_ab.py). Both loops are templated on the output type,
 //   so K3's and K4's bf16 epilogues are unchanged.
+// - Head width: the tile bytes and TMA boxes, the score products' D / 16
+//   steps, the accumulators (m64nDk16: D / 2 floats a thread each) and the
+//   epilogues are templated on D (64 or 128); the score tiles (m64n64),
+//   P and dS do not depend on it. K3 and K4 are built for both, K10, K11,
+//   K13 and K14 for D = 128.
 // - K10 and K11 read [B, S, heads*D] operands through the same 4-D tensor
 //   maps as K3 and K4 read [B, H, S, D] ones: the maps take (batch, head,
 //   row) strides, here (S*heads*D, D, heads*D), so the loops are K3's and
@@ -84,12 +89,17 @@ constexpr int BN = 64;        // rows of a streamed tile: kv (K3), q (K4)
 constexpr int STAGES = 3;     // streamed tiles in flight
 constexpr int THREADS = 384;  // producer warpgroup + two consumers
 constexpr int OWN_BOX = BM * BOX_COLS * 2;     // 16 KB: 128 rows x 64 columns
-constexpr int OWN_BYTES = 2 * OWN_BOX;         // 32 KB: 128 rows x D
 constexpr int STREAM_BOX = BN * BOX_COLS * 2;  // 8 KB: 64 rows x 64 columns
-constexpr int STREAM_BYTES = 2 * STREAM_BOX;   // 16 KB: 64 rows x D
 constexpr int CHUNK = 16;     // (batch, head) pairs per chunk of the order
-constexpr size_t SMEM = 1024 + 2 * OWN_BYTES + 2 * STAGES * STREAM_BYTES +
-                        2 * STAGES * BN * sizeof(float) + (1 + 2 * STAGES) * 8;
+
+// The sizes that follow the head width.
+template <int D>
+struct Bwd {
+  static constexpr int OWN_BYTES = Row<D>::BOXES * OWN_BOX;        // 128 rows x D
+  static constexpr int STREAM_BYTES = Row<D>::BOXES * STREAM_BOX;  // 64 rows x D
+  static constexpr size_t SMEM = 1024 + 2 * OWN_BYTES + 2 * STAGES * STREAM_BYTES +
+                                 2 * STAGES * BN * sizeof(float) + (1 + 2 * STAGES) * 8;
+};
 
 // The tensor maps of q, k, v and do and the shared arguments; passed as a
 // __grid_constant__ kernel parameter, where TMA reads the maps.
@@ -104,6 +114,7 @@ struct BwdParams {
 // K4: K, V), STAGES slots of the two streamed 64-row tiles (K3: K, V;
 // K4: Q, dO), K4's per-slot lse and delta rows, and the barriers (the
 // resident tiles'; full and empty per slot).
+template <int D>
 struct Smem {
   unsigned char* own[2];
   unsigned char* str[2];
@@ -114,10 +125,10 @@ struct Smem {
   __device__ __forceinline__ explicit Smem(unsigned char* raw) {
     own[0] = reinterpret_cast<unsigned char*>(
         (reinterpret_cast<uintptr_t>(raw) + 1023) & ~static_cast<uintptr_t>(1023));
-    own[1] = own[0] + OWN_BYTES;
-    str[0] = own[1] + OWN_BYTES;
-    str[1] = str[0] + STAGES * STREAM_BYTES;
-    lse = reinterpret_cast<float*>(str[1] + STAGES * STREAM_BYTES);
+    own[1] = own[0] + Bwd<D>::OWN_BYTES;
+    str[0] = own[1] + Bwd<D>::OWN_BYTES;
+    str[1] = str[0] + STAGES * Bwd<D>::STREAM_BYTES;
+    lse = reinterpret_cast<float*>(str[1] + STAGES * Bwd<D>::STREAM_BYTES);
     delta = lse + STAGES * BN;
     bar_own = reinterpret_cast<uint64_t*>(delta + STAGES * BN);
     full = bar_own + 1;
@@ -138,8 +149,9 @@ __device__ __forceinline__ void block_tile(const BwdParams& p, bool last_first, 
 }
 
 // d[64 x 64] = A[64 x D] . B[64 x D]^T: A a consumer's 64 rows of a
-// resident tile, B a streamed tile, both K-major: 8 steps of 16 columns,
-// 4 in each 64-column box (32 bytes apart in the swizzled rows).
+// resident tile, B a streamed tile, both K-major: D / 16 steps of 16
+// columns, 4 in each 64-column box (32 bytes apart in the swizzled rows).
+template <int D>
 __device__ __forceinline__ void mma_scores(float (&d)[32], uint32_t a, uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
@@ -152,8 +164,10 @@ __device__ __forceinline__ void mma_scores(float (&d)[32], uint32_t a, uint32_t 
 // acc[64 x D] += A[64 x 64] . B[64 x D]: A in registers (a score tile's
 // f32 layout in bf16 pairs; step kk is a[4kk..4kk+3]), B a streamed tile
 // read MN-major: 4 steps of 16 rows (2048 bytes), LBO from its first
-// 64-column box to the second, SBO between groups of 8 rows.
-__device__ __forceinline__ void mma_acc(float (&acc)[64], const uint32_t (&a)[16], uint32_t b) {
+// 64-column box to the second (D = 128), SBO between groups of 8 rows.
+template <int D>
+__device__ __forceinline__ void mma_acc(float (&acc)[D / 2], const uint32_t (&a)[16],
+                                        uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < BN / 16; ++kk)
     wgmma_rs(acc, a + 4 * kk, desc(b + kk * 2048, STREAM_BOX, 1024));
@@ -191,12 +205,15 @@ __device__ __forceinline__ void dscores_by_row(uint32_t (&ds)[16], const float (
 // Scale a consumer's 64 x D accumulator, un-rope it with the tables
 // (cos/sin: this batch's [S, D] bases, or nullptr) at positions below
 // `len`, round it to bf16 and stage it in rows `row0` and `row0 + 8` of a
-// resident tile, in the swizzled layout TMA wrote there. Columns j and
-// j + 64 of a row are in the same thread (accumulator steps j and j + 8):
-// unrope(g) = [g1*c1 + g2*s2, g2*c2 - g1*s1], the transpose of rope.
-__device__ __forceinline__ void stage_rows(unsigned char* tile, const float (&acc)[64],
+// resident tile, in the swizzled layout TMA wrote there. Columns c and
+// c + D / 2 of a row are in the same thread (accumulator steps j and
+// j + D / 16): unrope(g) = [g1*c1 + g2*s2, g2*c2 - g1*s1], the transpose
+// of rope.
+template <int D>
+__device__ __forceinline__ void stage_rows(unsigned char* tile, const float (&acc)[D / 2],
                                            float scale, int row0, int pos0, int len,
                                            const bf16* cos, const bf16* sin, int quad) {
+  constexpr int HALF = Row<D>::HALF;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int r = row0 + 8 * hh, pos = pos0 + r;
@@ -223,8 +240,11 @@ __device__ __forceinline__ void stage_rows(unsigned char* tile, const float (&ac
         g2[0] = b0 * c2.x - a0 * s1.x;
         g2[1] = b1 * c2.y - a1 * s1.y;
       }
+      // column 8 j + 2 quad of the first half and its partner D / 2 on:
+      // chunk j of the second box (D = 128), chunk j + 4 of the one (D = 64)
       *reinterpret_cast<uint32_t*>(tile + swz(r, j) + 4 * quad) = pack_bf16(g1[0], g1[1]);
-      *reinterpret_cast<uint32_t*>(tile + OWN_BOX + swz(r, j) + 4 * quad) =
+      *reinterpret_cast<uint32_t*>(tile + (HALF / BOX_COLS) * OWN_BOX +
+                                   swz(r, j + (HALF / 8) % 8) + 4 * quad) =
           pack_bf16(g2[0], g2[1]);
     }
   }
@@ -233,10 +253,11 @@ __device__ __forceinline__ void stage_rows(unsigned char* tile, const float (&ac
 // Write consumer c's 64 staged rows of `tile` to out (this (batch,
 // head)'s base, row stride ss) as 16-byte row stores, positions below
 // `len` only.
+template <int D>
 __device__ __forceinline__ void store_rows(bf16* out, long long ss, const unsigned char* tile,
                                            int c, int pos0, int len, int tid) {
-  for (int i = tid; i < 64 * 16; i += 128) {
-    const int r = 64 * c + i / 16, chunk = i % 16, pos = pos0 + r;
+  for (int i = tid; i < 64 * (D / 8); i += 128) {
+    const int r = 64 * c + i / (D / 8), chunk = i % (D / 8), pos = pos0 + r;
     if (pos >= len) continue;
     *reinterpret_cast<uint4*>(out + pos * ss + chunk * 8) =
         *reinterpret_cast<const uint4*>(tile + (chunk / 8) * OWN_BOX + swz(r, chunk % 8));
@@ -247,7 +268,8 @@ __device__ __forceinline__ void store_rows(bf16* out, long long ss, const unsign
 // (batch, head)'s base, row stride ss) in f32, positions below `len`
 // only: float2 pairs straight from the registers, columns 8j + 2 quad
 // and + 1 of rows row0 and row0 + 8.
-__device__ __forceinline__ void store_pairs(float* out, long long ss, const float (&acc)[64],
+template <int D>
+__device__ __forceinline__ void store_pairs(float* out, long long ss, const float (&acc)[D / 2],
                                             float scale, int row0, int pos0, int len,
                                             int quad) {
 #pragma unroll
@@ -267,8 +289,8 @@ __device__ __forceinline__ void store_pairs(float* out, long long ss, const floa
 // (batch b) against the live kv tiles. Tile t's S, tile t-1's dQ product
 // and tile t's dP go out together; P is formed while the last two run.
 // dq is written as T: bf16 (K3) or f32 (K13).
-template <typename T>
-__device__ __forceinline__ void dq_consume(const Smem& sm, const AttnArgs& a, int h, int b,
+template <typename T, int D>
+__device__ __forceinline__ void dq_consume(const Smem<D>& sm, const AttnArgs& a, int h, int b,
                                            int pos0, const TileRange& tiles, int c) {
   const Mask& m = a.mask;
   const int n = tiles.count();
@@ -290,19 +312,20 @@ __device__ __forceinline__ void dq_consume(const Smem& sm, const AttnArgs& a, in
   const uint32_t do_addr = smem_u32(sm.own[1]) + c * 64 * 128;
   const uint32_t k_addr = smem_u32(sm.str[0]), v_addr = smem_u32(sm.str[1]);
 
-  float acc[64], s[32], dp[32];
+  constexpr int STREAM_BYTES = Bwd<D>::STREAM_BYTES;
+  float acc[D / 2], s[32], dp[32];
   uint32_t ds[16];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   mbar_wait(sm.bar_own, 0);
 
   if (n > 0) {  // tile 0: S, dP and dS
     const int k0 = tiles.tile(0) * BN;
     mbar_wait(sm.full, 0);
     wg_fence();
-    mma_scores(s, q_addr, k_addr);
+    mma_scores<D>(s, q_addr, k_addr);
     wg_commit();
-    mma_scores(dp, do_addr, v_addr);
+    mma_scores<D>(dp, do_addr, v_addr);
     wg_commit();
     wg_wait<1>();
     reg_fence(s);
@@ -316,11 +339,11 @@ __device__ __forceinline__ void dq_consume(const Smem& sm, const AttnArgs& a, in
     const int k0 = tiles.tile(t) * BN;
     mbar_wait(sm.full + st, (t / STAGES) & 1);
     wg_fence();
-    mma_scores(s, q_addr, k_addr + st * STREAM_BYTES);
+    mma_scores<D>(s, q_addr, k_addr + st * STREAM_BYTES);
     wg_commit();
-    mma_acc(acc, ds, k_addr + pst * STREAM_BYTES);  // dQ += dS K of tile t-1
+    mma_acc<D>(acc, ds, k_addr + pst * STREAM_BYTES);  // dQ += dS K of tile t-1
     wg_commit();
-    mma_scores(dp, do_addr, v_addr + st * STREAM_BYTES);
+    mma_scores<D>(dp, do_addr, v_addr + st * STREAM_BYTES);
     wg_commit();
     wg_wait<2>();  // S done
     reg_fence(s);
@@ -334,7 +357,7 @@ __device__ __forceinline__ void dq_consume(const Smem& sm, const AttnArgs& a, in
   if (n > 0) {  // the last tile's dQ product
     const int pst = (n - 1) % STAGES;
     wg_fence();
-    mma_acc(acc, ds, k_addr + pst * STREAM_BYTES);
+    mma_acc<D>(acc, ds, k_addr + pst * STREAM_BYTES);
     wg_commit();
     wg_wait<0>();
     reg_fence(acc);
@@ -343,29 +366,30 @@ __device__ __forceinline__ void dq_consume(const Smem& sm, const AttnArgs& a, in
 
   if constexpr (std::is_same<T, float>::value) {
     // f32 epilogue (K13, no rope): dq = scale * dQ from registers
-    store_pairs(static_cast<float*>(a.dq.ptr) + b * a.dq.sb + h * a.dq.sh, a.dq.ss, acc,
+    store_pairs<D>(static_cast<float*>(a.dq.ptr) + b * a.dq.sb + h * a.dq.sh, a.dq.ss, acc,
                 a.scale, row0, pos0, m.q_len, quad);
   } else {
     // epilogue: dq = scale * unrope(acc) through this consumer's rows of
     // the Q tile
     consumer_sync(c);
-    stage_rows(sm.own[0], acc, a.scale, row0, pos0, m.q_len, table(a.cos, b, m.q_len),
-               table(a.sin, b, m.q_len), quad);
+    stage_rows<D>(sm.own[0], acc, a.scale, row0, pos0, m.q_len, table<D>(a.cos, b, m.q_len),
+                  table<D>(a.sin, b, m.q_len), quad);
     consumer_sync(c);
-    store_rows(static_cast<bf16*>(a.dq.ptr) + b * a.dq.sb + h * a.dq.sh, a.dq.ss, sm.own[0],
+    store_rows<D>(static_cast<bf16*>(a.dq.ptr) + b * a.dq.sb + h * a.dq.sh, a.dq.ss, sm.own[0],
                c, pos0, m.q_len, tid);
   }
 }
 
 // dq of one block: 128 query rows of one q head, written as T. Every
 // thread calls it.
-template <typename T>
+template <typename T, int D>
 __device__ __forceinline__ void dq_block(unsigned char* smem, const BwdParams& p) {
+  constexpr int OWN_BYTES = Bwd<D>::OWN_BYTES, STREAM_BYTES = Bwd<D>::STREAM_BYTES;
   const AttnArgs& a = p.a;
   int bh, qi;
   block_tile(p, true, bh, qi);
   const int h = bh % a.H, b = bh / a.H, kvh = h / a.group, pos0 = qi * BM;
-  const Smem sm(smem);
+  const Smem<D> sm(smem);
   const TileRange tiles = kv_tiles<BN>(a.mask, pos0, min(pos0 + BM, a.mask.q_len) - 1);
 
   if (threadIdx.x == 0) {
@@ -383,7 +407,7 @@ __device__ __forceinline__ void dq_block(unsigned char* smem, const BwdParams& p
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
     if (threadIdx.x == 0) {
       mbar_expect_tx(sm.bar_own, 2 * OWN_BYTES);
-      for (int x = 0; x < 2; ++x) {
+      for (int x = 0; x < Row<D>::BOXES; ++x) {
         tma_load(sm.own[0] + x * OWN_BOX, &p.q, sm.bar_own, x * BOX_COLS, pos0, h, b);
         tma_load(sm.own[1] + x * OWN_BOX, &p.dout, sm.bar_own, x * BOX_COLS, pos0, h, b);
       }
@@ -392,7 +416,7 @@ __device__ __forceinline__ void dq_block(unsigned char* smem, const BwdParams& p
         const int st = t % STAGES, k0 = tiles.tile(t) * BN;
         mbar_wait(sm.empty + st, ((t / STAGES) & 1) ^ 1);
         mbar_expect_tx(sm.full + st, 2 * STREAM_BYTES);
-        for (int x = 0; x < 2; ++x) {
+        for (int x = 0; x < Row<D>::BOXES; ++x) {
           const int off = st * STREAM_BYTES + x * STREAM_BOX;
           tma_load(sm.str[0] + off, &p.k, sm.full + st, x * BOX_COLS, k0, kvh, b);
           tma_load(sm.str[1] + off, &p.v, sm.full + st, x * BOX_COLS, k0, kvh, b);
@@ -401,7 +425,7 @@ __device__ __forceinline__ void dq_block(unsigned char* smem, const BwdParams& p
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
-    dq_consume<T>(sm, a, h, b, pos0, tiles, threadIdx.x / 128 - 1);
+    dq_consume<T, D>(sm, a, h, b, pos0, tiles, threadIdx.x / 128 - 1);
   }
 }
 
@@ -412,8 +436,8 @@ __device__ __forceinline__ void dq_block(unsigned char* smem, const BwdParams& p
 // that S^T, dP^T and the accumulators fit the registers without the
 // P^T operand of an earlier product still held. dk and dv are written
 // as T: bf16 (K4) or f32 (K14).
-template <typename T>
-__device__ __forceinline__ void dkv_consume(const Smem& sm, const AttnArgs& a, int kvh, int b,
+template <typename T, int D>
+__device__ __forceinline__ void dkv_consume(const Smem<D>& sm, const AttnArgs& a, int kvh, int b,
                                             int k0, int i0, int nq, int c) {
   const Mask& m = a.mask;
   const int n = a.group * nq;
@@ -428,10 +452,11 @@ __device__ __forceinline__ void dkv_consume(const Smem& sm, const AttnArgs& a, i
   const uint32_t v_addr = smem_u32(sm.own[1]) + c * 64 * 128;
   const uint32_t q_addr = smem_u32(sm.str[0]), do_addr = smem_u32(sm.str[1]);
 
-  float dk[64], dv[64], s[32], dp[32];
+  constexpr int STREAM_BYTES = Bwd<D>::STREAM_BYTES;
+  float dk[D / 2], dv[D / 2], s[32], dp[32];
   uint32_t pt[16], ds[16];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
   mbar_wait(sm.bar_own, 0);
 
   for (int t = 0; t < n; ++t) {
@@ -443,9 +468,9 @@ __device__ __forceinline__ void dkv_consume(const Smem& sm, const AttnArgs& a, i
     const float2* dlt = reinterpret_cast<const float2*>(sm.delta + st * BN + 2 * quad);
     mbar_wait(sm.full + st, (t / STAGES) & 1);
     wg_fence();
-    mma_scores(s, k_addr, qs);  // S^T = K Q^T   [keys, queries]
+    mma_scores<D>(s, k_addr, qs);  // S^T = K Q^T   [keys, queries]
     wg_commit();
-    mma_scores(dp, v_addr, dos);  // dP^T = V dO^T
+    mma_scores<D>(dp, v_addr, dos);  // dP^T = V dO^T
     wg_commit();
     wg_wait<1>();
     reg_fence(s);
@@ -472,8 +497,8 @@ __device__ __forceinline__ void dkv_consume(const Smem& sm, const AttnArgs& a, i
       ds[i] = pack_bf16(s[2 * i] * (dp[2 * i] - d.x), s[2 * i + 1] * (dp[2 * i + 1] - d.y));
     }
     wg_fence();
-    mma_acc(dv, pt, dos);  // dV += P^T dO
-    mma_acc(dk, ds, qs);   // dK += dS^T Q
+    mma_acc<D>(dv, pt, dos);  // dV += P^T dO
+    mma_acc<D>(dk, ds, qs);   // dK += dS^T Q
     wg_commit();
     wg_wait<0>();
     reg_fence(dv);
@@ -483,35 +508,36 @@ __device__ __forceinline__ void dkv_consume(const Smem& sm, const AttnArgs& a, i
 
   if constexpr (std::is_same<T, float>::value) {
     // f32 epilogue (K14, no rope): dk = scale * dK, dv = dV from registers
-    store_pairs(static_cast<float*>(a.dk.ptr) + b * a.dk.sb + kvh * a.dk.sh, a.dk.ss, dk,
-                a.scale, row0, k0, m.kv_len, quad);
-    store_pairs(static_cast<float*>(a.dv.ptr) + b * a.dv.sb + kvh * a.dv.sh, a.dv.ss, dv, 1.f,
-                row0, k0, m.kv_len, quad);
+    store_pairs<D>(static_cast<float*>(a.dk.ptr) + b * a.dk.sb + kvh * a.dk.sh, a.dk.ss, dk,
+                   a.scale, row0, k0, m.kv_len, quad);
+    store_pairs<D>(static_cast<float*>(a.dv.ptr) + b * a.dv.sb + kvh * a.dv.sh, a.dv.ss, dv,
+                   1.f, row0, k0, m.kv_len, quad);
   } else {
     // epilogue: dk = scale * unrope(dK), dv = dV, through this consumer's
     // rows of the K and V tiles
     consumer_sync(c);
-    stage_rows(sm.own[0], dk, a.scale, row0, k0, m.kv_len, table(a.cos, b, m.q_len),
-               table(a.sin, b, m.q_len), quad);
-    stage_rows(sm.own[1], dv, 1.f, row0, k0, m.kv_len, nullptr, nullptr, quad);
+    stage_rows<D>(sm.own[0], dk, a.scale, row0, k0, m.kv_len, table<D>(a.cos, b, m.q_len),
+                  table<D>(a.sin, b, m.q_len), quad);
+    stage_rows<D>(sm.own[1], dv, 1.f, row0, k0, m.kv_len, nullptr, nullptr, quad);
     consumer_sync(c);
-    store_rows(static_cast<bf16*>(a.dk.ptr) + b * a.dk.sb + kvh * a.dk.sh, a.dk.ss, sm.own[0],
-               c, k0, m.kv_len, tid);
-    store_rows(static_cast<bf16*>(a.dv.ptr) + b * a.dv.sb + kvh * a.dv.sh, a.dv.ss, sm.own[1],
-               c, k0, m.kv_len, tid);
+    store_rows<D>(static_cast<bf16*>(a.dk.ptr) + b * a.dk.sb + kvh * a.dk.sh, a.dk.ss,
+                  sm.own[0], c, k0, m.kv_len, tid);
+    store_rows<D>(static_cast<bf16*>(a.dv.ptr) + b * a.dv.sb + kvh * a.dv.sh, a.dv.ss,
+                  sm.own[1], c, k0, m.kv_len, tid);
   }
 }
 
 // dk and dv of one block: 128 key rows of one kv head, written as T.
 // Every thread calls it.
-template <typename T>
+template <typename T, int D>
 __device__ __forceinline__ void dkv_block(unsigned char* smem, const BwdParams& p) {
+  constexpr int OWN_BYTES = Bwd<D>::OWN_BYTES, STREAM_BYTES = Bwd<D>::STREAM_BYTES;
   const AttnArgs& a = p.a;
   const Mask& m = a.mask;
   int bh, ki;
   block_tile(p, false, bh, ki);
   const int KVH = a.H / a.group, kvh = bh % KVH, b = bh / KVH, k0 = ki * BM;
-  const Smem sm(smem);
+  const Smem<D> sm(smem);
   // the 64-row q tiles [i0, i0 + nq) that see some key of the block
   const Rows live = rows_of(m, k0, min(k0 + BM, m.kv_len) - 1);
   const int i0 = live.lo / BN, nq = live.lo <= live.hi ? live.hi / BN + 1 - i0 : 0;
@@ -533,7 +559,7 @@ __device__ __forceinline__ void dkv_block(unsigned char* smem, const BwdParams& 
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
     if (threadIdx.x == 0) {
       mbar_expect_tx(sm.bar_own, 2 * OWN_BYTES);
-      for (int x = 0; x < 2; ++x) {
+      for (int x = 0; x < Row<D>::BOXES; ++x) {
         tma_load(sm.own[0] + x * OWN_BOX, &p.k, sm.bar_own, x * BOX_COLS, k0, kvh, b);
         tma_load(sm.own[1] + x * OWN_BOX, &p.v, sm.bar_own, x * BOX_COLS, k0, kvh, b);
       }
@@ -542,7 +568,7 @@ __device__ __forceinline__ void dkv_block(unsigned char* smem, const BwdParams& 
         const int h = kvh * a.group + g;
         mbar_wait(sm.empty + st, ((t / STAGES) & 1) ^ 1);
         mbar_expect_tx(sm.full + st, 2 * STREAM_BYTES);
-        for (int x = 0; x < 2; ++x) {
+        for (int x = 0; x < Row<D>::BOXES; ++x) {
           const int off = st * STREAM_BYTES + x * STREAM_BOX;
           tma_load(sm.str[0] + off, &p.q, sm.full + st, x * BOX_COLS, q0, h, b);
           tma_load(sm.str[1] + off, &p.dout, sm.full + st, x * BOX_COLS, q0, h, b);
@@ -564,7 +590,7 @@ __device__ __forceinline__ void dkv_block(unsigned char* smem, const BwdParams& 
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
-    dkv_consume<T>(sm, a, kvh, b, k0, i0, nq, threadIdx.x / 128 - 1);
+    dkv_consume<T, D>(sm, a, kvh, b, k0, i0, nq, threadIdx.x / 128 - 1);
   }
 }
 
@@ -574,16 +600,18 @@ __device__ __forceinline__ void dkv_block(unsigned char* smem, const BwdParams& 
 // limit and launch it over n_bh * nt blocks; `kv_major` picks K4's grid
 // (B * KVH pairs, kv tiles) over K3's (B * H, q tiles). Returns the
 // launch's error, or cudaErrorInvalidValue when a map is refused.
+template <int D>
 inline int launch_bwd(void (*kernel)(BwdParams), BwdParams& p, int B, int KVH, bool kv_major,
                       void* stream) {
   const AttnArgs& a = p.a;
   const int q_rows = kv_major ? BN : BM, kv_rows = kv_major ? BM : BN;
   const int q_len = a.mask.q_len, kv_len = a.mask.kv_len;
-  if (!tile_map(&p.q, a.q.ptr, B, a.H, q_len, a.q.sb, a.q.sh, a.q.ss, q_rows, 1) ||
-      !tile_map(&p.dout, a.dout.ptr, B, a.H, q_len, a.dout.sb, a.dout.sh, a.dout.ss, q_rows,
+  constexpr size_t SMEM = Bwd<D>::SMEM;
+  if (!tile_map<D>(&p.q, a.q.ptr, B, a.H, q_len, a.q.sb, a.q.sh, a.q.ss, q_rows, 1) ||
+      !tile_map<D>(&p.dout, a.dout.ptr, B, a.H, q_len, a.dout.sb, a.dout.sh, a.dout.ss, q_rows,
                 1) ||
-      !tile_map(&p.k, a.k.ptr, B, KVH, kv_len, a.k.sb, a.k.sh, a.k.ss, kv_rows, 1) ||
-      !tile_map(&p.v, a.v.ptr, B, KVH, kv_len, a.v.sb, a.v.sh, a.v.ss, kv_rows, 1))
+      !tile_map<D>(&p.k, a.k.ptr, B, KVH, kv_len, a.k.sb, a.k.sh, a.k.ss, kv_rows, 1) ||
+      !tile_map<D>(&p.v, a.v.ptr, B, KVH, kv_len, a.v.sb, a.v.sh, a.v.ss, kv_rows, 1))
     return (int)cudaErrorInvalidValue;
   p.nt = ((kv_major ? kv_len : q_len) + BM - 1) / BM;
   p.n_bh = B * (kv_major ? KVH : a.H);

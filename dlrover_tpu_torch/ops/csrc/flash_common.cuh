@@ -7,6 +7,11 @@
 // wgmma/TMA forward of flash_fwd_sm90.cuh; K3, K4, K10, K11, K13 and K14
 // the wgmma/TMA backward of flash_bwd_sm90.cuh.
 //
+// Head width: D is a template parameter of every loop and helper that
+// depends on it (sm90_common.cuh's Row<D>), instantiated for 64 and 128.
+// K1-K4 take both; the fused-heads kernels K9-K11 and the ring kernels
+// K12-K14 are built for 128 only.
+//
 // Layout: q/k/v/do are bf16 operands addressed as [B, heads, S, D] through
 // batch, head and row strides (elements). That covers the [B, H, S, D]
 // tensors of flash_attention and the [B, S, H*D] tensors of
@@ -28,12 +33,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace fa {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int D = 128;           // head_dim (the only one built)
-constexpr int HALF = D / 2;
 constexpr int NWARPS = 8;        // K2's block: one warp per row
 constexpr int NTHREADS = NWARPS * 32;
 constexpr float NEG_INF = -1e30f;
@@ -194,6 +199,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // This batch's [S, D] rope table, or nullptr without rope.
+template <int D>
 __device__ __forceinline__ const bf16* table(const bf16* t, int b, int S) {
   return t ? t + (long long)b * S * D : nullptr;
 }
@@ -223,12 +229,24 @@ inline AttnArgs attn_args(const void* q, const void* k, const void* v, const voi
 
 // Strides (elements) of a contiguous [B, heads, S, D] and [B, S, heads *
 // D] output.
+template <int D>
 inline Out out_bhsd(void* p, int heads, int S) {
   return Out{p, (long long)heads * S * D, (long long)S * D, D};
 }
 
+template <int D>
 inline Out out_bshd(void* p, int heads, int S) {
   return Out{p, (long long)S * heads * D, D, (long long)heads * D};
+}
+
+// The C entries of K1-K4 take the head width at run time: f(the width
+// as std::integral_constant) for 64 and 128, cudaErrorInvalidValue for
+// any other (the Python wrappers raise first).
+template <typename F>
+inline int by_head_dim(int head_dim, F&& f) {
+  if (head_dim == 64) return f(std::integral_constant<int, 64>());
+  if (head_dim == 128) return f(std::integral_constant<int, 128>());
+  return (int)cudaErrorInvalidValue;
 }
 
 // log2 of the query positions per 128-row tile when `group` q heads

@@ -24,6 +24,9 @@
 // at the slice's shape at 3.35 TB/s. Both round roped values to bf16
 // once, from f32.
 //
+// Head width: D = 64 or 128, each its own instantiation of the loop and
+// of the pre-pass; the C entries take the width and pick one.
+//
 // Output: o (bf16 [B, H, S, D], contiguous) and lse (f32 [B, H, S]). The
 // TPU kernel's 128-lane lse padding is a TPU layout artifact and is
 // dropped. A row that sees no key gets o = 0 and lse = -1e30, as there.
@@ -33,20 +36,23 @@ namespace fa {
 
 // One block per (q tile of 128 positions, head, batch), in sm90's
 // causal order.
+template <int D>
 __global__ void __launch_bounds__(sm90::THREADS, 1)
     flash_fwd_kernel(const __grid_constant__ sm90::FwdParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
   int bh, qi;
   sm90::block_tile(p, bh, qi);
   const int h = bh % p.a.H;
-  sm90::fwd_block(smem, p, RowMap{qi * sm90::BQ, 7, h}, h / p.a.group, bh / p.a.H);
+  sm90::fwd_block<D>(smem, p, RowMap{qi * sm90::BQ, 7, h}, h / p.a.group, bh / p.a.H);
 }
 
 // Rope of k, out = rope(k) as contiguous [B, KVH, S, D] bf16: one thread
 // per 8 columns of the first half and their partners in the second.
+template <int D>
 __global__ void flash_fwd_rope_k_kernel(const bf16* k, long long sb, long long sh,
                                         long long ss, const bf16* cos, const bf16* sin,
                                         bf16* out, int KVH, int S, long long n) {
+  constexpr int HALF = sm90::Row<D>::HALF;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n) return;
   const int c = (int)(idx % (HALF / 8)) * 8;
@@ -76,37 +82,44 @@ __global__ void flash_fwd_rope_k_kernel(const bf16* k, long long sb, long long s
 
 using namespace fa;
 
-// C entries, bound with ctypes. Each returns cudaGetLastError() after its
-// launch.
+// C entries, bound with ctypes. Each takes the head width first (64 or
+// 128; cudaErrorInvalidValue otherwise) and returns cudaGetLastError()
+// after its launch.
 //
 // flash_fwd: `strides` holds the (batch, head, row) strides of q, k and
 // v. With rope tables, q is roped in the kernel and k must come roped
 // already, from flash_fwd_rope_k on the same tables.
-extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* cos,
-                         const void* sin, void* o, void* lse, int B, int H, int KVH,
-                         int q_len, int kv_len, const long long* strides, int causal,
+extern "C" int flash_fwd(int head_dim, const void* q, const void* k, const void* v,
+                         const void* cos, const void* sin, void* o, void* lse, int B, int H,
+                         int KVH, int q_len, int kv_len, const long long* strides, int causal,
                          int window, int prefix, float scale, void* stream) {
-  sm90::FwdParams p = {};
-  p.a = attn_args(q, k, v, nullptr, nullptr, nullptr, strides, H, KVH, q_len, kv_len, causal,
-                  window, prefix, scale);
-  p.a.cos = static_cast<const bf16*>(cos);
-  p.a.sin = static_cast<const bf16*>(sin);
-  p.a.o = out_bhsd(o, H, q_len);
-  p.a.lse = static_cast<float*>(lse);
-  p.n_bh = B * H;
-  return sm90::launch_fwd(flash_fwd_kernel, p, B, KVH, 7, stream);
+  return by_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    sm90::FwdParams p = {};
+    p.a = attn_args(q, k, v, nullptr, nullptr, nullptr, strides, H, KVH, q_len, kv_len,
+                    causal, window, prefix, scale);
+    p.a.cos = static_cast<const bf16*>(cos);
+    p.a.sin = static_cast<const bf16*>(sin);
+    p.a.o = out_bhsd<D>(o, H, q_len);
+    p.a.lse = static_cast<float*>(lse);
+    p.n_bh = B * H;
+    return sm90::launch_fwd<D>(flash_fwd_kernel<D>, p, B, KVH, 7, stream);
+  });
 }
 
 // K1's pre-pass: out (contiguous [B, KVH, S, D]) = rope(k), k read
 // through its (batch, head, row) strides, tables [B, S, D].
-extern "C" int flash_fwd_rope_k(const void* k, const void* cos, const void* sin, void* out,
-                                int B, int KVH, int S, long long sb, long long sh,
+extern "C" int flash_fwd_rope_k(int head_dim, const void* k, const void* cos, const void* sin,
+                                void* out, int B, int KVH, int S, long long sb, long long sh,
                                 long long ss, void* stream) {
-  const long long n = (long long)B * KVH * S * (HALF / 8);
-  const int threads = 256;
-  flash_fwd_rope_k_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(k), sb, sh, ss, static_cast<const bf16*>(cos),
-      static_cast<const bf16*>(sin), static_cast<bf16*>(out), KVH, S, n);
-  return (int)cudaGetLastError();
+  return by_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    const long long n = (long long)B * KVH * S * (D / 16);
+    const int threads = 256;
+    flash_fwd_rope_k_kernel<D><<<(unsigned)((n + threads - 1) / threads), threads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const bf16*>(k), sb, sh, ss, static_cast<const bf16*>(cos),
+        static_cast<const bf16*>(sin), static_cast<bf16*>(out), KVH, S, n);
+    return (int)cudaGetLastError();
+  });
 }

@@ -24,8 +24,9 @@
 //   and two consumers (240 registers), each owning 64 of the rows.
 // - TMA. Each operand is one 4-D tensor map (D, S, heads, B) with the
 //   operand's byte strides, so one map covers [B, H, S, D] (K1) and the
-//   [B, S, H*D] views (K9). A 128-column row is two 64-column boxes in
-//   128-byte swizzle, the layout wgmma reads. For K9's packed GQA rows a
+//   [B, S, H*D] views (K9). A row of D columns is D / 64 boxes of 64
+//   columns in 128-byte swizzle (one at D = 64, two at D = 128), the
+//   layout wgmma reads. For K9's packed GQA rows a
 //   q box spans (64 columns, 128/g positions, g heads), which puts the
 //   rows in RowMap's order (head-major, then position). Positions past
 //   q_len / kv_len arrive as zeros (TMA's out-of-bounds fill).
@@ -39,7 +40,7 @@
 //   that the loop body is the same on every pass: with the overlap
 //   behind branches, ptxas serialised every wgmma (warning C7514).
 // - The online softmax stays in registers: each thread holds two rows'
-//   running max and partial sum and their 64-column slice of O across
+//   running max and partial sum and their share of O's columns across
 //   all kv tiles; no S, P or O tile goes to shared memory. The mask is
 //   applied per element only on tiles that some row does not wholly
 //   see (diagonal, window edge, prefix boundary, ragged end).
@@ -56,6 +57,12 @@
 // K1's rope: q is roped once, in shared memory, after its TMA load; k
 // is roped by a pre-pass kernel (flash_fwd.cu) into a [B, KVH, S, D]
 // buffer that this loop loads, so no k tile is roped again per q tile.
+//
+// Head width: every piece that depends on it is templated on D (64 or
+// 128): the tile bytes and TMA boxes, S = Q K^T's D / 16 steps, O's
+// accumulator (m64nDk16: D / 2 floats a thread) and the rope and
+// epilogue loops. The score tile (m64n128) and the softmax do not
+// depend on D.
 #pragma once
 
 #include "sm90_common.cuh"
@@ -68,9 +75,14 @@ constexpr int BKV = 128;     // key rows per kv tile
 constexpr int STAGES = 2;    // k/v tiles in flight (3 measured no faster)
 constexpr int THREADS = 384; // producer warpgroup + two consumers
 constexpr int BOX_BYTES = 128 * BOX_COLS * 2;  // 16 KB: 128 rows x 64 columns
-constexpr int TILE_BYTES = 2 * BOX_BYTES;      // 32 KB: 128 rows x D
 constexpr int CHUNK = 16;    // (batch, head) pairs per causal-order chunk
-constexpr size_t SMEM = 1024 + (1 + 2 * STAGES) * TILE_BYTES + (1 + 4 * STAGES) * 8;
+
+// The sizes that follow the head width.
+template <int D>
+struct Fwd {
+  static constexpr int TILE_BYTES = Row<D>::BOXES * BOX_BYTES;  // 128 rows x D
+  static constexpr size_t SMEM = 1024 + (1 + 2 * STAGES) * TILE_BYTES + (1 + 4 * STAGES) * 8;
+};
 
 // The tensor maps of q, k and v and the shared arguments; passed as a
 // __grid_constant__ kernel parameter, where TMA reads the maps.
@@ -93,6 +105,7 @@ __device__ __forceinline__ void block_tile(const FwdParams& p, int& bh, int& qi)
 // --------------------------------------------------------------- the loop
 // The block's shared memory: the Q tile, STAGES k and v tiles, and the
 // barriers (Q; full and empty per k and per v slot).
+template <int D>
 struct Smem {
   unsigned char* q;
   unsigned char* k;
@@ -102,9 +115,9 @@ struct Smem {
   __device__ __forceinline__ explicit Smem(unsigned char* raw) {
     q = reinterpret_cast<unsigned char*>(
         (reinterpret_cast<uintptr_t>(raw) + 1023) & ~static_cast<uintptr_t>(1023));
-    k = q + TILE_BYTES;
-    v = k + STAGES * TILE_BYTES;
-    bar_q = reinterpret_cast<uint64_t*>(v + STAGES * TILE_BYTES);
+    k = q + Fwd<D>::TILE_BYTES;
+    v = k + STAGES * Fwd<D>::TILE_BYTES;
+    bar_q = reinterpret_cast<uint64_t*>(v + STAGES * Fwd<D>::TILE_BYTES);
     full_k = bar_q + 1;
     full_v = full_k + STAGES;
     empty_k = full_v + STAGES;
@@ -112,9 +125,11 @@ struct Smem {
   }
 };
 
-// S = Q K^T for one consumer: 8 steps of 16 columns, 4 in each 64-column
-// box (32 bytes apart in the swizzled rows). Both operands K-major: 1024
-// bytes between groups of 8 rows (SBO); LBO is unused in this swizzle.
+// S = Q K^T for one consumer: D / 16 steps of 16 columns, 4 in each
+// 64-column box (32 bytes apart in the swizzled rows). Both operands
+// K-major: 1024 bytes between groups of 8 rows (SBO); LBO is unused in
+// this swizzle.
+template <int D>
 __device__ __forceinline__ void mma_qk(float (&s)[64], uint32_t q_addr, uint32_t k_addr) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
@@ -125,8 +140,10 @@ __device__ __forceinline__ void mma_qk(float (&s)[64], uint32_t q_addr, uint32_t
 
 // O += P V: 8 steps of 16 keys (2048 bytes of V each); P's step kk is
 // p[4kk..4kk+3]. V is MN-major (D contiguous): LBO steps from the first
-// 64-column box to the second, SBO between groups of 8 keys.
-__device__ __forceinline__ void mma_pv(float (&o)[64], const uint32_t (&p)[32],
+// 64-column box to the second (D = 128; one box at D = 64), SBO between
+// groups of 8 keys.
+template <int D>
+__device__ __forceinline__ void mma_pv(float (&o)[D / 2], const uint32_t (&p)[32],
                                          uint32_t v_addr) {
 #pragma unroll
   for (int kk = 0; kk < BKV / 16; ++kk)
@@ -176,8 +193,11 @@ __device__ __forceinline__ void softmax_step(float (&s)[64], const Keys (&keys)[
 // Consumer c (0 or 1) of the block: rows 64c..64c+63 of `map`. Tile t's
 // QK^T goes out with tile t-1's PV behind it; tile t's softmax runs
 // while PV is in flight, and only the rescale of O waits for it.
-__device__ __forceinline__ void consume(const Smem& sm, const AttnArgs& a, RowMap map, int b,
+template <int D>
+__device__ __forceinline__ void consume(const Smem<D>& sm, const AttnArgs& a, RowMap map, int b,
                                         const TileRange& tiles, int c) {
+  constexpr int HALF = Row<D>::HALF, HC = HALF / 8;  // 16-byte chunks per half row
+  constexpr int TILE_BYTES = Fwd<D>::TILE_BYTES;
   const Mask& m = a.mask;
   const int n = tiles.count();
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, quad = lane % 4;
@@ -189,14 +209,16 @@ __device__ __forceinline__ void consume(const Smem& sm, const AttnArgs& a, RowMa
   if (a.cos != nullptr) {
     // rope this consumer's rows in place: rope(x) = x * C +
     // rotate_half(x) * S in f32, rounded once to bf16 (the pre-pass's math);
-    // columns j and j + 64 sit at the same offset of the two boxes
-    const bf16* cos = table(a.cos, b, m.q_len);
-    const bf16* sin = table(a.sin, b, m.q_len);
-    for (int i = tid; i < 64 * 8; i += 128) {
-      const int r = 64 * c + i / 8, ch = i % 8, pos = map.pos(r);
+    // column 8 ch and its partner 8 ch + D / 2: chunk ch of the second
+    // box at D = 128, chunk ch + 4 of the one box at D = 64
+    const bf16* cos = table<D>(a.cos, b, m.q_len);
+    const bf16* sin = table<D>(a.sin, b, m.q_len);
+    for (int i = tid; i < 64 * HC; i += 128) {
+      const int r = 64 * c + i / HC, ch = i % HC, pos = map.pos(r);
       if (pos >= m.q_len) continue;
       uint4* p1 = reinterpret_cast<uint4*>(sm.q + swz(r, ch));
-      uint4* p2 = reinterpret_cast<uint4*>(sm.q + BOX_BYTES + swz(r, ch));
+      uint4* p2 = reinterpret_cast<uint4*>(sm.q + (HALF / BOX_COLS) * BOX_BYTES +
+                                           swz(r, ch + HC % 8));
       float x1[8], x2[8], c1[8], c2[8], s1[8], s2[8], o1[8], o2[8];
       const long long t = (long long)pos * D + ch * 8;
       unpack8(*p1, x1);
@@ -217,10 +239,10 @@ __device__ __forceinline__ void consume(const Smem& sm, const AttnArgs& a, RowMa
     consumer_sync(c);
   }
 
-  float o[64], s[64];
+  float o[D / 2], s[64];
   uint32_t p[32];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   // running max (scaled, log2 units) and this thread's partial row sums
   float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.f, 0.f}, alpha[2], sum[2];
   const float sl2 = a.scale * LOG2E;
@@ -230,7 +252,7 @@ __device__ __forceinline__ void consume(const Smem& sm, const AttnArgs& a, RowMa
   if (n > 0) {  // tile 0: QK^T and its softmax
     mbar_wait(sm.full_k, 0);
     wg_fence();
-    mma_qk(s, q_addr, k_addr);
+    mma_qk<D>(s, q_addr, k_addr);
     wg_commit();
     wg_wait<0>();
     reg_fence(s);
@@ -248,9 +270,9 @@ __device__ __forceinline__ void consume(const Smem& sm, const AttnArgs& a, RowMa
     mbar_wait(sm.full_k + st, (t / STAGES) & 1);
     mbar_wait(sm.full_v + pst, ((t - 1) / STAGES) & 1);
     wg_fence();
-    mma_qk(s, q_addr, k_addr + st * TILE_BYTES);
+    mma_qk<D>(s, q_addr, k_addr + st * TILE_BYTES);
     wg_commit();
-    mma_pv(o, p, v_addr + pst * TILE_BYTES);
+    mma_pv<D>(o, p, v_addr + pst * TILE_BYTES);
     wg_commit();
     wg_wait<1>();  // QK^T done
     reg_fence(s);
@@ -260,7 +282,7 @@ __device__ __forceinline__ void consume(const Smem& sm, const AttnArgs& a, RowMa
     reg_fence(o);
     if (tid == 0) mbar_arrive(sm.empty_v + pst);
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
     lrow[0] = lrow[0] * alpha[0] + sum[0];
     lrow[1] = lrow[1] * alpha[1] + sum[1];
     // P as wgmma's A operand: the f32 accumulator's layout, in bf16 pairs
@@ -271,7 +293,7 @@ __device__ __forceinline__ void consume(const Smem& sm, const AttnArgs& a, RowMa
     const int pst = (n - 1) % STAGES;
     mbar_wait(sm.full_v + pst, ((n - 1) / STAGES) & 1);
     wg_fence();
-    mma_pv(o, p, v_addr + pst * TILE_BYTES);
+    mma_pv<D>(o, p, v_addr + pst * TILE_BYTES);
     wg_commit();
     wg_wait<0>();
     reg_fence(o);
@@ -301,8 +323,8 @@ __device__ __forceinline__ void consume(const Smem& sm, const AttnArgs& a, RowMa
   }
   consumer_sync(c);
   bf16* out = static_cast<bf16*>(a.o.ptr) + b * a.o.sb;
-  for (int i = tid; i < 64 * 16; i += 128) {
-    const int r = 64 * c + i / 16, chunk = i % 16, pos = map.pos(r);
+  for (int i = tid; i < 64 * (D / 8); i += 128) {
+    const int r = 64 * c + i / (D / 8), chunk = i % (D / 8), pos = map.pos(r);
     if (pos >= m.q_len) continue;
     *reinterpret_cast<uint4*>(out + map.head(r) * a.o.sh + pos * a.o.ss + chunk * 8) =
         *reinterpret_cast<const uint4*>(sm.q + (chunk / 8) * BOX_BYTES + swz(r, chunk % 8));
@@ -319,9 +341,11 @@ __device__ __forceinline__ void consume(const Smem& sm, const AttnArgs& a, RowMa
 
 // Forward of one block: 128 query rows by `map` (batch b) against kv
 // head kvh. Every thread of the block calls it.
+template <int D>
 __device__ __forceinline__ void fwd_block(unsigned char* smem, const FwdParams& p, RowMap map,
                                           int kvh, int b) {
-  const Smem sm(smem);
+  const Smem<D> sm(smem);
+  constexpr int TILE_BYTES = Fwd<D>::TILE_BYTES;
   const TileRange tiles =
       kv_tiles<BKV>(p.a.mask, map.pos0, min(map.pos0 + (1 << map.shift), p.a.mask.q_len) - 1);
 
@@ -342,7 +366,7 @@ __device__ __forceinline__ void fwd_block(unsigned char* smem, const FwdParams& 
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
     if (threadIdx.x == 0) {
       mbar_expect_tx(sm.bar_q, TILE_BYTES);
-      for (int h = 0; h < 2; ++h)
+      for (int h = 0; h < Row<D>::BOXES; ++h)
         tma_load(sm.q + h * BOX_BYTES, &p.q, sm.bar_q, h * BOX_COLS, map.pos0, map.head0, b);
       const int n = tiles.count();
       for (int t = 0; t < n; ++t) {
@@ -350,19 +374,19 @@ __device__ __forceinline__ void fwd_block(unsigned char* smem, const FwdParams& 
         const int k0 = tiles.tile(t) * BKV;
         mbar_wait(sm.empty_k + st, phase ^ 1);
         mbar_expect_tx(sm.full_k + st, TILE_BYTES);
-        for (int h = 0; h < 2; ++h)
+        for (int h = 0; h < Row<D>::BOXES; ++h)
           tma_load(sm.k + st * TILE_BYTES + h * BOX_BYTES, &p.k, sm.full_k + st,
                    h * BOX_COLS, k0, kvh, b);
         mbar_wait(sm.empty_v + st, phase ^ 1);
         mbar_expect_tx(sm.full_v + st, TILE_BYTES);
-        for (int h = 0; h < 2; ++h)
+        for (int h = 0; h < Row<D>::BOXES; ++h)
           tma_load(sm.v + st * TILE_BYTES + h * BOX_BYTES, &p.v, sm.full_v + st,
                    h * BOX_COLS, k0, kvh, b);
       }
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
-    consume(sm, p.a, map, b, tiles, threadIdx.x / 128 - 1);
+    consume<D>(sm, p.a, map, b, tiles, threadIdx.x / 128 - 1);
   }
 }
 
@@ -372,14 +396,16 @@ __device__ __forceinline__ void fwd_block(unsigned char* smem, const FwdParams& 
 // kernel's shared-memory limit and launch it over n_bh * nq blocks.
 // Returns the launch's error, or cudaErrorInvalidValue when a map is
 // refused.
+template <int D>
 inline int launch_fwd(void (*kernel)(FwdParams), FwdParams& p, int B, int KVH, int shift,
                       void* stream) {
   const AttnArgs& a = p.a;
   const int per_tile = 1 << shift;
-  if (!tile_map(&p.q, a.q.ptr, B, a.H, a.mask.q_len, a.q.sb, a.q.sh, a.q.ss, per_tile,
+  constexpr size_t SMEM = Fwd<D>::SMEM;
+  if (!tile_map<D>(&p.q, a.q.ptr, B, a.H, a.mask.q_len, a.q.sb, a.q.sh, a.q.ss, per_tile,
                 BQ >> shift) ||
-      !tile_map(&p.k, a.k.ptr, B, KVH, a.mask.kv_len, a.k.sb, a.k.sh, a.k.ss, BKV, 1) ||
-      !tile_map(&p.v, a.v.ptr, B, KVH, a.mask.kv_len, a.v.sb, a.v.sh, a.v.ss, BKV, 1))
+      !tile_map<D>(&p.k, a.k.ptr, B, KVH, a.mask.kv_len, a.k.sb, a.k.sh, a.k.ss, BKV, 1) ||
+      !tile_map<D>(&p.v, a.v.ptr, B, KVH, a.mask.kv_len, a.v.sb, a.v.sh, a.v.ss, BKV, 1))
     return (int)cudaErrorInvalidValue;
   p.nq = (a.mask.q_len + per_tile - 1) / per_tile;
   cudaError_t err =

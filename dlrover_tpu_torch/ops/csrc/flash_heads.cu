@@ -59,7 +59,7 @@ __global__ void __launch_bounds__(sm90::THREADS, 1)
   int bh, qi;
   sm90::block_tile(p, bh, qi);
   const int kvh = bh % (p.a.H / p.a.group), shift = p.a.shift;
-  sm90::fwd_block(smem, p, RowMap{qi << shift, shift, kvh * p.a.group}, kvh,
+  sm90::fwd_block<128>(smem, p, RowMap{qi << shift, shift, kvh * p.a.group}, kvh,
                   bh / (p.a.H / p.a.group));
 }
 
@@ -68,7 +68,7 @@ __global__ void __launch_bounds__(sm90::THREADS, 1)
 __global__ void __launch_bounds__(sm90::bwd::THREADS, 1)
     flash_bwd_dq_heads_kernel(const __grid_constant__ sm90::bwd::BwdParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  sm90::bwd::dq_block<bf16>(smem, p);
+  sm90::bwd::dq_block<bf16, 128>(smem, p);
 }
 
 // One block per (kv tile of 128 positions, kv head, batch), in sm90's
@@ -76,7 +76,7 @@ __global__ void __launch_bounds__(sm90::bwd::THREADS, 1)
 __global__ void __launch_bounds__(sm90::bwd::THREADS, 1)
     flash_bwd_dkv_heads_kernel(const __grid_constant__ sm90::bwd::BwdParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  sm90::bwd::dkv_block<bf16>(smem, p);
+  sm90::bwd::dkv_block<bf16, 128>(smem, p);
 }
 
 }  // namespace fa
@@ -98,10 +98,10 @@ extern "C" int flash_fwd_heads(const void* q, const void* k, const void* v, void
   p.a = attn_args(q, k, v, nullptr, nullptr, nullptr, strides, H, KVH, q_len, kv_len, causal,
                   window, prefix, scale);
   p.a.shift = shift;
-  p.a.o = out_bshd(o, H, q_len);
+  p.a.o = out_bshd<128>(o, H, q_len);
   p.a.lse = static_cast<float*>(lse);
   p.n_bh = B * KVH;
-  return sm90::launch_fwd(flash_fwd_heads_kernel, p, B, KVH, shift, stream);
+  return sm90::launch_fwd<128>(flash_fwd_heads_kernel, p, B, KVH, shift, stream);
 }
 
 extern "C" int flash_bwd_dq_heads(const void* q, const void* k, const void* v,
@@ -112,8 +112,8 @@ extern "C" int flash_bwd_dq_heads(const void* q, const void* k, const void* v,
   sm90::bwd::BwdParams p = {};
   p.a = attn_args(q, k, v, dout, lse, delta, strides, H, KVH, q_len, kv_len, causal, window,
                   prefix, scale);
-  p.a.dq = out_bshd(dq, H, q_len);
-  return sm90::bwd::launch_bwd(flash_bwd_dq_heads_kernel, p, B, KVH, false, stream);
+  p.a.dq = out_bshd<128>(dq, H, q_len);
+  return sm90::bwd::launch_bwd<128>(flash_bwd_dq_heads_kernel, p, B, KVH, false, stream);
 }
 
 extern "C" int flash_bwd_dkv_heads(const void* q, const void* k, const void* v,
@@ -124,7 +124,7 @@ extern "C" int flash_bwd_dkv_heads(const void* q, const void* k, const void* v,
   sm90::bwd::BwdParams p = {};
   p.a = attn_args(q, k, v, dout, lse, delta, strides, H, KVH, q_len, kv_len, causal, window,
                   prefix, scale);
-  p.a.dk = out_bshd(dk, KVH, kv_len);
-  p.a.dv = out_bshd(dv, KVH, kv_len);
-  return sm90::bwd::launch_bwd(flash_bwd_dkv_heads_kernel, p, B, KVH, true, stream);
+  p.a.dk = out_bshd<128>(dk, KVH, kv_len);
+  p.a.dv = out_bshd<128>(dv, KVH, kv_len);
+  return sm90::bwd::launch_bwd<128>(flash_bwd_dkv_heads_kernel, p, B, KVH, true, stream);
 }

@@ -68,7 +68,7 @@ __global__ void __launch_bounds__(sm90::THREADS, 1)
   int bh, qi;
   sm90::block_tile(p, bh, qi);
   const int h = bh % p.a.H;
-  sm90::fwd_block(smem, p, RowMap{qi * sm90::BQ, 7, h}, h / p.a.group, bh / p.a.H);
+  sm90::fwd_block<128>(smem, p, RowMap{qi * sm90::BQ, 7, h}, h / p.a.group, bh / p.a.H);
 }
 
 // K13: one block per (q tile of 128 positions, q head, batch), in
@@ -76,7 +76,7 @@ __global__ void __launch_bounds__(sm90::THREADS, 1)
 __global__ void __launch_bounds__(sm90::bwd::THREADS, 1)
     flash_ring_dq_kernel(const __grid_constant__ sm90::bwd::BwdParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  sm90::bwd::dq_block<float>(smem, p);
+  sm90::bwd::dq_block<float, 128>(smem, p);
 }
 
 // K14: one block per (kv tile of 128 positions, kv head, batch), in
@@ -84,7 +84,7 @@ __global__ void __launch_bounds__(sm90::bwd::THREADS, 1)
 __global__ void __launch_bounds__(sm90::bwd::THREADS, 1)
     flash_ring_dkv_kernel(const __grid_constant__ sm90::bwd::BwdParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  sm90::bwd::dkv_block<float>(smem, p);
+  sm90::bwd::dkv_block<float, 128>(smem, p);
 }
 
 // The shared arguments with the ring's mask: causal at global positions.
@@ -113,10 +113,10 @@ extern "C" int flash_ring_fwd(const void* q, const void* k, const void* v, void*
   sm90::FwdParams p = {};
   p.a = ring_args(q, k, v, nullptr, nullptr, nullptr, strides, H, KVH, q_len, kv_len, q_start,
                   k_start, scale);
-  p.a.o = out_bhsd(o, H, q_len);
+  p.a.o = out_bhsd<128>(o, H, q_len);
   p.a.lse = static_cast<float*>(lse);
   p.n_bh = B * H;
-  return sm90::launch_fwd(flash_ring_fwd_kernel, p, B, KVH, 7, stream);
+  return sm90::launch_fwd<128>(flash_ring_fwd_kernel, p, B, KVH, 7, stream);
 }
 
 extern "C" int flash_ring_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -126,8 +126,8 @@ extern "C" int flash_ring_dq(const void* q, const void* k, const void* v, const 
   sm90::bwd::BwdParams p = {};
   p.a = ring_args(q, k, v, dout, lse, delta, strides, H, KVH, q_len, kv_len, q_start, k_start,
                   scale);
-  p.a.dq = out_bhsd(dq, H, q_len);
-  return sm90::bwd::launch_bwd(flash_ring_dq_kernel, p, B, KVH, false, stream);
+  p.a.dq = out_bhsd<128>(dq, H, q_len);
+  return sm90::bwd::launch_bwd<128>(flash_ring_dq_kernel, p, B, KVH, false, stream);
 }
 
 extern "C" int flash_ring_dkv(const void* q, const void* k, const void* v, const void* dout,
@@ -137,7 +137,7 @@ extern "C" int flash_ring_dkv(const void* q, const void* k, const void* v, const
   sm90::bwd::BwdParams p = {};
   p.a = ring_args(q, k, v, dout, lse, delta, strides, H, KVH, q_len, kv_len, q_start, k_start,
                   scale);
-  p.a.dk = out_bhsd(dk, KVH, kv_len);
-  p.a.dv = out_bhsd(dv, KVH, kv_len);
-  return sm90::bwd::launch_bwd(flash_ring_dkv_kernel, p, B, KVH, true, stream);
+  p.a.dk = out_bhsd<128>(dk, KVH, kv_len);
+  p.a.dv = out_bhsd<128>(dv, KVH, kv_len);
+  return sm90::bwd::launch_bwd<128>(flash_ring_dkv_kernel, p, B, KVH, true, stream);
 }

@@ -4,7 +4,7 @@
 // loads, the warpgroup's named barriers and wgmma fences, shared-memory matrix
 // descriptors and the 128-byte swizzle TMA writes, the wgmma products
 // (m64n128k16 and m64n64k16 with both operands in shared memory,
-// m64n128k16 with A in registers), and on the host the 4-D tensor maps,
+// m64n128k16 and m64n64k16 with A in registers), and on the host the 4-D tensor maps,
 // built through cudaGetDriverEntryPoint so that no library links against
 // libcuda.
 #pragma once
@@ -18,6 +18,15 @@ namespace fa {
 namespace sm90 {
 
 constexpr int BOX_COLS = 64; // one 128-byte swizzle row of bf16
+
+// A head row of D bf16 values: D / 64 swizzle boxes side by side (one at
+// D = 64, two at D = 128); rope pairs column c with c + D / 2.
+template <int D>
+struct Row {
+  static_assert(D == 64 || D == 128, "the loops are built for head_dim 64 and 128");
+  static constexpr int BOXES = D / BOX_COLS;
+  static constexpr int HALF = D / 2;
+};
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -159,6 +168,17 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a, uint
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "           \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
 
+// d[64 x 64] += A[64 x 16] . B[16 x 64]: wgmma_rs at half the width, the
+// output products of the D = 64 loops (B one 64-column box).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FA_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : FA_ACC32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T, A and B K-major in shared
 // memory: wgmma_ss at half the width, for the backward's score tiles.
 __device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da, uint64_t db,
@@ -210,6 +230,7 @@ inline EncodeTiled encode_tiled() {
 // A 4-D map (D, S, heads, B) over a bf16 operand with element strides
 // (sb, sh, ss): boxes of 64 columns x `rows` positions x `heads_per_box`
 // heads, 128-byte swizzle, zeros out of bounds. False on failure.
+template <int D>
 inline bool tile_map(CUtensorMap* map, const void* ptr, int B, int heads, int S, long long sb,
                      long long sh, long long ss, int rows, int heads_per_box) {
   const EncodeTiled encode = encode_tiled();

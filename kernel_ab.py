@@ -51,8 +51,13 @@ K1's, K3's and K4's times include their rope pre-passes
 checkout whose wrapper of that kernel runs no pre-pass (its kernel ropes
 inside the loop), that side runs without it.
 
-The C entries must take the same arguments in both checkouts. The card's
-name and power limit come first; the whole report also goes to
+The C entries must take the same arguments in both checkouts, with one
+exception: the entries of K1-K4 (and K1's pre-pass) that take the head
+width first (head_dim 64 and 128, each its own template instantiation)
+are called without it on a checkout whose entries do not take it (built
+for 128 only). Every case here runs at head_dim 128, and a templated
+kernel is compared by its 128 instantiation. The card's name and power
+limit come first; the whole report also goes to
 ``chiprun_out/kernel_ab.json``.
 """
 
@@ -135,8 +140,10 @@ def build_other(other: Path):
 
 
 def mangled(kernel: str) -> re.Pattern:
-    """The kernel's name inside its mangled symbol (``<len><name>E``)."""
-    return re.compile(rf"\d+{kernel}E")
+    """The kernel's name inside its mangled symbol (``<len><name>E``, or
+    ``<len><name>ILi128EEE`` for the head_dim 128 instantiation of a
+    kernel templated on the head width)."""
+    return re.compile(rf"\d+{kernel}(?:ILi{D}EE)?E")
 
 
 def ptxas_report(text: str, kernel: str) -> list[str]:
@@ -216,6 +223,13 @@ def runs_prepass(root: Path, entry: str) -> bool:
             return any(isinstance(n, ast.Name) and n.id == PREPASS[entry]
                        for n in ast.walk(node))
     return False
+
+
+def takes_width(root: Path, lib: str, entry: str) -> bool:
+    """Whether ``root``'s C entry ``entry`` takes the head width first."""
+    source = root / "dlrover_tpu_torch" / "ops" / "csrc" / f"{lib}.cu"
+    return re.search(rf'extern "C" int {entry}\(int head_dim',
+                     source.read_text()) is not None
 
 
 def differing(a: list[str], b: list[str]) -> int:
@@ -404,11 +418,16 @@ def main() -> int:
                 continue
             kernel = f"{entry}_kernel"
             next(iter(calls[entry].values()))()  # binds this checkout's entry
-            fns = {"this": _build._bound[entry],
-                   "other": getattr(other_lib, entry)}
-            fns["other"].argtypes = (list(att._ENTRIES[entry][1])
-                                     + [ctypes.c_void_p])
-            fns["other"].restype = ctypes.c_int
+            other_fn = getattr(other_lib, entry)
+            argtypes = list(att._ENTRIES[entry][1])
+            fns = {"this": _build._bound[entry], "other": other_fn}
+            if (entry in att._BY_WIDTH and not takes_width(
+                    args.other.resolve(), lib, entry)):
+                # the other checkout's entry has no head width argument
+                argtypes = argtypes[1:]
+                fns["other"] = lambda width, *rest, fn=other_fn: fn(*rest)
+            other_fn.argtypes = argtypes + [ctypes.c_void_p]
+            other_fn.restype = ctypes.c_int
             bare = (entry in PREPASS
                     and not runs_prepass(args.other.resolve(), entry))
             codes = [sass(side[lib][0], kernel) for side in (this, other)]

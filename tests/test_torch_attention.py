@@ -36,6 +36,11 @@ CASES = {
     "gqa-rope": (2, 4, 2, 32, 16, True, True),
     "gqa-rope-ragged": (1, 4, 2, 40, 16, True, True),
     "gqa-noncausal": (1, 4, 2, 32, 16, False, False),
+    # head_dim 64, the GPT-2 family's width (K1-K4's second build)
+    "d64-mha": (2, 4, 4, 32, 64, False, True),
+    "d64-mha-rope": (2, 4, 4, 32, 64, True, True),
+    "d64-gqa-rope": (2, 4, 2, 32, 64, True, True),
+    "d64-gqa-rope-ragged": (1, 4, 2, 40, 64, True, True),
 }
 
 
@@ -61,6 +66,49 @@ def test_flash_attention_matches_jax(case):
     t_tables = ({} if not rope else
                 {"rope_cos": torch.tensor(cos), "rope_sin": torch.tensor(sin)})
     t_o = port.flash_attention(tq, tk, tv, causal=causal, **t_tables)
+    (t_o * torch.tensor(do)).sum().backward()
+
+    np.testing.assert_allclose(t_o.detach().numpy(), j_o, atol=1e-5)
+    for name, t, j in zip("qkv", (tq, tk, tv), j_grads):
+        j = np.asarray(j)
+        err = np.abs(t.grad.numpy() - j).max() / np.abs(j).max()
+        assert err < 1e-5, f"d{name}: relative error {err}"
+
+
+# head_dim 64 under the mask extras, GQA, with and without rope:
+# (q_len, window, prefix_len, rope)
+D64_MASK_CASES = [
+    (64, 24, None, True),
+    (64, None, 16, False),
+    (72, 20, 9, True),
+]
+
+
+@pytest.mark.parametrize("q_len,window,prefix,rope", D64_MASK_CASES)
+def test_head_dim_64_masks_match_jax(q_len, window, prefix, rope):
+    """K1-K4's plain versions at head_dim 64 under a sliding window and
+    a prefix-LM mask against JAX flash_attention with 16-row blocks,
+    outputs and grads (f32, the tolerances above)."""
+    rng = np.random.RandomState(6)
+    B, H, KVH, D = 1, 4, 2, 64
+    q = rng.randn(B, H, q_len, D).astype(np.float32)
+    k = rng.randn(B, KVH, q_len, D).astype(np.float32)
+    v = rng.randn(B, KVH, q_len, D).astype(np.float32)
+    do = rng.randn(B, H, q_len, D).astype(np.float32)
+    cos, sin = _rope_tables(B, q_len, D) if rope else (None, None)
+    mask = {"window": window, "prefix_len": prefix}
+
+    def jax_out(q, k, v):
+        return jax_flash(q, k, v, causal=True, block_q=16, block_k=16,
+                         rope_cos=cos, rope_sin=sin, **mask)
+
+    j_o = np.asarray(jax_out(q, k, v))
+    j_grads = jax.grad(
+        lambda *a: jnp.sum(jax_out(*a) * do), argnums=(0, 1, 2))(q, k, v)
+    tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    tables = ({} if not rope else
+              {"rope_cos": torch.tensor(cos), "rope_sin": torch.tensor(sin)})
+    t_o = port.flash_attention(tq, tk, tv, causal=True, **tables, **mask)
     (t_o * torch.tensor(do)).sum().backward()
 
     np.testing.assert_allclose(t_o.detach().numpy(), j_o, atol=1e-5)

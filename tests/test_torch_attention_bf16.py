@@ -32,6 +32,9 @@ CASES = {
     "causal": (1, 4, 2, 128, 128, None, None),
     "window": (1, 4, 2, 128, 128, 48, None),
     "window-prefix": (1, 4, 1, 96, 128, 40, 24),
+    # head_dim 64, the GPT-2 family's width
+    "d64-causal": (1, 4, 2, 128, 64, None, None),
+    "d64-window-prefix": (1, 4, 1, 96, 64, 40, 24),
 }
 
 

@@ -111,6 +111,34 @@ def test_flash_attention_bshd_matches_jax(case, fused):
     _close_grads((t.grad for t in (tq, tk, tv)), j_grads, ("dq", "dk", "dv"))
 
 
+@pytest.mark.parametrize("fused", [True, False])
+def test_flash_attention_bshd_head_dim_64_matches_jax(fused):
+    """The public function at head_dim 64 (GQA, window and prefix),
+    outputs and grads, against the JAX function. On the card the port
+    (like the JAX package outside interpret mode) takes K1-K4 on
+    transposed views at any head_dim but 128; on the CPU both routes are
+    the plain versions, so both settings of ``fused`` hold the same
+    function."""
+    rng = np.random.RandomState(3)
+    B, H, KVH, S, Dh = 1, 4, 2, 48, 64
+    q, do = (rng.randn(B, S, H, Dh).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(B, S, KVH, Dh).astype(np.float32) for _ in range(2))
+    mask = {"causal": True, "window": 20, "prefix_len": 9}
+
+    def jax_out(q, k, v):
+        return jax_bshd(q, k, v, block_q=BLOCK, block_k=BLOCK, fused=fused,
+                        interpret=True, **mask)
+
+    j_o = np.asarray(jax_out(q, k, v))
+    j_grads = jax.grad(
+        lambda *a: jnp.sum(jax_out(*a) * do), argnums=(0, 1, 2))(q, k, v)
+    tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    t_o = port.flash_attention_bshd(tq, tk, tv, fused=fused, **mask)
+    (t_o * torch.tensor(do)).sum().backward()
+    np.testing.assert_allclose(t_o.detach().numpy(), j_o, atol=1e-5)
+    _close_grads((t.grad for t in (tq, tk, tv)), j_grads, ("dq", "dk", "dv"))
+
+
 def test_cpu_path_counts_no_launch():
     port.reset_launches()
     q = torch.zeros(1, 8, 2, 16, requires_grad=True)

@@ -206,25 +206,25 @@ def test_per_head_kernels_on_transposed_views(cuda):
 
 
 def _backward_inputs(cuda, seed, B, H, KVH, q_len, kv_len, rope, mask,
-                     transposed=False):
-    """Seeded bf16 q/k/v/do (as [B, S, heads, D] transposes when
-    ``transposed``), rope tables or None, and the arguments K3/K4 and
-    their plain versions take, with lse and delta from the plain
-    forward."""
+                     transposed=False, D=128):
+    """Seeded bf16 q/k/v/do of head width D (as [B, S, heads, D]
+    transposes when ``transposed``), rope tables or None, and the
+    arguments K3/K4 and their plain versions take, with lse and delta
+    from the plain forward."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
 
     def randn(heads, S):
         if transposed:
-            return torch.randn(B, S, heads, 128, generator=gen, device=cuda
+            return torch.randn(B, S, heads, D, generator=gen, device=cuda
                                ).to(torch.bfloat16).transpose(1, 2)
-        return torch.randn(B, heads, S, 128, generator=gen,
+        return torch.randn(B, heads, S, D, generator=gen,
                            device=cuda).to(torch.bfloat16)
 
     q, k, v, do = (randn(H, q_len), randn(KVH, kv_len), randn(KVH, kv_len),
                    randn(H, q_len))
     cos = sin = None
     if rope:
-        ang = torch.randn(B, q_len, 64, generator=gen, device=cuda)
+        ang = torch.randn(B, q_len, D // 2, generator=gen, device=cuda)
         cos = torch.cat([ang.cos()] * 2, -1).to(torch.bfloat16)
         sin = torch.cat([ang.sin()] * 2, -1).to(torch.bfloat16)
     o_p, lse_p = att.flash_fwd_plain(q, k, v, cos, sin, *mask)
@@ -316,6 +316,98 @@ def test_backward_kernels_on_transposed_views(cuda):
         _check_backward_kernels(args)
 
 
+FLASH = ("flash_fwd", "flash_bwd_preprocess", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+@pytest.mark.parametrize("B,H,KVH,S,rope,window,prefix", [
+    (8, 25, 25, 256, False, None, None),  # gpt2-1.5b's heads, no rope
+    (2, 8, 2, 200, True, None, None),     # GQA, ragged
+    (1, 4, 2, 1000, True, None, None),    # ragged against 128-row tiles
+    (1, 2, 2, 48, True, None, None),      # shorter than one 64-row tile
+    (1, 8, 2, 700, True, 200, None),      # a window of 200
+    (1, 4, 1, 500, False, 160, 150),      # window and prefix, MQA
+])
+def test_head_dim_64_kernels_match_plain(cuda, B, H, KVH, S, rope, window,
+                                         prefix):
+    """K1-K4's head_dim 64 build: through flash_attention (each kernel
+    launched once), then K3 and K4 on their own, against the plain
+    versions."""
+    mask = (True, 64 ** -0.5, window, prefix)
+    args = _backward_inputs(cuda, 12, B, H, KVH, S, S, rope, mask, D=64)
+    q, k, v, do, _lse, _delta, cos, sin = args[:8]
+    before = att.launches()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = att.flash_attention(*leaves, rope_cos=cos, rope_sin=sin,
+                              window=window, prefix_len=prefix)
+    out.backward(do)
+    torch.cuda.synchronize()
+    after = att.launches()
+    assert all(after[n] == before[n] + 1 for n in FLASH)
+    o_p, _ = att.flash_fwd_plain(q, k, v, cos, sin, *mask)
+    dk_p, dv_p = att.flash_bwd_dkv_plain(*args)
+    assert _rel(out, o_p) < 2e-2
+    assert _rel(leaves[0].grad, att.flash_bwd_dq_plain(*args)) < 3e-2
+    assert _rel(leaves[1].grad, dk_p) < 3e-2
+    assert _rel(leaves[2].grad, dv_p) < 3e-2
+    _check_backward_kernels(args)
+
+
+def test_head_dim_64_on_the_gpt2_qkv_views(cuda):
+    """K1-K4 at head_dim 64 on q/k/v viewed from one [B, S, 3*H*64]
+    projection, as models/gpt2.py passes them (row stride 3*H*64, read
+    in place), gradients back into the projection, against the plain
+    chain on the same views."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    B, S, H = 2, 300, 5
+    qkv = torch.randn(B, S, 3 * H * 64, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    do = torch.randn(B, H, S, 64, generator=gen, device=cuda).to(
+        torch.bfloat16)
+
+    def views(t):
+        return t.view(B, S, 3, H, 64).transpose(1, 3).unbind(2)
+
+    leaf = qkv.clone().requires_grad_()
+    q, k, v = views(leaf)
+    assert q.stride() == (S * 3 * H * 64, 64, 3 * H * 64, 1)
+    out = att.flash_attention(q, k, v)
+    out.backward(do)
+    ref_leaf = qkv.float().requires_grad_()
+    ref = att.mha_reference(*views(ref_leaf))
+    ref.backward(do.float())
+    assert _rel(out, ref) < 2e-2
+    for i in range(3):
+        got = leaf.grad.view(B, S, 3, H * 64)[:, :, i]
+        want = ref_leaf.grad.view(B, S, 3, H * 64)[:, :, i]
+        assert _rel(got, want) < 3e-2
+
+
+def test_bshd_head_dim_64_runs_k1_to_k4(cuda):
+    """flash_attention_bshd at head_dim 64 (its default fused=True)
+    takes K1-K4 on transposed views, as the JAX package routes head_dim %
+    128 != 0 on the TPU; K9-K11 are not launched."""
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    B, S, H, KVH = 2, 200, 8, 2
+    q, do = (torch.randn(B, S, H, 64, generator=gen, device=cuda).to(
+        torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(B, S, KVH, 64, generator=gen, device=cuda).to(
+        torch.bfloat16) for _ in range(2))
+    before = att.launches()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = att.flash_attention_bshd(*leaves)
+    out.backward(do)
+    torch.cuda.synchronize()
+    after = att.launches()
+    assert {n: after[n] - before[n] for n in after} == {
+        n: int(n in FLASH) for n in after}
+    ref_leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    ref = att.mha_reference(*(t.transpose(1, 2) for t in ref_leaves))
+    ref.transpose(1, 2).backward(do.float())
+    assert _rel(out, ref.transpose(1, 2)) < 2e-2
+    for got, want in zip(leaves, ref_leaves):
+        assert _rel(got.grad, want.grad) < 3e-2
+
+
 @pytest.mark.parametrize("B,H,KVH,S", [
     (2, 8, 8, 512),    # the [seq4] run's block shape (at B2), diagonal
     (1, 8, 2, 1000),   # GQA g = 4, ragged against 64- and 128-row tiles
@@ -395,9 +487,16 @@ def test_dq_heads_runs_the_dq_loop(cuda, B, H, KVH, S, window, prefix):
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    # K1-K4 take head_dim 64 and 128; K9-K14 128 only (ROADMAP R8)
+    q96 = torch.zeros(1, 2, 16, 96, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="R8"):
+        att.flash_fwd(q96, q96, q96, None, None, True, 0.125)
+    with pytest.raises(NotImplementedError, match="R8"):
+        att.flash_bwd_preprocess(q96, q96)
     q = torch.zeros(1, 2, 16, 64, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="head_dim"):
-        att.flash_fwd(q, q, q, None, None, True, 0.125)
+    with pytest.raises(NotImplementedError, match="R8"):
+        att.flash_fwd_heads(q.view(1, 16, 128), q.view(1, 16, 128),
+                            q.view(1, 16, 128), 2, True, 0.125)
     q32 = torch.zeros(1, 2, 16, 128, device=cuda)
     with pytest.raises(TypeError, match="bfloat16"):
         att.flash_fwd(q32, q32, q32, None, None, True, 0.125)
@@ -405,7 +504,7 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     kv3 = torch.zeros(1, 16, 128, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="divide"):
         att.flash_fwd_heads(q3, kv3, kv3, 3, True, 0.125)
-    with pytest.raises(NotImplementedError, match="head_dim"):
+    with pytest.raises(NotImplementedError, match="R8"):
         att.flash_ring_fwd(q, q, q, 16, 0, 0.125)
     with pytest.raises(TypeError, match="bfloat16"):
         att.flash_ring_dq(q32, q32, q32, q32, q32[..., 0], q32[..., 0], 16,
