@@ -141,7 +141,18 @@ Phases, each fatal on failure (no exception is caught):
    step, its state off the card, the peak memory it saves against
    adamw) and the decoupled WSAM step over torch AdamW (two passes: K1-K4
    32 a step), each with losses finite and falling and K1-K4 16 a step
-   per pass; then ``[gpt2]``: gpt2-124m's logits (12 layers, full width,
+   per pass; ``[mesh1]``: the data/fsdp/tensor path at one rank, a
+   one-rank NCCL process group (``file://`` store) and nano-350m
+   through ``auto_accelerate`` under ``MeshConfig(fsdp=-1)`` with its
+   logical axes, every param and moment a DTensor on a one-rank
+   DeviceMesh (the adamw run's batch: losses within 1e-5 relative of
+   it, K1-K4 16 a step; step ms, host enqueue ms and peak memory beside
+   the unsharded run's), then the example's chain, whose planner's mesh
+   is a DeviceMesh under the one-rank group: a sharded save to shm (its blocking ms), a fresh
+   Trainer's restore (every leaf's local shard ``torch.equal``,
+   placements kept; its seconds) and 2 more steps within 1e-5
+   (relative) of the first Trainer's continuation; the group destroyed
+   after; then ``[gpt2]``: gpt2-124m's logits (12 layers, full width,
    head_dim 64) through the flash branch and the bshd route against the
    reference branch; gpt2-1.5b at full width and depth (48 layers, dim
    1600, 25 heads, mlp 6400, vocab 50257) through ``Trainer``: B8 S1024,
@@ -1289,14 +1300,15 @@ def attention_launches(cfg, steps, seq=1, fwd_runs=1):
 
 def train_run(cfg, label, factory, strategy, steps=5, B=8, S=2048,
               optimizer=None, fwd_runs=1, init=None, config="nano-350m",
-              time_opt=None):
+              time_opt=None, axes=None):
     """``steps`` train steps on one repeated seeded batch; returns (res,
     state, batch, losses, launches, summary). Uniform random tokens hold
     nothing a model can learn across batches, so only a repeated batch
     makes a falling loss show that the step learns. ``optimizer`` names
     the optimizer in the summary (default: ``label``); ``init`` replaces
     ``llama_init`` (same signature); ``config`` names the model in the
-    summary; ``time_opt`` replaces ``time_optimizer_steps``."""
+    summary; ``time_opt`` replaces ``time_optimizer_steps``; ``axes``
+    (logical axes by param name) places the params on a DeviceMesh."""
     from dlrover_tpu_torch.common import mfu
     from dlrover_tpu_torch.models import llama_init, llama_loss_fn
     from dlrover_tpu_torch.parallel import auto_accelerate
@@ -1304,7 +1316,7 @@ def train_run(cfg, label, factory, strategy, steps=5, B=8, S=2048,
     res = auto_accelerate(
         llama_loss_fn(cfg),
         init or (lambda seed, device: llama_init(cfg, seed, device)),
-        factory, strategy, device="cuda", seed=0)
+        factory, strategy, device="cuda", seed=0, param_logical_axes=axes)
     state = res.state
     opt_events = (time_opt or time_optimizer_steps)(state.optimizer)
     batch = synthetic_batch(cfg.vocab_size, S, B, 0)
@@ -1459,7 +1471,193 @@ def train_slice(steps: int = 5):
     release()
     ce_chunk_runs(cfg, steps, adamw_losses, none_summary, ce1_rows)
     optimizer_runs(cfg, none_summary)
+    release()
+    # the data, fsdp and tensor axes' path: DTensor state on a one-rank
+    # NCCL DeviceMesh
+    mesh1_phase(cfg, steps, adamw_losses, none_summary)
     return launches
+
+
+# --------------------------------------------------------------- [mesh1]
+
+MESH1_STEPS = 5
+MESH1_MORE = 2
+
+
+def mesh1_phase(cfg, steps, adamw_losses, none_summary):
+    """[mesh1]: the sharded path (parallel/accelerate.py on a DeviceMesh)
+    at one rank. A one-rank NCCL process group from a ``file://`` store
+    (``init_distributed`` makes none at world 1); then nano-350m through
+    ``auto_accelerate`` under ``MeshConfig(fsdp=-1)`` with the logical
+    axes, so every param and moment is a DTensor on a one-rank
+    DeviceMesh: the repeated batch of the adamw run, losses within
+    LOSS_TOL (relative) of that unsharded run, K1-K4 16 a step; then the
+    example's chain, the planner's mesh under the same group: a sharded save
+    to shm at step MESH1_STEPS, its blocking ms, and a fresh Trainer's
+    restore from shm, every leaf ``torch.equal`` (a DTensor's local
+    shard, placements kept) and its losses over MESH1_MORE more steps
+    within LOSS_TOL of the first Trainer's continuation. The group is
+    destroyed at the end, also when a check fails. No fallback: without
+    NCCL or a kernel the phase raises."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.models import llama_logical_axes
+    from dlrover_tpu_torch.parallel import MeshConfig, Strategy, set_mesh
+    from dlrover_tpu_torch.trainer import build_optimizer
+
+    if not dist.is_nccl_available():
+        raise SystemExit("mesh1: this torch has no NCCL")
+    if dist.is_initialized():
+        raise SystemExit("mesh1: a process group already exists")
+    store = tempfile.mkdtemp(prefix="mesh1")
+    t_phase = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                            rank=0, world_size=1)
+    try:
+        res, state, _b, losses, counts, summary = train_run(
+            cfg, "mesh1", build_optimizer("adamw", SLICE_LR,
+                                          weight_decay=0.0),
+            Strategy(remat="none", mesh=MeshConfig(data=1, fsdp=-1)),
+            steps, optimizer="adamw", axes=llama_logical_axes(cfg))
+        log(f"  [mesh1] {res.strategy.describe(res.mesh)}")
+        kinds = {type(p).__name__ for p in state.params.values()}
+        moments = {type(m).__name__ for st in state.optimizer.state.values()
+                   for k, m in st.items() if k != "step"}
+        if kinds != {"DTensor"} or moments != {"DTensor"}:
+            raise SystemExit(f"mesh1: params {kinds}, moments {moments}: "
+                             "want DTensors")
+        profile_step(res, state, _b, "mesh1", top=8)
+        del res, state
+        release()
+        gap = loss_gap("mesh1", losses, adamw_losses, LOSS_TOL,
+                       relative=True, to="the unsharded adamw run")
+        job = os.environ["ELASTIC_JOB_NAME"]
+        with flash_env("mesh1", job):
+            chain = mesh1_chain(cfg, CKPT_DIR / "mesh1")
+    finally:
+        set_mesh(None)
+        dist.destroy_process_group()
+        import shutil
+
+        shutil.rmtree(store, ignore_errors=True)
+    report = {
+        "card": CARD["line"], "config": "nano-350m", "batch": 8,
+        "seq": 2048, "mesh": {"data": 1, "fsdp": 1},
+        "step_ms_median_2_to_5": summary["step_ms_median_2_to_5"],
+        "unsharded_step_ms_median_2_to_5": none_summary[
+            "step_ms_median_2_to_5"],
+        "host_enqueue_ms_median_2_to_5": summary[
+            "host_enqueue_ms_median_2_to_5"],
+        "unsharded_host_enqueue_ms_median_2_to_5": none_summary[
+            "host_enqueue_ms_median_2_to_5"],
+        "peak_mem_gib": summary["peak_mem_gib"],
+        "unsharded_peak_mem_gib": none_summary["peak_mem_gib"],
+        "opt_step_ms_median_2_to_5": summary["opt_step_ms_median_2_to_5"],
+        "unsharded_opt_step_ms_median_2_to_5": none_summary[
+            "opt_step_ms_median_2_to_5"],
+        "launches_per_step": {name: counts[name] // steps
+                              for name in FLASH_KERNELS},
+        "loss_gap_to_unsharded_relative": gap, "losses": losses,
+        **chain, "phase_s": time.perf_counter() - t_phase,
+    }
+    log(json.dumps({"mesh1": report}))
+
+
+def mesh1_chain(cfg, run_dir) -> dict:
+    """The example's chain on the one-rank mesh: MESH1_STEPS steps with a
+    save at the last, a fresh Trainer that restores it from shm."""
+    from torch.distributed.tensor import DTensor
+
+    from dlrover_tpu_torch.agent.ckpt_saver import AsyncCheckpointSaver
+    from dlrover_tpu_torch.examples.llama_pretrain import build_trainer
+
+    def argv(steps):
+        out = example_argv(run_dir, steps)
+        for flag, value in (("--save-steps", str(MESH1_STEPS)),
+                            ("--save-storage-every", "1000")):
+            out[out.index(flag) + 1] = value
+        return out
+
+    def local_leaves(trainer):
+        return {name: (leaf.to_local(), tuple(leaf.placements))
+                if isinstance(leaf, DTensor) else (leaf, None)
+                for name, leaf in ckpt_leaves(trainer).items()}
+
+    def check(got, want):
+        if {k: v[1] for k, v in got.items()} != {
+                k: v[1] for k, v in want.items()}:
+            raise SystemExit("mesh1: restored placements differ")
+        return check_restored("mesh1: restore from shm",
+                              {k: v[0] for k, v in got.items()},
+                              {k: v[0] for k, v in want.items()})
+
+    a = build_trainer(argv(MESH1_STEPS), device="cuda")
+    if a._accel.mesh.device_mesh is None:
+        raise SystemExit("mesh1: the example's Trainer has no DeviceMesh")
+    losses = record_losses(a)
+    saves = []
+    inner_save = a.save_checkpoint
+
+    def timed_save(persist=False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = inner_save(persist=persist)
+        saves.append({"step": a.global_step, "persist": persist,
+                      "saved": ok,
+                      "blocking_ms": (time.perf_counter() - t0) * 1e3,
+                      **a._engine.last_save_stats})
+        return ok
+
+    a.save_checkpoint = timed_save
+    reset_launches()
+    a.train()
+    launches = launch_counts()
+    for name, want in attention_launches(cfg, MESH1_STEPS).items():
+        if launches[name] != want:
+            raise SystemExit(f"mesh1 chain: {name} launched "
+                             f"{launches[name]} times, want {want}")
+    if not saves or not all(r["saved"] for r in saves):
+        raise SystemExit(f"mesh1: a save was skipped: {saves}")
+    log(f"  [mesh1] saves: {saves}")
+    want = local_leaves(a)
+    a.close()
+    a._engine = None
+
+    AsyncCheckpointSaver.reset()
+    b = build_trainer(argv(MESH1_STEPS + MESH1_MORE), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = b.maybe_resume()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if step != MESH1_STEPS:
+        raise SystemExit(f"mesh1: restored step {step}, want {MESH1_STEPS}")
+    restored_bytes = check(local_leaves(b), want)
+    stats = dict(b._engine.last_restore_stats)
+    del want
+    b.close()
+    b._engine = None
+    a.args.max_steps = b.args.max_steps
+    a.train()
+    ref = [x.item() for x in losses[MESH1_STEPS:]]
+    del a
+    b_losses = record_losses(b)
+    b.train()
+    got = [x.item() for x in b_losses]
+    log(f"  [mesh1] restore from shm {restore_s:.3f} s ({stats}); after "
+        f"it: losses {got}, uninterrupted {ref}")
+    if len(got) != MESH1_MORE:
+        raise SystemExit(f"mesh1: {len(got)} steps after the restore")
+    gap = loss_gap("mesh1-restore", got, ref, LOSS_TOL, relative=True,
+                   to="the uninterrupted run")
+    del b
+    release()
+    return {"save_blocking_ms": [r["blocking_ms"] for r in saves],
+            "saves": saves, "restore_from_shm_s": restore_s,
+            "restore_stats": stats, "restored_bytes": restored_bytes,
+            "loss_gap_after_restore": gap}
 
 
 def loss_gap(label, losses, adamw_losses, limit=2e-2, relative=False,

@@ -667,7 +667,10 @@ class AsyncCheckpointSaver:
     """Agent-side daemon: listens for save events from the training
     process and persists shm checkpoints to storage in the background.
 
-    One instance per host; handles all local ranks' shm segments.
+    One instance per host; handles all local ranks' shm segments. A
+    process without an agent runs its own, serving only its own segment
+    (``local_ranks``) while the commit still counts every local rank's
+    shard.
     """
 
     _saver_instance: "AsyncCheckpointSaver | None" = None
@@ -682,9 +685,14 @@ class AsyncCheckpointSaver:
         master_client=None,
         storage=None,
         deletion_strategy=None,
+        local_ranks=None,
     ):
         self.checkpoint_dir = checkpoint_dir
         self.local_shard_num = local_shard_num
+        # the local ranks whose segments this saver serves (all of them
+        # for an agent's)
+        self.local_ranks = (tuple(range(local_shard_num))
+                            if local_ranks is None else tuple(local_ranks))
         self.host_rank = host_rank
         self.num_hosts = num_hosts
         self._master_client = master_client
@@ -726,25 +734,25 @@ class AsyncCheckpointSaver:
                     "already manages retention"
                 )
         self._storage = storage
-        self._shm_handlers = [
-            SharedMemoryHandler(i) for i in range(local_shard_num)
-        ]
-        self._shm_locks = [
-            SharedLock(lock_name(i), create=True)
-            for i in range(local_shard_num)
-        ]
-        self._event_queues = [
-            SharedQueue(event_queue_name(i), create=True)
-            for i in range(local_shard_num)
-        ]
+        self._shm_handlers = {
+            i: SharedMemoryHandler(i) for i in self.local_ranks
+        }
+        self._shm_locks = {
+            i: SharedLock(lock_name(i), create=True)
+            for i in self.local_ranks
+        }
+        self._event_queues = {
+            i: SharedQueue(event_queue_name(i), create=True)
+            for i in self.local_ranks
+        }
         # persist-completion wakeups (bounded: a slow/absent consumer
         # must not grow agent memory — stale hints are droppable, the
         # tracker file is the source of truth)
-        self._done_queues = [
-            SharedQueue(persist_done_queue_name(i), create=True,
-                        maxsize=64)
-            for i in range(local_shard_num)
-        ]
+        self._done_queues = {
+            i: SharedQueue(persist_done_queue_name(i), create=True,
+                           maxsize=64)
+            for i in self.local_ranks
+        }
         self._stopped = threading.Event()
         self._threads: list[threading.Thread] = []
         # high-water mark shared by every per-rank saver thread and the
@@ -762,7 +770,7 @@ class AsyncCheckpointSaver:
     # -- lifecycle ---------------------------------------------------------
 
     def start(self):
-        for i in range(self.local_shard_num):
+        for i in self.local_ranks:
             t = threading.Thread(
                 target=self._sync_shm_to_storage,
                 args=(i,),
@@ -782,7 +790,7 @@ class AsyncCheckpointSaver:
         # wake event threads blocked in q.get so the join is immediate,
         # then bound-join: callers may delete the checkpoint dir right
         # after stop(), and an in-flight persist must not recreate it.
-        for q in self._event_queues:
+        for q in self._event_queues.values():
             try:
                 q.put(None)
             except Exception:  # noqa: BLE001
@@ -1108,7 +1116,7 @@ class AsyncCheckpointSaver:
     def save_shm_to_storage(self):
         """Flush every local shard currently in shm to storage — called
         when a worker dies or the agent gets SIGTERM (reference :622)."""
-        for local_rank in range(self.local_shard_num):
+        for local_rank in self.local_ranks:
             self._shm_handlers[local_rank].refresh()
             result = self._shm_handlers[local_rank].read()
             if result is None:

@@ -26,6 +26,11 @@ segment (and unlinks it after a clean finish):
     python -m dlrover_tpu_torch.trainer.run --nnodes 1 --nproc_per_node 1 \
         dlrover_tpu_torch/examples/llama_pretrain.py --steps 20
 
+On a process group (one made by the caller, or by ``init_distributed``)
+the params are DTensors on the planner's DeviceMesh, and the sampler
+takes this rank's replica along the batch axes, so the tensor ranks of
+one replica read the same rows.
+
 On the card the twin creates its CUDA context and loads every kernel
 library before the Trainer is built, and records those legs in a
 ``worker.startup`` telemetry event.
@@ -93,7 +98,8 @@ def build_trainer(argv=None, device=None):
     from dlrover_tpu_torch.device import resolve_device
 
     device = resolve_device(device)
-    torch_trainer.init_distributed(device)
+    if not torch.distributed.is_initialized():
+        torch_trainer.init_distributed(device)
     startup = {"imported_at": IMPORTED_AT,
                "restart": int(os.environ.get(NodeEnv.RESTART_COUNT, "0"))}
     if device.type == "cuda":
@@ -110,8 +116,14 @@ def build_trainer(argv=None, device=None):
         startup["kernel_load_s"] = time.perf_counter() - t0
     telemetry.event("worker.startup", **startup)
 
-    from dlrover_tpu_torch.models import PRESETS, llama_init, llama_loss_fn
+    from dlrover_tpu_torch.models import (
+        PRESETS,
+        llama_init,
+        llama_logical_axes,
+        llama_loss_fn,
+    )
     from dlrover_tpu_torch.parallel import auto_strategy
+    from dlrover_tpu_torch.parallel.mesh import batch_place
     from dlrover_tpu_torch.trainer import Trainer, TrainingArgs
     from dlrover_tpu_torch.trainer.elastic import (
         ElasticDataLoader,
@@ -131,6 +143,10 @@ def build_trainer(argv=None, device=None):
         hbm_gb=hbm_gb,
         devices_per_host=max(torch.cuda.device_count(), 1),
     )
+    # this rank's replica along the batch axes: a tensor axis' ranks of
+    # one replica read the same rows (one process per card, so the rank
+    # alone would split them)
+    replica, replicas = batch_place(strategy.mesh)
 
     dataset = synthetic_token_stream(
         config.vocab_size, args.seq_len, n_samples=1 << 16
@@ -140,8 +156,8 @@ def build_trainer(argv=None, device=None):
         batch_size=args.batch_size,
         sampler=ElasticSampler(
             len(dataset),
-            num_replicas=max(torch_trainer.world_size(), 1),
-            rank=torch_trainer.global_rank(),
+            num_replicas=replicas,
+            rank=replica,
             shuffle=True,
         ),
         collate_fn=lambda rows: {"tokens": np.stack(rows)},
@@ -150,7 +166,7 @@ def build_trainer(argv=None, device=None):
     trainer = Trainer(
         llama_loss_fn(config),
         lambda seed, dev: llama_init(config, seed, dev),
-        None,  # the port shards nothing: no logical axes
+        llama_logical_axes(config),
         TrainingArgs(
             output_dir=args.output_dir,
             max_steps=args.steps,

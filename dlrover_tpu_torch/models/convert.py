@@ -5,7 +5,10 @@ port's.
 or ``gpt2_init`` returns and ``opt_state_from_jax`` an optax state of the JAX package's
 8-bit or fused Adam or AGD, each with its leaves already turned into numpy
 arrays (for example ``jax.tree.map(np.asarray, tree)``), so that this
-module needs neither jax nor the JAX package.
+module needs neither jax nor the JAX package. On a DeviceMesh both give
+DTensors: the params placed by their logical axes under the rule table,
+the moments as their params are placed (the JAX package's
+``compute_state_shardings``).
 """
 
 from __future__ import annotations
@@ -14,7 +17,8 @@ import numpy as np
 import torch
 
 
-def params_from_jax(params_np: dict, device="cpu") -> dict:
+def params_from_jax(params_np: dict, device="cpu", device_mesh=None,
+                    logical_axes=None, rules=None) -> dict:
     """Nested JAX Llama or GPT-2 params (numpy leaves) -> the port's flat
     dict.
 
@@ -29,9 +33,20 @@ def params_from_jax(params_np: dict, device="cpu") -> dict:
     ("flash", "bshd", "reference") uses these same leaves: the layouts
     differ only in how the projections' outputs are viewed. ``device`` is
     where the tensors are placed (the CPU unless the caller asks
-    otherwise)."""
-    return {name: torch.from_numpy(np.array(leaf, copy=True)).to(device)
-            for name, leaf in _by_name(params_np).items()}
+    otherwise). With a ``device_mesh`` each leaf becomes a DTensor there,
+    placed by its ``logical_axes`` entry (``llama_logical_axes``) under
+    ``rules`` (the default table when None; a leaf without axes is
+    replicated): every rank passes the same arrays and keeps its
+    shard."""
+    out = {name: torch.from_numpy(np.array(leaf, copy=True)).to(device)
+           for name, leaf in _by_name(params_np).items()}
+    if device_mesh is None:
+        return out
+    from dlrover_tpu_torch.parallel.sharding import distribute_logical
+
+    axes = logical_axes or {}
+    return {name: distribute_logical(t, axes.get(name), device_mesh, rules)
+            for name, t in out.items()}
 
 
 def _by_name(tree) -> dict:
@@ -67,7 +82,7 @@ def _named(name):
 
 
 _STATE_KINDS = ("ScaleByAdam8bitState", "FusedAdamState",
-                "FusedAdam8bitState", "ScaleByAgdState")
+                "FusedAdam8bitState", "ScaleByAgdState", "ScaleByAdamState")
 
 
 def opt_state_from_jax(state_np, optimizer) -> dict:
@@ -79,8 +94,12 @@ def opt_state_from_jax(state_np, optimizer) -> dict:
     of ``fused_adamw(bits=32)`` / ``fused_adamw(bits=8)``
     (``FusedAdamState`` / ``FusedAdam8bitState``, flat), or of ``agd``
     (a chain that holds a ``ScaleByAgdState``: moment trees and one
-    count). ``optimizer`` is the port's ``Adam8bit``, ``FusedAdamW`` or
-    ``AGD`` over the same params. The first two take them in the JAX leaf
+    count), or of ``optax.adam``/``adamw`` (a ``ScaleByAdamState``: mu,
+    nu and one count). ``optimizer`` is the port's ``Adam8bit``,
+    ``FusedAdamW`` or ``AGD``, or torch's ``Adam``/``AdamW``, over the
+    same params; torch's take their moments by param name, as AGD does,
+    each placed as its param is (a DTensor's moments are DTensors with
+    its placements). The first two take them in the JAX leaf
     order (as ``auto_accelerate`` gives them); ``AGD``'s moments are
     matched by name, so its params must be named (``param_names`` in its
     groups, as ``auto_accelerate`` gives them). The flat arrays lose the
@@ -105,6 +124,9 @@ def opt_state_from_jax(state_np, optimizer) -> dict:
         return torch.from_numpy(np.array(a, copy=True)).to(device)
 
     out = optimizer.state_dict()
+    if type(st).__name__ == "ScaleByAdamState":
+        out["state"] = _adam_state(st, optimizer)
+        return out
     state = {"count": int(np.asarray(st.count))}
     if type(st).__name__ == "ScaleByAgdState":
         slots = {"mu": _by_name(st.mu), "nu": _by_name(st.nu)}
@@ -136,3 +158,30 @@ def opt_state_from_jax(state_np, optimizer) -> dict:
                 state[key] = tensor(getattr(st, key), rows)
     out["state"] = state
     return out
+
+
+def _adam_state(st, optimizer) -> dict:
+    """torch Adam/AdamW per-param state from an optax ``ScaleByAdamState``,
+    by param name; each moment on its param's device and placements."""
+    names = [n for g in optimizer.param_groups
+             for n in g.get("param_names", ())]
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    if len(names) != len(params):
+        raise ValueError("Adam's moments are matched by param name: build "
+                         "the optimizer over named params")
+    mu, nu = _by_name(st.mu), _by_name(st.nu)
+    step = float(np.asarray(st.count))
+
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    def like(a, p):
+        t = torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+        if isinstance(p, DTensor):
+            return distribute_tensor(t.to(p.device), p.device_mesh,
+                                     p.placements, src_data_rank=None)
+        return t.to(p.device)
+
+    return {i: {"step": torch.tensor(step),
+                "exp_avg": like(mu[name], p),
+                "exp_avg_sq": like(nu[name], p)}
+            for i, (name, p) in enumerate(zip(names, params))}

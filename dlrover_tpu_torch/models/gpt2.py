@@ -18,6 +18,14 @@ bshd route at head_dim 64 is K1-K4 on transposed views, and the ring's
 kernels K12-K14 are built for head_dim 128 only (ROADMAP R8), so on the
 card a seq axis raises here.
 
+Sharded params (DTensors on a DeviceMesh, parallel/accelerate.py): the
+``data`` and ``fsdp`` axes run as the Llama model runs them, each
+layer's slice gathered over the axes that shard it and the rows this
+rank's. A ``tensor`` axis raises (ROADMAP Queue 1 item 7): the JAX
+package splits ``w_qkv``'s fused ``3*dim`` columns as one ``heads`` dim,
+so a contiguous shard holds all of q and half of k, and local compute
+needs a q/k/v-aware layout first.
+
 Rematerialisation: with ``config.remat`` (and gradients on) each layer
 runs under a non-reentrant checkpoint with the JAX layer scan's default
 policy, ``dots_with_no_batch_dims_saveable`` (``"dots_no_batch"``,
@@ -36,11 +44,13 @@ from dlrover_tpu_torch.models.llama import (
     _attention,
     _first_position,
     _positions,
+    sharded_loss,
 )
 from dlrover_tpu_torch.ops.attention import flash_attention
 from dlrover_tpu_torch.ops.cross_entropy import softmax_cross_entropy
 from dlrover_tpu_torch.parallel import remat as remat_lib
 from dlrover_tpu_torch.parallel.mesh import seq_ring
+from dlrover_tpu_torch.parallel.shard_ops import ShardContext
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,10 +218,14 @@ def _layer_norm(x, scale, bias, eps):
     return out.to(x.dtype)
 
 
-def _block(config: GPT2Config, x, p, ring=None):
+def _block(config: GPT2Config, x, p, ring=None, shard=None):
     """One pre-LN block. x: [B,S,D]; p: this layer's params (weights and
     biases in the compute dtype, norm params f32); ``ring``: the seq
-    axis' transport, or None."""
+    axis' transport, or None; ``shard``: (the mesh's ``ShardContext``,
+    the gathers of each param) when ``p`` holds local shards."""
+    if shard is not None:
+        ctx, gathers = shard
+        p = {k: ctx.gather(v, gathers[k]) for k, v in p.items()}
     B, S, D = x.shape
     h, hd = config.n_heads, config.head_dim
 
@@ -255,10 +269,32 @@ def gpt2_apply(config: GPT2Config, params: dict, tokens, positions=None):
 
     ``params`` are used in their own dtype except that embeddings,
     weights and biases are cast to ``config.dtype`` at their use, as the
-    JAX forward does (the norm params stay f32)."""
+    JAX forward does (the norm params stay f32). With DTensor params
+    ``tokens`` are this rank's rows, and so are the logits."""
     check_supported(config)
     dtype = getattr(torch, config.dtype)
     ring = seq_ring()
+    shard = ShardContext.of(params)
+    layer_shard = None
+    if shard is not None:
+        if shard.tensor_size > 1:
+            raise NotImplementedError(
+                "GPT-2 under a tensor axis is not ported yet (ROADMAP "
+                "Queue 1 item 7): w_qkv's fused 3*dim columns need a "
+                "q/k/v-aware split")
+        tokens = shard.local_rows(tokens)
+        if positions is not None:
+            positions = shard.local_rows(positions)
+        layer_shard = (shard, {
+            k: shard.gathers(params["layers." + k], drop_leading=1)
+            for k in LAYER_KEYS})
+        # every other param whole on every rank (the gathers' backward
+        # reduce-scatters their gradients)
+        params = {n: p if n.startswith("layers.") else shard.gather(
+                      shard.local(p), shard.gathers(p))
+                  for n, p in params.items()}
+        params.update({"layers." + k: shard.local(params["layers." + k])
+                       for k in LAYER_KEYS})
     embed = params["embed"].to(dtype)
     x = _gpt2_embed(config, embed, params["pos_embed"].to(dtype), tokens,
                     positions, ring)
@@ -275,9 +311,9 @@ def gpt2_apply(config: GPT2Config, params: dict, tokens, positions=None):
         p = {k: v[i] for k, v in stacks.items()}
         if remat:
             x = remat_lib.checkpoint(_block, config, x, p, ring,
-                                     policy=policy)
+                                     layer_shard, policy=policy)
         else:
-            x = _block(config, x, p, ring)
+            x = _block(config, x, p, ring, layer_shard)
 
     x = _layer_norm(x, params["final_ln_scale"], params["final_ln_bias"],
                     config.norm_eps)
@@ -289,10 +325,15 @@ def gpt2_loss_fn(config: GPT2Config):
     """Next-token CE loss closure for auto_accelerate:
     ``loss_fn(params, batch, rng) -> scalar``, the mean over valid
     labels. ``batch["tokens"]`` [B, S+1] is shifted into inputs and
-    labels, unless ``batch["labels"]`` [B, S] comes with them."""
+    labels, unless ``batch["labels"]`` [B, S] comes with them. With
+    DTensor params the batch is this rank's rows and the loss this rank's
+    term of the global mean (``llama.sharded_loss``)."""
     check_supported(config)
 
     def loss_fn(params, batch, rng):
+        shard = ShardContext.of(params)
+        if shard is not None:
+            batch = {k: shard.local_rows(v) for k, v in batch.items()}
         tokens = batch["tokens"]
         if "labels" in batch:
             # already shifted (a seq rank's slice, parallel/accelerate.py)
@@ -301,6 +342,6 @@ def gpt2_loss_fn(config: GPT2Config):
             inputs, labels = tokens[:, :-1], tokens[:, 1:]
         logits = gpt2_apply(config, params, inputs)
         loss, valid = softmax_cross_entropy(logits, labels)
-        return loss.sum() / valid.sum().clamp(min=1)
+        return sharded_loss(shard, loss.sum(), valid.sum())
 
     return loss_fn

@@ -18,6 +18,18 @@ to [B,H,S,Dh], then ring attention over the ring-block kernels
 (parallel/sequence.py). What the port does not run yet raises
 ``NotImplementedError`` naming its ROADMAP item.
 
+Sharded params: when the params are DTensors on a ``DeviceMesh`` (the
+data, fsdp and tensor axes, parallel/accelerate.py), the forward takes
+each stack's local shard once, gathers each layer's slice over the axes
+that shard it but ``tensor`` (parallel/shard_ops.py), and computes on
+local tensors: ``H/t`` heads, ``KVH/t`` kv heads, ``M/t`` mlp columns
+and ``V/t`` vocab rows, the rows of this rank's batch. The embedding is
+looked up in this rank's vocab rows and summed over ``tensor``; the
+logits stay split on the vocab and the loss goes through
+``vocab_parallel_cross_entropy``. The attention kernels see plain
+tensors, as the JAX package's ``_sharded_flash`` shard_map hands its
+kernel local blocks.
+
 Rematerialisation: with ``config.remat`` (and gradients on) each layer
 runs under a non-reentrant checkpoint whose policy is
 ``config.remat_policy`` (parallel/remat.py: ``"dots_attn"``,
@@ -43,10 +55,12 @@ from dlrover_tpu_torch.ops.attention import (
 from dlrover_tpu_torch.ops.cross_entropy import (
     fused_linear_cross_entropy,
     softmax_cross_entropy,
+    vocab_parallel_cross_entropy,
 )
 from dlrover_tpu_torch.parallel import remat as remat_lib
 from dlrover_tpu_torch.parallel.mesh import axis_index, seq_ring
 from dlrover_tpu_torch.parallel.sequence import sequence_sharded_attention
+from dlrover_tpu_torch.parallel.shard_ops import ShardContext
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,6 +159,12 @@ PRESETS = {
 
 LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
               "w_up", "w_down")
+
+# the dim of each layer stack split over the ``tensor`` axis (None:
+# replicated), the layout the local compute is written for: q/k/v and
+# gate/up column-parallel, wo and w_down row-parallel
+TENSOR_DIMS = {"attn_norm": None, "wq": 2, "wk": 2, "wv": 2, "wo": 1,
+               "mlp_norm": None, "w_gate": 2, "w_up": 2, "w_down": 1}
 
 
 def check_supported(config: LlamaConfig) -> None:
@@ -306,13 +326,23 @@ def _attention(config, q, k, v, ring=None):
                          v.transpose(1, 2), causal=True).transpose(1, 2)
 
 
-def _layer(config: LlamaConfig, x, p, rope_cos, rope_sin, ring=None):
+def _layer(config: LlamaConfig, x, p, rope_cos, rope_sin, ring=None,
+           shard=None):
     """One transformer block. x: [B,S,D]; p: this layer's params;
-    ``ring``: the seq axis' transport, or None."""
+    ``ring``: the seq axis' transport, or None; ``shard``: (the mesh's
+    ``ShardContext``, the gathers of each param) when ``p`` holds local
+    shards, or None."""
     B, S, D = x.shape
-    h, kvh, hd = config.n_heads, config.n_kv_heads, config.head_dim
+    hd = config.head_dim
+    to_tensor = from_tensor = _identity
+    if shard is not None:
+        ctx, gathers = shard
+        p = {k: ctx.gather(v, gathers[k]) for k, v in p.items()}
+        to_tensor, from_tensor = ctx.to_tensor, ctx.from_tensor
+    # this rank's heads (all of them off a tensor axis)
+    h, kvh = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
 
-    y = _rms_norm(x, p["attn_norm"], config.norm_eps)
+    y = to_tensor(_rms_norm(x, p["attn_norm"], config.norm_eps))
     if _flash_path(config, ring):
         # projections viewed as [B,H,S,Dh] (no copies): the kernels read
         # heads and rows by stride
@@ -321,7 +351,8 @@ def _layer(config: LlamaConfig, x, p, rope_cos, rope_sin, ring=None):
         vt = (y @ p["wv"]).view(B, S, kvh, hd).transpose(1, 2)
         out = flash_attention(qt, kt, vt, causal=True, rope_cos=rope_cos,
                               rope_sin=rope_sin)
-        x = x + out.transpose(1, 2).reshape(B, S, h * hd) @ p["wo"]
+        x = x + from_tensor(
+            out.transpose(1, 2).reshape(B, S, h * hd) @ p["wo"])
     else:
         q = (y @ p["wq"]).view(B, S, h, hd)
         k = (y @ p["wk"]).view(B, S, kvh, hd)
@@ -329,11 +360,48 @@ def _layer(config: LlamaConfig, x, p, rope_cos, rope_sin, ring=None):
         q = _rope_apply(q, rope_cos, rope_sin)
         k = _rope_apply(k, rope_cos, rope_sin)
         attn = _attention(config, q, k, v, ring)
-        x = x + attn.reshape(B, S, h * hd) @ p["wo"]
+        x = x + from_tensor(attn.reshape(B, S, h * hd) @ p["wo"])
 
-    y = _rms_norm(x, p["mlp_norm"], config.norm_eps)
+    y = to_tensor(_rms_norm(x, p["mlp_norm"], config.norm_eps))
     mlp = F.silu(y @ p["w_gate"]) * (y @ p["w_up"])
-    return x + mlp @ p["w_down"]
+    return x + from_tensor(mlp @ p["w_down"])
+
+
+def _identity(x):
+    return x
+
+
+def _sharded_weight(shard, params, name, dtype, tensor_dim):
+    """A non-stacked param's local shard, cast, gathered over every axis
+    but ``tensor``; its ``tensor`` split must be on ``tensor_dim``."""
+    p = params[name]
+    shard.expect_tensor_dim(name, p, tensor_dim)
+    return shard.gather(shard.local(p).to(dtype), shard.gathers(p))
+
+
+def _embed(params, tokens, dtype, shard):
+    """The token embeddings [B, S, D]. On a ``tensor`` axis each rank looks
+    up the tokens of its vocab rows (zeros for the others), and the ranks'
+    rows are summed."""
+    if shard is None:
+        return F.embedding(tokens, params["embed"].to(dtype))
+    w = _sharded_weight(shard, params, "embed", dtype, 0)
+    if shard.tensor_size == 1:
+        return F.embedding(tokens, w)
+    local = tokens - shard.offset(params["embed"], 0)
+    hit = (local >= 0) & (local < w.shape[0])
+    x = F.embedding(local.clamp(0, w.shape[0] - 1), w)
+    return shard.from_tensor(x * hit[..., None].to(dtype))
+
+
+def check_tensor_heads(config, shard) -> None:
+    """The tensor axis must split whole heads: it divides n_heads and
+    n_kv_heads (each rank runs H/t q heads over KVH/t kv heads)."""
+    t = 1 if shard is None else shard.tensor_size
+    if config.n_heads % t or config.n_kv_heads % t:
+        raise ValueError(
+            f"a tensor axis of {t} must divide n_heads={config.n_heads} "
+            f"and n_kv_heads={config.n_kv_heads}")
 
 
 def llama_apply(config: LlamaConfig, params: dict, tokens, positions=None,
@@ -347,20 +415,40 @@ def llama_apply(config: LlamaConfig, params: dict, tokens, positions=None,
     process group), and positions default to their global positions.
     ``return_hidden=True`` returns the hidden states before the final
     norm, [B, S, dim] in ``config.dtype``, instead of logits (the chunked
-    CE applies the norm and the head itself, chunk by chunk)."""
+    CE applies the norm and the head itself, chunk by chunk). With
+    DTensor params (a DeviceMesh) ``tokens`` are this rank's rows (a
+    DTensor split over the batch axes, or its local tensor) and the
+    logits are this rank's rows and vocab columns."""
     check_supported(config)
     dtype = getattr(torch, config.dtype)
     ring = seq_ring()
+    shard = ShardContext.of(params)
+    if shard is not None:
+        check_tensor_heads(config, shard)
+        tokens = shard.local_rows(tokens)
+        if positions is not None:
+            positions = shard.local_rows(positions)
     if positions is None:
         positions = _positions(tokens, ring)
 
-    x = F.embedding(tokens, params["embed"].to(dtype))
+    x = _embed(params, tokens, dtype, shard)
     cos, sin = _rope_tables(positions, config.head_dim // 2,
                             config.rope_theta, dtype)
     cos, sin = _maybe_full_rope(config, cos, sin, ring)
 
-    stacks = {k: params["layers." + k].to(dtype).unbind(0)
-              for k in LAYER_KEYS}
+    if shard is None:
+        stacks = {k: params["layers." + k].to(dtype).unbind(0)
+                  for k in LAYER_KEYS}
+        layer_shard = None
+    else:
+        for k in LAYER_KEYS:
+            shard.expect_tensor_dim("layers." + k, params["layers." + k],
+                                    TENSOR_DIMS[k])
+        stacks = {k: shard.local(params["layers." + k]).to(dtype).unbind(0)
+                  for k in LAYER_KEYS}
+        layer_shard = (shard, {
+            k: shard.gathers(params["layers." + k], drop_leading=1)
+            for k in LAYER_KEYS})
     # under remat each layer keeps only what its policy saves; without
     # gradients there is nothing to keep
     remat = (config.remat and torch.is_grad_enabled()
@@ -370,14 +458,29 @@ def llama_apply(config: LlamaConfig, params: dict, tokens, positions=None,
         p = {k: v[i] for k, v in stacks.items()}
         if remat:
             x = remat_lib.checkpoint(_layer, config, x, p, cos, sin, ring,
-                                     policy=policy)
+                                     layer_shard, policy=policy)
         else:
-            x = _layer(config, x, p, cos, sin, ring)
+            x = _layer(config, x, p, cos, sin, ring, layer_shard)
 
     if return_hidden:
         return x
-    x = _rms_norm(x, params["final_norm"], config.norm_eps)
-    return (x @ params["lm_head"].to(dtype)).float()
+    if shard is None:
+        x = _rms_norm(x, params["final_norm"], config.norm_eps)
+        return (x @ params["lm_head"].to(dtype)).float()
+    norm = _sharded_weight(shard, params, "final_norm", dtype, None)
+    head = _sharded_weight(shard, params, "lm_head", dtype, 1)
+    x = shard.to_tensor(_rms_norm(x, norm, config.norm_eps))
+    return (x @ head).float()
+
+
+def sharded_loss(shard, loss_sum, valid_sum):
+    """A rank's term of the global mean loss over a DeviceMesh: its rows'
+    loss over the valid labels of every rank's rows (None: no mesh, the
+    mean itself)."""
+    if shard is None:
+        return loss_sum / valid_sum.clamp(min=1)
+    return shard.loss_term(
+        loss_sum / shard.batch_sum(valid_sum).clamp(min=1))
 
 
 def llama_loss_fn(config: LlamaConfig):
@@ -393,11 +496,18 @@ def llama_loss_fn(config: LlamaConfig):
     ``(body, head)``, ``body(params, batch, rng) -> hidden`` and
     ``head(params, batch, hidden) -> loss``. A strategy remat then
     checkpoints the body only (parallel/accelerate.py ``_remat_wrap``),
-    and the chunked loss's forward runs once a step."""
+    and the chunked loss's forward runs once a step.
+
+    With DTensor params the batch is this rank's rows and the loss a
+    DTensor: this rank's term of the global mean, ``Partial`` over the
+    batch axes (``sharded_loss``). The chunked CE runs on data and fsdp;
+    under ``tensor`` it raises (ROADMAP Queue 1 item 7)."""
     check_supported(config)
     dtype = getattr(torch, config.dtype)
 
-    def split(batch):
+    def split(batch, shard):
+        if shard is not None:
+            batch = {k: shard.local_rows(v) for k, v in batch.items()}
         tokens = batch["tokens"]
         if "labels" in batch:
             # already shifted (a seq rank's slice, parallel/accelerate.py)
@@ -406,15 +516,28 @@ def llama_loss_fn(config: LlamaConfig):
 
     if config.ce_chunks > 1:
         def body(params, batch, rng):
-            return llama_apply(config, params, split(batch)[0],
+            shard = ShardContext.of(params)
+            return llama_apply(config, params, split(batch, shard)[0],
                                return_hidden=True)
 
         def head(params, batch, hidden):
+            shard = ShardContext.of(params)
+            labels = split(batch, shard)[1]
+            if shard is None:
+                w, norm = params["lm_head"].to(dtype), params["final_norm"]
+            elif shard.tensor_size > 1:
+                raise NotImplementedError(
+                    "ce_chunks > 1 under a tensor axis (the chunked CE over "
+                    "vocab-split logits) is not ported yet (ROADMAP Queue 1 "
+                    "item 7)")
+            else:
+                w = _sharded_weight(shard, params, "lm_head", dtype, 1)
+                norm = _sharded_weight(shard, params, "final_norm",
+                                       params["final_norm"].dtype, None)
             loss_sum, valid_sum = fused_linear_cross_entropy(
-                hidden, params["lm_head"].to(dtype), split(batch)[1],
-                n_chunks=config.ce_chunks, norm_scale=params["final_norm"],
-                norm_eps=config.norm_eps)
-            return loss_sum / valid_sum.clamp(min=1)
+                hidden, w, labels, n_chunks=config.ce_chunks,
+                norm_scale=norm, norm_eps=config.norm_eps)
+            return sharded_loss(shard, loss_sum, valid_sum)
 
         def chunked_loss_fn(params, batch, rng):
             return head(params, batch, body(params, batch, rng))
@@ -423,9 +546,14 @@ def llama_loss_fn(config: LlamaConfig):
         return chunked_loss_fn
 
     def loss_fn(params, batch, rng):
-        inputs, labels = split(batch)
+        shard = ShardContext.of(params)
+        inputs, labels = split(batch, shard)
         logits = llama_apply(config, params, inputs)
-        loss, valid = softmax_cross_entropy(logits, labels)
-        return loss.sum() / valid.sum().clamp(min=1)
+        if shard is not None and shard.tensor_size > 1:
+            loss, valid = vocab_parallel_cross_entropy(
+                logits, labels, shard, shard.offset(params["lm_head"], 1))
+        else:
+            loss, valid = softmax_cross_entropy(logits, labels)
+        return sharded_loss(shard, loss.sum(), valid.sum())
 
     return loss_fn

@@ -1,8 +1,9 @@
-"""Token-level softmax cross-entropy and the chunked fused linear
-cross-entropy (dlrover_tpu/ops/cross_entropy.py
-``softmax_cross_entropy`` and ``fused_linear_cross_entropy``; plain torch
-there too: neither is a Pallas kernel in the JAX package, and the head
-product stays a ``torch.matmul``)."""
+"""Token-level softmax cross-entropy, its vocab-parallel form and the
+chunked fused linear cross-entropy (dlrover_tpu/ops/cross_entropy.py
+``softmax_cross_entropy``, ``vocab_parallel_cross_entropy`` and
+``fused_linear_cross_entropy``; plain torch there too: none is a Pallas
+kernel in the JAX package, and the head product stays a
+``torch.matmul``)."""
 
 from __future__ import annotations
 
@@ -23,6 +24,35 @@ def softmax_cross_entropy(logits, labels, ignore_index: int = IGNORE_INDEX):
     lse = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, safe_labels[..., None])[..., 0]
     loss = torch.where(valid, lse - picked, 0.0)
+    return loss, valid
+
+
+def vocab_parallel_cross_entropy(logits_shard, labels, shard, vocab_start,
+                                 ignore_index: int = IGNORE_INDEX):
+    """Token-level CE over logits split on the vocab dim over a mesh's
+    ``tensor`` axis. ``logits_shard`` [..., V/t] are this rank's columns,
+    the first of them global id ``vocab_start``; ``labels`` are global
+    ids; ``shard`` is the mesh's ``parallel.shard_ops.ShardContext``.
+
+    Two reductions over ``tensor``: the max (no gradient: the log-sum-exp
+    does not depend on the shift), then the sum of the exponentials and
+    the picked logit, whose backward is the identity on every rank (each
+    tensor rank holds the same loss). Returns (per-token loss [...],
+    valid mask [...]) as :func:`softmax_cross_entropy` does, the same on
+    every tensor rank."""
+    logits_shard = logits_shard.float()
+    shard_v = logits_shard.shape[-1]
+    valid = labels != ignore_index
+    local = torch.where(valid, labels, 0).long() - vocab_start
+    in_shard = (local >= 0) & (local < shard_v)
+    global_max = shard.tensor_max(logits_shard.amax(dim=-1))
+    sumexp = torch.exp(logits_shard - global_max[..., None]).sum(dim=-1)
+    picked_local = torch.gather(
+        logits_shard, -1, local.clamp(0, shard_v - 1)[..., None])[..., 0]
+    both = shard.from_tensor(torch.stack(
+        [sumexp, torch.where(in_shard, picked_local, 0.0)]))
+    lse = global_max + torch.log(both[0])
+    loss = torch.where(valid, lse - both[1], 0.0)
     return loss, valid
 
 

@@ -1,6 +1,7 @@
 """Strategy, its planner auto_strategy, and auto_accelerate, which makes
-the train step (with remat, parallel/remat.py); the mesh and its seq
-axis' ring attention."""
+the train step (with remat, parallel/remat.py); the mesh (a DeviceMesh
+for the data, fsdp and tensor axes), the logical rule table's
+placements, and the seq axis' ring attention."""
 
 from dlrover_tpu_torch.parallel.accelerate import (  # noqa: F401
     AccelerateResult,
@@ -10,6 +11,8 @@ from dlrover_tpu_torch.parallel.accelerate import (  # noqa: F401
 from dlrover_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
     axis_index,
+    axis_size,
+    batch_place,
     build_mesh,
     get_mesh,
     set_mesh,
@@ -17,6 +20,16 @@ from dlrover_tpu_torch.parallel.mesh import (  # noqa: F401
 from dlrover_tpu_torch.parallel.sequence import (  # noqa: F401
     ring_attention,
     sequence_sharded_attention,
+)
+from dlrover_tpu_torch.parallel.shard_ops import (  # noqa: F401
+    ShardContext,
+)
+from dlrover_tpu_torch.parallel.sharding import (  # noqa: F401
+    distribute_logical,
+    logical_placements,
+    logical_to_mesh_axes,
+    shard_logical,
+    tree_logical_placements,
 )
 from dlrover_tpu_torch.parallel.strategy import (  # noqa: F401
     MeshConfig,

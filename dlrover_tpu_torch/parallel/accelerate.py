@@ -1,6 +1,7 @@
 """``auto_accelerate`` — from (loss fn, init fn, optimizer) to a train step
-(port of dlrover_tpu/parallel/accelerate.py for one device, or for a
-``seq`` mesh axis).
+(port of dlrover_tpu/parallel/accelerate.py: one device, a ``seq`` mesh
+axis, or the ``data``, ``fsdp`` and ``tensor`` axes over a process
+group).
 
 The step keeps the JAX step's semantics: fp32 master params are cast to
 the compute dtype for the forward and backward, the loss runs under the
@@ -20,6 +21,26 @@ With a process group each rank takes its slice of the shifted tokens,
 its loss is weighted by its share of the valid labels, and the loss and
 the gradients are summed over the group, so every rank returns the
 global loss and applies the same update.
+
+The ``data``, ``fsdp`` and ``tensor`` axes (a process group, no seq
+axis) lay a ``DeviceMesh`` over the ranks (parallel/mesh.py). Each fp32
+master param becomes a DTensor placed by its logical axes under the
+strategy's rule table (parallel/sharding.py), built on every rank from
+the same seed-made global tensor, as the JAX package's jitted init gives
+every device its shard of the same global values; optimizer moments
+follow their params (torch's optimizers make them ``zeros_like`` the
+param). ``batch`` is this rank's rows: its share, by its
+``(data, fsdp)`` index (``mesh.batch_place``), of the global batch. The
+loss function gets DTensor params (cast to the compute dtype) and a
+DTensor batch, ``Shard(0)`` over ``data`` and ``fsdp`` and ``Replicate``
+over ``tensor``. A plain loss function runs on them through DTensor's
+sharding propagation, as GSPMD runs the JAX one; the models take their
+local shards and gather explicitly (parallel/shard_ops.py). The loss it
+returns is a DTensor (the models': ``Partial`` over the batch axes);
+after the backward each gradient is redistributed to its param's
+placements (a ``Partial`` batch axis is summed there), the optimizer
+steps on the DTensors, and the step returns the global loss on every
+rank.
 """
 
 from __future__ import annotations
@@ -29,6 +50,7 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from dlrover_tpu_torch.common.log import get_logger
 from dlrover_tpu_torch.device import resolve_device
@@ -36,16 +58,14 @@ from dlrover_tpu_torch.ops.cross_entropy import IGNORE_INDEX
 from dlrover_tpu_torch.ops.fused_optim import tree_order
 from dlrover_tpu_torch.parallel import remat as remat_lib
 from dlrover_tpu_torch.parallel.mesh import (
+    BATCH_AXES,
     Mesh,
     ProcessGroupRing,
     build_mesh,
     set_mesh,
 )
-from dlrover_tpu_torch.parallel.strategy import (
-    AXIS_ORDER,
-    DEFAULT_RULES,
-    Strategy,
-)
+from dlrover_tpu_torch.parallel.sharding import distribute_logical
+from dlrover_tpu_torch.parallel.strategy import DEFAULT_RULES, Strategy
 
 logger = get_logger(__name__)
 
@@ -73,14 +93,14 @@ class AccelerateResult:
     mesh: Mesh
 
 
+# the optimizers whose step runs on DTensor params as it runs on tensors
+# (elementwise, no reduction over a param); the others raise on a mesh
+_MESH_OPTIMIZERS = (torch.optim.AdamW, torch.optim.Adam, torch.optim.SGD)
+
+
 def _check_strategy(strategy: Strategy) -> None:
-    # -1 absorbs what the seq axis leaves: 1
-    wide = {a: getattr(strategy.mesh, a) for a in AXIS_ORDER
-            if a != "seq" and getattr(strategy.mesh, a) not in (1, -1)}
-    if wide:
-        raise NotImplementedError(
-            f"mesh axes {wide}: only the seq axis is ported; data, fsdp, "
-            "tensor, expert and pipe parallelism are ROADMAP Queue 1 item 7")
+    """Raise for what the port does not run; the mesh axes are checked by
+    ``build_mesh``."""
     if strategy.remat != "none":
         remat_lib.strategy_policy(strategy.remat)  # raises if unknown
     if strategy.compute_dtype not in _COMPUTE_DTYPES:
@@ -89,8 +109,8 @@ def _check_strategy(strategy: Strategy) -> None:
             "(fp8/int8: ROADMAP Queue 1 item 12)")
     if strategy.overlap_collectives != "off":
         raise NotImplementedError(
-            "overlap_collectives needs a sharded mesh (ROADMAP Queue 1 "
-            "item 7)")
+            "overlap_collectives (parallel/overlap.py) is not ported yet "
+            "(ROADMAP Queue 1 item 7)")
     if not strategy.donate:
         raise NotImplementedError(
             "donate=False: the port's step always updates the state in "
@@ -100,10 +120,6 @@ def _check_strategy(strategy: Strategy) -> None:
         raise NotImplementedError(
             f"quant_sites={strategy.quant_sites!r} selects int8/fp8 matmul "
             "sites, not ported yet (ROADMAP Queue 1 item 12)")
-    if tuple(tuple(r) for r in strategy.rules) != DEFAULT_RULES:
-        raise NotImplementedError(
-            "custom logical sharding rules need a sharded mesh (ROADMAP "
-            "Queue 1 item 7)")
     if int(strategy.grad_accum) < 1:
         raise ValueError(f"grad_accum must be >= 1, got {strategy.grad_accum}")
 
@@ -158,6 +174,39 @@ def _seq_slice(batch, ring):
     return {"tokens": inputs[:, cut], "labels": labels[:, cut]}
 
 
+def _sharded_params(raw: dict, device, mesh: Mesh, axes, rules) -> dict:
+    """The fp32 masters as DTensors placed by their logical axes (a param
+    without axes is replicated), each a leaf that takes gradients."""
+    axes = axes or {}
+    return {
+        name: distribute_logical(
+            p.to(device=device, dtype=torch.float32), axes.get(name),
+            mesh.device_mesh, rules).requires_grad_()
+        for name, p in raw.items()}
+
+
+def _batch_placements(device_mesh) -> list:
+    """A batch leaf's placements: rows split over the batch axes (data
+    major), replicated over the rest."""
+    return [Shard(0) if name in BATCH_AXES else Replicate()
+            for name in device_mesh.mesh_dim_names]
+
+
+def _settle_grad(p) -> None:
+    """Redistribute a DTensor param's gradient to the param's placements:
+    a ``Partial`` batch axis is summed there (DTensor makes no collective
+    call over a mesh dim of size 1)."""
+    g = p.grad
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        p.grad = g.redistribute(p.device_mesh, p.placements)
+
+
+def global_value(x):
+    """A loss's global value: a DTensor's ``full_tensor()``, a plain
+    tensor as it is."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
 def auto_accelerate(
     loss_fn: Callable,  # (params, batch, rng) -> scalar loss
     init_fn: Callable,  # (seed, device) -> dict of fp32 params
@@ -165,10 +214,12 @@ def auto_accelerate(
     strategy: Optional[Strategy] = None,
     device=None,
     seed: int = 0,
+    param_logical_axes: Optional[dict] = None,
 ) -> AccelerateResult:
-    """Build the state and the train step for ``strategy`` on one device
-    (``cuda`` unless ``device`` says otherwise), and set its mesh as the
-    active one; each ``train_step`` sets it again before it runs.
+    """Build the state and the train step for ``strategy`` on this
+    process's device (``cuda`` unless ``device`` says otherwise), and set
+    its mesh as the active one; each ``train_step`` sets it again before
+    it runs.
 
     ``optimizer_factory`` receives the params as ``(name, tensor)``
     pairs (torch's named parameters) in the JAX package's leaf order
@@ -177,37 +228,77 @@ def auto_accelerate(
     optimizer factory acts on it (``adam8bit(fused=True)``,
     ``fused_adamw``), the step does not change.
 
+    ``param_logical_axes`` (``{name: logical axes}``, as
+    ``llama_logical_axes`` gives them) places the params on a
+    DeviceMesh; a param without an entry is replicated. Off a DeviceMesh
+    it is not used. On one the optimizer must be ``torch.optim.AdamW``,
+    ``Adam`` or ``SGD``; the others raise (ROADMAP Queue 1 item 7).
+
     ``train_step(state, batch, rng)`` takes a dict batch of arrays or
     tensors (moved to the device), runs ``strategy.grad_accum``
     microbatches split along dim 0, applies the optimizer and returns
     ``(state, {"loss": ...})``; the loss is the microbatch mean, a 0-d
     f32 tensor on the device. Under a seq process group ``batch`` is the
     whole batch on every rank (``tokens`` [B, S+1], S divisible by the
-    seq size) and the loss is the global one.
+    seq size) and the loss is the global one. On a DeviceMesh ``batch``
+    is this rank's rows (see the module's docstring), microbatch ``i`` is
+    the ``i``-th chunk of every rank's rows (the JAX package cuts the
+    global batch: the same loss where every microbatch has as many valid
+    labels), and the loss is the global one on every rank.
     """
     strategy = strategy or Strategy()
     _check_strategy(strategy)
     device = resolve_device(device)
     mesh = build_mesh(strategy.mesh)
+    if mesh.sharded and mesh.device_mesh.device_type != device.type:
+        # distribute_tensor would move every master to the mesh's device
+        raise ValueError(
+            f"the process group's backend lays the DeviceMesh on "
+            f"{mesh.device_mesh.device_type}, the step runs on "
+            f"{device.type}: use NCCL for cuda, gloo for cpu")
     set_mesh(mesh)
+    if not mesh.sharded and (
+            tuple(tuple(r) for r in strategy.rules) != DEFAULT_RULES):
+        raise NotImplementedError(
+            "custom logical sharding rules need a DeviceMesh: the data, "
+            "fsdp or tensor axes over a process group (ROADMAP Queue 1 "
+            "item 7)")
     # a process group splits the batch; the in-process ring needs nothing
     group = mesh.ring if isinstance(mesh.ring, ProcessGroupRing) else None
     compute_dtype = _COMPUTE_DTYPES[strategy.compute_dtype]
     accum = int(strategy.grad_accum)
     inner_loss = _remat_wrap(loss_fn, strategy.remat)
 
-    params = {
-        name: p.to(device=device, dtype=torch.float32).requires_grad_()
-        for name, p in init_fn(seed, device).items()
-    }
+    raw = init_fn(seed, device)
+    if mesh.sharded:
+        params = _sharded_params(raw, device, mesh, param_logical_axes,
+                                 strategy.rules)
+    else:
+        params = {
+            name: p.to(device=device, dtype=torch.float32).requires_grad_()
+            for name, p in raw.items()
+        }
+    del raw
     # the optimizer sees the params in the JAX package's leaf order, so
     # that flat optimizer state and per-leaf seeds line up with JAX's, and
     # by name, so that what keys on names (muP's multipliers) finds them
     state = TrainState(step=0, params=params, optimizer=optimizer_factory(
         [(name, params[name]) for name in tree_order(params)]))
+    if mesh.sharded and type(state.optimizer) not in _MESH_OPTIMIZERS:
+        raise NotImplementedError(
+            f"{type(state.optimizer).__name__} on a DeviceMesh: only "
+            "torch's AdamW, Adam and SGD step DTensor params so far; the "
+            "optimizers with kernels or global norms over local shards "
+            "are ROADMAP Queue 1 item 7")
 
     def to_device(x):
         return torch.as_tensor(x).to(device, non_blocking=True)
+
+    def as_rows(x):
+        """A batch leaf (this rank's rows) as a DTensor over the mesh."""
+        dm = mesh.device_mesh
+        return DTensor.from_local(x, dm, _batch_placements(dm),
+                                  run_check=False)
 
     def train_step(state: TrainState, batch, rng):
         # the model reads the seq ring from the active mesh: make it this
@@ -236,18 +327,23 @@ def auto_accelerate(
                 valid = (mb["labels"] != IGNORE_INDEX).sum().float()
                 # this rank's mean, weighted by its share of the labels
                 share = valid / group.all_reduce(valid.clone()).clamp(min=1)
+            if mesh.sharded:
+                mb = {k: as_rows(v) for k, v in mb.items()}
             with rctx():
                 loss = inner_loss(cparams, mb, rng)
             if group is not None:
                 loss = loss * share
             # grads accumulate in fp32 on the masters; /accum averages
             (loss / accum).backward()
-            loss_sum += loss.detach().float()
+            loss_sum += global_value(loss).detach().float()
         if group is not None:
             for p in state.params.values():
                 if p.grad is not None:
                     group.all_reduce(p.grad)
             group.all_reduce(loss_sum)
+        if mesh.sharded:
+            for p in state.params.values():
+                _settle_grad(p)
         state.optimizer.step()
         state.optimizer.zero_grad(set_to_none=True)
         state.step += 1

@@ -1,27 +1,28 @@
-"""The port's mesh, as far as a ``seq`` axis goes (the counterpart of
-dlrover_tpu/parallel/mesh.py).
+"""The port's mesh (the counterpart of dlrover_tpu/parallel/mesh.py).
 
 The JAX package lays a ``jax.sharding.Mesh`` over its devices and lets
-XLA derive the collectives. Here one axis is active so far: ``seq``,
-sequence (context) parallelism for ring attention. Every other axis must
-be 1: data, fsdp, tensor, expert and pipe parallelism are ROADMAP Queue 1
-item 7.
+XLA derive the collectives. Here the axes run one of two ways:
 
-The seq axis runs over one of two ring transports, which carry one ring
-schedule (parallel/sequence.py):
+- ``data``, ``fsdp`` and ``tensor`` over a ``torch.distributed`` process
+  group, one process per card: :func:`build_mesh` lays a
+  ``DeviceMesh`` over the group's ranks with the dims of size above 1
+  plus ``data`` and ``fsdp`` (the batch axes), in ``AXIS_ORDER``. The
+  state lives on it as DTensors placed by the logical rule table
+  (parallel/sharding.py), and the models gather and reduce explicitly
+  (models/llama.py).
+- ``seq``, sequence (context) parallelism for ring attention, over one
+  of two ring transports that carry one ring schedule
+  (parallel/sequence.py): :class:`ProcessGroupRing`, when a process
+  group exists (the axis is the group's ranks; NCCL, gloo on the CPU;
+  :meth:`~ProcessGroupRing.shift` sends to rank + 1 and receives from
+  rank - 1 in one ``batch_isend_irecv``, into fresh buffers); and
+  :class:`InProcessRing`, when none exists (this process holds every
+  rank of the axis on its one device, the counterpart of the JAX tests'
+  virtual CPU devices, and a shift rotates a list).
 
-- :class:`ProcessGroupRing`, when a ``torch.distributed`` process group
-  exists: the axis is the group's ranks, one process per card (NCCL;
-  gloo on the CPU). :meth:`~ProcessGroupRing.shift` sends to rank + 1 and
-  receives from rank - 1 in one ``batch_isend_irecv``, into fresh
-  buffers; every rank shifts on every tick.
-- :class:`InProcessRing`, when none exists: this process holds every rank
-  of the axis on its one device (the counterpart of the JAX tests'
-  virtual CPU devices), and a shift rotates a list.
-
-:func:`build_mesh` picks by whether a process group exists and says which
-in its log line and in ``Strategy.describe(mesh)``; it raises for what
-neither transport runs.
+Without a process group every axis but ``seq`` must be 1. ``seq``
+together with another axis above 1 is ROADMAP Queue 1 item 7's rest,
+``expert`` and ``pipe`` are item 10's: they raise.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from dlrover_tpu_torch.common.log import get_logger
 from dlrover_tpu_torch.parallel.strategy import AXIS_ORDER, MeshConfig
@@ -40,8 +42,12 @@ logger = get_logger(__name__)
 
 __all__ = [
     "InProcessRing", "Mesh", "MeshConfig", "ProcessGroupRing",
-    "axis_index", "build_mesh", "get_mesh", "seq_ring", "set_mesh",
+    "axis_index", "axis_size", "batch_place", "build_mesh", "get_mesh",
+    "resolve_sizes", "seq_ring", "set_mesh",
 ]
+
+# the mesh axes a batch is split over; a DeviceMesh always has them
+BATCH_AXES = ("data", "fsdp")
 
 
 class InProcessRing:
@@ -120,25 +126,24 @@ class _Shift(torch.autograd.Function):
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """Axis sizes (every axis of ``AXIS_ORDER``) and the seq axis'
-    transport (None when the axis is 1)."""
+    """Axis sizes (every axis of ``AXIS_ORDER``), the seq axis'
+    transport (None when the axis is 1), and the ``DeviceMesh`` of the
+    data, fsdp and tensor axes (None without a process group, or under
+    a seq axis)."""
 
     shape: dict
     ring: Optional[object] = None
+    device_mesh: Optional[DeviceMesh] = None
+
+    @property
+    def sharded(self) -> bool:
+        return self.device_mesh is not None
 
 
-def build_mesh(config: Optional[MeshConfig] = None) -> Mesh:
-    """The mesh of ``config``. An axis of -1 absorbs what the others
-    leave of the process group's ranks (1 without a group). Raises for
-    any axis but seq above 1, and for a process group whose size is not
-    the seq axis'."""
-    config = config or MeshConfig()
+def resolve_sizes(config: MeshConfig, world: Optional[int]) -> dict:
+    """Every axis' size: an axis of -1 absorbs what the others leave of
+    ``world`` ranks (1 without a process group, ``world`` None)."""
     sizes = {a: getattr(config, a) for a in AXIS_ORDER}
-    world = dist.get_world_size() if dist.is_initialized() else None
-    if world is not None and sizes["seq"] not in (-1, world):
-        raise ValueError(
-            f"the process group has {world} ranks but the seq axis "
-            f"{sizes['seq']}: the seq axis must span the whole group")
     wildcard = [a for a, s in sizes.items() if s == -1]
     if len(wildcard) > 1:
         raise ValueError(f"only one axis may be -1, got {wildcard}")
@@ -148,20 +153,91 @@ def build_mesh(config: Optional[MeshConfig] = None) -> Mesh:
             raise ValueError(f"{world} ranks not divisible by the fixed "
                              f"axes' {fixed}")
         sizes[wildcard[0]] = 1 if world is None else world // fixed
-    wide = {a: s for a, s in sizes.items() if a != "seq" and s != 1}
-    if wide:
+    bad = {a: s for a, s in sizes.items() if s < 1}
+    if bad:
+        raise ValueError(f"mesh axes must be >= 1 (or one -1), got {bad}")
+    return sizes
+
+
+def _check_axes(sizes: dict, world: Optional[int]) -> None:
+    """Raise for what no transport runs yet."""
+    wide = {a: s for a, s in sizes.items() if s > 1}
+    later = {a: s for a, s in wide.items() if a in ("expert", "pipe")}
+    if world is None and set(wide) - {"seq"}:
         raise NotImplementedError(
-            f"mesh axes {wide}: only the seq axis is ported; data, fsdp, "
-            "tensor, expert and pipe parallelism are ROADMAP Queue 1 item 7")
+            f"mesh axes {wide} without a process group: this process "
+            "holds one card, so every axis but seq must be 1; data, fsdp "
+            "and tensor run over a torch.distributed process group, one "
+            "process per card (ROADMAP Queue 1 item 7); expert and pipe "
+            "are item 10")
+    if later:
+        raise NotImplementedError(
+            f"mesh axes {later}: expert and pipe parallelism are not "
+            "ported yet (ROADMAP Queue 1 item 10)")
+    if "seq" in wide and len(wide) > 1:
+        raise NotImplementedError(
+            f"mesh axes {wide}: the seq axis together with another axis "
+            "is not ported yet (ROADMAP Queue 1 item 7)")
+
+
+def build_mesh(config: Optional[MeshConfig] = None) -> Mesh:
+    """The mesh of ``config``. An axis of -1 absorbs what the others
+    leave of the process group's ranks (1 without a group).
+
+    With a process group and no seq axis, the data, fsdp and tensor axes
+    become a ``DeviceMesh`` over the group (on the group's device type:
+    ``cuda`` under NCCL, ``cpu`` under gloo), ranks laid out row-major in
+    ``AXIS_ORDER`` as the JAX package lays devices. A seq axis must span
+    the whole group. Raises for the rest (see :func:`_check_axes`)."""
+    config = config or MeshConfig()
+    world = dist.get_world_size() if dist.is_initialized() else None
+    explicit = {a: getattr(config, a) for a in AXIS_ORDER}
+    _check_axes({a: s for a, s in explicit.items() if s != -1}, world)
+    if world is not None and explicit["seq"] not in (-1, 1, world):
+        raise ValueError(
+            f"the process group has {world} ranks but the seq axis "
+            f"{explicit['seq']}: the seq axis must span the whole group")
+    sizes = resolve_sizes(config, world)
+    _check_axes(sizes, world)
+    if world is not None and math.prod(sizes.values()) != world:
+        raise ValueError(f"mesh axes {sizes} use "
+                         f"{math.prod(sizes.values())} ranks, the process "
+                         f"group has {world}")
     n = sizes["seq"]
-    if n < 1:
-        raise ValueError(f"seq axis must be >= 1, got {n}")
-    ring = None
+    ring, device_mesh = None, None
     if n > 1:
         ring = ProcessGroupRing(n) if world is not None else InProcessRing(n)
-    logger.info("built mesh %s, seq transport: %s", sizes,
-                ring.describe() if ring else "none")
-    return Mesh(shape=sizes, ring=ring)
+    elif world is not None:
+        dims = tuple(a for a in AXIS_ORDER
+                     if sizes[a] > 1 or a in BATCH_AXES)
+        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+        device_mesh = init_device_mesh(
+            device_type, tuple(sizes[a] for a in dims),
+            mesh_dim_names=dims)
+    logger.info("built mesh %s, seq transport: %s, device mesh: %s", sizes,
+                ring.describe() if ring else "none",
+                dict(zip(device_mesh.mesh_dim_names, device_mesh.shape))
+                if device_mesh is not None else "none")
+    return Mesh(shape=sizes, ring=ring, device_mesh=device_mesh)
+
+
+def batch_place(config: Optional[MeshConfig] = None) -> tuple:
+    """(index, count) of this process's replica along the batch axes
+    (``data`` x ``fsdp``, data major) under ``config`` over the process
+    group; (0, 1) without one. A data sampler takes these, not the
+    global rank: the tensor ranks of one replica must read the same
+    rows. Needs no DeviceMesh: the ranks are laid out row-major in
+    ``AXIS_ORDER``, as :func:`build_mesh` lays them."""
+    config = config or MeshConfig()
+    if not dist.is_initialized():
+        return 0, 1
+    sizes = resolve_sizes(config, dist.get_world_size())
+    coord, rest = {}, dist.get_rank()
+    for axis in reversed(AXIS_ORDER):
+        coord[axis] = rest % sizes[axis]
+        rest //= sizes[axis]
+    return (coord["data"] * sizes["fsdp"] + coord["fsdp"],
+            sizes["data"] * sizes["fsdp"])
 
 
 _global_mesh: Optional[Mesh] = None
@@ -185,9 +261,20 @@ def seq_ring():
     return None if _global_mesh is None else _global_mesh.ring
 
 
+def axis_size(axis: str) -> int:
+    """The size of ``axis`` on the active mesh."""
+    return get_mesh().shape.get(axis, 1)
+
+
 def axis_index(axis: str) -> int:
-    """This process's index along ``axis``: its rank in the process
-    group. With the in-process transport this process holds every index
-    of the axis; the first, 0, is returned. 0 on an inactive axis."""
-    ring = get_mesh().ring
-    return ring.ranks[0] if axis == "seq" and ring is not None else 0
+    """This process's index along ``axis``. On the seq axis: its rank in
+    the process group; with the in-process transport this process holds
+    every index of the axis, and the first, 0, is returned. On an axis
+    of the DeviceMesh: its coordinate there. 0 on an inactive axis."""
+    mesh = get_mesh()
+    if axis == "seq":
+        return mesh.ring.ranks[0] if mesh.ring is not None else 0
+    dm = mesh.device_mesh
+    if dm is not None and axis in dm.mesh_dim_names:
+        return dm.get_local_rank(axis)
+    return 0

@@ -5,10 +5,10 @@ that both packages plan the same ``Strategy`` from the same inputs; the
 caller passes the card's memory as ``hbm_gb``).
 
 ``MeshConfig`` keeps every field, so that a plan written by the JAX
-package loads here; of its axes the port runs ``seq`` (ring attention,
-parallel/mesh.py). The others must be 1 (or -1, which then absorbs
-nothing): data, fsdp, tensor, expert and pipe parallelism are ROADMAP
-Queue 1 item 7.
+package loads here; of its axes the port runs ``data``, ``fsdp`` and
+``tensor`` over a process group (a DeviceMesh), and ``seq`` (ring
+attention) alone (parallel/mesh.py). ``expert`` and ``pipe`` are ROADMAP
+Queue 1 item 10.
 """
 
 from __future__ import annotations
@@ -45,7 +45,8 @@ DEFAULT_RULES: LogicalRules = (
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
     """Sizes for each named axis; 1 means the axis is inactive and -1
-    absorbs the remaining ranks. ``seq=n`` shards the sequence over n
+    absorbs the remaining ranks. ``data``, ``fsdp`` and ``tensor`` run
+    over a process group's ranks. ``seq=n`` shards the sequence over n
     ring ranks: a process group of n processes, or n ranks in one
     process on one device. ``dcn_*`` give the slices an axis spans (kept
     for plan compatibility)."""
@@ -116,6 +117,10 @@ class Strategy:
             extras += ", fused_optim"
         if mesh is not None and mesh.ring is not None:
             extras += f", seq transport={mesh.ring.describe()}"
+        if mesh is not None and mesh.device_mesh is not None:
+            dm = mesh.device_mesh
+            extras += (", device mesh="
+                       f"{dict(zip(dm.mesh_dim_names, dm.shape))}")
         return (
             f"Strategy(mesh={active or 'dp-only'}, dtype={self.compute_dtype},"
             f" remat={self.remat}, accum={self.grad_accum}{extras})"

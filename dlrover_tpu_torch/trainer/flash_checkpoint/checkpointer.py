@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import os
 
+import torch.distributed as dist
+
 from dlrover_tpu_torch.agent.master_client import MasterClient
 from dlrover_tpu_torch.common.constants import NodeEnv
 from dlrover_tpu_torch.common.log import get_logger
@@ -34,11 +36,16 @@ class StorageType:
 
 
 def host_place() -> tuple[int, int]:
-    """(host rank, host count) from the agent's env contract: the
-    checkpoint's shards are per host, and a host runs
-    ``LOCAL_WORLD_SIZE`` processes, one per card."""
-    world = int(os.environ.get(NodeEnv.WORLD_SIZE, "1"))
+    """(host rank, host count): the checkpoint's shards are per host, and
+    a host runs ``LOCAL_WORLD_SIZE`` processes, one per card. From the
+    process group's ranks where one exists (rank // local world, world //
+    local world), else from the agent's env contract (``NODE_RANK``,
+    ``WORLD_SIZE``)."""
     local = max(int(os.environ.get(NodeEnv.LOCAL_WORLD_SIZE, "1")), 1)
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank() // local, max(dist.get_world_size() // local,
+                                             1)
+    world = int(os.environ.get(NodeEnv.WORLD_SIZE, "1"))
     return (int(os.environ.get(NodeEnv.NODE_RANK, "0")),
             max(world // local, 1))
 
@@ -58,6 +65,8 @@ class FlashCheckpointer(Checkpointer):
 
     Usage:
         ckpt = FlashCheckpointer("/mnt/ckpt", sharded=True)
+        # sharded=True: each process writes its own shards (DTensor
+        # state: its local shards, deduplicated over replicas)
         ckpt.save_checkpoint(step, {"params": params, "opt": opt_state},
                              storage_type=StorageType.DISK)
         restored, step = ckpt.load_checkpoint(target={"params": params,

@@ -40,10 +40,18 @@ consensus are the JAX engine's. A ``bfloat16`` leaf is recorded as
 
 - ReplicatedCheckpointEngine: every host holds the full state; host 0
   writes it.
-- ShardedCheckpointEngine: each host writes its own shards. A tensor is
-  one shard covering the whole array, as a single-device ``jax.Array``
-  is; host arrays are written by host 0. Restoring onto another layout
-  waits for the sharded axes (ROADMAP Queue 1 item 7).
+- ShardedCheckpointEngine: each process writes its own shards into its
+  local rank's segment. A DTensor leaf (state on a DeviceMesh,
+  parallel/accelerate.py) is this rank's local shard with its global
+  index box, written only by the replica at coordinate 0 of every mesh
+  dim that does not shard it (the JAX engine's
+  ``_unique_addressable_shards``); a plain tensor is one shard covering
+  the whole array, and host arrays, written by local rank 0 of host 0.
+  A restore onto DTensor targets reads, for each target's local shard,
+  only the saved boxes that intersect it (only the intersection of
+  each), so a restore onto another mesh never builds a global array on
+  the host; from shm it reads the sibling local ranks' segments too,
+  and falls back to storage where they do not hold every piece.
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ import time
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
 from dlrover_tpu_torch import native as dlrtpu_native
 from dlrover_tpu_torch.agent.ckpt_saver import (
@@ -81,6 +90,7 @@ from dlrover_tpu_torch.common.chaos import chaos_point
 from dlrover_tpu_torch.common.constants import CheckpointConstant, NodeEnv
 from dlrover_tpu_torch.common.ipc import SharedLock, SharedQueue
 from dlrover_tpu_torch.common.log import get_logger
+from dlrover_tpu_torch.parallel.shard_ops import shard_box
 
 logger = get_logger(__name__)
 
@@ -213,11 +223,17 @@ def _torch_dtype(name: str) -> torch.dtype:
 
 
 def _as_leaf(x):
-    """A tensor or a numpy array (Python and numpy scalars become 0-d
-    arrays, as jax.tree_util leaves)."""
+    """A tensor (a DTensor stays one) or a numpy array (Python and numpy
+    scalars become 0-d arrays, as jax.tree_util leaves)."""
     if isinstance(x, torch.Tensor):
         return x.detach()
     return np.asarray(x)
+
+
+def _local(x):
+    """What this process holds of a leaf: a DTensor's local shard, else
+    the leaf."""
+    return x.to_local() if isinstance(x, DTensor) else x
 
 
 def _nbytes(x) -> int:
@@ -330,12 +346,16 @@ class _PinnedStager:
 
 
 def _card_of(leaves) -> torch.device | None:
-    devices = {x.device for x in leaves if _is_cuda(x)}
+    """The card this process's part of the tree is on (a DTensor's local
+    shard's). A tree spread over the cards of other ranks is a DeviceMesh
+    state, each rank saving its own; local leaves on several cards of
+    one process are refused (one process drives one card)."""
+    devices = {x.device for x in map(_local, leaves) if _is_cuda(x)}
     if len(devices) > 1:
-        raise NotImplementedError(
-            f"a checkpoint tree on several cards {sorted(map(str, devices))}"
-            ": one process holds one card until the sharded axes are "
-            "ported (ROADMAP Queue 1 item 7)")
+        raise ValueError(
+            f"a checkpoint tree whose local leaves are on several cards "
+            f"{sorted(map(str, devices))}: one process saves what its one "
+            "card holds")
     return devices.pop() if devices else None
 
 
@@ -418,6 +438,8 @@ class CheckpointEngine:
         # in the worker would die with it, and its shm with no one to
         # persist it.
         local_world = int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
+        # the local ranks whose segments a restore may read
+        self._local_world = max(local_world, local_rank + 1)
         saver_config = dict(
             checkpoint_dir=checkpoint_dir,
             local_shard_num=max(local_world, local_rank + 1),
@@ -455,18 +477,17 @@ class CheckpointEngine:
         self._standalone = standalone
         if standalone:
             if AsyncCheckpointSaver.get_ckpt_saver() is None:
+                # this process's own segment: sibling local ranks run
+                # savers of their own
                 AsyncCheckpointSaver._saver_instance = AsyncCheckpointSaver(
-                    master_client=master_client, **saver_config
+                    master_client=master_client, local_ranks=(local_rank,),
+                    **saver_config
                 )
                 AsyncCheckpointSaver._saver_instance.start()
             self._saver = AsyncCheckpointSaver.get_ckpt_saver()
             self._event_queue = None
             self._shm_lock = self._saver._shm_locks[local_rank]
-            self._done_queue = (
-                self._saver._done_queues[local_rank]
-                if local_rank < len(self._saver._done_queues)
-                else None
-            )
+            self._done_queue = self._saver._done_queues.get(local_rank)
         else:
             self._saver = None
             # wait for the agent to create lock/event queues
@@ -932,6 +953,29 @@ class CheckpointEngine:
         with tracing.span("ckpt.restore.shm"):
             return self._load_from_memory_traced(target, zero_copy)
 
+    def _sibling_segments(self, step: int):
+        """The sibling local ranks' segments holding ``step``: [(meta,
+        handler)], or None when one of them holds another step or none
+        (a restore then falls back to storage). Only the sharded engine
+        spreads one step over the local ranks."""
+        if self.engine_name != "sharded":
+            return []
+        out = []
+        for j in range(self._local_world):
+            if j == self._local_rank:
+                continue
+            handler = SharedMemoryHandler(j)
+            got = handler.read()
+            if got is None or got[0].step != step:
+                handler.close()
+                for _meta, h in out:
+                    h.close()
+                logger.info("local rank %d's shm segment does not hold "
+                            "step %s; falling back to storage", j, step)
+                return None
+            out.append((got[0], handler))
+        return out
+
     def _load_from_memory_traced(
         self, target=None, zero_copy: bool = False
     ):
@@ -939,21 +983,33 @@ class CheckpointEngine:
         if result is None:
             return None
         meta, buf = result
-        # copies out of shm read the segment through its descriptor: a
-        # restarted process's fresh mapping would take a page fault per
+        siblings = self._sibling_segments(meta.step)
+        if siblings is None:
+            return None
+        try:
+            return self._load_segments(meta, buf, siblings, target,
+                                       zero_copy)
+        finally:
+            for _meta, handler in siblings:
+                handler.close()
+
+    def _load_segments(self, meta, buf, siblings, target, zero_copy):
+        # copies out of shm read the segments through their descriptors:
+        # a restarted process's fresh mapping would take a page fault per
         # 4 KiB page inside the copies
-        shm = self._shm_handler.shm
-        data_start = 8 + int.from_bytes(bytes(shm.buf[:8]), "little")
+        entries = []
+        for m, handler in [(meta, self._shm_handler)] + siblings:
+            shm = handler.shm
+            start = 8 + int.from_bytes(bytes(shm.buf[:8]), "little")
+            entries += [(leaf, shm._fd, start) for leaf in m.leaves]
         # meta.leaves holds one entry per *shard*: the collision check
         # must see unique paths only
         names = _translate_legacy_names(
-            sorted({l.path for l in meta.leaves})
+            sorted({leaf.path for leaf, _, _ in entries})
         )
         piece_map: dict[str, list] = {}
-        for leaf in meta.leaves:
-            piece_map.setdefault(names[leaf.path], []).append(
-                (leaf, shm._fd, data_start)
-            )
+        for piece in entries:
+            piece_map.setdefault(names[piece[0].path], []).append(piece)
         if target is not None:
             # an incomplete shm image (another host wrote some leaves)
             # falls back to storage rather than keeping fresh leaves
@@ -979,8 +1035,11 @@ class CheckpointEngine:
         t0 = time.perf_counter()
         state = {}
         nbytes = 0
+        own_fd = self._shm_handler.shm._fd
         for name, pieces in piece_map.items():
-            if zero_copy and _single_piece(pieces):
+            # views of this rank's own mapping only
+            if (zero_copy and _single_piece(pieces)
+                    and pieces[0][1] == own_fd):
                 leaf = pieces[0][0]
                 raw = torch.frombuffer(
                     buf, dtype=torch.uint8, count=leaf.nbytes,
@@ -1216,8 +1275,7 @@ class CheckpointEngine:
         new_leaves: list = [None] * len(tnames)
         card = _card_of([_as_leaf(x) for x in tleaves])
         stream = self._stager.stream(card) if card is not None else None
-        slot_events: list = [None] * _RING
-        chunk_count = 0
+        ring = _ChunkRing(self._stager, stream)
         read_s = 0.0
         nbytes_total = 0
         t_all = time.perf_counter()
@@ -1243,6 +1301,13 @@ class CheckpointEngine:
                     f"target expects {want_dtype} — refusing a silent "
                     f"mismatched-dtype restore"
                 )
+            if isinstance(leaf_t, DTensor):
+                t0 = time.perf_counter()
+                new_leaves[i], n = self._fill_shard(name, pieces, leaf_t,
+                                                    source, ring)
+                read_s += time.perf_counter() - t0
+                nbytes_total += n
+                continue
             nbytes = _leaf_nbytes(meta0)
             nbytes_total += nbytes
             if not _single_piece(pieces):
@@ -1259,28 +1324,8 @@ class CheckpointEngine:
                 continue
             dst = torch.empty(want_shape, dtype=leaf_t.dtype,
                               device=leaf_t.device)
-            dst_u8 = dst.reshape(-1).view(torch.uint8)
             meta, src1, src2 = pieces[0]
-            pos = 0
-            while pos < nbytes:
-                n = min(_CHUNK, nbytes - pos)
-                k = chunk_count % _RING
-                slot = self._stager.slot(k)
-                if slot_events[k] is not None:
-                    slot_events[k].synchronize()
-                t0 = time.perf_counter()
-                source.read(src1, src2, meta, pos, slot.numpy()[:n])
-                read_s += time.perf_counter() - t0
-                with torch.cuda.stream(stream):
-                    dst_u8[pos:pos + n].copy_(slot[:n], non_blocking=True)
-                    ev = torch.cuda.Event()
-                    ev.record(stream)
-                slot_events[k] = ev
-                chunk_count += 1
-                pos += n
-            # dst was allocated on the compute stream and is written on
-            # the side stream
-            dst.record_stream(stream)
+            read_s += ring.copy(dst, meta, src1, src2, source)
             new_leaves[i] = dst
         t_h2d = time.perf_counter()
         if stream is not None:
@@ -1295,6 +1340,71 @@ class CheckpointEngine:
             time.perf_counter() - t_all)
         return _unflatten(treedef, new_leaves), step
 
+    def _fill_shard(self, name, pieces, leaf_t, source, ring):
+        """A DTensor target's local shard from the saved pieces that
+        intersect its global box, each read only where it intersects,
+        through a host buffer the size of that intersection (never larger
+        than the target's shard). Returns (the DTensor, bytes read)."""
+        mesh, placements = leaf_t.device_mesh, leaf_t.placements
+        shape, offset = shard_box(leaf_t.shape, mesh, placements)
+        local_t = leaf_t.to_local()
+        dst = torch.empty(shape, dtype=local_t.dtype, device=local_t.device)
+
+        def wrap(local):
+            return DTensor.from_local(local, mesh, placements,
+                                      run_check=False, shape=leaf_t.shape,
+                                      stride=leaf_t.stride())
+
+        whole = tuple(slice(o, o + n) for o, n in zip(offset, shape))
+        if _is_cuda(dst):
+            # a saved piece that is exactly this shard streams to the
+            # card through the pinned chunks (a restore onto the mesh it
+            # was saved on)
+            for meta, src1, src2 in pieces:
+                if _piece_slices(meta) == whole:
+                    ring.copy(dst, meta, src1, src2, source)
+                    return wrap(dst), dst.numel() * dst.element_size()
+        np_dtype = _np_dtype(pieces[0][0].dtype)
+        itemsize = np_dtype.itemsize
+        covered = 0
+        stats = self.last_restore_stats
+        for meta, src1, src2 in pieces:
+            box = _piece_slices(meta)
+            lo = [max(b.start, o) for b, o in zip(box, offset)]
+            hi = [min(b.stop, o + n) for b, o, n in zip(box, offset, shape)]
+            if any(a >= b for a, b in zip(lo, hi)):
+                continue
+            ext = [b - a for a, b in zip(lo, hi)]
+            staging = np.empty(ext, dtype=np_dtype)
+            flat = staging.reshape(-1).view(np.uint8)
+            stats["max_staging_bytes"] = max(
+                stats.get("max_staging_bytes", 0), flat.nbytes)
+            # the intersection as contiguous runs of the piece's rows:
+            # dims after ``k`` are whole in it
+            pshape = [b.stop - b.start for b in box]
+            k = len(ext) - 1
+            while k > 0 and ext[k] == pshape[k]:
+                k -= 1
+            run = int(np.prod(ext[k:])) * itemsize
+            strides = [int(np.prod(pshape[d + 1:])) for d in range(len(ext))]
+            for n_run, idx in enumerate(np.ndindex(*ext[:k])):
+                first = sum((lo[d] - box[d].start + (idx[d] if d < k else 0))
+                            * strides[d] for d in range(len(ext)))
+                source.read(src1, src2, meta, first * itemsize,
+                            flat[n_run * run:(n_run + 1) * run])
+            region = tuple(slice(a - o, b - o)
+                           for a, b, o in zip(lo, hi, offset))
+            # reinterpret the bytes: bf16 and fp8 stage as uint16 / uint8
+            dst[region].copy_(_typed(torch.from_numpy(flat),
+                                     pieces[0][0].dtype, ext))
+            covered += staging.size
+        if covered != int(np.prod(shape)):
+            raise ValueError(
+                f"checkpoint leaf {name}: the saved pieces cover "
+                f"{covered} of the {int(np.prod(shape))} elements of this "
+                "rank's shard — refusing a partial restore")
+        return wrap(dst), covered * itemsize
+
     def latest_step(self) -> int:
         shm_step = self._shm_handler.get_checkpoint_step()
         disk_step = AsyncCheckpointSaver.get_latest_step(self.checkpoint_dir)
@@ -1305,6 +1415,47 @@ class CheckpointEngine:
         # unregister the mapping before it is unmapped
         self._stager.close()
         self._shm_handler.close()
+
+
+class _ChunkRing:
+    """A restore's copies to the card: chunk c of a piece is read into
+    pinned slot c % _RING while the chunks before it cross to the card on
+    the side stream ``stream``; a slot is reused once its copy's event
+    completed."""
+
+    def __init__(self, stager, stream):
+        self._stager = stager
+        self._stream = stream
+        self._events: list = [None] * _RING
+        self._count = 0
+
+    def copy(self, dst, meta, src1, src2, source) -> float:
+        """Fill the card tensor ``dst`` with a whole piece's bytes; returns
+        the seconds spent reading."""
+        nbytes = dst.numel() * dst.element_size()
+        dst_u8 = dst.reshape(-1).view(torch.uint8)
+        read_s = 0.0
+        pos = 0
+        while pos < nbytes:
+            n = min(_CHUNK, nbytes - pos)
+            k = self._count % _RING
+            slot = self._stager.slot(k)
+            if self._events[k] is not None:
+                self._events[k].synchronize()
+            t0 = time.perf_counter()
+            source.read(src1, src2, meta, pos, slot.numpy()[:n])
+            read_s += time.perf_counter() - t0
+            with torch.cuda.stream(self._stream):
+                dst_u8[pos:pos + n].copy_(slot[:n], non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(self._stream)
+            self._events[k] = ev
+            self._count += 1
+            pos += n
+        # dst was allocated on the compute stream and is written on the
+        # side stream
+        dst.record_stream(self._stream)
+        return read_s
 
 
 # --------------------------------------------------------------- sources
@@ -1464,6 +1615,11 @@ class ReplicatedCheckpointEngine(CheckpointEngine):
     engine_name = "replicated"
 
     def _select_shards(self, arr):
+        if isinstance(arr, DTensor):
+            raise ValueError(
+                "the replicated engine writes whole arrays from host 0; "
+                "DeviceMesh state (DTensors) goes through the sharded "
+                "engine")
         if self._host_rank != 0:
             return []
         return [(None, arr)]
@@ -1486,13 +1642,29 @@ class ReplicatedCheckpointEngine(CheckpointEngine):
 
 
 class ShardedCheckpointEngine(CheckpointEngine):
-    """Each host writes its own shards. In one process a tensor is one
-    shard covering the whole array (the index a single-device jax.Array
-    reports); host arrays are written by host 0."""
+    """Each process writes its own shards. A DTensor's local shard with
+    its global index box, by the replica at coordinate 0 of every mesh
+    dim that does not shard it; a plain tensor as one shard covering the
+    whole array (the index a single-device jax.Array reports), and host
+    arrays, by local rank 0 of host 0 (replicated leaves are written
+    once)."""
 
     engine_name = "sharded"
 
     def _select_shards(self, arr):
+        if isinstance(arr, DTensor):
+            coord = arr.device_mesh.get_coordinate()
+            if any(c and not isinstance(pl, Shard)
+                   for c, pl in zip(coord, arr.placements)):
+                return []
+            shape, offset = shard_box(arr.shape, arr.device_mesh,
+                                      arr.placements)
+            if not all(shape):
+                return []
+            return [(tuple(slice(o, o + n) for o, n in zip(offset, shape)),
+                     arr.to_local())]
+        if self._host_rank != 0 or self._local_rank != 0:
+            return []
         if not isinstance(arr, torch.Tensor):
-            return [(None, arr)] if self._host_rank == 0 else []
+            return [(None, arr)]
         return [(tuple(slice(None) for _ in arr.shape), arr)]

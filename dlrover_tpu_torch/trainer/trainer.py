@@ -58,7 +58,10 @@ from dlrover_tpu_torch.common.constants import NodeEnv
 from dlrover_tpu_torch.common.ipc import set_default_job_name
 from dlrover_tpu_torch.common.log import get_logger
 from dlrover_tpu_torch.ops import launch_counts
-from dlrover_tpu_torch.parallel.accelerate import auto_accelerate
+from dlrover_tpu_torch.parallel.accelerate import (
+    auto_accelerate,
+    global_value,
+)
 from dlrover_tpu_torch.parallel.strategy import Strategy
 from dlrover_tpu_torch.trainer.fault_tolerance import notify_progress_reset
 from dlrover_tpu_torch.trainer.optim import (
@@ -147,8 +150,13 @@ class Trainer:
     """Train a (loss_fn, init_fn) model over a batch iterable.
 
     ``loss_fn(params, batch, rng)`` and ``init_fn(seed, device)`` are
-    ``auto_accelerate``'s; ``param_logical_axes`` is kept for the JAX
-    signature (the port shards nothing, None is accepted). ``train_data``
+    ``auto_accelerate``'s, and so is ``param_logical_axes`` (``{name:
+    logical axes}``, which places the params on a DeviceMesh; None
+    replicates them there, and off a mesh it is not used). On a
+    DeviceMesh each ``train_data`` batch is this rank's rows (a sampler
+    over the replicas along the batch axes, ``mesh.batch_place``), and
+    the checkpoint holds each rank's shards (the sharded engine, one
+    segment per local rank). ``train_data``
     is re-iterable for several epochs. ``prestep``: an optional host-side
     hook ``(state, batch) -> (state, batch)`` run before every step, and
     for eval batches too (with ``count=False`` where it takes one).
@@ -207,7 +215,8 @@ class Trainer:
         strategy = dataclasses.replace(strategy, **overrides)
         self._accel = auto_accelerate(loss_fn, init_fn, self.optimizer,
                                       strategy=strategy, device=device,
-                                      seed=args.seed)
+                                      seed=args.seed,
+                                      param_logical_axes=param_logical_axes)
         self.device = self._accel.device
         self.state = self._accel.state
         self.global_step = 0
@@ -239,8 +248,15 @@ class Trainer:
             # so a restore target built before step 1 names every leaf
             # a checkpoint holds
             materialize_optimizer_state(self.state.optimizer)
+            from dlrover_tpu_torch.trainer.flash_checkpoint.checkpointer \
+                import host_place
+
+            # one segment per local rank; the shards per host
+            host_rank, num_hosts = host_place()
             self._engine = ShardedCheckpointEngine(
-                os.path.join(args.output_dir, "checkpoints"))
+                os.path.join(args.output_dir, "checkpoints"),
+                local_rank=int(os.environ.get(NodeEnv.LOCAL_RANK, "0")),
+                host_rank=host_rank, num_hosts=num_hosts)
         self._timer = None
         try:
             from dlrover_tpu_torch.trainer.timer import get_step_timer
@@ -257,7 +273,13 @@ class Trainer:
         """Dataloader/sampler progress as a fixed-size JSON leaf so it
         rides the same checkpoint tree (and target matching) as the
         train state."""
-        sd = self.train_data.state_dict()
+        sd = dict(self.train_data.state_dict())
+        replicas = getattr(getattr(self.train_data, "sampler", None),
+                           "num_replicas", None)
+        if replicas is not None:
+            # the loader's batch size is per replica: a restore onto
+            # another replica count rescales it (_data_state_for_now)
+            sd["num_replicas"] = int(replicas)
         raw = json.dumps(sd).encode()
         if len(raw) > self._DATA_STATE_BYTES:
             logger.warning(
@@ -268,6 +290,20 @@ class Trainer:
         buf = np.zeros(self._DATA_STATE_BYTES, np.uint8)
         buf[: len(raw)] = np.frombuffer(raw, np.uint8)
         return buf
+
+    def _data_state_for_now(self, sd: dict) -> dict:
+        """A saved loader state for this run's replicas along the batch
+        axes: saved on a mesh with another replica count, the per-replica
+        batch size is rescaled so the global batch stays the saved one
+        (where the new count divides it)."""
+        sd = dict(sd)
+        saved = int(sd.pop("num_replicas", 0))
+        now = getattr(getattr(self.train_data, "sampler", None),
+                      "num_replicas", None)
+        bs = int(sd.get("batch_size", 0))
+        if bs and saved and now and saved != now and (bs * saved) % now == 0:
+            sd["batch_size"] = bs * saved // now
+        return sd
 
     def _state_tree(self) -> dict:
         """The train state as a checkpoint tree: the step, the fp32
@@ -343,7 +379,7 @@ class Trainer:
                 raw = np.asarray(tree["data"]).tobytes().rstrip(b"\x00")
                 if raw:
                     self.train_data.load_state_dict(
-                        json.loads(raw.decode()))
+                        self._data_state_for_now(json.loads(raw.decode())))
         else:
             self._load_state_tree(tree)
         self.global_step = int(step)
@@ -782,7 +818,8 @@ class Trainer:
 
     def evaluate(self) -> float:
         """The mean of ``eval_fn(params, batch, rng)`` over ``eval_data``
-        on the fp32 master params, without gradients."""
+        on the fp32 master params, without gradients (on a DeviceMesh the
+        global loss of every rank's rows)."""
         if self.eval_data is None:
             return float("nan")
         rng = torch.Generator(device=self.device)
@@ -796,8 +833,8 @@ class Trainer:
                             self.state, batch, count=False)
                     else:
                         self.state, batch = self.prestep(self.state, batch)
-                losses.append(self.eval_fn(
-                    self.state.params, self._to_device(batch), rng).float())
+                losses.append(global_value(self.eval_fn(
+                    self.state.params, self._to_device(batch), rng)).float())
         loss = (float(torch.stack(losses).mean()) if losses
                 else float("nan"))
         logger.info("eval at step %d: loss %.5f", self.global_step, loss)
