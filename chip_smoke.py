@@ -98,6 +98,25 @@ Phases, each fatal on failure (no exception is caught):
    ledger, the restart's legs from the kill to the first step,
    each save's blocking ms and each persist's seconds; every file, the
    sockets and the segments removed at the end, also when a check fails,
+   ``[failover]``, the master survives its own death: ``python -m
+   dlrover_tpu_torch.master.main --state-dir D --http-port 0 --addr-file
+   F`` dies (a one-shot ``DLROVER_CHAOS`` ``master.kill`` rule) on its 7th
+   task request and is restarted with ``--restore-state D`` 1.2 s after
+   the agent logged the outage; ``python -m dlrover_tpu_torch.trainer.run
+   --network-check`` runs the node check on the card in a child (bf16
+   matmul, NCCL all_reduce and all_gather; normal, exited before the
+   worker started, the master's verdict normal), then a worker that
+   trains nano-350m (B8 S2048, adamw) one step per batch of an
+   ``ElasticDataset`` over 192 seeded rows in 12 master-served shuffled
+   shards; gated: one death and one restore on the same port, the worker
+   never restarted, every row read once, losses within 1e-5 (relative)
+   of an uninterrupted run over the same rows in this process, K1-K4 16
+   launches a step, the master's /metrics answering before and after
+   with the dispatched-task count carried over the restore, the goodput
+   ledger charging the outage to ``restart``, no CUDA context beyond the
+   worker's and the node check's; printed: the outage, the agent's
+   ride-through, the restore, the node check's legs, then a
+   ``{"failover": ...}`` line,
    ``[remat-minimal]``, ``[remat-full]`` and ``[remat-offload]``: adamw
    under ``Strategy(remat=...)`` with the model's default per-layer
    "dots_attn" policy, losses within 1e-5 of the adamw run's (remat
@@ -1406,6 +1425,8 @@ def train_slice(steps: int = 5):
     ckpt = ckpt_phase(cfg, trainer_summary, trainer_losses)
     release()
     agent_phase(cfg, ckpt["uninterrupted_losses"])
+    release()
+    failover_phase(cfg)
     release()
     remat_runs(cfg, steps, adamw_losses, none_summary)
 
@@ -2745,7 +2766,9 @@ class ContextWatch:
                 role = "master"
             elif "agent.probe" in cmd:
                 role = "probe"
-            elif "llama_pretrain" in cmd:
+            elif "agent.node_check" in cmd:
+                role = "node_check"
+            elif "llama_pretrain" in cmd or "failover_worker" in cmd:
                 role = "worker"
             else:
                 role = "other: " + cmd[:80]
@@ -2760,7 +2783,8 @@ class ContextWatch:
             apps = compute_apps()
             alive = before | self._classify()
             holders = sorted((pid, self.roles[pid]) for pid in alive
-                             if self.roles[pid] in ("worker", "probe"))
+                             if self.roles[pid] in ("worker", "probe",
+                                                    "node_check"))
             self.samples.append((len(apps), sum(
                 float(mib) for _pid, mib in apps if mib.isdigit()),
                 holders))
@@ -3039,6 +3063,468 @@ def agent_run(cfg, run_tmp, job, uninterrupted) -> dict:
         "cuda_contexts_beyond_workers": len(over),
         "loss_gap": gap,
     }
+
+
+# -------------------------------------------------------------- [failover]
+
+# the master-served data: FAILOVER_ROWS synthetic rows (row i is
+# RandomState(i)'s tokens, as the example makes them) in shards of
+# FAILOVER_SHARD (two batches of FAILOVER_B), shuffled by the master; the
+# master dies on its (FAILOVER_KILL_AFTER + 1)-th task request and comes
+# back from its state dir FAILOVER_OUTAGE_S after the agent saw it gone
+FAILOVER_ROWS, FAILOVER_SHARD, FAILOVER_B, FAILOVER_S = 192, 16, 8, 2048
+FAILOVER_KILL_AFTER = 6
+FAILOVER_OUTAGE_S = 1.2
+FAILOVER_TIMEOUT_S = 240
+FAILOVER_WORKER = '''
+"""[failover]'s worker: nano-350m through auto_accelerate on the card,
+one step per batch of an ElasticDataset whose shards the master serves."""
+import json, os, sys, time
+
+t_start = time.time()
+import numpy as np
+import torch
+
+from dlrover_tpu_torch.common import telemetry
+from dlrover_tpu_torch.models import PRESETS, llama_init, llama_loss_fn
+from dlrover_tpu_torch.ops import launch_counts
+from dlrover_tpu_torch.parallel import Strategy, auto_accelerate
+from dlrover_tpu_torch.trainer import build_optimizer
+from dlrover_tpu_torch.trainer.elastic import ElasticDataset
+
+out, rows, batch, shard, seq, lr = sys.argv[1:7]
+rows, batch, shard, seq, lr = (int(rows), int(batch), int(shard),
+                               int(seq), float(lr))
+cfg = PRESETS["nano-350m"]
+
+
+class Rows(ElasticDataset):
+    def read_sample(self, index):
+        return index, np.random.RandomState(index).randint(
+            0, cfg.vocab_size, size=(seq + 1,), dtype=np.int32)
+
+
+ds = Rows("failover", dataset_size=rows, batch_size=batch, epochs=1,
+          shuffle=True, num_minibatches_per_shard=shard // batch)
+res = auto_accelerate(
+    llama_loss_fn(cfg), lambda s, d: llama_init(cfg, s, d),
+    build_optimizer("adamw", lr, weight_decay=0.0), Strategy(remat="none"),
+    device="cuda", seed=0)
+state = res.state
+torch.cuda.synchronize()
+ready = time.time()
+steps = []
+while True:
+    got = []
+    for _ in range(batch):
+        try:
+            got.append(ds[0])
+        except IndexError:
+            break
+    if not got:
+        ds.report_all_shards_done()
+        break
+    t0 = time.time()
+    state, metrics = res.train_step(
+        state, {"tokens": np.stack([t for _i, t in got])}, None)
+    steps.append({"indices": [int(i) for i, _t in got],
+                  "loss": metrics["loss"].item(), "t": time.time()})
+    telemetry.event("step.end", step=len(steps), dur=time.time() - t0)
+    if len(steps) % (shard // batch) == 0:
+        ds.report_batch_done()
+telemetry.flush()
+with open(out, "w") as f:
+    json.dump({"pid": os.getpid(), "started": t_start, "ready": ready,
+               "steps": steps, "launches": launch_counts()}, f)
+'''
+
+
+def failover_phase(cfg):
+    """[failover]: the master survives its own death. ``python -m
+    dlrover_tpu_torch.master.main --state-dir D --http-port 0 --addr-file
+    F`` with a one-shot ``master.kill`` chaos rule on its 7th task
+    request; a supervisor thread here restarts it with ``--restore-state
+    D`` (and ``--port 0``, which re-binds the first incarnation's port)
+    FAILOVER_OUTAGE_S after the agent logged the outage. The launcher
+    twin with ``--network-check`` runs the node check on the card in a
+    child, then a worker that trains nano-350m on an ElasticDataset.
+    Every run file lives in one temp dir, removed at the end, also when a
+    check fails."""
+    import shutil
+    import tempfile
+
+    job = os.environ["ELASTIC_JOB_NAME"] + "failover"
+    run_tmp = Path(tempfile.mkdtemp(prefix="dlfo"))
+    t_phase = time.perf_counter()
+    try:
+        report = failover_run(cfg, run_tmp, job)
+    finally:
+        gone = unlink_segments(job)
+        shutil.rmtree(run_tmp, ignore_errors=True)
+        log(f"  [failover] cleanup: unlinked {gone}, removed {run_tmp}")
+    if run_tmp.exists():
+        raise SystemExit("failover: the cleanup left files behind")
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"failover": report}))
+
+
+def dispatched_count(http_addr) -> float | None:
+    """The master's dispatched-task count on its /metrics page (the
+    count of the WAL-append histogram's ``dispatch`` records), after
+    /report.json folded the master's own telemetry in; None while it is
+    not answering."""
+    import urllib.request
+
+    base = f"http://{http_addr}"
+    try:
+        urllib.request.urlopen(base + "/report.json", timeout=5).read()
+        text = urllib.request.urlopen(base + "/metrics", timeout=5).read()
+    except OSError:
+        return None
+    for line in text.decode().splitlines():
+        if line.startswith("dlrtpu_master_wal_append_seconds_count") and \
+                'op="dispatch"' in line:
+            return float(line.rsplit(" ", 1)[1])
+    return 0.0
+
+
+class MasterSupervisor:
+    """Runs the master, restarts it from its state dir after it dies,
+    and polls its /metrics page throughout."""
+
+    def __init__(self, run_tmp, env, agent_log):
+        import threading
+
+        self.state_dir = run_tmp / "master_state"
+        self.addr_file = run_tmp / "master_addr"
+        self.log_path = run_tmp / "master.log"
+        self.env, self.agent_log = env, agent_log
+        self.deaths: list = []    # (exit code, time)
+        self.restarts: list = []  # {"spawned", "serving", "seen_by_agent"}
+        self.readings: list = []  # (incarnation, dispatched count)
+        self.proc = self.spawn(restore=False)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+
+    def spawn(self, restore: bool):
+        cmd = [sys.executable, "-m", "dlrover_tpu_torch.master.main",
+               "--port", "0", "--node_num", "1", "--http-port", "0",
+               "--addr-file", str(self.addr_file)]
+        env = dict(self.env)
+        if restore:  # without the chaos rule: the kill is one-shot
+            cmd += ["--restore-state", str(self.state_dir)]
+        else:
+            cmd += ["--state-dir", str(self.state_dir)]
+            env["DLROVER_CHAOS"] = json.dumps({"seed": 29, "rules": [{
+                "site": "master.kill", "action": "kill",
+                "msg": ["TaskRequest"], "after": FAILOVER_KILL_AFTER,
+                "max": 1}]})
+        with open(self.log_path, "ab") as out:
+            return subprocess.Popen(cmd, cwd=str(ROOT), env=env, stdout=out,
+                                    stderr=subprocess.STDOUT)
+
+    def lines(self, prefix) -> list:
+        return [line.split("=", 1)[1] for line in
+                self.log_path.read_text(errors="replace").splitlines()
+                if line.startswith(prefix)]
+
+    def wait_serving(self, want: int, limit=60.0) -> float:
+        """Seconds until the master has printed its ``want``-th HTTP
+        address and its RPC port answers."""
+        from dlrover_tpu_torch.common.rpc import addr_connectable
+
+        t0 = time.perf_counter()
+        while True:
+            if len(self.lines("DLROVER_MASTER_HTTP=")) >= want and \
+                    self.addr_file.exists() and \
+                    addr_connectable(self.addr_file.read_text(), 0.5):
+                return time.perf_counter() - t0
+            if self.proc.poll() is not None or \
+                    time.perf_counter() - t0 > limit:
+                raise SystemExit(
+                    f"failover: master {want} never served; log:\n"
+                    f"{self.log_path.read_text(errors='replace')[-3000:]}")
+            time.sleep(0.02)
+
+    def start(self):
+        self._thread.start()
+
+    def _loop(self):
+        while not self._stop.is_set():
+            rc = self.proc.poll()
+            if rc is not None and rc != 0 and len(self.deaths) == len(
+                    self.restarts):
+                died = time.perf_counter()
+                self.deaths.append((rc, died))
+                # a real outage: the agent must see it before the master
+                # comes back, or nothing rides it through
+                seen = None
+                while seen is None and time.perf_counter() - died < 20:
+                    if "master unreachable at" in self.agent_log.read_text(
+                            errors="replace"):
+                        seen = time.perf_counter() - died
+                    time.sleep(0.02)
+                time.sleep(FAILOVER_OUTAGE_S)
+                spawned = time.perf_counter()
+                self.proc = self.spawn(restore=True)
+                try:
+                    self.wait_serving(2)
+                except SystemExit as e:
+                    self.restarts.append({"error": str(e)})
+                    return
+                self.restarts.append({
+                    "agent_saw_outage_s": seen,
+                    "outage_s": time.perf_counter() - died,
+                    "master_restore_s": time.perf_counter() - spawned})
+            http = self.lines("DLROVER_MASTER_HTTP=")
+            if self.proc.poll() is None and http:
+                count = dispatched_count(http[-1])
+                if count is not None:
+                    self.readings.append((len(http), count))
+            time.sleep(0.05)
+
+    def stop(self):
+        self._stop.set()
+        if self._thread.is_alive():
+            self._thread.join(timeout=60)
+        if self.proc.poll() is None:
+            self.proc.terminate()
+        try:
+            self.proc.wait(timeout=20)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def failover_run(cfg, run_tmp, job) -> dict:
+    import signal
+
+    from dlrover_tpu_torch.common.constants import NodeEnv
+    from dlrover_tpu_torch.common.telemetry import JobTelemetry
+
+    card = CARD["line"]
+    B, S = FAILOVER_B, FAILOVER_S
+    tele_dir, log_dir = run_tmp / "telemetry", run_tmp / "logs"
+    script, result = run_tmp / "failover_worker.py", run_tmp / "result.json"
+    script.write_text(FAILOVER_WORKER)
+    env = dict(os.environ)
+    for key in ("DLROVER_TPU_TORCH_SOCKET_DIR", "DLROVER_RUNTIME_METRICS_PATH",
+                "DLROVER_PARAL_CONFIG_PATH", "DLROVER_MASTER_ADDR",
+                "DLROVER_CHAOS"):
+        env.pop(key, None)
+    # every run file (sockets, node-check files, runtime files) under the
+    # run's temp dir; the workers ride a master outage inside one retry
+    # budget; the join-time hardware probe is [agent]'s, not this phase's
+    env.update({"TMPDIR": str(run_tmp), "ELASTIC_JOB_NAME": job,
+                "DLROVER_TELEMETRY_DIR": str(tele_dir),
+                "DLROVER_PROBE_DISABLE": "1",
+                "DLROVER_RPC_MAX_ATTEMPTS": "400",
+                "DLROVER_RPC_BASE_DELAY": "0.05",
+                "DLROVER_RPC_MAX_DELAY": "0.3",
+                "DLROVER_RPC_DEADLINE": "60",
+                "DLROVER_MASTER_RIDE_POLL": "0.1"})
+    master_env = dict(env, DLROVER_TELEMETRY_ROLE="master")
+    agent_log = run_tmp / "tpu_run.log"
+    agent_log.touch()
+    master = MasterSupervisor(run_tmp, master_env, agent_log)
+    try:
+        master.wait_serving(1)
+        addr = master.addr_file.read_text()
+        master.start()
+        env.update({"DLROVER_MASTER_ADDR": addr,
+                    NodeEnv.DLROVER_MASTER_ADDR_FILE: str(master.addr_file)})
+        baseline = len(compute_apps())
+        t0 = time.perf_counter()
+        with open(agent_log, "ab") as out:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "dlrover_tpu_torch.trainer.run",
+                 "--network-check", "--nnodes", "1", "--nproc_per_node",
+                 "1", "--max-restarts", "1", "--log-dir", str(log_dir),
+                 str(script), str(result), str(FAILOVER_ROWS), str(B),
+                 str(FAILOVER_SHARD), str(S), str(SLICE_LR)],
+                cwd=str(ROOT), env=env, stdout=out,
+                stderr=subprocess.STDOUT, start_new_session=True)
+        watch = ContextWatch(proc)
+        try:
+            rc = proc.wait(timeout=FAILOVER_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            rc = None
+        finally:
+            watch.stop()
+            try:  # the launcher's group: agent, node check, worker
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+    finally:
+        master.stop()
+    run_s = time.perf_counter() - t0
+    text = agent_log.read_text(errors="replace")
+    log(f"  [failover] tpu-run exit {rc} after {run_s:.1f} s")
+    for line in text.splitlines():
+        if any(k in line for k in (
+                "node check", "network check", "rendezvous round", "started ",
+                "exited rc", "master unreachable", "master back", "succeeded",
+                "Error", "error")):
+            log(f"    {line.strip()[:240]}")
+    mlog = master.log_path.read_text(errors="replace")
+    for line in mlog.splitlines():
+        if any(k in line for k in ("restored master state", "serving on",
+                                   "HTTP plane", "chaos", "exiting")):
+            log(f"    master: {line.strip()[:200]}")
+    if rc != 0:
+        for path in sorted(log_dir.glob("worker_*.log")):
+            log(f"  [failover] {path.name} (tail):")
+            for line in path.read_text(errors="replace").splitlines()[-25:]:
+                log(f"    {line[:240]}")
+        raise SystemExit(f"failover: tpu-run exited {rc}, want 0")
+
+    # the node check: on the card, in a child that had exited before the
+    # worker started, and the master's verdict normal
+    check = json.loads((run_tmp / "dlrover_tpu_torch" / "node_check"
+                        / "0.json").read_text())
+    legs = check.get("legs", {})
+    log(f"  [failover] node check {json.dumps(check)} ({card})")
+    ran_on_the_card(check)
+    if watch.roles.get(legs["pid"]) != "node_check":
+        raise SystemExit(f"failover: the node check's pid {legs['pid']} is "
+                         f"not a child the launcher started: {watch.roles}")
+    if "network check: the master's verdict is normal" not in text:
+        raise SystemExit("failover: the agent logged no normal verdict")
+    out = json.loads(result.read_text())
+    if not check["ts"] < out["started"]:
+        raise SystemExit("failover: the worker started before the node "
+                         "check ended")
+
+    # the master: one death, one restore from its state dir, the same
+    # port, the worker never restarted
+    if [rc_ for rc_, _t in master.deaths] != [137] or \
+            len(master.restarts) != 1 or "error" in master.restarts[0]:
+        raise SystemExit(f"failover: master deaths {master.deaths}, "
+                         f"restarts {master.restarts}")
+    restart = master.restarts[0]
+    if restart["agent_saw_outage_s"] is None:
+        raise SystemExit("failover: the agent never saw the outage")
+    if "restored master state" not in mlog or \
+            master.addr_file.read_text() != addr:
+        raise SystemExit("failover: the master did not come back from its "
+                         "state dir on its port")
+    workers = sorted(pid for pid, role in watch.roles.items()
+                     if role == "worker")
+    worker_logs = sorted(p.name for p in log_dir.glob("worker_*.log"))
+    if workers != [out["pid"]] or text.count("started 1 worker") != 1 or \
+            worker_logs != ["worker_0_restart0.log"]:
+        raise SystemExit(f"failover: worker pids {workers} (result's "
+                         f"{out['pid']}), logs {worker_logs}")
+
+    # the shards: every row once across the outage
+    steps = out["steps"]
+    rows = sorted(i for s in steps for i in s["indices"])
+    if rows != list(range(FAILOVER_ROWS)) or \
+            len(steps) != FAILOVER_ROWS // B:
+        raise SystemExit(f"failover: {len(steps)} steps read rows {rows}")
+
+    # /metrics on both sides of the outage, the count continuing
+    before = [c for inc, c in master.readings if inc == 1]
+    after = [c for inc, c in master.readings if inc == 2]
+    shards = FAILOVER_ROWS // FAILOVER_SHARD
+    own = shards - FAILOVER_KILL_AFTER  # dispatched by the restored master
+    log(f"  [failover] dispatched on /metrics: before {before[-3:]} "
+        f"({len(before)} reads), after {after[:3]} ... {after[-3:]} "
+        f"({len(after)} reads)")
+    if not before or not after or after != sorted(after) or \
+            not after[0] > 0 or not after[-1] > own:
+        raise SystemExit(f"failover: /metrics before {before}, after "
+                         f"{after}: the dispatched count did not continue "
+                         f"past the restored master's own {own}")
+
+    # the losses: an uninterrupted run over the same rows in this process
+    ref_losses = failover_reference(cfg, [s["indices"] for s in steps], S)
+    gap = loss_gap("failover", [s["loss"] for s in steps], ref_losses,
+                   LOSS_TOL, relative=True, to="the uninterrupted run")
+    want = attention_launches(cfg, len(steps))
+    launches = out["launches"]
+    log(f"  [failover] worker launches {launches}")
+    if any(launches.get(n, 0) != w for n, w in want.items()):
+        raise SystemExit(f"failover: worker launched {launches}, want {want}")
+
+    # the ledger charges the outage to restart
+    report = JobTelemetry.from_dir(str(tele_dir)).report()
+    ledger = report["ledger"]
+    ride = [e for e in report["timeline"] if e["kind"] == "master.restart"
+            and e.get("dur")]
+    log(f"  [failover] ledger {json.dumps(ledger)}")
+    if not (ledger["categories"].get("restart", 0) > 0
+            and ledger["categories"].get("productive", 0) > 0
+            and len(ride) == 1):
+        raise SystemExit(f"failover: the ledger {ledger} and ride-through "
+                         f"events {ride} do not charge the outage")
+
+    # CUDA contexts: never more than the live workers and node-check
+    # children hold
+    over = [s for s in watch.samples if s[0] > baseline + len(s[2])]
+    counts = sorted({(n - baseline, tuple(r for _p, r in holders))
+                     for n, _mib, holders in watch.samples})
+    log(f"  [failover] CUDA contexts beyond this script's {baseline} "
+        f"(contexts, holders alive): {counts}")
+    if over:
+        raise SystemExit(f"failover: contexts beyond the workers' and the "
+                         f"node check's: {over[:3]}")
+    return {
+        "card": card, "config": "nano-350m", "batch": B, "seq": S,
+        "rows": FAILOVER_ROWS, "shards": shards, "steps": len(steps),
+        "tpu_run_s": run_s, "outage_s": restart["outage_s"],
+        "agent_saw_outage_s": restart["agent_saw_outage_s"],
+        "agent_ride_through_s": ride[0]["dur"],
+        "master_restore_s": restart["master_restore_s"],
+        "node_check": {"matmul_ms": legs["matmul_ms"],
+                       "all_reduce_ms": legs["all_reduce_ms"],
+                       "all_gather_ms": legs["all_gather_ms"],
+                       "total_s": check["elapsed"]},
+        "dispatched_before": before[-1], "dispatched_after": after[-1],
+        "worker_ready_s": out["ready"] - out["started"],
+        "loss_gap": gap,
+        "launches": {n: launches.get(n, 0) for n in FLASH_KERNELS},
+        "ledger_s": ledger["categories"],
+        "cuda_contexts_beyond_holders": len(over),
+    }
+
+
+def ran_on_the_card(check):
+    """The node check's record: normal, on this card through NCCL, with
+    timed matmul, all_reduce and all_gather legs."""
+    legs = check.get("legs", {})
+    if not (check["normal"] and legs.get("device") == "cuda"
+            and legs.get("backend") == "nccl"
+            and legs.get("kind") == torch.cuda.get_device_name(0)
+            and legs.get("matmul_ms", 0) > 0
+            and legs.get("all_reduce_ms", 0) > 0
+            and legs.get("all_gather_ms", 0) > 0):
+        raise SystemExit(f"failover: the node check {check} did not run "
+                         f"normal on the card")
+
+
+def failover_reference(cfg, order, S) -> list:
+    """The worker's run without the outage: the same model, seed and
+    optimizer over the same rows in the same order, in this process."""
+    from dlrover_tpu_torch.models import llama_init, llama_loss_fn
+    from dlrover_tpu_torch.parallel import Strategy, auto_accelerate
+    from dlrover_tpu_torch.trainer import build_optimizer
+
+    res = auto_accelerate(
+        llama_loss_fn(cfg), lambda s, d: llama_init(cfg, s, d),
+        build_optimizer("adamw", SLICE_LR, weight_decay=0.0),
+        Strategy(remat="none"), device="cuda", seed=0)
+    state, losses = res.state, []
+    for indices in order:
+        tokens = np.stack([np.random.RandomState(i).randint(
+            0, cfg.vocab_size, size=(S + 1,), dtype=np.int32)
+            for i in indices])
+        state, metrics = res.train_step(state, {"tokens": tokens}, None)
+        losses.append(metrics["loss"].item())
+    del res, state
+    release()
+    return losses
 
 
 # ------------------------------------------------------------------ [gpt2]

@@ -15,9 +15,10 @@ the store address ``init_distributed`` reads
 ``LOCAL_RANK``; the failure taxonomy maps process exit codes AND
 CUDA/NCCL error patterns to hardware-vs-software errors. The agent
 hosts the checkpoint saver and never creates a CUDA context itself (its
-probe's device legs run in a child process). Not ported yet (ROADMAP
-Queue 1 item 6): the network check (``--network-check``,
-agent/node_check.py); deep captures (item 12) are acked as failed.
+probe's device legs run in a child process, and so do the network
+check's: ``--network-check`` runs agent/node_check.py in one child per
+local rank, on the cards unless ``accelerator`` is "cpu"). Deep captures
+(ROADMAP Queue 1 item 12) are acked as failed.
 """
 
 from __future__ import annotations
@@ -1237,6 +1238,91 @@ class ElasticTrainingAgent:
         self._telemetry_reporter.report_once(swallow=True)
 
 
+class NodeCheckElasticAgent:
+    """Runs probe rounds + reports to the master's pairing logic
+    (reference NetworkCheckElasticAgent :783)."""
+
+    def __init__(
+        self, config: ElasticLaunchConfig, client: MasterClient, rounds=2
+    ):
+        self._config = config
+        self._client = client
+        self._rounds = rounds
+        self._rdzv_handler = MasterRendezvousHandler(
+            RendezvousName.NETWORK_CHECK,
+            config.node_rank,
+            client,
+            config.nproc_per_node,
+            config.rdzv_timeout,
+        )
+
+    def _wait_round_verdict(self, timeout: float):
+        """Poll until every node of the round reported (the master stops
+        answering 'Waiting node') or the timeout passes."""
+        from dlrover_tpu_torch.common.constants import NetworkFailureReason
+
+        deadline = time.time() + timeout
+        result = None
+        while time.time() < deadline:
+            result = self._client.check_network_ready()
+            if result is not None and (
+                result.normal
+                or result.reason != NetworkFailureReason.WAITING_NODE
+            ):
+                break
+            time.sleep(2)
+        return result
+
+    def run(self) -> bool:
+        from dlrover_tpu_torch.agent.node_check import run_node_check
+
+        node_rank = self._config.node_rank
+        round_timeout = min(self._config.rdzv_timeout, 90)
+        result = None
+        for _ in range(self._rounds):
+            self._rdzv_handler.next_rendezvous()
+            # returns once its children (one per local rank) have
+            # exited: the agent holds no CUDA context, no NCCL group
+            normal, elapsed = run_node_check(
+                device="cpu" if self._config.accelerator == "cpu"
+                else "cuda",
+                nprocs=self._config.nproc_per_node,
+            )
+            self._client.report_node_check_result(
+                node_rank, normal, elapsed
+            )
+            result = self._wait_round_verdict(round_timeout)
+            if result is not None and result.normal:
+                logger.info("network check: the master's verdict is "
+                            "normal (elapsed %.2fs)", elapsed)
+                if self._config.exclude_straggler:
+                    straggler = self._client.check_straggler()
+                    if straggler and node_rank in straggler.nodes:
+                        logger.error(
+                            "this node is a straggler; excluding"
+                        )
+                        return False
+                return True
+            if result is not None and node_rank in result.nodes:
+                logger.error(
+                    "node %s isolated as faulty by the master", node_rank
+                )
+                return False
+            # round complete but undecided -> run another probe round
+        if result is None:
+            return False
+        if node_rank in result.nodes:
+            logger.error("node %s isolated as faulty", node_rank)
+            return False
+        if not result.normal:
+            logger.warning(
+                "network check inconclusive (%s); this node is not in the "
+                "fault set, continuing",
+                result.reason,
+            )
+        return True
+
+
 _SHARED_CONFIG_KEYS = ("nproc_per_node", "network_check", "node_unit")
 
 
@@ -1283,10 +1369,6 @@ def launch_agent(
     master_addr: str,
 ) -> int:
     """Build the client + agent and run (reference launch_agent :673)."""
-    if config.network_check:
-        raise NotImplementedError(
-            "the network check (--network-check, agent/node_check.py) is "
-            "not ported yet (ROADMAP Queue 1 item 6)")
     config.auto_configure_params()
     client = MasterClient(
         master_addr, config.node_rank, "worker"
@@ -1300,6 +1382,11 @@ def launch_agent(
             waiting_timeout=config.rdzv_elastic_wait,
             node_unit=config.node_unit,
         )
+    if config.network_check:
+        checker = NodeCheckElasticAgent(config, client)
+        if not checker.run():
+            logger.error("node check failed; aborting this node")
+            return ExitCode.NETWORK_CHECK_FAILED
     agent = ElasticTrainingAgent(
         config, WorkerSpec(entrypoint, args, config), client
     )

@@ -3,10 +3,7 @@
 Equivalent capability: reference dlrover/python/master/main.py:44 run()
 which picks LocalJobMaster vs DistributedJobMaster by platform.
 
-The PyTorch port's copy of dlrover_tpu/master/main.py. Only the
-``local`` platform runs; the others, ``--state-dir``/``--restore-state``
-and ``--http-port`` raise ``NotImplementedError`` naming ROADMAP Queue 1
-item 6.
+The PyTorch port's copy of dlrover_tpu/master/main.py.
 """
 
 from __future__ import annotations
@@ -18,7 +15,10 @@ import sys
 from dlrover_tpu_torch.common.chaos import chaos_point
 from dlrover_tpu_torch.common.constants import PlatformType
 from dlrover_tpu_torch.common.log import get_logger
-from dlrover_tpu_torch.master.master import LocalJobMaster, unported
+from dlrover_tpu_torch.master.master import (
+    DistributedJobMaster,
+    LocalJobMaster,
+)
 from dlrover_tpu_torch.scheduler.job import new_job_args
 
 logger = get_logger(__name__)
@@ -97,14 +97,34 @@ def run(args) -> int:
         node_num=args.node_num,
         relaunch_on_worker_failure=args.relaunch_on_worker_failure,
     )
-    if args.platform != PlatformType.LOCAL:
-        raise unported(f"the {args.platform} platform (DistributedJobMaster)")
-    master = LocalJobMaster(
-        args.port, job_args,
-        state_dir=args.restore_state or args.state_dir,
-        restore_state=bool(args.restore_state),
-        http_port=args.http_port if args.http_port >= 0 else None,
-    )
+    state_dir = args.restore_state or args.state_dir
+    restore = bool(args.restore_state)
+    port = args.port
+    if restore and port == 0:
+        # re-bind the previous incarnation's port so every cached
+        # worker/agent connection target stays valid across the failover
+        from dlrover_tpu_torch.master.state_store import MasterStateStore
+
+        port = MasterStateStore.peek_port(state_dir)
+    http_port = args.http_port if args.http_port >= 0 else None
+    if args.platform == PlatformType.LOCAL:
+        master = LocalJobMaster(
+            port, job_args, state_dir=state_dir, restore_state=restore,
+            http_port=http_port,
+        )
+    else:
+        scaler = watcher = None
+        if args.platform == PlatformType.KUBERNETES:
+            from dlrover_tpu_torch.scheduler.kubernetes import (
+                new_pod_scaler_and_watcher,
+            )
+
+            scaler, watcher = new_pod_scaler_and_watcher(job_args)
+        master = DistributedJobMaster(
+            port, job_args, scaler=scaler, watcher=watcher,
+            state_dir=state_dir, restore_state=restore,
+            http_port=http_port,
+        )
     master.prepare()
     if master.http_plane is not None:
         # discoverable like the RPC addr below: the dashboard/scrape

@@ -51,8 +51,8 @@ def parse_args(argv=None):
     parser.add_argument(
         "--network-check",
         action="store_true",
-        help="run the node check before training (not ported yet: "
-             "ROADMAP Queue 1 item 6)",
+        help="run the node check (matmul and NCCL collectives on the "
+             "cards, in child processes) before training",
     )
     parser.add_argument(
         "--comm-perf-test", action="store_true",

@@ -206,10 +206,25 @@ def test_capture_directive_gets_a_failed_ack_once():
     assert all(not ok and "item 12" in err for _, _, ok, err in acks)
 
 
-def test_network_check_raises_naming_item_6():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        launch_agent(ElasticLaunchConfig(network_check=True), "w.py", (),
-                     "127.0.0.1:1")
+def test_network_check_raises_naming_item_6(port_master, tmp_path,
+                                            monkeypatch):
+    """``--network-check`` used to raise naming ROADMAP item 6; it now
+    runs agent/node_check.py (here on the CPU, as the config asks) before
+    any worker, and a node the check fails stops with
+    ``NETWORK_CHECK_FAILED`` and starts no worker."""
+    monkeypatch.setattr("dlrover_tpu_torch.agent.node_check.CHECK_TIME_DIR",
+                        str(tmp_path / "node_check"))
+    monkeypatch.setenv(NodeEnv.MOCK_ERR_RANK, "0")
+    monkeypatch.setenv(NodeEnv.NODE_RANK, "0")
+    monkeypatch.setenv("DLROVER_PROBE_DISABLE", "1")
+    script = tmp_path / "never.py"
+    script.write_text("raise SystemExit('the worker must not start')\n")
+    rc = launch_agent(
+        ElasticLaunchConfig(network_check=True, accelerator="cpu",
+                            rdzv_timeout=30, log_dir=str(tmp_path)),
+        str(script), (), port_master.addr)
+    assert rc == ExitCode.NETWORK_CHECK_FAILED
+    assert not list(tmp_path.glob("worker_*.log"))
 
 
 # ---------------------------------------------------------------- probe

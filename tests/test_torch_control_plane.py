@@ -225,13 +225,28 @@ def test_servicer_round_trip_over_each_package_rpc():
 
 
 def test_unported_master_options_name_item_6(tmp_path):
+    """These options used to raise naming ROADMAP item 6; they now run
+    through the port's own modules: a state store and an HTTP plane on
+    each master, a ``DistributedJobMaster`` without a platform scaler,
+    and the ``k8s`` platform failing as the JAX package's does where
+    neither the kubernetes client nor an API endpoint exists."""
+    from dlrover_tpu.master import main as jax_main
     from dlrover_tpu_torch.master import main as port_main
 
     args = port_job.new_job_args("local", "x", node_num=1)
-    for kw in ({"state_dir": str(tmp_path)}, {"http_port": 0}):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            port_master.LocalJobMaster(0, args, **kw)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        port_master.DistributedJobMaster(0, args)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        port_main.main(["--platform", "k8s", "--port", "0"])
+    for cls in (port_master.LocalJobMaster,
+                port_master.DistributedJobMaster):
+        master = cls(0, args, state_dir=str(tmp_path / cls.__name__),
+                     http_port=0)
+        assert master.state_store is not None
+        assert master.servicer.state_store is master.state_store
+        master.http_plane.start()
+        assert master.http_plane.port > 0
+        master.stop()
+        assert (tmp_path / cls.__name__ / "master_state.json").is_file()
+    errors = []
+    for main in (jax_main, port_main):
+        with pytest.raises(RuntimeError) as err:
+            main.main(["--platform", "k8s", "--port", "0"])
+        errors.append(str(err.value))
+    assert errors[0] == errors[1]

@@ -335,19 +335,29 @@ def test_trainer_resumes_on_another_mesh(sharded_run):
     steps 4-6 take the losses of an uninterrupted fsdp=4 run within
     1e-5."""
     _, saved = sharded_run
-    for got in saved:
+    for rank, got in enumerate(saved):
         t = got["trainer"]
         # the loader's per-replica batch, rescaled to the new replicas
-        assert t["batch_size"] == GLOBAL_BATCH // 4
-        assert sorted(t["first"]) == [1, 2, 3]
-        assert sorted(t["second"]) == [4, 5, 6]
+        assert t["batch_size"] == GLOBAL_BATCH // 4, (
+            f"rank {rank}: batch {t['batch_size']}")
+        assert sorted(t["first"]) == [1, 2, 3], (
+            f"rank {rank}: first run's steps {sorted(t['first'])}")
+        assert sorted(t["second"]) == [4, 5, 6], (
+            f"rank {rank}: resumed run's steps {sorted(t['second'])}")
         ref = t["ref"]
-        np.testing.assert_allclose([t["first"][s] for s in (1, 2, 3)],
-                                   [ref[s] for s in (1, 2, 3)], atol=1e-5)
-        np.testing.assert_allclose([t["second"][s] for s in (4, 5, 6)],
-                                   [ref[s] for s in (4, 5, 6)], atol=1e-5)
+        np.testing.assert_allclose(
+            [t["first"][s] for s in (1, 2, 3)], [ref[s] for s in (1, 2, 3)],
+            atol=1e-5, err_msg=f"rank {rank}: steps 1-3 against the "
+            f"uninterrupted run {ref}")
+        np.testing.assert_allclose(
+            [t["second"][s] for s in (4, 5, 6)], [ref[s] for s in (4, 5, 6)],
+            atol=1e-5, err_msg=f"rank {rank}: resumed steps 4-6 against "
+            f"the uninterrupted run {ref}")
         # evaluate after step 6: the global loss over every rank's rows,
         # the same on every rank and for the resumed run
-        np.testing.assert_allclose(t["eval"][1], t["eval"][0], atol=1e-5)
-        np.testing.assert_allclose(t["eval"][0], saved[0]["trainer"][
-            "eval"][0], rtol=0, atol=0)
+        np.testing.assert_allclose(
+            t["eval"][1], t["eval"][0], atol=1e-5,
+            err_msg=f"rank {rank}: evaluate (uninterrupted, resumed)")
+        np.testing.assert_allclose(
+            t["eval"][0], saved[0]["trainer"]["eval"][0], rtol=0, atol=0,
+            err_msg=f"rank {rank}: uninterrupted evaluate against rank 0's")
