@@ -182,6 +182,35 @@ Phases, each fatal on failure (no exception is caught):
    shm, 2 more steps, a fresh engine's restore of the save (every leaf
    ``torch.equal``) and the same 2 steps again, losses within 1e-5
    (relative); a profiled step;
+   then serving and RL: ``[serve]``, llama3-8b at full width (32
+   layers, dim 4096, 32 heads over 8 kv heads of 128, mlp 14336, vocab
+   128256, rope_theta 5e5; 16.06 GB of bf16 weights drawn from a seed)
+   in ``DecodeEngine(slots=8, capacity=2048)``, warmed up (every prompt
+   bucket, the decode step captured as a CUDA graph): the logits of
+   prompts of 100 and 1000 tokens and 16 teacher-forced decode steps
+   each against the full forward (K1), and of 8 steps past the ring's
+   end against a forward with a 2048-key sliding window, each within 2e-2
+   of the largest value or twice the bf16 K1 forward's own distance from
+   the f32 forward, whichever is larger; 24 seeded greedy requests
+   through the continuous-batching scheduler, at least 2 in one step,
+   each bit-equal to itself served alone in the same slot; the decode
+   step's ms graph-replayed and eager at 8 live slots and context 2048
+   beside its bound, tokens/s, TTFT per bucket, peak memory; then
+   ``[serve-pool]``: the port's master (``python -m
+   dlrover_tpu_torch.master.main --platform local --port 0``), two
+   decode worker processes on the card (nano-350m, 8 slots of 1024, a
+   DecodeWorker over RpcServingClient each), a seeded Poisson sweep of
+   64 requests through ``MasterClient.serve_submit``, worker 1
+   SIGKILLed while it holds requests: every request fetched ``done``
+   with a reference engine's tokens, the ledger's failed 0 and attempts
+   at most 2, overlap >= 2, no CUDA context left by the workers; the
+   serve_* keys (tokens/s, TTFT p50/p99, goodput); then ``[ppo]``:
+   ``LMPPOTrainer`` on nano-350m (actor and ref the port's Llama on the
+   flash kernels, a linear critic), B8, 128 + 128 tokens sampled at
+   temperature 1, 2 iterations: K1 32 launches per ``make_experience``
+   and K1-K4 16 each per update, the rollout's logprobs within 2e-2 of
+   the teacher-forced ones, finite stats, the actor moved; rollout
+   tokens/s, update ms, peak memory;
 6. one JSON line with every kernel's numbers (K1-K4's head_dim 64
    instantiations as ``<name>_d64``, their launches from ``[gpt2]``),
    then the last line
@@ -3771,6 +3800,861 @@ def profile_step(res, state, batch, label="adamw", top=16):
     return ce_rows
 
 
+# ------------------------------------------------------------- [serve]
+#
+# the serving arm and the RL loop: llama3-8b in the slotted decode engine
+# at full width, nano-350m decode workers under the port's own master,
+# and LMPPOTrainer on nano-350m through K1-K4
+
+SERVE_SLOTS = 8
+SERVE_CAPACITY = 2048
+SERVE_TF_PROMPTS = (100, 1000)   # buckets 128 and 1024
+SERVE_TF_STEPS = 16
+SERVE_WRAP_PROMPT = SERVE_CAPACITY - 48
+SERVE_WRAP_STEPS = 56            # the last 8 past the ring's end
+SERVE_REQUESTS = 24
+SERVE_SEED = 5
+# bf16 logits against the forward: 2e-2 of the largest value, or twice
+# the distance of the bf16 K1 forward itself from the f32 forward,
+# whichever is larger (bf16 noise of a random-weight model grows with
+# depth and width; a wrong position, mask or cache row is of order 1)
+SERVE_REL_TOL = 2e-2
+SERVE_NOISE_FACTOR = 2.0
+# the rollout's logprobs against the teacher-forced K1 forward's
+PPO_LOGP_TOL = 2e-2
+SERVE_TIMED_STEPS = 50
+
+
+def serve_config():
+    from dlrover_tpu_torch.models import PRESETS
+
+    return dataclasses.replace(PRESETS["llama3-8b"], remat=False)
+
+
+def drawn_params(cfg, seed, keep_f32=False):
+    """The model's fp32 params drawn from ``seed`` on the card, and their
+    bf16 casts (each cast as it is taken); the fp32 dict is kept only
+    with ``keep_f32``."""
+    from dlrover_tpu_torch.models import llama_init
+
+    f32 = llama_init(cfg, seed=seed, device="cuda")
+    if keep_f32:
+        return f32, {k: v.to(torch.bfloat16) for k, v in f32.items()}
+    return {k: f32.pop(k).to(torch.bfloat16) for k in list(f32)}
+
+
+def noise_gate(label, engine_logits, bf16_logits, f32_logits):
+    """Holds the engine's bf16 logits against the K1 forward's, with the
+    tolerance SERVE_REL_TOL or SERVE_NOISE_FACTOR times the K1 forward's
+    own distance from the f32 forward; logs all three distances."""
+    _, pair = rel_err(engine_logits, bf16_logits)
+    _, engine_vs_f32 = rel_err(engine_logits, f32_logits)
+    _, k1_vs_f32 = rel_err(bf16_logits, f32_logits)
+    tol = max(SERVE_REL_TOL, SERVE_NOISE_FACTOR * k1_vs_f32)
+    agree = float((engine_logits.argmax(-1) == bf16_logits.argmax(-1))
+                  .float().mean())
+    ok = pair <= tol and bool(torch.isfinite(engine_logits).all())
+    log(f"  [serve] {label}: engine vs K1 forward rel={pair:.3e} (tol "
+        f"{tol:.3e}); engine vs f32 {engine_vs_f32:.3e}, K1 forward vs f32 "
+        f"{k1_vs_f32:.3e}; argmax agreement {agree:.3f} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"serve logits check failed ({label})")
+    return {"rel": pair, "tol": tol, "engine_vs_f32": engine_vs_f32,
+            "k1_vs_f32": k1_vs_f32, "argmax_agreement": agree}
+
+
+def pool_inputs(S, live_slots):
+    """The static-buffer arguments of a decode step with ``live_slots``
+    live (slot -> (token, position))."""
+    tokens, positions, live = [0] * S, [0] * S, [False] * S
+    for slot, (tok, pos) in live_slots.items():
+        tokens[slot], positions[slot], live[slot] = int(tok), int(pos), True
+    return (torch.tensor(tokens, device="cuda"),
+            torch.tensor(positions, device="cuda"),
+            torch.tensor(live, device="cuda"))
+
+
+def k1_attend(q, k, v, window):
+    from dlrover_tpu_torch.ops.attention import flash_attention
+
+    return flash_attention(q, k, v, causal=True, window=window)
+
+
+def plain_attend(q, k, v, window):
+    from dlrover_tpu_torch.ops.attention import flash_fwd_plain
+
+    return flash_fwd_plain(q, k, v, None, None, True, q.shape[-1] ** -0.5,
+                           window=window)[0]
+
+
+def windowed_forward(cfg, params, tokens, window, attend):
+    """The Llama forward over ``tokens`` [B, T] at positions 0..T-1 with
+    causal attention over a sliding window of ``window`` keys (the slot
+    ring's semantics past its capacity), rope applied outside the
+    attention, ``attend(q, k, v, window)`` on [B, H, T, hd]. f32
+    logits."""
+    import torch.nn.functional as F
+
+    from dlrover_tpu_torch.models.llama import (
+        LAYER_KEYS,
+        _rms_norm,
+        _rope_apply,
+        _rope_tables,
+    )
+
+    dtype = getattr(torch, cfg.dtype)
+    B, T = tokens.shape
+    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    pos = torch.arange(T, device=tokens.device).expand(B, T)
+    cos, sin = _rope_tables(pos, hd // 2, cfg.rope_theta, dtype)
+    x = F.embedding(tokens, params["embed"].to(dtype))
+    for i in range(cfg.n_layers):
+        p = {k: params["layers." + k][i].to(dtype) for k in LAYER_KEYS}
+        y = _rms_norm(x, p["attn_norm"], cfg.norm_eps)
+        q = _rope_apply((y @ p["wq"]).view(B, T, H, hd), cos, sin)
+        k = _rope_apply((y @ p["wk"]).view(B, T, KVH, hd), cos, sin)
+        v = (y @ p["wv"]).view(B, T, KVH, hd)
+        o = attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                   window)
+        x = x + o.transpose(1, 2).reshape(B, T, H * hd) @ p["wo"]
+        y = _rms_norm(x, p["mlp_norm"], cfg.norm_eps)
+        x = x + (F.silu(y @ p["w_gate"]) * (y @ p["w_up"])) @ p["w_down"]
+    x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return (x @ params["lm_head"].to(dtype)).float()
+
+
+def serve_logit_checks(cfg, f32, bf16, engine) -> dict:
+    """(a) prompts of 100 and 1000 tokens (buckets 128 and 1024) in
+    slots 0 and 1, then 16 teacher-forced decode steps of both in one
+    pool step each, against the full forward (K1) at the same positions;
+    (c) a 2000-token prompt in slot 2 decoded 56 teacher-forced steps,
+    the last 8 past the ring's end, against the plain forward with a
+    sliding window of C keys (and its K1 twin)."""
+    from dlrover_tpu_torch.models import llama_apply
+    from dlrover_tpu_torch.serving.engine import decode_logits, prefill_logits
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32", attn_impl="reference")
+    gen = torch.Generator(device="cuda").manual_seed(SERVE_SEED)
+    S, C = engine.slots, engine.capacity
+    out = {}
+    with torch.no_grad():
+        seqs, got = {}, {}
+        for slot, n in enumerate(SERVE_TF_PROMPTS):
+            seq = torch.randint(0, cfg.vocab_size, (n + SERVE_TF_STEPS,),
+                                generator=gen, device="cuda")
+            padded = torch.zeros(engine.bucket_for(n), dtype=torch.long,
+                                 device="cuda")
+            padded[:n] = seq[:n]
+            seqs[slot] = seq
+            got[slot] = [prefill_logits(cfg, engine.weights, engine.cache,
+                                        padded, n, slot)[0]]
+        for t in range(SERVE_TF_STEPS):
+            step = {slot: (seq[n + t], n + t) for (slot, seq), n in
+                    zip(seqs.items(), SERVE_TF_PROMPTS)}
+            logits = decode_logits(cfg, engine.weights, engine.cache,
+                                   *pool_inputs(S, step))
+            for slot in seqs:
+                got[slot].append(logits[slot])
+        for (slot, seq), n in zip(seqs.items(), SERVE_TF_PROMPTS):
+            reset_launches()
+            k1_ref = llama_apply(cfg, bf16, seq[None])[0, n - 1:]
+            k1 = launch_counts()["flash_fwd"]
+            if k1 != cfg.n_layers:
+                raise SystemExit(f"serve: the K1 forward launched K1 {k1} "
+                                 f"times, want {cfg.n_layers}")
+            f32_ref = llama_apply(cfg32, f32, seq[None])[0, n - 1:]
+            out[f"prompt{n}"] = noise_gate(
+                f"prompt {n} (bucket {engine.bucket_for(n)}) prefill + "
+                f"{SERVE_TF_STEPS} decode steps", torch.stack(got[slot]),
+                k1_ref, f32_ref)
+
+        n = SERVE_WRAP_PROMPT
+        seq = torch.randint(0, cfg.vocab_size, (n + SERVE_WRAP_STEPS,),
+                            generator=gen, device="cuda")
+        padded = torch.zeros(engine.bucket_for(n), dtype=torch.long,
+                             device="cuda")
+        padded[:n] = seq[:n]
+        prefill_logits(cfg, engine.weights, engine.cache, padded, n, 2)
+        wrapped = []
+        for t in range(SERVE_WRAP_STEPS):
+            logits = decode_logits(cfg, engine.weights, engine.cache,
+                                   *pool_inputs(S, {2: (seq[n + t], n + t)}))
+            if n + t >= C:
+                wrapped.append(logits[2])
+        rows = engine.cache.pos[2]
+        if int(rows.min()) != n + SERVE_WRAP_STEPS - C or \
+                int(rows.max()) != n + SERVE_WRAP_STEPS - 1:
+            raise SystemExit(f"serve: the wrapped ring holds positions "
+                             f"{int(rows.min())}..{int(rows.max())}")
+        # every token of the sequence attended the C positions up to its
+        # own (the ring's content when it was decoded): a sliding window
+        # of C keys over the whole sequence
+        reset_launches()
+        k1_ref = windowed_forward(cfg, bf16, seq[None], C, k1_attend)
+        k1 = launch_counts()["flash_fwd"]
+        if k1 != cfg.n_layers:
+            raise SystemExit(f"serve: the windowed K1 forward launched K1 "
+                             f"{k1} times, want {cfg.n_layers}")
+        f32_ref = windowed_forward(cfg32, f32, seq[None], C, plain_attend)
+        out["wrap"] = noise_gate(
+            f"wrap-around: {len(wrapped)} steps past capacity {C} against "
+            f"the forward with a {C}-key sliding window",
+            torch.stack(wrapped), k1_ref[0, C:], f32_ref[0, C:])
+    return out
+
+
+def serve_requests(cfg, n, prompt_range, new_range, seed):
+    """Seeded greedy requests with lengths and budgets drawn in range."""
+    from dlrover_tpu_torch.serving.scheduler import ServeRequest
+
+    rs = np.random.RandomState(seed)
+    return [ServeRequest(
+        request_id=f"r{i}",
+        prompt=rs.randint(0, cfg.vocab_size,
+                          rs.randint(*prompt_range)).tolist(),
+        max_new_tokens=int(rs.randint(*new_range)), temperature=0.0)
+        for i in range(n)]
+
+
+def run_batch(engine, requests, rng_seed=0):
+    """The requests through a ContinuousBatchingScheduler on ``engine``:
+    {id: tokens}, the slot each took, the overlap high water, the
+    seconds and the generated tokens."""
+    from dlrover_tpu_torch.serving.scheduler import (
+        ContinuousBatchingScheduler,
+        ServeRequest,
+    )
+
+    slots = {}
+    admit = engine.admit
+
+    def recording_admit(slot, prompt, rng, temperature):
+        slots[tuple(prompt)] = slot
+        return admit(slot, prompt, rng, temperature)
+
+    engine.admit = recording_admit
+    sched = ContinuousBatchingScheduler(engine, rng_seed=rng_seed)
+    for r in requests:
+        sched.submit(ServeRequest(**r.to_payload()))
+    done = {}
+    t0 = time.perf_counter()
+    try:
+        while len(done) < len(requests):
+            done.update({f.request_id: f.tokens for f in sched.step()})
+    finally:
+        engine.admit = admit
+    seconds = time.perf_counter() - t0
+    return (done, {r.request_id: slots[tuple(r.prompt)] for r in requests},
+            sched.stats()["overlap_high_water"], seconds,
+            sum(len(t) for t in done.values()))
+
+
+def serve_alone(engine, request, slot) -> list:
+    """One greedy request alone in ``slot`` of the same pool: admission,
+    then graph-replayed steps with only that slot live."""
+    S = engine.slots
+    tok, _, pos = engine.admit(slot, request.prompt, 0, 0.0)
+    out = [tok]
+    while len(out) < request.max_new_tokens:
+        tokens, positions, live = [0] * S, [0] * S, [False] * S
+        tokens[slot], positions[slot], live[slot] = out[-1], pos, True
+        nxt, _ = engine.step(tokens, positions, live, 0, [0.0] * S)
+        out.append(int(nxt[slot]))
+        pos += 1
+    return out
+
+
+def serve_times(engine, bf16) -> dict:
+    """The decode step at 8 live slots and context 2048: graph replays
+    (CUDA events) and the host's step (load, replay or eager run, read
+    back), its bound (the weights a step reads, all but the embedding
+    table, and the whole cache, over the HBM rate), and TTFT per prompt
+    bucket (host clock around one admission)."""
+    S, C = engine.slots, engine.capacity
+    args = ([7 + s for s in range(S)], [C - 1 + s for s in range(S)],
+            [True] * S, 0, [0.0] * S)
+    engine.step(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(SERVE_TIMED_STEPS):
+        engine.replay()
+    end.record()
+    torch.cuda.synchronize()
+    replay_ms = start.elapsed_time(end) / SERVE_TIMED_STEPS
+
+    def host_ms(step):
+        step(*args)
+        t0 = time.perf_counter()
+        for _ in range(SERVE_TIMED_STEPS // 2):
+            step(*args)
+        return (time.perf_counter() - t0) * 1e3 / (SERVE_TIMED_STEPS // 2)
+
+    graph_host_ms = host_ms(engine.step)
+    eager_host_ms = host_ms(engine.step_eager)
+    profiled = profile_decode_step(engine, args)
+    start.record()
+    for _ in range(10):
+        engine._decode_eager()
+    end.record()
+    torch.cuda.synchronize()
+    eager_ms = start.elapsed_time(end) / 10
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for k, t in bf16.items() if k != "embed")
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in (engine.cache.k, engine.cache.v))
+    bound_ms = (weight_bytes + cache_bytes) / PEAK_BYTES * 1e3
+    ttft = {}
+    gen = np.random.RandomState(SERVE_SEED)
+    for b in sorted({engine.bucket_for(1 << i) for i in range(3, 12)}):
+        prompt = gen.randint(0, engine.config.vocab_size, b).tolist()
+        t0 = time.perf_counter()
+        engine.admit(0, prompt, 0, 0.0)
+        ttft[b] = (time.perf_counter() - t0) * 1e3
+    return {"replay_ms": replay_ms, "eager_ms": eager_ms,
+            "graph_step_host_ms": graph_host_ms,
+            "eager_step_host_ms": eager_host_ms,
+            "bound_ms": bound_ms, "bound_gb": (weight_bytes + cache_bytes)
+            / 1e9, "weights_gb": weight_bytes / 1e9,
+            "cache_gb": cache_bytes / 1e9, "ttft_ms_by_bucket": ttft,
+            "profiled_eager_step": profiled}
+
+
+def profile_decode_step(engine, args, top=12) -> dict:
+    """Per-op device time of one eager decode step (the kernels the graph
+    holds, without the graph), written to
+    chiprun_out/profile_serve_step.txt; the first ``top`` rows are
+    logged."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    engine.step_eager(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.step_eager(*args)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    averages = prof.key_averages()
+    busy_us = sum(e.self_device_time_total for e in averages
+                  if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation)
+    kernels = sum(e.count for e in averages
+                  if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation)
+    table = averages.table(sort_by="cuda_time_total", row_limit=40)
+    OUT.mkdir(exist_ok=True)
+    (OUT / "profile_serve_step.txt").write_text(table)
+    log("  [serve] profile of one eager decode step (top rows, full table "
+        "in chiprun_out/profile_serve_step.txt):")
+    for line in table.splitlines()[:top]:
+        log("    " + line)
+    return {"eager_wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            "device_kernels": kernels}
+
+
+def serve_phase() -> dict:
+    """[serve]: llama3-8b at full width (32 layers, dim 4096, 32 heads
+    over 8 kv heads of 128, mlp 14336, vocab 128256, rope_theta 5e5),
+    weights drawn from a seed on the card and held in bf16, in
+    ``DecodeEngine(slots=8, capacity=2048)`` warmed up (every bucket,
+    the decode step captured). Gates: (a) and (c) of
+    :func:`serve_logit_checks`; (b) 24 seeded greedy requests (prompts
+    16-1500 tokens, 32-256 new) through the continuous-batching
+    scheduler, at least 2 in one decode step, each request's tokens
+    bit-equal to the same request served alone in the same slot of the
+    same pool. Numbers: the step's ms (graph and eager), its bound,
+    tokens/s, TTFT per bucket, peak memory."""
+    from dlrover_tpu_torch.serving.engine import DecodeEngine
+
+    t_phase = time.perf_counter()
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = serve_config()
+    t0 = time.perf_counter()
+    f32, bf16 = drawn_params(cfg, SERVE_SEED, keep_f32=True)
+    draw_s = time.perf_counter() - t0
+    weights_gb = sum(t.numel() * 2 for t in bf16.values()) / 1e9
+    engine = DecodeEngine(cfg, bf16, slots=SERVE_SLOTS,
+                          capacity=SERVE_CAPACITY)
+    if any(engine.weights["layers"][0][k].data_ptr()
+           != bf16[f"layers.{k}"][0].data_ptr() for k in ("wq", "w_down")):
+        raise SystemExit("serve: the engine copied bf16 weights")
+    t0 = time.perf_counter()
+    engine.warmup()
+    warmup_s = time.perf_counter() - t0
+    log(f"  [serve] llama3-8b: {weights_gb:.2f} GB of bf16 weights drawn "
+        f"in {draw_s:.1f} s; warmup (buckets {sorted(engine._buckets)}, "
+        f"decode graph captured: {engine.decode_traces()}) {warmup_s:.1f} s")
+    checks = serve_logit_checks(cfg, f32, bf16, engine)
+    del f32
+    release()
+
+    requests = serve_requests(cfg, SERVE_REQUESTS, (16, 1501), (32, 257),
+                              SERVE_SEED)
+    together, slots, overlap, batch_s, n_tokens = run_batch(engine,
+                                                           requests)
+    t0 = time.perf_counter()
+    mismatched = [r.request_id for r in requests
+                  if serve_alone(engine, r, slots[r.request_id])
+                  != together[r.request_id]]
+    alone_s = time.perf_counter() - t0
+    ok = not mismatched and overlap >= 2
+    log(f"  [serve] continuous batching: {len(requests)} requests, "
+        f"{n_tokens} tokens in {batch_s:.2f} s ({n_tokens / batch_s:.1f} "
+        f"tokens/s), overlap high water {overlap}; each alone in its slot "
+        f"({alone_s:.1f} s): bit-equal {len(requests) - len(mismatched)}/"
+        f"{len(requests)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"serve batching check failed: overlap {overlap}, "
+                         f"mismatched {mismatched}")
+    times = serve_times(engine, bf16)
+    report = {
+        "model": "llama3-8b", "slots": SERVE_SLOTS,
+        "capacity": SERVE_CAPACITY, "weights_gb": weights_gb,
+        "decode_step_graph_replay_ms": times["replay_ms"],
+        "decode_step_eager_ms": times["eager_ms"],
+        "decode_step_host_ms_graph": times["graph_step_host_ms"],
+        "decode_step_host_ms_eager": times["eager_step_host_ms"],
+        "decode_step_bound_ms": times["bound_ms"],
+        "decode_step_bound_gb": times["bound_gb"],
+        "decode_tokens_per_s_at_8_slots": SERVE_SLOTS * 1e3
+        / times["graph_step_host_ms"],
+        "batch_tokens_per_s": n_tokens / batch_s,
+        "batch_requests": len(requests), "batch_tokens": n_tokens,
+        "batch_s": batch_s, "overlap_high_water": overlap,
+        "ttft_ms_by_bucket": times["ttft_ms_by_bucket"],
+        "profiled_eager_step": times["profiled_eager_step"],
+        "checks": checks, "warmup_s": warmup_s,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "phase_s": time.perf_counter() - t_phase, "card": CARD["line"],
+    }
+    log(json.dumps({"serve": report}))
+    del engine, bf16
+    release()
+    return report
+
+
+# -------------------------------------------------------- [serve-pool]
+
+POOL_WORKERS = 2
+POOL_REQUESTS = 64
+POOL_RATE_HZ = 8.0
+POOL_SLOTS = 8
+POOL_CAPACITY = 1024
+POOL_SEED = 7
+POOL_KILL_RANK = 1
+POOL_KILL_AFTER_DONE = 16
+POOL_TIMEOUT_S = 150
+POOL_DIR = ROOT / "_serve_pool"
+
+
+def pool_config():
+    from dlrover_tpu_torch.models import PRESETS
+
+    return dataclasses.replace(PRESETS["nano-350m"], remat=False)
+
+
+def pool_engine():
+    from dlrover_tpu_torch.serving.engine import DecodeEngine
+
+    cfg = pool_config()
+    engine = DecodeEngine(cfg, drawn_params(cfg, POOL_SEED),
+                          slots=POOL_SLOTS, capacity=POOL_CAPACITY)
+    engine.warmup()
+    return engine
+
+
+def write_json(path, obj) -> None:
+    tmp = f"{path}.tmp"
+    with open(tmp, "w") as f:
+        json.dump(obj, f)
+    os.replace(tmp, path)
+
+
+def serve_worker(spec: dict) -> int:
+    """A [serve-pool] decode worker process: a warmed nano-350m engine
+    under a DecodeWorker over RpcServingClient, in the decode-pool
+    rendezvous group of the master at ``spec["addr"]``. Appends each
+    finished sequence to ``spec["out"]`` and rewrites its scheduler's
+    stats in ``spec["stats"]`` every 50 ms; stops when ``spec["stop"]``
+    exists."""
+    from dlrover_tpu_torch.agent.master_client import MasterClient
+    from dlrover_tpu_torch.serving.worker import DecodeWorker, RpcServingClient
+
+    rank = int(spec["rank"])
+    engine = pool_engine()
+    worker = DecodeWorker(
+        RpcServingClient(MasterClient(spec["addr"], rank, "decode"), rank),
+        engine, rank)
+    worker.start()
+    write_json(spec["ready"], {"pid": os.getpid()})
+    written = 0
+
+    def flush(f):
+        nonlocal written
+        fins = worker.finished[written:]
+        for fin in fins:
+            f.write(json.dumps({"request_id": fin.request_id,
+                                "tokens": fin.tokens, "ttft_s": fin.ttft_s,
+                                "latency_s": fin.latency_s}) + "\n")
+        written += len(fins)
+        f.flush()
+        write_json(spec["stats"], worker.scheduler.stats())
+
+    with open(spec["out"], "a") as f:
+        while not os.path.exists(spec["stop"]):
+            flush(f)
+            time.sleep(0.05)
+        worker.stop()
+        flush(f)
+    return 0
+
+
+def read_jsonl(path) -> list:
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def read_json(path):
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+def serve_pool_phase() -> dict:
+    """[serve-pool]: ``python -m dlrover_tpu_torch.master.main --platform
+    local --port 0``, two decode worker processes on the card (each a
+    DecodeWorker over RpcServingClient with a nano-350m engine at full
+    width, bf16, 8 slots of 1024), a seeded Poisson sweep of 64 requests
+    (prompts 16-512, 16-128 new tokens, greedy) through
+    ``MasterClient.serve_submit``, worker 1 SIGKILLed mid-sweep while it
+    holds requests. Gates: every request fetched ``done`` with the
+    tokens a reference engine in this process (same weights, same pool
+    shape) gives it; the ledger's done count 64, failed 0, at most 2
+    attempts, at least one re-queue; overlap >= 2; no CUDA context
+    beyond this process's once the workers are gone. Every process and
+    file is removed at the end, also when a check fails."""
+    import shutil
+    import signal
+    import threading
+
+    from dlrover_tpu_torch.agent.master_client import MasterClient
+    from dlrover_tpu_torch.common.ipc import SOCKET_DIR_ENV
+    from dlrover_tpu_torch.serving import loadgen
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(POOL_DIR, ignore_errors=True)
+    POOL_DIR.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env[SOCKET_DIR_ENV] = str(POOL_DIR / "socks")
+    procs = []
+    try:
+        baseline = len(compute_apps())
+        addr_file = POOL_DIR / "addr"
+        with open(POOL_DIR / "master.log", "wb") as master_log:
+            master = subprocess.Popen(  # noqa: S603
+                [sys.executable, "-m", "dlrover_tpu_torch.master.main",
+                 "--platform", "local", "--port", "0", "--node_num", "1",
+                 "--addr-file", str(addr_file)],
+                env=env, stdout=master_log, stderr=subprocess.STDOUT,
+                cwd=ROOT)
+        procs.append(master)
+        deadline = time.time() + 60
+        while not addr_file.exists():
+            if master.poll() is not None or time.time() > deadline:
+                raise SystemExit("serve-pool: the master did not start")
+            time.sleep(0.05)
+        addr = addr_file.read_text().strip()
+        specs = []
+        for rank in range(POOL_WORKERS):
+            spec = {name: str(POOL_DIR / f"{name}{rank}") for name in
+                    ("out", "stats", "stop", "ready")}
+            spec.update(rank=rank, addr=addr)
+            specs.append(spec)
+            with open(POOL_DIR / f"worker{rank}.log", "wb") as wlog:
+                procs.append(subprocess.Popen(  # noqa: S603
+                    [sys.executable, str(ROOT / "chip_smoke.py"),
+                     "--serve-worker", json.dumps(spec)],
+                    env=env, stdout=wlog, stderr=subprocess.STDOUT,
+                    cwd=ROOT))
+        workers = procs[1:]
+        t0 = time.perf_counter()
+        while not all(os.path.exists(s["ready"]) for s in specs):
+            if any(w.poll() is not None for w in workers) or \
+                    time.perf_counter() - t0 > 180:
+                raise SystemExit("serve-pool: a worker did not start: " + (
+                    POOL_DIR / "worker0.log").read_text()[-2000:])
+            time.sleep(0.1)
+        start_s = time.perf_counter() - t0
+        log(f"  [serve-pool] master at {addr}, {POOL_WORKERS} workers warm "
+            f"after {start_s:.1f} s")
+
+        cfg = pool_config()
+        requests = loadgen.make_requests(
+            POOL_REQUESTS, cfg.vocab_size, prompt_len_range=(16, 512),
+            seed=POOL_SEED)
+        rs = np.random.RandomState(POOL_SEED)
+        for req in requests:
+            req["max_new_tokens"] = int(rs.randint(16, 129))
+        arrivals = loadgen.poisson_arrivals(POOL_REQUESTS, POOL_RATE_HZ,
+                                            seed=POOL_SEED)
+        submitter_client = MasterClient(addr, 0, "client")
+        status_client = MasterClient(addr, 0, "client")
+        submitted = []
+        submitter = threading.Thread(target=lambda: submitted.append(
+            loadgen.run_open_loop(lambda p: submitter_client.serve_submit(
+                **p), requests, arrivals)), daemon=True)
+        t_sweep = time.monotonic()
+        submitter.start()
+        killed, counts = None, {}
+        deadline = time.monotonic() + POOL_TIMEOUT_S
+        while time.monotonic() < deadline:
+            counts = status_client.serve_status()["counts"]
+            if killed is None and counts["done"] >= POOL_KILL_AFTER_DONE:
+                stats = read_json(specs[POOL_KILL_RANK]["stats"]) or {}
+                if stats.get("live", 0) > 0:
+                    victim = workers[POOL_KILL_RANK]
+                    victim.send_signal(signal.SIGKILL)
+                    victim.wait(30)
+                    killed = {"at_s": time.monotonic() - t_sweep,
+                              "done_before": counts["done"],
+                              "live_in_victim": stats["live"]}
+                    log(f"  [serve-pool] SIGKILLed worker {POOL_KILL_RANK} "
+                        f"at {killed['at_s']:.2f} s into the sweep, "
+                        f"holding {stats['live']} live request(s)")
+            if submitted and counts["done"] + counts["failed"] >= \
+                    POOL_REQUESTS:
+                break
+            time.sleep(0.05)
+        wall_s = time.monotonic() - t_sweep
+        open(specs[0]["stop"], "w").close()
+        workers[0].wait(60)
+        gone = time.perf_counter()
+        contexts = len(compute_apps())
+        while contexts > baseline and time.perf_counter() - gone < 15:
+            time.sleep(0.5)
+            contexts = len(compute_apps())
+
+        status = status_client.serve_status()
+        counts = status["counts"]
+        fetched = {r["request_id"]: status_client.serve_fetch(
+            r["request_id"]) for r in requests}
+        finished = [rec for s in specs for rec in read_jsonl(s["out"])]
+        stats = [read_json(s["stats"]) or {} for s in specs]
+        overlap = max(s.get("overlap_high_water", 0) for s in stats)
+
+        from dlrover_tpu_torch.serving.scheduler import ServeRequest
+
+        ref_engine = pool_engine()
+        want, _slots, _o, ref_s, _n = run_batch(
+            ref_engine, [ServeRequest.from_payload(r) for r in requests])
+        del ref_engine
+        release()
+        wrong = sorted(rid for rid, res in fetched.items()
+                       if res.state != "done"
+                       or list(res.tokens) != want[rid])
+        keys = loadgen.summarize(len(requests), finished, wall_s)
+        keys["serve_goodput_pct"] = counts["done"] / len(requests) * 100
+        report = {
+            "submitted": submitted[0] if submitted else 0,
+            "counts": counts, "workers": status.get("workers"),
+            "killed": killed, "overlap_high_water": overlap,
+            "exit_codes": [w.returncode for w in workers],
+            "contexts_after": contexts, "contexts_baseline": baseline,
+            "workers_start_s": start_s, "sweep_s": wall_s,
+            "reference_s": ref_s, **keys,
+        }
+        failures = []
+        if killed is None:
+            failures.append("the kill never landed on a serving worker")
+        if counts.get("done") != POOL_REQUESTS or counts.get("failed"):
+            failures.append(f"ledger {counts}")
+        if counts.get("max_attempts_seen", 0) > 2:
+            failures.append("a request was leased more than twice")
+        if killed is not None and counts.get("requeued_total", 0) < 1:
+            failures.append("nothing was re-queued after the kill")
+        if overlap < 2:
+            failures.append(f"overlap {overlap}")
+        if wrong:
+            failures.append(f"tokens or state wrong for {wrong}")
+        if workers[0].returncode != 0:
+            failures.append(f"worker 0 exit {workers[0].returncode}")
+        if contexts > baseline:
+            failures.append(f"{contexts} CUDA contexts after the workers, "
+                            f"{baseline} before")
+        report["phase_s"] = time.perf_counter() - t_phase
+        report["card"] = CARD["line"]
+        log(json.dumps({"serve_pool": report}))
+        log(f"  [serve-pool] {len(requests) - len(wrong)}/{len(requests)} "
+            f"requests done with the reference engine's tokens "
+            f"{'ok' if not failures else 'FAIL: ' + '; '.join(failures)}")
+        if failures:
+            for path in sorted(POOL_DIR.glob("*.log")):
+                log(f"  [serve-pool] {path.name} (tail):\n"
+                    + path.read_text(errors="replace")[-3000:])
+            raise SystemExit(f"serve-pool failed: {failures}")
+        return report
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(30)
+        shutil.rmtree(POOL_DIR, ignore_errors=True)
+
+
+# ---------------------------------------------------------------- [ppo]
+
+PPO_B = 8
+PPO_PROMPT = 128
+PPO_NEW = 128
+PPO_ITERATIONS = 2
+PPO_SEED = 1
+
+
+def ppo_phase() -> dict:
+    """[ppo]: LMPPOTrainer on nano-350m at full width. Actor and ref: the
+    port's Llama, bf16 compute over fp32 masters, ``attn_impl="flash"``,
+    remat off; critic: an embedding and a linear value head. B=8 prompts
+    of 128 tokens, 128 new tokens sampled at temperature 1.0, 2
+    iterations of one PPO epoch (one update of the 8 rollouts each).
+    Gates per iteration: ``make_experience`` launches K1 once per layer
+    for each of the actor's and the ref's forwards and K2-K4 never, the
+    update K1-K4 once per layer each (counts from 0 around each part);
+    the rollout's logprobs equal log_softmax of the actor's teacher-
+    forced K1 logits at the sampled tokens (what the buffer stores),
+    within 2e-2 of the largest; finite stats; the actor's params moved.
+    Numbers: rollout tokens/s, update ms, peak memory."""
+    import torch.nn.functional as F
+
+    from dlrover_tpu_torch.models import PRESETS, llama_apply, llama_init
+    from dlrover_tpu_torch.rl import (
+        LMPPOTrainer,
+        ModelEngine,
+        ModelSpec,
+        PPOConfig,
+    )
+    from dlrover_tpu_torch.rl.generation import GenerateConfig
+
+    t_phase = time.perf_counter()
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(PRESETS["nano-350m"], remat=False)
+    L = cfg.n_layers
+
+    def llama(seed):
+        return llama_init(cfg, seed=PPO_SEED, device="cuda")
+
+    def apply(p, tokens):
+        return llama_apply(cfg, p, tokens)
+
+    def critic_init(seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return {"emb": torch.randn(cfg.vocab_size, cfg.dim, generator=g,
+                                   device="cuda") * 0.02,
+                "w": torch.randn(cfg.dim, 1, generator=g,
+                                 device="cuda") * 0.02}
+
+    def critic_apply(p, tokens):
+        return (F.embedding(tokens.long(), p["emb"]) @ p["w"])[..., 0]
+
+    engine = ModelEngine({
+        "actor": ModelSpec(llama, apply, trainable=True,
+                           optimizer=lambda p: torch.optim.AdamW(
+                               p.values(), lr=1e-5)),
+        "critic": ModelSpec(critic_init, critic_apply, trainable=True,
+                            optimizer=lambda p: torch.optim.AdamW(
+                                p.values(), lr=1e-4)),
+        "ref": ModelSpec(llama, apply),
+    })
+    trainer = LMPPOTrainer(
+        engine, PPOConfig(ppo_epochs=1, train_batch_size=PPO_B),
+        llama_config=cfg,
+        score_fn=lambda seq, m: (seq[:, -m.shape[1]:] % 2 == 0).float()
+        .mean(1),
+        gen=GenerateConfig(max_new_tokens=PPO_NEW, temperature=1.0))
+    rollouts = []
+    generate = trainer.backend.generate
+
+    def timed_generate(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = generate(*args)
+        torch.cuda.synchronize()
+        rollouts.append((res, time.perf_counter() - t0))
+        return res
+
+    trainer.backend.generate = timed_generate
+    before = engine.actor["layers.wq"].detach().clone()
+    rs = np.random.RandomState(PPO_SEED)
+    iterations = []
+    for it in range(PPO_ITERATIONS):
+        prompts = {"tokens": rs.randint(0, cfg.vocab_size,
+                                        (PPO_B, PPO_PROMPT))}
+        trainer.buffer.reset()
+        reset_launches()
+        t0 = time.perf_counter()
+        score = trainer.make_experience(prompts)
+        torch.cuda.synchronize()
+        exp_s = time.perf_counter() - t0
+        exp_launches = launch_counts()
+        res, gen_s = rollouts[-1]
+        stored = torch.as_tensor(np.stack(
+            [s["old_logprobs"] for s in trainer.buffer._samples]))
+        abs_err, rel = rel_err(res.logprobs.cpu(), stored[:, PPO_PROMPT - 1:])
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = trainer.rl_training()
+        torch.cuda.synchronize()
+        update_ms = (time.perf_counter() - t0) * 1e3
+        upd_launches = launch_counts()
+        want_exp = {"flash_fwd": 2 * L, "flash_bwd_preprocess": 0,
+                    "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        want_upd = {name: L for name in FLASH_KERNELS}
+        finite = all(math.isfinite(float(v)) for v in stats.values())
+        # and no other kernel
+        strays = {k: v for counts in (exp_launches, upd_launches)
+                  for k, v in counts.items() if v and k not in FLASH_KERNELS}
+        ok = (all(exp_launches[k] == v for k, v in want_exp.items())
+              and all(upd_launches[k] == v for k, v in want_upd.items())
+              and not strays and rel <= PPO_LOGP_TOL and finite)
+        rec = {"iteration": it, "mean_score": score,
+               "rollout_s": gen_s,
+               "rollout_tokens_per_s": PPO_B * PPO_NEW / gen_s,
+               "experience_s": exp_s, "update_ms": update_ms,
+               "logprob_max_abs_err": abs_err, "logprob_rel": rel,
+               "make_experience_launches": {k: exp_launches[k]
+                                            for k in want_exp},
+               "update_launches": {k: upd_launches[k] for k in want_upd},
+               "stats": {k: float(v) for k, v in stats.items()}}
+        iterations.append(rec)
+        log(f"  [ppo] iteration {it}: {json.dumps(rec)} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"ppo check failed at iteration {it}")
+    moved = float((engine.actor["layers.wq"].detach() - before).abs().max())
+    if not moved > 0:
+        raise SystemExit("ppo: the actor's params did not move")
+    report = {"model": "nano-350m", "B": PPO_B, "prompt": PPO_PROMPT,
+              "new_tokens": PPO_NEW, "iterations": iterations,
+              "actor_wq_max_change": moved,
+              "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "phase_s": time.perf_counter() - t_phase,
+              "card": CARD["line"]}
+    log(json.dumps({"ppo": report}))
+    del trainer, engine
+    release()
+    return report
+
+
 def main() -> int:
     """All phases. The job's name keys its shm segments (the step
     timer's ring, which every Trainer feeds, and the checkpoint's): they
@@ -3891,6 +4775,15 @@ def run_phases() -> int:
     launches.update({name + "_d64": gpt2_launches[name]
                      for name in FLASH_KERNELS})
 
+    # 5c. serving and RL: llama3-8b in the slotted decode engine, decode
+    # workers under the port's own master, PPO through K1-K4
+    log("phase serve:")
+    serve_phase()
+    log("phase serve-pool:")
+    serve_pool_phase()
+    log("phase ppo:")
+    ppo_phase()
+
     # 6. kernel line, then the result line
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -3914,4 +4807,6 @@ def run_phases() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ckpt-child"]:
         sys.exit(ckpt_child(json.loads(sys.argv[2])))
+    if sys.argv[1:2] == ["--serve-worker"]:
+        sys.exit(serve_worker(json.loads(sys.argv[2])))
     sys.exit(main())

@@ -208,6 +208,10 @@ def _worker(rank, store, tmp, job):
         "RANK": str(rank), "WORLD_SIZE": str(N), "LOCAL_RANK": str(rank),
         "LOCAL_WORLD_SIZE": str(N), "NODE_RANK": "0",
         "ELASTIC_JOB_NAME": job, SOCKET_DIR_ENV: os.path.join(tmp, "socks"),
+        # no paral-config hot reload: a test earlier in the same pytest
+        # process (the JAX tuner's) may have pointed this variable at a
+        # file with another batch size
+        "DLROVER_PARAL_CONFIG_PATH": "",
     })
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}",

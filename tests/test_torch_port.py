@@ -75,9 +75,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "dlrover_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
-    # the control plane's modules are among them
+    # the control plane's, the serving arm's and the RL stack's modules
+    # are among them
     for rel in ("agent/training_agent.py", "agent/probe.py",
-                "master/servicer.py", "master/main.py", "trainer/run.py"):
+                "master/servicer.py", "master/main.py", "trainer/run.py",
+                "serving/engine.py", "serving/scheduler.py",
+                "serving/worker.py", "serving/loadgen.py",
+                "serving/manager.py", "rl/generation.py",
+                "rl/ppo_utils.py", "rl/replay_buffer.py",
+                "rl/model_engine.py", "rl/ppo_trainer.py",
+                "examples/ppo_rlhf.py"):
         assert ROOT / "dlrover_tpu_torch" / rel in files
     for path in files:
         for mod in _imported_modules(path):
