@@ -224,6 +224,13 @@ class CheckpointStorage(ABC):
         ...
 
 
+def _tmp_name(path: str) -> str:
+    """A temp name beside ``path`` that no other writer uses: several
+    processes and threads may write one path at once (each rank's saver
+    writes the tracker), and each renames only its own file."""
+    return f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"
+
+
 class PosixDiskStorage(CheckpointStorage):
     def __init__(self, deletion_strategy=None):
         self._deletion_strategy = deletion_strategy
@@ -236,7 +243,7 @@ class PosixDiskStorage(CheckpointStorage):
         chaos_point("storage.write", path=path)
         mode = "wb" if isinstance(content, (bytes, bytearray, memoryview)) else "w"
         os.makedirs(os.path.dirname(path), exist_ok=True)
-        tmp = path + ".tmp"
+        tmp = _tmp_name(path)
         with open(tmp, mode) as f:
             f.write(content)
             f.flush()
@@ -250,7 +257,7 @@ class PosixDiskStorage(CheckpointStorage):
     def write_parts(self, parts, path: str):
         chaos_point("storage.write", path=path)
         os.makedirs(os.path.dirname(path), exist_ok=True)
-        tmp = path + ".tmp"
+        tmp = _tmp_name(path)
         parts = list(parts)
         large = any(
             getattr(p, "nbytes", len(p)) >= self._PARALLEL_PART_BYTES
@@ -308,7 +315,7 @@ class PosixDiskStorage(CheckpointStorage):
 
         chaos_point("storage.write", path=path)
         os.makedirs(os.path.dirname(path), exist_ok=True)
-        tmp = path + ".tmp"
+        tmp = _tmp_name(path)
         crc = 0
         with open(tmp, "wb") as f:
             fd = f.fileno()

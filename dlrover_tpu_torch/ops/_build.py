@@ -39,7 +39,7 @@ SOURCES = {
     "optim": "optim.cu",
 }
 HEADERS = ("flash_common.cuh", "sm90_common.cuh", "flash_fwd_sm90.cuh",
-           "flash_bwd_sm90.cuh")
+           "flash_fwd_sm90_d64.cuh", "flash_bwd_sm90.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

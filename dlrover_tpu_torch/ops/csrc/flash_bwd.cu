@@ -82,12 +82,15 @@ __global__ void __launch_bounds__(sm90::bwd::THREADS, 1)
 
 // ---------------------------------------------------------------- K4
 // One block per (kv tile of 128 positions, kv head, batch), first tiles
-// first.
+// first; at D = 64 one persistent block per SM walks them in that order.
 template <int D>
 __global__ void __launch_bounds__(sm90::bwd::THREADS, 1)
     flash_bwd_dkv_kernel(const __grid_constant__ sm90::bwd::BwdParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  sm90::bwd::dkv_block<bf16, D>(smem, p);
+  if constexpr (D == 64)
+    sm90::bwd::dkv_blocks_d64(smem, p);
+  else
+    sm90::bwd::dkv_block<bf16, D>(smem, p);
 }
 
 }  // namespace fa
@@ -147,6 +150,10 @@ extern "C" int flash_bwd_dkv(int head_dim, const void* q, const void* k, const v
     p.a.sin = static_cast<const bf16*>(sin);
     p.a.dk = out_bhsd<D>(dk, KVH, kv_len);
     p.a.dv = out_bhsd<D>(dv, KVH, kv_len);
-    return sm90::bwd::launch_bwd<D>(flash_bwd_dkv_kernel<D>, p, B, KVH, true, stream);
+    if constexpr (D == 64)
+      return sm90::bwd::launch_bwd<D>(flash_bwd_dkv_kernel<D>, p, B, KVH, true, stream,
+                                      sm90::bwd::SmemKV64::SMEM, true);
+    else
+      return sm90::bwd::launch_bwd<D>(flash_bwd_dkv_kernel<D>, p, B, KVH, true, stream);
   });
 }

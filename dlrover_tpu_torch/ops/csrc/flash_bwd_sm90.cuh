@@ -42,8 +42,11 @@
 //   dP back to back and forms P while the last two run; tile 0 is
 //   peeled off so that the loop body is the same on every pass (with the
 //   overlap behind branches ptxas serialises every wgmma, warning
-//   C7514). K4, short of registers for that (dK, dV, S^T, dP^T live
-//   together), forms P while dP^T runs.
+//   C7514). K4 at D = 128, short of registers for that (dK, dV, S^T,
+//   dP^T live together), forms P while dP^T runs; at D = 64, where dK
+//   and dV take half the registers, it runs K3's overlap
+//   (dkv_consume_d64), its two consumers taking turns at the tensor
+//   cores.
 // - Masks: only the tiles the mask leaves live are loaded (kv_tiles for
 //   K3, rows_of for K4), and the per-element mask runs only on tiles
 //   that some row or key does not wholly see (sees_all). A row that sees
@@ -69,13 +72,15 @@
 //   steps, the accumulators (m64nDk16: D / 2 floats a thread each) and the
 //   epilogues are templated on D (64 or 128); the score tiles (m64n64),
 //   P and dS do not depend on it. K3 and K4 are built for both, K10, K11,
-//   K13 and K14 for D = 128.
+//   K13 and K14 for D = 128. K4's D = 64 build runs its own consumer loop
+//   (dkv_consume_d64); K11 and K14 run dkv_consume at D = 128 only.
 // - K10 and K11 read [B, S, heads*D] operands through the same 4-D tensor
 //   maps as K3 and K4 read [B, H, S, D] ones: the maps take (batch, head,
 //   row) strides, here (S*heads*D, D, heads*D), so the loops are K3's and
 //   K4's unchanged.
 #pragma once
 
+#include <atomic>
 #include <type_traits>
 
 #include "sm90_common.cuh"
@@ -108,6 +113,7 @@ struct BwdParams {
   AttnArgs a;
   int n_bh;  // (batch, head) pairs of the grid: B * H (K3), B * KVH (K4)
   int nt;    // 128-row tiles per pair: of q (K3), of kv (K4)
+  int slot;  // K4 at D = 64: its launch's tile counter (dkv_blocks_d64)
 };
 
 // The block's shared memory: the two resident 128-row tiles (K3: Q, dO;
@@ -527,6 +533,367 @@ __device__ __forceinline__ void dkv_consume(const Smem<D>& sm, const AttnArgs& a
   }
 }
 
+// K4's P^T = exp(S^T * scale - lse) in place for the streamed tile of
+// queries q0.., with the queries a key does not see masked to 0 first
+// (only when `masked`: each query's offset c = 8j + (e & 1), a constant,
+// against the key's bounds less q0 + 2 quad, with no branch); `lse` is
+// the tile's lse row, the j-th pair of this thread's query columns at
+// 8j + 2 quad.
+__device__ __forceinline__ void probs_by_col(float (&s)[32], const Rows (&rows)[2], int q0,
+                                             int quad, bool masked, float sl2,
+                                             const float* lse) {
+  if (masked) {
+    const int base = q0 + 2 * quad;
+    const int lo[2] = {rows[0].lo - base, rows[1].lo - base};
+    const int hi[2] = {rows[0].hi - base, rows[1].hi - base};
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + (e & 1), h = e >> 1;
+        s[4 * j + e] = (c >= lo[h]) & (c <= hi[h]) ? s[4 * j + e] : -INFINITY;
+      }
+  }
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const float2 l = reinterpret_cast<const float2*>(lse + 2 * quad)[4 * j];
+    const float l2[2] = {l.x * LOG2E, l.y * LOG2E};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[4 * j + e] = ex2(fmaf(s[4 * j + e], sl2, -l2[e & 1]));
+  }
+}
+
+// K4's P^T and dS^T = P^T * (dP^T - delta) as wgmma's A operand (bf16
+// pairs); `delta` is the tile's delta row.
+__device__ __forceinline__ void operands_by_col(uint32_t (&pt)[16], uint32_t (&ds)[16],
+                                                const float (&p)[32], const float (&dp)[32],
+                                                const float* delta, int quad) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const float2 d = reinterpret_cast<const float2*>(delta + 2 * quad)[4 * (i / 2)];
+    pt[i] = pack_bf16(p[2 * i], p[2 * i + 1]);
+    ds[i] = pack_bf16(p[2 * i] * (dp[2 * i] - d.x), p[2 * i + 1] * (dp[2 * i + 1] - d.y));
+  }
+}
+
+// 4 bytes from global to shared memory, asynchronously, or 4 zero bytes
+// when !valid (src is then not read).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// Arrive on `bar` once this thread's earlier cp.async copies have landed;
+// the arrival is one of the barrier's expected ones.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// The two consumers' turns at the tensor cores in K4's D = 64 loop:
+// consumer c waits on named barrier TURN_BAR + c and passes the turn on
+// to the other's (barriers of both warpgroups, 256 threads).
+constexpr int TURN_BAR = 3;  // after consumer_sync's 1 and 2
+
+__device__ __forceinline__ void turn_wait(int c) {
+  asm volatile("bar.sync %0, 256;" ::"r"(TURN_BAR + c) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int c) {
+  asm volatile("bar.arrive %0, 256;" ::"r"(TURN_BAR + 1 - c) : "memory");
+}
+
+// K4's loop at head_dim 64 (dkv_blocks_d64, dkv_consume_d64), where dK
+// and dV take 32 + 32 registers and leave room for K3's cross-tile
+// overlap: tile t's S^T, tile t-1's dV and dK products and tile t's dP^T
+// go out together, and P^T is formed while the last three run; tile 0
+// and the last products are peeled off, so the loop body is the same on
+// every pass. The two consumers take turns at the tensor cores (named
+// barriers TURN_BAR + c, as the D = 64 forward's ping-pong), so one's
+// exponentials and packing run while the other's products do. Blocks are
+// persistent, one per SM, taking work tiles (a 128-key kv tile of one kv
+// head) from a counter in the order of dkv_block; the next pair of K and
+// V tiles and its first (q, do) tiles load while this one runs. The lse
+// and delta rows of each streamed tile come by cp.async, so the warp that
+// copies them runs ahead as the TMA thread does (its synchronous loads
+// held the loop back by 13%). Masks are branch-free (probs_by_col).
+// Epilogues as dkv_consume's.
+
+// K4's shared memory at D = 64: two resident (K, V) pairs (work tile j
+// in pair j % 2, so the next one loads while this one runs), STAGES slots
+// of the streamed (Q, dO) tiles with their lse and delta rows, and the
+// barriers (full and empty per pair and per slot).
+struct SmemKV64 {
+  static constexpr int OWN_BYTES = Bwd<64>::OWN_BYTES, STREAM_BYTES = Bwd<64>::STREAM_BYTES;
+  static constexpr size_t SMEM = 1024 + 4 * OWN_BYTES + 2 * STAGES * STREAM_BYTES +
+                                 2 * STAGES * BN * sizeof(float) + (4 + 2 * STAGES) * 8 + 8;
+  unsigned char* own;  // pair i's K at own + 2i * OWN_BYTES, its V one OWN_BYTES on
+  unsigned char* str[2];
+  float* lse;
+  float* delta;
+  int* tile;  // the work tile index of each pair
+  uint64_t *full_own, *empty_own, *full, *empty;
+
+  __device__ __forceinline__ explicit SmemKV64(unsigned char* raw) {
+    own = reinterpret_cast<unsigned char*>(
+        (reinterpret_cast<uintptr_t>(raw) + 1023) & ~static_cast<uintptr_t>(1023));
+    str[0] = own + 4 * OWN_BYTES;
+    str[1] = str[0] + STAGES * STREAM_BYTES;
+    lse = reinterpret_cast<float*>(str[1] + STAGES * STREAM_BYTES);
+    delta = lse + STAGES * BN;
+    full_own = reinterpret_cast<uint64_t*>(delta + STAGES * BN);
+    empty_own = full_own + 2;
+    full = empty_own + 2;
+    empty = full + STAGES;
+    tile = reinterpret_cast<int*>(empty + STAGES);
+  }
+};
+
+// K4's work tiles at D = 64 are handed out as the hardware hands out
+// blocks, in index order to whichever block is free: block i takes tile
+// i first, then gridDim.x + the next count of its launch's counter (one
+// of SLOTS, p.slot, taken in turn on the host, so launches on concurrent
+// streams do not share one). atomicInc wraps the counter to 0 after the
+// launch's last fetch (one after each of its n_bh * nt tiles).
+constexpr int SLOTS = 256;
+__device__ unsigned int dkv64_tile_counter[SLOTS];
+
+__device__ __forceinline__ int next_kv_tile(const BwdParams& p, int total) {
+  return gridDim.x + (int)atomicInc(dkv64_tile_counter + p.slot, (unsigned)total - 1);
+}
+
+// One K4 work tile: kv tile k0.. of kv head kvh (batch b) and the 64-row
+// q tiles [i0, i0 + nq) that see some key of it, in block_tile's order
+// (first kv tiles first).
+struct WorkKV {
+  int kvh, b, k0, i0, nq;
+};
+
+__device__ __forceinline__ WorkKV kv_work(const BwdParams& p, int w) {
+  const Mask& m = p.a.mask;
+  const int per = CHUNK * p.nt;
+  const int chunk = w / per, r = w % per;
+  const int width = min(CHUNK, p.n_bh - chunk * CHUNK);
+  const int bh = chunk * CHUNK + r % width, KVH = p.a.H / p.a.group;
+  WorkKV wk;
+  wk.kvh = bh % KVH;
+  wk.b = bh / KVH;
+  wk.k0 = (r / width) * BM;
+  const Rows live = rows_of(m, wk.k0, min(wk.k0 + BM, m.kv_len) - 1);
+  wk.i0 = live.lo / BN;
+  wk.nq = live.lo <= live.hi ? live.hi / BN + 1 - wk.i0 : 0;
+  return wk;
+}
+
+// Consumer c's part of work tile j, its pair landed: key rows k0 + 64c
+// .. + 63 against
+// the n = group * nq streamed (q, do) tiles; `ring` counts the streamed
+// tiles of the block's earlier work tiles (tile t is in slot (ring + t)
+// % STAGES).
+template <typename T, int D>
+__device__ __forceinline__ void dkv_consume_d64(const SmemKV64& sm, const AttnArgs& a,
+                                                const WorkKV& wk, int j, int ring, int c) {
+  static_assert(D == 64 && std::is_same<T, bf16>::value,
+                "K4's bf16 loop at D = 64: its accumulators leave room for the overlap");
+  const Mask& m = a.mask;
+  const int kvh = wk.kvh, b = wk.b, k0 = wk.k0, i0 = wk.i0, nq = wk.nq;
+  const int n = a.group * nq;
+  unsigned char* const kt = sm.own + (j & 1) * 2 * SmemKV64::OWN_BYTES;
+  unsigned char* const vt = kt + SmemKV64::OWN_BYTES;
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, quad = lane % 4;
+  const int row0 = 64 * c + 16 * warp + lane / 4;  // this thread's keys: row0, row0 + 8
+  const int kc0 = k0 + 64 * c;
+  // the queries that see each of this thread's keys, fixed for the loop
+  const Rows rows[2] = {rows_of(m, k0 + row0, k0 + row0), rows_of(m, k0 + row0 + 8,
+                                                                  k0 + row0 + 8)};
+  const float sl2 = a.scale * LOG2E;
+  const uint32_t k_addr = smem_u32(kt) + c * 64 * 128;
+  const uint32_t v_addr = smem_u32(vt) + c * 64 * 128;
+  const uint32_t q_addr = smem_u32(sm.str[0]), do_addr = smem_u32(sm.str[1]);
+
+  constexpr int STREAM_BYTES = Bwd<D>::STREAM_BYTES;
+  float dk[D / 2], dv[D / 2], s[32], dp[32];
+  uint32_t pt[16], ds[16];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  if (n > 0) {  // tile 0: S^T, dP^T, P^T and dS^T
+    const int st = ring % STAGES;
+    const uint32_t qs = q_addr + st * STREAM_BYTES, dos = do_addr + st * STREAM_BYTES;
+    mbar_wait(sm.full + st, (ring / STAGES) & 1);
+    turn_wait(c);
+    wg_fence();
+    mma_scores<D>(s, k_addr, qs);  // S^T = K Q^T   [keys, queries]
+    wg_commit();
+    mma_scores<D>(dp, v_addr, dos);  // dP^T = V dO^T
+    wg_commit();
+    turn_pass(c);
+    wg_wait<1>();
+    reg_fence(s);
+    probs_by_col(s, rows, i0 * BN, quad,
+                 !sees_all(m, i0 * BN, i0 * BN + BN - 1, kc0, 64) || (i0 + 1) * BN > m.q_len,
+                 sl2, sm.lse + st * BN);
+    wg_wait<0>();
+    reg_fence(dp);
+    operands_by_col(pt, ds, s, dp, sm.delta + st * BN, quad);
+  }
+  for (int t = 1; t < n; ++t) {
+    const int st = (ring + t) % STAGES, pst = (ring + t - 1) % STAGES;
+    const int q0 = (i0 + t % nq) * BN;
+    const uint32_t qs = q_addr + st * STREAM_BYTES, dos = do_addr + st * STREAM_BYTES;
+    mbar_wait(sm.full + st, ((ring + t) / STAGES) & 1);
+    turn_wait(c);
+    wg_fence();
+    mma_scores<D>(s, k_addr, qs);
+    wg_commit();
+    mma_acc<D>(dv, pt, do_addr + pst * STREAM_BYTES);  // dV += P^T dO of tile t-1
+    mma_acc<D>(dk, ds, q_addr + pst * STREAM_BYTES);   // dK += dS^T Q of tile t-1
+    wg_commit();
+    mma_scores<D>(dp, v_addr, dos);
+    wg_commit();
+    turn_pass(c);
+    wg_wait<2>();  // S^T done
+    reg_fence(s);
+    probs_by_col(s, rows, q0, quad, !sees_all(m, q0, q0 + BN - 1, kc0, 64) || q0 + BN > m.q_len,
+                 sl2, sm.lse + st * BN);
+    wg_wait<0>();  // tile t-1's products and dP^T done
+    reg_fence(dv);
+    reg_fence(dk);
+    reg_fence(dp);
+    if (tid == 0) mbar_arrive(sm.empty + pst);
+    operands_by_col(pt, ds, s, dp, sm.delta + st * BN, quad);
+  }
+  if (n > 0) {  // the last tile's dV and dK products
+    const int pst = (ring + n - 1) % STAGES;
+    turn_wait(c);
+    wg_fence();
+    mma_acc<D>(dv, pt, do_addr + pst * STREAM_BYTES);
+    mma_acc<D>(dk, ds, q_addr + pst * STREAM_BYTES);
+    wg_commit();
+    turn_pass(c);
+    wg_wait<0>();
+    reg_fence(dv);
+    reg_fence(dk);
+    if (tid == 0) mbar_arrive(sm.empty + pst);
+  }
+
+  // epilogue: dk = scale * unrope(dK), dv = dV, through this consumer's
+  // rows of the K and V tiles (staged for 16-byte row stores: measured
+  // faster here than bf16 pairs straight from the registers)
+  consumer_sync(c);
+  stage_rows<D>(kt, dk, a.scale, row0, k0, m.kv_len, table<D>(a.cos, b, m.q_len),
+                table<D>(a.sin, b, m.q_len), quad);
+  stage_rows<D>(vt, dv, 1.f, row0, k0, m.kv_len, nullptr, nullptr, quad);
+  consumer_sync(c);
+  store_rows<D>(static_cast<bf16*>(a.dk.ptr) + b * a.dk.sb + kvh * a.dk.sh, a.dk.ss, kt, c, k0,
+                m.kv_len, tid);
+  store_rows<D>(static_cast<bf16*>(a.dv.ptr) + b * a.dv.sb + kvh * a.dv.sh, a.dv.ss, vt, c, k0,
+                m.kv_len, tid);
+  fence_async_smem();  // the staging writes before the next TMA load's
+  consumer_sync(c);    // every thread has read its rows of the pair
+  if (tid == 0) mbar_arrive(sm.empty_own + (j & 1));
+}
+
+// dk and dv of K4 at D = 64 in one persistent block, over the work tiles
+// it is handed (see next_kv_tile; 128 key rows of one kv head each).
+// Every thread calls it. The producer runs ahead across work tiles and
+// writes each pair's work tile index beside it, n_bh * nt when there is
+// none left; the consumers' turns pass round without a break from one
+// work tile to the next, consumer 0 giving itself the first and taking
+// back the last.
+__device__ __forceinline__ void dkv_blocks_d64(unsigned char* smem, const BwdParams& p) {
+  constexpr int OWN_BYTES = SmemKV64::OWN_BYTES, STREAM_BYTES = SmemKV64::STREAM_BYTES;
+  const AttnArgs& a = p.a;
+  const Mask& m = a.mask;
+  const SmemKV64 sm(smem);
+  const int total = p.n_bh * p.nt;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(sm.full_own + i, 1);
+      mbar_init(sm.empty_own + i, 2);  // one arrival per consumer
+    }
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(sm.full + i, 1 + 32);  // the TMA thread and the lse/delta warp
+      mbar_init(sm.empty + i, 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer: thread 0 starts every TMA load; warp 1 copies each tile's
+    // lse and delta rows into its slot with cp.async (zeros past q_len,
+    // where the consumers mask every query), so it runs ahead as the TMA
+    // thread does
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (threadIdx.x == 0) {
+      int ring = 0, w = blockIdx.x;
+      for (int j = 0;; ++j) {
+        const int pr = j & 1;
+        mbar_wait(sm.empty_own + pr, ((j >> 1) & 1) ^ 1);
+        sm.tile[pr] = w;
+        if (w >= total) {
+          mbar_arrive(sm.full_own + pr);  // no work tile left
+          break;
+        }
+        const WorkKV wk = kv_work(p, w);
+        unsigned char* const kt = sm.own + pr * 2 * OWN_BYTES;
+        mbar_expect_tx(sm.full_own + pr, 2 * OWN_BYTES);
+        tma_load(kt, &p.k, sm.full_own + pr, 0, wk.k0, wk.kvh, wk.b);
+        tma_load(kt + OWN_BYTES, &p.v, sm.full_own + pr, 0, wk.k0, wk.kvh, wk.b);
+        const int n = a.group * wk.nq;
+        for (int t = 0; t < n; ++t, ++ring) {
+          const int st = ring % STAGES, g = t / wk.nq, q0 = (wk.i0 + t - g * wk.nq) * BN;
+          const int h = wk.kvh * a.group + g;
+          mbar_wait(sm.empty + st, ((ring / STAGES) & 1) ^ 1);
+          mbar_expect_tx(sm.full + st, 2 * STREAM_BYTES);
+          tma_load(sm.str[0] + st * STREAM_BYTES, &p.q, sm.full + st, 0, q0, h, wk.b);
+          tma_load(sm.str[1] + st * STREAM_BYTES, &p.dout, sm.full + st, 0, q0, h, wk.b);
+        }
+        // the next work tile, taken once this one's last loads are out
+        w = next_kv_tile(p, total);
+      }
+    } else if (threadIdx.x / 32 == 1) {
+      const int lane = threadIdx.x % 32;
+      int ring = 0;
+      for (int j = 0;; ++j) {
+        mbar_wait(sm.full_own + (j & 1), (j >> 1) & 1);  // the pair's tile index
+        const int w = sm.tile[j & 1];
+        if (w >= total) break;
+        const WorkKV wk = kv_work(p, w);
+        const int n = a.group * wk.nq;
+        for (int t = 0; t < n; ++t, ++ring) {
+          const int st = ring % STAGES, g = t / wk.nq, q0 = (wk.i0 + t - g * wk.nq) * BN;
+          const long long base = ((long long)wk.b * a.H + wk.kvh * a.group + g) * m.q_len;
+          mbar_wait(sm.empty + st, ((ring / STAGES) & 1) ^ 1);
+          for (int r = lane; r < BN; r += 32) {
+            const int q = q0 + r;
+            const long long i = base + (q < m.q_len ? q : 0);
+            cp_async4(sm.lse + st * BN + r, a.lse_in + i, q < m.q_len);
+            cp_async4(sm.delta + st * BN + r, a.delta + i, q < m.q_len);
+          }
+          cp_async_arrive(sm.full + st);  // without waiting: on to the next slot
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    const int c = threadIdx.x / 128 - 1;
+    if (c == 0) turn_pass(1);  // consumer 0 takes the first turn
+    int ring = 0;
+    for (int j = 0;; ++j) {
+      mbar_wait(sm.full_own + (j & 1), (j >> 1) & 1);
+      const int w = sm.tile[j & 1];
+      if (w >= total) break;
+      const WorkKV wk = kv_work(p, w);
+      dkv_consume_d64<bf16, 64>(sm, a, wk, j, ring, c);
+      ring += a.group * wk.nq;
+    }
+    if (c == 0) turn_wait(0);  // and takes back the last
+  }
+}
+
 // dk and dv of one block: 128 key rows of one kv head, written as T.
 // Every thread calls it.
 template <typename T, int D>
@@ -597,16 +964,17 @@ __device__ __forceinline__ void dkv_block(unsigned char* smem, const BwdParams& 
 // ------------------------------------------------------------ host side
 // Build the maps of p.a's q, do (boxes of 64 rows for K4, 128 for K3) and
 // k, v (128 rows for K4, 64 for K3), raise the kernel's shared-memory
-// limit and launch it over n_bh * nt blocks; `kv_major` picks K4's grid
-// (B * KVH pairs, kv tiles) over K3's (B * H, q tiles). Returns the
-// launch's error, or cudaErrorInvalidValue when a map is refused.
+// limit to SMEM and launch it over n_bh * nt blocks, or, `persistent`,
+// over one block per SM that walks them (K4 at D = 64); `kv_major` picks
+// K4's tiles (B * KVH pairs, kv tiles) over K3's (B * H, q tiles).
+// Returns the launch's error, or cudaErrorInvalidValue when a map is
+// refused.
 template <int D>
 inline int launch_bwd(void (*kernel)(BwdParams), BwdParams& p, int B, int KVH, bool kv_major,
-                      void* stream) {
+                      void* stream, size_t SMEM = Bwd<D>::SMEM, bool persistent = false) {
   const AttnArgs& a = p.a;
   const int q_rows = kv_major ? BN : BM, kv_rows = kv_major ? BM : BN;
   const int q_len = a.mask.q_len, kv_len = a.mask.kv_len;
-  constexpr size_t SMEM = Bwd<D>::SMEM;
   if (!tile_map<D>(&p.q, a.q.ptr, B, a.H, q_len, a.q.sb, a.q.sh, a.q.ss, q_rows, 1) ||
       !tile_map<D>(&p.dout, a.dout.ptr, B, a.H, q_len, a.dout.sb, a.dout.sh, a.dout.ss, q_rows,
                 1) ||
@@ -615,10 +983,20 @@ inline int launch_bwd(void (*kernel)(BwdParams), BwdParams& p, int B, int KVH, b
     return (int)cudaErrorInvalidValue;
   p.nt = ((kv_major ? kv_len : q_len) + BM - 1) / BM;
   p.n_bh = B * (kv_major ? KVH : a.H);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+  int blocks = p.n_bh * p.nt, device = 0, sms = 0;
+  cudaError_t err = cudaSuccess;
+  if (persistent) {  // one block per SM, or one per work tile when there are fewer
+    static std::atomic<unsigned> launches{0};
+    p.slot = (int)(launches++ % SLOTS);
+    err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    blocks = min(blocks, sms);
+  }
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<p.n_bh * p.nt, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<blocks, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 

@@ -4,7 +4,8 @@
 // live (the one visibility rule of every loop), the row map of K9's
 // packed tiles, the arguments every C entry shares, and the 16-byte
 // bf16 helpers of K1's rope pre-pass and K2. K1, K9 and K12 run the
-// wgmma/TMA forward of flash_fwd_sm90.cuh; K3, K4, K10, K11, K13 and K14
+// wgmma/TMA forward of flash_fwd_sm90.cuh (K1 at head_dim 64 that of
+// flash_fwd_sm90_d64.cuh); K3, K4, K10, K11, K13 and K14
 // the wgmma/TMA backward of flash_bwd_sm90.cuh.
 //
 // Head width: D is a template parameter of every loop and helper that

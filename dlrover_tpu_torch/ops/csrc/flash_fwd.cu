@@ -14,7 +14,9 @@
 // warpgroups of 64 query rows each, online softmax in registers), one
 // block per 128 query rows of one head, walking only the kv tiles the
 // mask leaves live (causal diagonal, sliding window, prefix), longest
-// tiles first. GQA reads kv head h / group through the k/v tensor maps
+// tiles first. At head_dim 64, where the softmax costs as much as the
+// products, the loop of flash_fwd_sm90_d64.cuh: persistent blocks whose
+// two consumers take turns at the tensor cores. GQA reads kv head h / group through the k/v tensor maps
 // and never materialises the repeat. Rope: q is roped once per block as
 // its tile lands in shared memory; k is roped once per call by
 // `flash_fwd_rope_k_kernel` (below) into a [B, KVH, S, D] buffer the
@@ -30,20 +32,26 @@
 // Output: o (bf16 [B, H, S, D], contiguous) and lse (f32 [B, H, S]). The
 // TPU kernel's 128-lane lse padding is a TPU layout artifact and is
 // dropped. A row that sees no key gets o = 0 and lse = -1e30, as there.
-#include "flash_fwd_sm90.cuh"
+#include "flash_fwd_sm90_d64.cuh"
 
 namespace fa {
 
-// One block per (q tile of 128 positions, head, batch), in sm90's
-// causal order.
+// At D = 128 one block per (q tile of 128 positions, head, batch), in
+// sm90's causal order; at D = 64 one persistent block per SM walking the
+// (q tile of BQ positions, head, batch) tiles in that order
+// (flash_fwd_sm90_d64.cuh).
 template <int D>
-__global__ void __launch_bounds__(sm90::THREADS, 1)
+__global__ void __launch_bounds__(D == 64 ? sm90::fwd64::THREADS : sm90::THREADS, 1)
     flash_fwd_kernel(const __grid_constant__ sm90::FwdParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  int bh, qi;
-  sm90::block_tile(p, bh, qi);
-  const int h = bh % p.a.H;
-  sm90::fwd_block<D>(smem, p, RowMap{qi * sm90::BQ, 7, h}, h / p.a.group, bh / p.a.H);
+  if constexpr (D == 64) {
+    sm90::fwd64::fwd_blocks(smem, p);
+  } else {
+    int bh, qi;
+    sm90::block_tile(p, bh, qi);
+    const int h = bh % p.a.H;
+    sm90::fwd_block<D>(smem, p, RowMap{qi * sm90::BQ, 7, h}, h / p.a.group, bh / p.a.H);
+  }
 }
 
 // Rope of k, out = rope(k) as contiguous [B, KVH, S, D] bf16: one thread
@@ -103,7 +111,10 @@ extern "C" int flash_fwd(int head_dim, const void* q, const void* k, const void*
     p.a.o = out_bhsd<D>(o, H, q_len);
     p.a.lse = static_cast<float*>(lse);
     p.n_bh = B * H;
-    return sm90::launch_fwd<D>(flash_fwd_kernel<D>, p, B, KVH, 7, stream);
+    if constexpr (D == 64)
+      return sm90::fwd64::launch(flash_fwd_kernel<D>, p, B, KVH, stream);
+    else
+      return sm90::launch_fwd<D>(flash_fwd_kernel<D>, p, B, KVH, 7, stream);
   });
 }
 

@@ -58,11 +58,13 @@
 // is roped by a pre-pass kernel (flash_fwd.cu) into a [B, KVH, S, D]
 // buffer that this loop loads, so no k tile is roped again per q tile.
 //
-// Head width: every piece that depends on it is templated on D (64 or
-// 128): the tile bytes and TMA boxes, S = Q K^T's D / 16 steps, O's
-// accumulator (m64nDk16: D / 2 floats a thread) and the rope and
-// epilogue loops. The score tile (m64n128) and the softmax do not
-// depend on D.
+// Head width: K1 at D = 64 runs a loop of its own
+// (flash_fwd_sm90_d64.cuh: persistent blocks whose consumers take turns
+// at the tensor cores); this one runs K1 at D = 128, K9 and K12.
+// Every piece of it that depends on the width is templated on D: the
+// tile bytes and TMA boxes, S = Q K^T's D / 16 steps, O's accumulator
+// (m64nDk16: D / 2 floats a thread) and the rope and epilogue loops. The
+// score tile (m64n128) and the softmax do not depend on D.
 #pragma once
 
 #include "sm90_common.cuh"
@@ -91,6 +93,7 @@ struct FwdParams {
   AttnArgs a;
   int n_bh;  // (batch, head) pairs of the grid: B * H (K1), B * KVH (K9)
   int nq;    // q tiles per pair
+  int slot;  // K1 at D = 64: its launch's tile counter (flash_fwd_sm90_d64.cuh)
 };
 
 // The block's (batch, head) pair and q tile (see "Order" at the top).

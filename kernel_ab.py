@@ -38,6 +38,10 @@ Each kernel runs at the shapes of its path, one line per ``case``:
 - K1-K4 (with K1's rope pre-pass ``flash_fwd_rope_k`` on its own) and
   K9-K11 at the training slice's shape (``slice``: B8 H8 KVH8 S2048 D128,
   causal; rope in K1/K3/K4, the [B, S, H*D] layout for K9-K11);
+- K1-K4 at head_dim 64: gpt2-1.5b's attention (``gpt2-d64``: B8 H25
+  KVH25 S1024 D64, causal, no rope, the shape of chip_smoke.py's
+  ``D64_SHAPES["gpt2"]``) and a roped GQA shape (``gqa-d64``: B2 H16 KVH4
+  S1024 D64, causal; the pre-pass runs here too);
 - K12-K14 at the [seq4] run's block shape (B8 H8 KVH8, 512-row shards)
   for the wholly visible block (``visible``) and the diagonal one
   (``diagonal``), and at a GQA block shape (``gqa-visible``: B2 H32
@@ -55,10 +59,11 @@ The C entries must take the same arguments in both checkouts, with one
 exception: the entries of K1-K4 (and K1's pre-pass) that take the head
 width first (head_dim 64 and 128, each its own template instantiation)
 are called without it on a checkout whose entries do not take it (built
-for 128 only). Every case here runs at head_dim 128, and a templated
-kernel is compared by its 128 instantiation. The card's name and power
-limit come first; the whole report also goes to
-``chiprun_out/kernel_ab.json``.
+for 128 only; its ``-d64`` cases are then skipped). A case runs at
+head_dim 128 unless its name ends in ``-d64``, and a templated kernel's
+``ptxas`` and ``sass`` fields are those of the instantiation at the
+case's width. The card's name and power limit come first; the whole
+report also goes to ``chiprun_out/kernel_ab.json``.
 """
 
 from __future__ import annotations
@@ -82,6 +87,9 @@ import torch
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
 B, H, KVH, S, D = 8, 8, 8, 2048, 128
+# K1-K4's head_dim 64 cases: (B, H, KVH, S, rope)
+D64_CASES = {"gpt2-d64": (8, 25, 25, 1024, False),
+             "gqa-d64": (2, 16, 4, 1024, True)}
 # ring blocks: case -> (B, H, KVH, shard length, kv shard's ring rank)
 RING_CASES = {"visible": (8, 8, 8, 512, 0), "diagonal": (8, 8, 8, 512, 1),
               "gqa-visible": (2, 32, 8, 256, 0)}
@@ -139,17 +147,22 @@ def build_other(other: Path):
     return built
 
 
-def mangled(kernel: str) -> re.Pattern:
+def width_of(case: str) -> int:
+    """The head width a case runs at."""
+    return 64 if case.endswith("-d64") else D
+
+
+def mangled(kernel: str, width: int) -> re.Pattern:
     """The kernel's name inside its mangled symbol (``<len><name>E``, or
-    ``<len><name>ILi128EEE`` for the head_dim 128 instantiation of a
+    ``<len><name>ILi<width>EEE`` for the instantiation at ``width`` of a
     kernel templated on the head width)."""
-    return re.compile(rf"\d+{kernel}(?:ILi{D}EE)?E")
+    return re.compile(rf"\d+{kernel}(?:ILi{width}EE)?E")
 
 
-def ptxas_report(text: str, kernel: str) -> list[str]:
+def ptxas_report(text: str, kernel: str, width: int) -> list[str]:
     """The ptxas lines of ``kernel``'s entry function, and its warnings
     (such as C7512/C7514, wgmma serialised), which come before them."""
-    lines, found, pattern = text.splitlines(), [], mangled(kernel)
+    lines, found, pattern = text.splitlines(), [], mangled(kernel, width)
     for i, line in enumerate(lines):
         if "Potential Performance Loss" in line and pattern.search(line):
             found.append(line.replace("ptxas info    :", "").strip())
@@ -161,15 +174,15 @@ def ptxas_report(text: str, kernel: str) -> list[str]:
     return found
 
 
-def sass(so: Path, kernel: str):
-    """The instruction lines of ``kernel``'s function in ``so``, or None
-    when cuobjdump is missing."""
+def sass(so: Path, kernel: str, width: int):
+    """The instruction lines of ``kernel``'s function at ``width`` in
+    ``so``, or None when cuobjdump is missing."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return None
     text = subprocess.run([tool, "-sass", str(so)], check=True,
                           capture_output=True, text=True).stdout
-    pattern, instrs, inside = mangled(kernel), [], False
+    pattern, instrs, inside = mangled(kernel, width), [], False
     for line in text.splitlines():
         if "Function :" in line:
             inside = bool(pattern.search(line))
@@ -315,7 +328,37 @@ def kernel_calls():
         "flash_bwd_dkv_heads": lambda: att.flash_bwd_dkv_heads(*bwd_f),
     }
     calls = {name: {"slice": fn} for name, fn in slice_calls.items()}
+    for case, shape in D64_CASES.items():
+        for name, fn in d64_calls(att, gen, *shape).items():
+            calls[name][case] = fn
     calls.update(ring_calls(att, gen))
+    return calls
+
+
+def d64_calls(att, gen, b, h, kvh, s, rope):
+    """entry -> a call of its wrapper at one head_dim 64 case (K1-K4,
+    causal; the pre-pass only with rope)."""
+    from dlrover_tpu_torch.models.llama import _rope_tables
+
+    q, k, v, do = (torch.randn(b, heads, s, 64, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for heads in (h, kvh, kvh, h))
+    cos = sin = None
+    if rope:
+        cos, sin = _rope_tables(torch.arange(s, device="cuda").expand(b, s),
+                                32, 10000.0, torch.bfloat16)
+        cos, sin = torch.cat([cos, cos], -1), torch.cat([sin, sin], -1)
+    scale = 64 ** -0.5
+    o, lse = att.flash_fwd_plain(q, k, v, cos, sin, True, scale)
+    delta = att.flash_bwd_preprocess_plain(do, o)
+    bwd = (q, k, v, do, lse, delta, cos, sin, True, scale)
+    calls = {
+        "flash_fwd": lambda: att.flash_fwd(q, k, v, cos, sin, True, scale),
+        "flash_bwd_preprocess": lambda: att.flash_bwd_preprocess(do, o),
+        "flash_bwd_dq": lambda: att.flash_bwd_dq(*bwd),
+        "flash_bwd_dkv": lambda: att.flash_bwd_dkv(*bwd),
+    }
+    if rope:
+        calls["flash_fwd_rope_k"] = lambda: att.flash_fwd_rope_k(k, cos, sin)
     return calls
 
 
@@ -387,6 +430,21 @@ def compare(call, entry, fns, bare, args) -> dict:
         "pairs": args.pairs, "calls": args.calls}}
 
 
+def build_info(this, other, lib: str, kernel: str, width: int) -> dict:
+    """Both builds' ptxas report, SASS comparison and tensor-core
+    instruction counts of ``kernel`` at ``width``."""
+    codes = [sass(side[lib][0], kernel, width) for side in (this, other)]
+    return {
+        "width": width,
+        "ptxas": {"this": ptxas_report(this[lib][1], kernel, width),
+                  "other": ptxas_report(other[lib][1], kernel, width)},
+        "sass": None if None in codes else compare_sass(*codes),
+        "tensor_core": None if None in codes else {
+            side: tensor_core(code)
+            for side, code in zip(("this", "other"), codes)},
+    }
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--other", type=Path, required=True,
@@ -421,8 +479,9 @@ def main() -> int:
             other_fn = getattr(other_lib, entry)
             argtypes = list(att._ENTRIES[entry][1])
             fns = {"this": _build._bound[entry], "other": other_fn}
-            if (entry in att._BY_WIDTH and not takes_width(
-                    args.other.resolve(), lib, entry)):
+            only_128 = (entry in att._BY_WIDTH and not takes_width(
+                args.other.resolve(), lib, entry))
+            if only_128:
                 # the other checkout's entry has no head width argument
                 argtypes = argtypes[1:]
                 fns["other"] = lambda width, *rest, fn=other_fn: fn(*rest)
@@ -430,17 +489,15 @@ def main() -> int:
             other_fn.restype = ctypes.c_int
             bare = (entry in PREPASS
                     and not runs_prepass(args.other.resolve(), entry))
-            codes = [sass(side[lib][0], kernel) for side in (this, other)]
-            build = {
-                "ptxas": {"this": ptxas_report(this[lib][1], kernel),
-                          "other": ptxas_report(other[lib][1], kernel)},
-                "sass": None if None in codes else compare_sass(*codes),
-                "tensor_core": None if None in codes else {
-                    side: tensor_core(code)
-                    for side, code in zip(("this", "other"), codes)},
-            }
+            builds = {}
             for case, call in calls[entry].items():
-                line = {"kernel": entry, "case": case, **build,
+                width = width_of(case)
+                if width != D and only_128:
+                    continue
+                if width not in builds:
+                    builds[width] = build_info(this, other, lib, kernel,
+                                               width)
+                line = {"kernel": entry, "case": case, **builds[width],
                         **compare(call, entry, fns, bare, args)}
                 log(json.dumps({"kernel_ab": line}))
                 report.append(line)

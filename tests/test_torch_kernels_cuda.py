@@ -319,21 +319,31 @@ def test_backward_kernels_on_transposed_views(cuda):
 FLASH = ("flash_fwd", "flash_bwd_preprocess", "flash_bwd_dq", "flash_bwd_dkv")
 
 
-@pytest.mark.parametrize("B,H,KVH,S,rope,window,prefix", [
-    (8, 25, 25, 256, False, None, None),  # gpt2-1.5b's heads, no rope
-    (2, 8, 2, 200, True, None, None),     # GQA, ragged
-    (1, 4, 2, 1000, True, None, None),    # ragged against 128-row tiles
-    (1, 2, 2, 48, True, None, None),      # shorter than one 64-row tile
-    (1, 8, 2, 700, True, 200, None),      # a window of 200
-    (1, 4, 1, 500, False, 160, 150),      # window and prefix, MQA
+@pytest.mark.parametrize("B,H,KVH,S,kv_len,rope,window,prefix", [
+    (8, 25, 25, 256, None, False, None, None),  # gpt2-1.5b's heads, no rope
+    (2, 8, 2, 200, None, True, None, None),     # GQA, ragged
+    (1, 4, 2, 1000, None, True, None, None),    # ragged against 128-row tiles
+    (1, 2, 2, 48, None, True, None, None),      # shorter than one 64-row tile
+    (1, 8, 2, 700, None, True, 200, None),      # a window of 200
+    (1, 4, 1, 500, None, False, 160, 150),      # window and prefix, MQA
+    # the edges of K1's persistent loop (128-row q tiles aligned to the
+    # end, so the first one is ragged) and of K4's overlapped loop
+    (2, 16, 4, 1024, None, True, None, None),   # GQA group of 4, 8 q tiles
+    (1, 4, 4, 192, None, True, None, None),     # a ragged first tile of 64
+    (1, 4, 4, 193, None, False, None, None),    # a ragged first tile of 65
+    (1, 4, 1, 1000, None, True, 300, 64),       # ragged, window and prefix
+    (2, 8, 2, 200, 333, False, None, None),     # kv_len > q_len, group of 4
+    (1, 4, 4, 48, 500, False, 100, None),       # one short q tile, window
+    (1, 4, 2, 333, 200, False, None, None),     # q_len > kv_len: rows see none
 ])
-def test_head_dim_64_kernels_match_plain(cuda, B, H, KVH, S, rope, window,
-                                         prefix):
+def test_head_dim_64_kernels_match_plain(cuda, B, H, KVH, S, kv_len, rope,
+                                         window, prefix):
     """K1-K4's head_dim 64 build: through flash_attention (each kernel
     launched once), then K3 and K4 on their own, against the plain
-    versions."""
+    versions; kv_len None is S."""
     mask = (True, 64 ** -0.5, window, prefix)
-    args = _backward_inputs(cuda, 12, B, H, KVH, S, S, rope, mask, D=64)
+    args = _backward_inputs(cuda, 12, B, H, KVH, S, kv_len or S, rope, mask,
+                            D=64)
     q, k, v, do, _lse, _delta, cos, sin = args[:8]
     before = att.launches()
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
