@@ -181,7 +181,8 @@ Phases, each fatal on failure (no exception is caught):
    MFU, peak memory); one Flash Checkpoint save of its 18.7 GB state to
    shm, 2 more steps, a fresh engine's restore of the save (every leaf
    ``torch.equal``) and the same 2 steps again, losses within 1e-5
-   (relative); a profiled step;
+   (relative); a profiled step, whose ``profiled_kernels`` line gives
+   K1-K4's device ms and calls by name (as every profiled run's does);
    then serving and RL: ``[serve]``, llama3-8b at full width (32
    layers, dim 4096, 32 heads over 8 kv heads of 128, mlp 14336, vocab
    128256, rope_theta 5e5; 16.06 GB of bf16 weights drawn from a seed)
@@ -229,6 +230,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -3753,6 +3755,31 @@ def gpt2_phase() -> dict:
     return launches
 
 
+def profiled_kernels(averages, label, busy_us) -> dict:
+    """The hand-written kernels' device ms and calls in a profiled step,
+    found by name whatever their rank in the table (the rope pre-pass
+    ``flash_fwd_rope_k`` counted on its own), and the attention kernels'
+    sum and share of the device's busy time."""
+    from torch.autograd import DeviceType
+
+    names = sorted({name.removesuffix("_d64") for name in KERNEL_INFO}
+                   | {"flash_fwd_rope_k"})
+    rows = {}
+    for name in names:
+        pattern = re.compile(rf"\b{name}_kernel\b")
+        found = [e for e in averages if e.device_type == DeviceType.CUDA
+                 and pattern.search(e.key)]
+        if found:
+            rows[name] = {
+                "calls": sum(e.count for e in found),
+                "device_ms": sum(e.self_device_time_total
+                                 for e in found) / 1e3}
+    attention_ms = sum(r["device_ms"] for n, r in rows.items()
+                       if n.startswith("flash_"))
+    return {"run": label, "kernels": rows, "attention_ms": attention_ms,
+            "attention_share_of_busy": attention_ms * 1e3 / busy_us}
+
+
 def profile_step(res, state, batch, label="adamw", top=16):
     """Per-op device time of one more step, written to chiprun_out/
     (``profile_step.txt`` for adamw, ``profile_step_<label>.txt``
@@ -3788,6 +3815,8 @@ def profile_step(res, state, batch, label="adamw", top=16):
         "run": label, "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1 - busy_us / wall_us, "ce_rows": ce_rows}}))
+    log(json.dumps({"profiled_kernels": profiled_kernels(averages, label,
+                                                         busy_us)}))
     table = averages.table(sort_by="cuda_time_total", row_limit=60)
     name = ("profile_step.txt" if label == "adamw"
             else f"profile_step_{label}.txt")

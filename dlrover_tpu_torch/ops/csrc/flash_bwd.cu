@@ -22,14 +22,17 @@
 // What bounds them on the H100:
 //   K2 reads do and o once and writes one f32 per row: memory bandwidth
 //      (B8 H8 S2048 D128: 67 MB, 0.02 ms at 3.35 TB/s). One warp per row,
-//      16-byte loads; the row sum is a warp shuffle reduction.
+//      16-byte loads; the row sum is a warp shuffle reduction. At D = 64
+//      an 8-lane group per row, several rows a group (below).
 //   K3 recomputes S = QK^T and dP = dO V^T and forms dQ = dS K: three
 //      products over the causal half, 6*B*H*S^2*D/2 = 103 GFLOP (0.10 ms
 //      at 989 TFLOP/s): tensor-core bound.
 //   K4 recomputes S^T and dP^T and forms dV = P^T dO and dK = dS^T Q: four
 //      products, 137 GFLOP (0.14 ms): tensor-core bound.
 // Head width: D = 64 or 128, each its own instantiation of K2, K3 and
-// K4; the C entries take the width and pick one.
+// K4; the C entries take the width and pick one. At D = 64 each has a
+// loop of its own: K2 below, K3's dq_blocks_d64 and K4's dkv_blocks_d64
+// (persistent blocks, consumer turns, lse/delta by cp.async).
 //
 // What the design does about that: K3 and K4 run the Hopper loops of
 // flash_bwd_sm90.cuh (a TMA producer warpgroup streaming 64-row tiles,
@@ -48,36 +51,84 @@
 namespace fa {
 
 // ---------------------------------------------------------------- K2
-// delta[b, h, s] = sum_d do[b, h, s, d] * o[b, h, s, d]; one warp per row.
+// delta[b, h, s] = sum_d do[b, h, s, d] * o[b, h, s, d]. At D = 128 one
+// warp per row (16 lanes load). At D = 64 a row is 8 chunks of 16 bytes,
+// so an 8-lane group takes a row and a warp four side by side (four
+// whole 128-byte lines a load, at any row stride), and each group
+// DELTA64_ROWS rows, so that each thread has 2 * DELTA64_ROWS 16-byte
+// loads in flight before its group reduces each row in three shuffles:
+// the one-warp-a-row loop left 24 of 32 lanes idle and one load a tensor
+// in flight, at 48% of the bound. Two rows a group measured as fast as
+// one and 12% faster than four (whose 80 registers a thread cut the
+// blocks an SM holds).
+constexpr int DELTA64_ROWS = 2;                                // rows per group
+constexpr int DELTA64_BLOCK_ROWS = NWARPS * 4 * DELTA64_ROWS;  // rows per block
+
 template <int D>
 __global__ void __launch_bounds__(NTHREADS)
     flash_bwd_preprocess_kernel(Operand dout, Operand o, float* delta, int H, int S) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int s = blockIdx.x * NWARPS + warp, h = blockIdx.y, b = blockIdx.z;
-  if (s >= S) return;
-  const bf16* pd = dout.ptr + b * dout.sb + h * dout.sh + s * dout.ss;
-  const bf16* po = o.ptr + b * o.sb + h * o.sh + s * o.ss;
-  float acc = 0.f;
-  // D / 8 chunks of 8 values (16 at D = 128, 8 at D = 64), one a lane
-  if (lane < D / 8) {
-    float x[8], y[8];
-    unpack8(ld16(pd + lane * 8), x);
-    unpack8(ld16(po + lane * 8), y);
+  if constexpr (D == 64) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int chunk = lane % 8, h = blockIdx.y, b = blockIdx.z;
+    // group lane / 8 takes rows s0, s0 + 4, ...: at each step the warp's
+    // four groups read four consecutive rows
+    const int s0 = blockIdx.x * DELTA64_BLOCK_ROWS + warp * 4 * DELTA64_ROWS + lane / 8;
+    const bf16* pd = dout.ptr + b * dout.sb + h * dout.sh + chunk * 8;
+    const bf16* po = o.ptr + b * o.sb + h * o.sh + chunk * 8;
+    uint4 x[DELTA64_ROWS], y[DELTA64_ROWS];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) acc += x[e] * y[e];
+    for (int i = 0; i < DELTA64_ROWS; ++i) {
+      const int s = s0 + 4 * i;
+      x[i] = y[i] = make_uint4(0, 0, 0, 0);
+      if (s < S) {
+        x[i] = ld16(pd + s * dout.ss);
+        y[i] = ld16(po + s * o.ss);
+      }
+    }
+    float* out = delta + ((long long)b * H + h) * S;
+#pragma unroll
+    for (int i = 0; i < DELTA64_ROWS; ++i) {
+      const int s = s0 + 4 * i;
+      float fx[8], fy[8], acc = 0.f;
+      unpack8(x[i], fx);
+      unpack8(y[i], fy);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc += fx[e] * fy[e];
+#pragma unroll
+      for (int m = 4; m > 0; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
+      if (chunk == 0 && s < S) out[s] = acc;
+    }
+  } else {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int s = blockIdx.x * NWARPS + warp, h = blockIdx.y, b = blockIdx.z;
+    if (s >= S) return;
+    const bf16* pd = dout.ptr + b * dout.sb + h * dout.sh + s * dout.ss;
+    const bf16* po = o.ptr + b * o.sb + h * o.sh + s * o.ss;
+    float acc = 0.f;
+    // D / 8 = 16 chunks of 8 values, one a lane
+    if (lane < D / 8) {
+      float x[8], y[8];
+      unpack8(ld16(pd + lane * 8), x);
+      unpack8(ld16(po + lane * 8), y);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc += x[e] * y[e];
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) delta[((long long)b * H + h) * S + s] = acc;
   }
-  acc = warp_sum(acc);
-  if (lane == 0) delta[((long long)b * H + h) * S + s] = acc;
 }
 
 // ---------------------------------------------------------------- K3
 // One block per (q tile of 128 positions, q head, batch), last tiles
-// first.
+// first; at D = 64 one persistent block per SM walks them in that order.
 template <int D>
 __global__ void __launch_bounds__(sm90::bwd::THREADS, 1)
     flash_bwd_dq_kernel(const __grid_constant__ sm90::bwd::BwdParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  sm90::bwd::dq_block<bf16, D>(smem, p);
+  if constexpr (D == 64)
+    sm90::bwd::dq_blocks_d64(smem, p);
+  else
+    sm90::bwd::dq_block<bf16, D>(smem, p);
 }
 
 // ---------------------------------------------------------------- K4
@@ -108,7 +159,8 @@ extern "C" int flash_bwd_preprocess(int head_dim, const void* dout, const void* 
     constexpr int D = decltype(d)::value;
     Operand dd{static_cast<const bf16*>(dout), do_sb, do_sh, do_ss};
     Operand out{static_cast<const bf16*>(o), o_sb, o_sh, o_ss};
-    dim3 grid((S + NWARPS - 1) / NWARPS, H, B);
+    const int rows = D == 64 ? DELTA64_BLOCK_ROWS : NWARPS;  // per block
+    dim3 grid((S + rows - 1) / rows, H, B);
     flash_bwd_preprocess_kernel<D><<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
         dd, out, static_cast<float*>(delta), H, S);
     return (int)cudaGetLastError();
@@ -132,7 +184,14 @@ extern "C" int flash_bwd_dq(int head_dim, const void* q, const void* k, const vo
     p.a.cos = static_cast<const bf16*>(cos);
     p.a.sin = static_cast<const bf16*>(sin);
     p.a.dq = out_bhsd<D>(dq, H, q_len);
-    return sm90::bwd::launch_bwd<D>(flash_bwd_dq_kernel<D>, p, B, KVH, false, stream);
+    if constexpr (D == 64) {
+      // dq leaves by TMA stores of each consumer's 64 rows
+      if (!sm90::tile_map<D>(&p.dq, dq, B, H, q_len, p.a.dq.sb, p.a.dq.sh, p.a.dq.ss, 64, 1))
+        return (int)cudaErrorInvalidValue;
+      return sm90::bwd::launch_bwd<D>(flash_bwd_dq_kernel<D>, p, B, KVH, false, stream,
+                                      sm90::bwd::SmemQ64::SMEM, true, sm90::bwd::DQ64_KN);
+    } else
+      return sm90::bwd::launch_bwd<D>(flash_bwd_dq_kernel<D>, p, B, KVH, false, stream);
   });
 }
 

@@ -72,8 +72,10 @@
 //   steps, the accumulators (m64nDk16: D / 2 floats a thread each) and the
 //   epilogues are templated on D (64 or 128); the score tiles (m64n64),
 //   P and dS do not depend on it. K3 and K4 are built for both, K10, K11,
-//   K13 and K14 for D = 128. K4's D = 64 build runs its own consumer loop
-//   (dkv_consume_d64); K11 and K14 run dkv_consume at D = 128 only.
+//   K13 and K14 for D = 128. K3's and K4's D = 64 builds run loops of
+//   their own (dq_blocks_d64, dkv_blocks_d64: persistent blocks, consumer
+//   turns); K10, K11, K13 and K14 run dq_block and dkv_block at D = 128
+//   only.
 // - K10 and K11 read [B, S, heads*D] operands through the same 4-D tensor
 //   maps as K3 and K4 read [B, H, S, D] ones: the maps take (batch, head,
 //   row) strides, here (S*heads*D, D, heads*D), so the loops are K3's and
@@ -113,7 +115,8 @@ struct BwdParams {
   AttnArgs a;
   int n_bh;  // (batch, head) pairs of the grid: B * H (K3), B * KVH (K4)
   int nt;    // 128-row tiles per pair: of q (K3), of kv (K4)
-  int slot;  // K4 at D = 64: its launch's tile counter (dkv_blocks_d64)
+  int slot;  // K3 and K4 at D = 64: the launch's work counter (next_work)
+  CUtensorMap dq;  // K3 at D = 64: dq's map, for its TMA stores
 };
 
 // The block's shared memory: the two resident 128-row tiles (K3: Q, dO;
@@ -649,17 +652,20 @@ struct SmemKV64 {
   }
 };
 
-// K4's work tiles at D = 64 are handed out as the hardware hands out
-// blocks, in index order to whichever block is free: block i takes tile
-// i first, then gridDim.x + the next count of its launch's counter (one
-// of SLOTS, p.slot, taken in turn on the host, so launches on concurrent
-// streams do not share one). atomicInc wraps the counter to 0 after the
-// launch's last fetch (one after each of its n_bh * nt tiles).
+// The work tiles of the D = 64 loops (K4's dkv_blocks_d64, K3's
+// dq_blocks_d64) are handed out as the hardware hands out blocks, in
+// index order to whichever block is free: block i takes tile i first,
+// then gridDim.x + the next count of its launch's counter (one of SLOTS,
+// p.slot, taken in turn on the host by both kernels' launches, so
+// launches on concurrent streams do not share one). atomicInc wraps the
+// counter to 0 after the launch's last fetch (one after each of its
+// n_bh * nt tiles), so every launch, a graph's replays included, finds
+// it at 0.
 constexpr int SLOTS = 256;
-__device__ unsigned int dkv64_tile_counter[SLOTS];
+__device__ unsigned int work_counter[SLOTS];
 
-__device__ __forceinline__ int next_kv_tile(const BwdParams& p, int total) {
-  return gridDim.x + (int)atomicInc(dkv64_tile_counter + p.slot, (unsigned)total - 1);
+__device__ __forceinline__ int next_work(const BwdParams& p, int total) {
+  return gridDim.x + (int)atomicInc(work_counter + p.slot, (unsigned)total - 1);
 }
 
 // One K4 work tile: kv tile k0.. of kv head kvh (batch b) and the 64-row
@@ -795,7 +801,7 @@ __device__ __forceinline__ void dkv_consume_d64(const SmemKV64& sm, const AttnAr
 }
 
 // dk and dv of K4 at D = 64 in one persistent block, over the work tiles
-// it is handed (see next_kv_tile; 128 key rows of one kv head each).
+// it is handed (see next_work; 128 key rows of one kv head each).
 // Every thread calls it. The producer runs ahead across work tiles and
 // writes each pair's work tile index beside it, n_bh * nt when there is
 // none left; the consumers' turns pass round without a break from one
@@ -852,7 +858,7 @@ __device__ __forceinline__ void dkv_blocks_d64(unsigned char* smem, const BwdPar
           tma_load(sm.str[1] + st * STREAM_BYTES, &p.dout, sm.full + st, 0, q0, h, wk.b);
         }
         // the next work tile, taken once this one's last loads are out
-        w = next_kv_tile(p, total);
+        w = next_work(p, total);
       }
     } else if (threadIdx.x / 32 == 1) {
       const int lane = threadIdx.x % 32;
@@ -961,19 +967,374 @@ __device__ __forceinline__ void dkv_block(unsigned char* smem, const BwdParams& 
   }
 }
 
+// ------------------------------------------------------------- K3 at D = 64
+// K3's loop at head_dim 64 (dq_blocks_d64, dq_consume_d64), K4's D = 64
+// design carried over to dq. At gpt2-1.5b's attention the templated D =
+// 128 loop (dq_block) reached 32% of its bound: 1600 blocks, each alone
+// with its prologue (barrier init, the Q/dO loads, four scalar global
+// loads of lse and delta a thread) and its epilogue, and two consumers
+// issuing their products without order. Here (PERF.md, PR 20, gives
+// each step's time):
+// - Persistent blocks, one per SM, taking work tiles (128 query rows of
+//   one q head) from the launch's counter (next_work) in dq_block's
+//   order, the longest causal tiles first. Two resident (Q, dO) pairs
+//   (work tile j in pair j % 2): the next tile's pair and its first K/V
+//   tiles load while this one runs; the ring of K/V slots runs on from
+//   one work tile to the next. One block a work tile measured 15%
+//   slower.
+// - 128-key K/V tiles (m64n128 score products, 8 steps of dQ += dS K),
+//   which K3's one accumulator leaves the registers for (K4's two do
+//   not): 64-key tiles measured 18% slower. DQ64_STAGES = 4 slots (3:
+//   2% slower, 2: 12%).
+// - Each work tile's 128 lse and delta rows come beside its pair by
+//   cp.async from the producer warp (zeros past q_len: those rows' Q and
+//   dO arrive as zeros, their dS is 0 and their dq is not stored), so no
+//   consumer waits on a global load at a tile's start.
+// - The consumers take turns at the tensor cores (turn_wait/turn_pass,
+//   as dkv_consume_d64): tile t's S, tile t-1's dQ product and tile t's
+//   dP go out in one turn, P and dS form while the other's products run
+//   (1-2% faster than without turns).
+// - Masks are branch-free (probs_rows_d64), one comparison a key on the
+//   band's tiles (band_only).
+// - The epilogue stages dq = scale * unrope(dQ) in a tile of its own and
+//   stores each consumer's 64 rows with one TMA store, which clips rows
+//   past q_len, and the consumer goes on to its next work tile at once:
+//   2% faster than bf16 pairs stored from the registers, which were 2%
+//   faster than rows staged through the Q tile.
+constexpr int DQ64_KN = 128;     // keys per streamed K/V tile
+constexpr int DQ64_STAGES = 4;   // K/V tiles in flight
+
+// K3's shared memory at D = 64: two resident (Q, dO) pairs with their lse
+// and delta rows, DQ64_STAGES slots of the streamed K and V tiles, dq's
+// staging tile, and the barriers (full and empty per pair and per slot).
+struct SmemQ64 {
+  static constexpr int OWN_BYTES = Bwd<64>::OWN_BYTES;   // 128 rows x 64
+  static constexpr int STREAM_BYTES = DQ64_KN * 128;     // DQ64_KN rows x 64
+  static constexpr size_t SMEM = 1024 + 5 * OWN_BYTES + 2 * DQ64_STAGES * STREAM_BYTES +
+                                 2 * 2 * BM * sizeof(float) + (4 + 2 * DQ64_STAGES) * 8 + 8;
+  unsigned char* own;  // pair i's Q at own + 2i * OWN_BYTES, its dO one OWN_BYTES on
+  unsigned char* str[2];
+  unsigned char* out;  // dq's 128 rows, staged for the TMA stores
+  float* lse;    // pair i's rows at lse + i * BM
+  float* delta;  // and at delta + i * BM
+  int* tile;     // the work tile index of each pair
+  uint64_t *full_own, *empty_own, *full, *empty;
+
+  __device__ __forceinline__ explicit SmemQ64(unsigned char* raw) {
+    own = reinterpret_cast<unsigned char*>(
+        (reinterpret_cast<uintptr_t>(raw) + 1023) & ~static_cast<uintptr_t>(1023));
+    str[0] = own + 4 * OWN_BYTES;
+    str[1] = str[0] + DQ64_STAGES * STREAM_BYTES;
+    out = str[1] + DQ64_STAGES * STREAM_BYTES;
+    lse = reinterpret_cast<float*>(out + OWN_BYTES);
+    delta = lse + 2 * BM;
+    full_own = reinterpret_cast<uint64_t*>(delta + 2 * BM);
+    empty_own = full_own + 2;
+    full = empty_own + 2;
+    empty = full + DQ64_STAGES;
+    tile = reinterpret_cast<int*>(empty + DQ64_STAGES);
+  }
+};
+
+// One K3 work tile: query rows pos0.. of q head h (batch b), kv head kvh,
+// and its live kv tiles of DQ64_KN keys; in dq_block's order.
+struct WorkQ {
+  int h, b, kvh, pos0;
+  TileRange tiles;
+};
+
+__device__ __forceinline__ WorkQ q_work(const BwdParams& p, int w) {
+  const Mask& m = p.a.mask;
+  const int per = CHUNK * p.nt;
+  const int chunk = w / per, r = w % per;
+  const int width = min(CHUNK, p.n_bh - chunk * CHUNK);
+  const int bh = chunk * CHUNK + r % width;
+  WorkQ wk;
+  wk.h = bh % p.a.H;
+  wk.b = bh / p.a.H;
+  wk.kvh = wk.h / p.a.group;
+  wk.pos0 = (p.nt - 1 - r / width) * BM;
+  wk.tiles = kv_tiles<DQ64_KN>(m, wk.pos0, min(wk.pos0 + BM, m.q_len) - 1);
+  return wk;
+}
+
+// d[64 x 128] = A[64 x 64] . B[128 x 64]^T at D = 64: a consumer's rows
+// of a resident tile against a streamed tile, both K-major in one box.
+__device__ __forceinline__ void mma_scores_d64(float (&d)[DQ64_KN / 2], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss(d, desc(a + kk * 32, 16, 1024), desc(b + kk * 32, 16, 1024), kk > 0);
+}
+
+// acc[64 x 64] += A[64 x 128] . B[128 x 64] at D = 64: A in registers
+// (dS), B the streamed K tile read MN-major, 8 steps of 16 rows.
+__device__ __forceinline__ void mma_acc_d64(float (&acc)[32], const uint32_t (&a)[DQ64_KN / 4],
+                                            uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < DQ64_KN / 16; ++kk)
+    wgmma_rs(acc, a + 4 * kk, desc(b + kk * 2048, SmemQ64::STREAM_BYTES, 1024));
+}
+
+// K3's P = exp(S * scale - lse) in place over a DQ64_KN-key tile (s[4j +
+// e]: row h = e >> 1 of this thread's two against key k0 + 8j + 2 quad +
+// (e & 1)), the keys a row does not see masked to 0 first when `masked`:
+// each key's offset c = 8j + (e & 1), a constant, against the row's
+// bounds less k0 + 2 quad, with no branch; on the band's tiles (`band`)
+// against the row's last key alone.
+__device__ __forceinline__ void probs_rows_d64(float (&s)[DQ64_KN / 2], const Keys (&keys)[2],
+                                               int k0, int quad, bool masked, bool band,
+                                               float sl2, const float (&lse2)[2]) {
+  if (masked) {
+    const int base = k0 + 2 * quad;
+    const int hi[2] = {keys[0].hi - base, keys[1].hi - base};
+    if (band) {
+#pragma unroll
+      for (int j = 0; j < DQ64_KN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[4 * j + e] = 8 * j + (e & 1) <= hi[e >> 1] ? s[4 * j + e] : -INFINITY;
+    } else {
+      const int lo[2] = {keys[0].lo - base, keys[1].lo - base};
+      const int pre[2] = {keys[0].pre - base, keys[1].pre - base};
+#pragma unroll
+      for (int j = 0; j < DQ64_KN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + (e & 1), h = e >> 1;
+          s[4 * j + e] = ((c >= lo[h]) & (c <= hi[h])) | (c < pre[h]) ? s[4 * j + e] : -INFINITY;
+        }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < DQ64_KN / 2; ++i) s[i] = ex2(fmaf(s[i], sl2, -lse2[(i >> 1) & 1]));
+}
+
+// K3's dS = P * (dP - delta) as wgmma's A operand (bf16 pairs).
+__device__ __forceinline__ void dscores_rows_d64(uint32_t (&ds)[DQ64_KN / 4],
+                                                 const float (&p)[DQ64_KN / 2],
+                                                 const float (&dp)[DQ64_KN / 2],
+                                                 const float (&dlt)[2]) {
+#pragma unroll
+  for (int i = 0; i < DQ64_KN / 4; ++i)
+    ds[i] = pack_bf16(p[2 * i] * (dp[2 * i] - dlt[i & 1]),
+                      p[2 * i + 1] * (dp[2 * i + 1] - dlt[i & 1]));
+}
+
+// Consumer c's part of work tile j, its pair landed: query rows pos0 +
+// 64c .. + 63 against the live kv tiles; `ring` counts the streamed tiles
+// of the block's earlier work tiles (tile t is in slot (ring + t) %
+// DQ64_STAGES). Tile 0 and the last dQ product are peeled off, so the
+// loop body is the same on every pass.
+__device__ __forceinline__ void dq_consume_d64(const SmemQ64& sm, const BwdParams& p,
+                                               const WorkQ& wk, int j, int ring, int c) {
+  constexpr int D = 64, KN = DQ64_KN, STAGES_ = DQ64_STAGES;
+  constexpr int STREAM_BYTES = SmemQ64::STREAM_BYTES;
+  const AttnArgs& a = p.a;
+  const Mask& m = a.mask;
+  const int pos0 = wk.pos0, b = wk.b;
+  const TileRange& tiles = wk.tiles;
+  const int n = tiles.count();
+  unsigned char* const qt = sm.own + (j & 1) * 2 * SmemQ64::OWN_BYTES;
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, quad = lane % 4;
+  const int row0 = 64 * c + 16 * warp + lane / 4;  // this thread's rows: row0, row0 + 8
+  const int r_lo = pos0 + 64 * c, r_hi = r_lo + 63;
+  Keys keys[2];
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int pos = pos0 + row0 + 8 * hh, r = (j & 1) * BM + row0 + 8 * hh;
+    // a row past q_len sees no key (hi = -1: none by either test)
+    keys[hh] = pos < m.q_len ? keys_of(m, pos) : Keys{1, -1, 0};
+    lse2[hh] = sm.lse[r] * LOG2E;
+    dlt[hh] = sm.delta[r];
+  }
+  const float sl2 = a.scale * LOG2E;
+  const uint32_t q_addr = smem_u32(qt) + c * 64 * 128;
+  const uint32_t do_addr = q_addr + SmemQ64::OWN_BYTES;
+  const uint32_t k_addr = smem_u32(sm.str[0]), v_addr = smem_u32(sm.str[1]);
+
+  float acc[D / 2], s[KN / 2], dp[KN / 2];
+  uint32_t ds[KN / 4];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  if (n > 0) {  // tile 0: S, dP and dS
+    const int st = ring % STAGES_, k0 = tiles.tile(0) * KN;
+    mbar_wait(sm.full + st, (ring / STAGES_) & 1);
+    turn_wait(c);
+    wg_fence();
+    mma_scores_d64(s, q_addr, k_addr + st * STREAM_BYTES);
+    wg_commit();
+    mma_scores_d64(dp, do_addr, v_addr + st * STREAM_BYTES);
+    wg_commit();
+    turn_pass(c);
+    wg_wait<1>();
+    reg_fence(s);
+    probs_rows_d64(s, keys, k0, quad, !sees_all(m, r_lo, r_hi, k0, KN), band_only(m, r_hi, k0),
+                   sl2, lse2);
+    wg_wait<0>();
+    reg_fence(dp);
+    dscores_rows_d64(ds, s, dp, dlt);
+  }
+  for (int t = 1; t < n; ++t) {
+    const int st = (ring + t) % STAGES_, pst = (ring + t - 1) % STAGES_;
+    const int k0 = tiles.tile(t) * KN;
+    mbar_wait(sm.full + st, ((ring + t) / STAGES_) & 1);
+    turn_wait(c);
+    wg_fence();
+    mma_scores_d64(s, q_addr, k_addr + st * STREAM_BYTES);
+    wg_commit();
+    mma_acc_d64(acc, ds, k_addr + pst * STREAM_BYTES);  // dQ += dS K of tile t-1
+    wg_commit();
+    mma_scores_d64(dp, do_addr, v_addr + st * STREAM_BYTES);
+    wg_commit();
+    turn_pass(c);
+    wg_wait<2>();  // S done
+    reg_fence(s);
+    probs_rows_d64(s, keys, k0, quad, !sees_all(m, r_lo, r_hi, k0, KN), band_only(m, r_hi, k0),
+                   sl2, lse2);
+    wg_wait<0>();  // tile t-1's dQ product and dP done
+    reg_fence(acc);
+    reg_fence(dp);
+    if (tid == 0) mbar_arrive(sm.empty + pst);
+    dscores_rows_d64(ds, s, dp, dlt);
+  }
+  if (n > 0) {  // the last tile's dQ product
+    const int pst = (ring + n - 1) % STAGES_;
+    turn_wait(c);
+    wg_fence();
+    mma_acc_d64(acc, ds, k_addr + pst * STREAM_BYTES);
+    wg_commit();
+    turn_pass(c);
+    wg_wait<0>();
+    reg_fence(acc);
+    if (tid == 0) mbar_arrive(sm.empty + pst);
+  }
+
+  // epilogue: dq = scale * unrope(dQ) staged in this consumer's rows of
+  // the staging tile, once its previous TMA store has read them; then
+  // the pair is released and one TMA store writes the 64 rows
+  if (tid == 0) tma_store_wait_read();
+  consumer_sync(c);
+  stage_rows<D>(sm.out, acc, a.scale, row0, pos0, m.q_len, table<D>(a.cos, b, m.q_len),
+                table<D>(a.sin, b, m.q_len), quad);
+  fence_async_smem();  // the staging writes before the TMA store's reads
+  consumer_sync(c);    // every thread is done with the pair and has staged
+  if (tid == 0) {
+    mbar_arrive(sm.empty_own + (j & 1));
+    tma_store(&p.dq, sm.out + c * 64 * 128, 0, pos0 + 64 * c, wk.h, b);
+    tma_store_commit();
+  }
+}
+
+// dq of K3 at D = 64 in one persistent block, over the work tiles it is
+// handed (see next_work). Every thread calls it. The producer warp runs
+// ahead across work tiles: its lane 0 starts every TMA load and writes
+// each pair's work tile index beside it (n_bh * nt when there is none
+// left), and all 32 lanes copy the pair's lse and delta rows. The
+// consumers' turns pass round without a break from one work tile to the
+// next, consumer 0 giving itself the first and taking back the last.
+__device__ __forceinline__ void dq_blocks_d64(unsigned char* smem, const BwdParams& p) {
+  constexpr int OWN_BYTES = SmemQ64::OWN_BYTES, STREAM_BYTES = SmemQ64::STREAM_BYTES;
+  constexpr int STAGES_ = DQ64_STAGES;
+  const AttnArgs& a = p.a;
+  const Mask& m = a.mask;
+  const SmemQ64 sm(smem);
+  const int total = p.n_bh * p.nt;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(sm.full_own + i, 1 + 32);  // lane 0's TMA and the warp's cp.async
+      mbar_init(sm.empty_own + i, 2);      // one arrival per consumer
+    }
+    for (int i = 0; i < STAGES_; ++i) {
+      mbar_init(sm.full + i, 1);
+      mbar_init(sm.empty + i, 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      int ring = 0, w = blockIdx.x;
+      for (int j = 0;; ++j) {
+        const int pr = j & 1;
+        mbar_wait(sm.empty_own + pr, ((j >> 1) & 1) ^ 1);
+        if (w >= total) {  // no work tile left
+          if (lane == 0) {
+            sm.tile[pr] = w;
+            mbar_arrive(sm.full_own + pr);
+          }
+          mbar_arrive(sm.full_own + pr);
+          break;
+        }
+        const WorkQ wk = q_work(p, w);
+        unsigned char* const qt = sm.own + pr * 2 * OWN_BYTES;
+        if (lane == 0) {
+          sm.tile[pr] = w;
+          mbar_expect_tx(sm.full_own + pr, 2 * OWN_BYTES);
+          tma_load(qt, &p.q, sm.full_own + pr, 0, wk.pos0, wk.h, wk.b);
+          tma_load(qt + OWN_BYTES, &p.dout, sm.full_own + pr, 0, wk.pos0, wk.h, wk.b);
+        }
+        const long long base = ((long long)wk.b * a.H + wk.h) * m.q_len;
+        for (int r = lane; r < BM; r += 32) {
+          const int q = wk.pos0 + r;
+          const long long i = base + (q < m.q_len ? q : 0);
+          cp_async4(sm.lse + pr * BM + r, a.lse_in + i, q < m.q_len);
+          cp_async4(sm.delta + pr * BM + r, a.delta + i, q < m.q_len);
+        }
+        cp_async_arrive(sm.full_own + pr);  // without waiting: on to the K/V tiles
+        const int n = wk.tiles.count();
+        for (int t = 0; t < n; ++t, ++ring) {
+          const int st = ring % STAGES_, k0 = wk.tiles.tile(t) * DQ64_KN;
+          mbar_wait(sm.empty + st, ((ring / STAGES_) & 1) ^ 1);
+          if (lane == 0) {
+            mbar_expect_tx(sm.full + st, 2 * STREAM_BYTES);
+            tma_load(sm.str[0] + st * STREAM_BYTES, &p.k, sm.full + st, 0, k0, wk.kvh, wk.b);
+            tma_load(sm.str[1] + st * STREAM_BYTES, &p.v, sm.full + st, 0, k0, wk.kvh, wk.b);
+          }
+        }
+        // the next work tile, taken once this one's last loads are out
+        int next = 0;
+        if (lane == 0) next = next_work(p, total);
+        w = __shfl_sync(0xffffffffu, next, 0);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    const int c = threadIdx.x / 128 - 1;
+    if (c == 0) turn_pass(1);  // consumer 0 takes the first turn
+    int ring = 0;
+    for (int j = 0;; ++j) {
+      mbar_wait(sm.full_own + (j & 1), (j >> 1) & 1);
+      const int w = sm.tile[j & 1];
+      if (w >= total) break;
+      const WorkQ wk = q_work(p, w);
+      dq_consume_d64(sm, p, wk, j, ring, c);
+      ring += wk.tiles.count();
+    }
+    if (c == 0) turn_wait(0);  // and takes back the last
+    if (threadIdx.x % 128 == 0) tma_store_wait_read();  // the last store has read its rows
+  }
+}
+
 // ------------------------------------------------------------ host side
-// Build the maps of p.a's q, do (boxes of 64 rows for K4, 128 for K3) and
-// k, v (128 rows for K4, 64 for K3), raise the kernel's shared-memory
-// limit to SMEM and launch it over n_bh * nt blocks, or, `persistent`,
-// over one block per SM that walks them (K4 at D = 64); `kv_major` picks
-// K4's tiles (B * KVH pairs, kv tiles) over K3's (B * H, q tiles).
-// Returns the launch's error, or cudaErrorInvalidValue when a map is
-// refused.
+// Build the maps of p.a's q, do (boxes of `streamed` rows for K4, 128 for
+// K3) and k, v (128 rows for K4, `streamed` for K3), raise the kernel's
+// shared-memory limit to SMEM and launch it over n_bh * nt blocks, or,
+// `persistent`, over one block per SM that walks them (K3 and K4 at D =
+// 64); `kv_major` picks K4's tiles (B * KVH pairs, kv tiles) over K3's
+// (B * H, q tiles). Returns the launch's error, or cudaErrorInvalidValue
+// when a map is refused.
 template <int D>
 inline int launch_bwd(void (*kernel)(BwdParams), BwdParams& p, int B, int KVH, bool kv_major,
-                      void* stream, size_t SMEM = Bwd<D>::SMEM, bool persistent = false) {
+                      void* stream, size_t SMEM = Bwd<D>::SMEM, bool persistent = false,
+                      int streamed = BN) {
   const AttnArgs& a = p.a;
-  const int q_rows = kv_major ? BN : BM, kv_rows = kv_major ? BM : BN;
+  const int q_rows = kv_major ? streamed : BM, kv_rows = kv_major ? BM : streamed;
   const int q_len = a.mask.q_len, kv_len = a.mask.kv_len;
   if (!tile_map<D>(&p.q, a.q.ptr, B, a.H, q_len, a.q.sb, a.q.sh, a.q.ss, q_rows, 1) ||
       !tile_map<D>(&p.dout, a.dout.ptr, B, a.H, q_len, a.dout.sb, a.dout.sh, a.dout.ss, q_rows,

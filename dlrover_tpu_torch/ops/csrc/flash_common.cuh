@@ -117,6 +117,13 @@ __device__ __forceinline__ bool sees_all(const Mask& m, int r_lo, int r_hi, int 
   return r_lo + m.off >= k1 && (m.window <= 0 || r_hi + m.off - m.window + 1 <= k0);
 }
 
+// Whether rows up to r_hi see the keys k0.. of a live tile only up to
+// each row's last (no window start or prefix end inside the tile): the
+// D = 64 loops then mask a key with one comparison.
+__device__ __forceinline__ bool band_only(const Mask& m, int r_hi, int k0) {
+  return (m.window <= 0 || r_hi + m.off - m.window + 1 <= k0) && m.prefix <= k0;
+}
+
 // The live kv tiles (TK keys each) of query rows [r_lo, r_hi], as
 // _tile_meta_impl's live(i, j) keeps them: tiles [0, pre) hold the
 // prefix, tiles [lo, hi) the causal band, bounded below by the window. A

@@ -169,13 +169,6 @@ __device__ __forceinline__ void mma_pv(float (&o)[D / 2], const uint32_t (&p)[BK
     wgmma_rs(o, p + 4 * kk, desc(v_addr + kk * 2048, BOX_BYTES, 1024));
 }
 
-// Whether the rows [r_lo, r_hi] see keys k0.. of a live tile only up to
-// each row's last (no window start or prefix end inside the tile): its
-// mask is then one comparison a key.
-__device__ __forceinline__ bool band_only(const Mask& m, int r_hi, int k0) {
-  return (m.window <= 0 || r_hi + m.off - m.window + 1 <= k0) && m.prefix <= k0;
-}
-
 // flash_fwd_sm90.cuh's softmax_step over a BKV-key tile: s[4j + e] is
 // row row0 (e < 2) or row0 + 8 against key k0 + 8j + 2 quad + (e & 1).
 // The mask compares each key's offset c = 8j + (e & 1), a constant, with

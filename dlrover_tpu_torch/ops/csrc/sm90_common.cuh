@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the wgmma/TMA attention loops:
 // the forward of flash_fwd_sm90.cuh (K1, K9, K12) and the backward of
-// flash_bwd_sm90.cuh (K3, K4, K10, K11, K13, K14). mbarriers and TMA
-// loads, the warpgroup's named barriers and wgmma fences, shared-memory matrix
+// flash_bwd_sm90.cuh (K3, K4, K10, K11, K13, K14). mbarriers, TMA loads
+// and stores, the warpgroup's named barriers and wgmma fences, shared-memory matrix
 // descriptors and the 128-byte swizzle TMA writes, the wgmma products
 // (m64n128k16 and m64n64k16 with both operands in shared memory,
 // m64n128k16 and m64n64k16 with A in registers), and on the host the 4-D tensor maps,
@@ -75,6 +75,25 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// TMA stores from shared memory: one box of `map` at (c0, c1, c2, c3)
+// from src (rows outside the tensor are not written), the commit of this
+// thread's stores into a group, and the wait until every group has read
+// its source.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
 }
 
 // Named barrier over the 128 threads of consumer c (id 0 is

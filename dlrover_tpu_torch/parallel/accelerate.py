@@ -192,6 +192,23 @@ def _batch_placements(device_mesh) -> list:
             for name in device_mesh.mesh_dim_names]
 
 
+def _microbatch_rows(x, device_mesh, accum: int):
+    """This rank's rows of a batch leaf, reordered so that its i-th of
+    ``accum`` chunks is its share of the JAX step's microbatch i: the
+    global batch's i-th contiguous chunk, cut over the batch replicas in
+    ``batch_place`` order (data major). The global batch is gathered
+    over the batch ranks first (an all_gather: token ids, a few KB)."""
+    full = DTensor.from_local(x, device_mesh, _batch_placements(device_mesh),
+                              run_check=False).full_tensor()
+    sizes = dict(zip(device_mesh.mesh_dim_names, device_mesh.shape))
+    coord = dict(zip(device_mesh.mesh_dim_names,
+                     device_mesh.get_coordinate()))
+    index = coord["data"] * sizes["fsdp"] + coord["fsdp"]
+    count = sizes["data"] * sizes["fsdp"]
+    chunks = full.view(accum, count, x.shape[0] // accum, *x.shape[1:])
+    return chunks[:, index].reshape(x.shape)
+
+
 def _settle_grad(p) -> None:
     """Redistribute a DTensor param's gradient to the param's placements:
     a ``Partial`` batch axis is summed there (DTensor makes no collective
@@ -241,10 +258,11 @@ def auto_accelerate(
     f32 tensor on the device. Under a seq process group ``batch`` is the
     whole batch on every rank (``tokens`` [B, S+1], S divisible by the
     seq size) and the loss is the global one. On a DeviceMesh ``batch``
-    is this rank's rows (see the module's docstring), microbatch ``i`` is
-    the ``i``-th chunk of every rank's rows (the JAX package cuts the
-    global batch: the same loss where every microbatch has as many valid
-    labels), and the loss is the global one on every rank.
+    is this rank's rows (see the module's docstring); with ``grad_accum >
+    1`` microbatch ``i`` is this rank's share of the global batch's
+    ``i``-th contiguous chunk, as the JAX package cuts it (the batch is
+    gathered over the batch ranks to cut it so); the loss is the global
+    one on every rank.
     """
     strategy = strategy or Strategy()
     _check_strategy(strategy)
@@ -311,6 +329,9 @@ def auto_accelerate(
                 raise ValueError(
                     f"batch[{k!r}] dim {tuple(v.shape)} not divisible by "
                     f"grad_accum={accum}")
+        if mesh.sharded and accum > 1:
+            batch = {k: _microbatch_rows(v, mesh.device_mesh, accum)
+                     for k, v in batch.items()}
         micro = [
             {k: v.chunk(accum)[i] for k, v in batch.items()}
             for i in range(accum)

@@ -40,8 +40,12 @@ Each kernel runs at the shapes of its path, one line per ``case``:
   causal; rope in K1/K3/K4, the [B, S, H*D] layout for K9-K11);
 - K1-K4 at head_dim 64: gpt2-1.5b's attention (``gpt2-d64``: B8 H25
   KVH25 S1024 D64, causal, no rope, the shape of chip_smoke.py's
-  ``D64_SHAPES["gpt2"]``) and a roped GQA shape (``gqa-d64``: B2 H16 KVH4
-  S1024 D64, causal; the pre-pass runs here too);
+  ``D64_SHAPES["gpt2"]``), the same on the layouts models/gpt2.py passes
+  (``gpt2-views-d64``: q, k and v views of one [B, S, 3*H*D] projection,
+  row stride 3*H*D, and do the [B, H, S, D] transpose of a [B, S, H*D]
+  gradient, row stride H*D; o contiguous, as K1 writes it) and a roped
+  GQA shape (``gqa-d64``: B2 H16 KVH4 S1024 D64, causal; the pre-pass
+  runs here too);
 - K12-K14 at the [seq4] run's block shape (B8 H8 KVH8, 512-row shards)
   for the wholly visible block (``visible``) and the diagonal one
   (``diagonal``), and at a GQA block shape (``gqa-visible``: B2 H32
@@ -87,9 +91,10 @@ import torch
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
 B, H, KVH, S, D = 8, 8, 8, 2048, 128
-# K1-K4's head_dim 64 cases: (B, H, KVH, S, rope)
-D64_CASES = {"gpt2-d64": (8, 25, 25, 1024, False),
-             "gqa-d64": (2, 16, 4, 1024, True)}
+# K1-K4's head_dim 64 cases: (B, H, KVH, S, rope, the model's views)
+D64_CASES = {"gpt2-d64": (8, 25, 25, 1024, False, False),
+             "gpt2-views-d64": (8, 25, 25, 1024, False, True),
+             "gqa-d64": (2, 16, 4, 1024, True, False)}
 # ring blocks: case -> (B, H, KVH, shard length, kv shard's ring rank)
 RING_CASES = {"visible": (8, 8, 8, 512, 0), "diagonal": (8, 8, 8, 512, 1),
               "gqa-visible": (2, 32, 8, 256, 0)}
@@ -335,13 +340,22 @@ def kernel_calls():
     return calls
 
 
-def d64_calls(att, gen, b, h, kvh, s, rope):
+def d64_calls(att, gen, b, h, kvh, s, rope, views):
     """entry -> a call of its wrapper at one head_dim 64 case (K1-K4,
-    causal; the pre-pass only with rope)."""
+    causal; the pre-pass only with rope; with ``views`` q, k, v and do as
+    models/gpt2.py passes them, h == kvh)."""
     from dlrover_tpu_torch.models.llama import _rope_tables
 
-    q, k, v, do = (torch.randn(b, heads, s, 64, generator=gen, device="cuda")
-                   .to(torch.bfloat16) for heads in (h, kvh, kvh, h))
+    if views:
+        qkv = torch.randn(b, s, 3, h, 64, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        q, k, v = qkv.transpose(1, 3).unbind(2)
+        do = torch.randn(b, s, h, 64, generator=gen, device="cuda").to(
+            torch.bfloat16).transpose(1, 2)
+    else:
+        q, k, v, do = (torch.randn(b, heads, s, 64, generator=gen,
+                                   device="cuda").to(torch.bfloat16)
+                       for heads in (h, kvh, kvh, h))
     cos = sin = None
     if rope:
         cos, sin = _rope_tables(torch.arange(s, device="cuda").expand(b, s),

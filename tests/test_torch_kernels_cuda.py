@@ -418,6 +418,98 @@ def test_bshd_head_dim_64_runs_k1_to_k4(cuda):
         assert _rel(got.grad, want.grad) < 3e-2
 
 
+@pytest.mark.parametrize("B,H,S", [
+    (1, 2, 256),    # 4 work tiles: fewer than the SMs
+    (8, 25, 1024),  # gpt2-1.5b's attention: 1600 work tiles
+])
+def test_head_dim_64_dq_loop_over_few_and_many_work_tiles(cuda, B, H, S):
+    """K3's persistent D = 64 loop with fewer work tiles than blocks (one
+    block per tile) and with many (each block takes tiles from the
+    launch's counter), causal, no rope, against its plain version."""
+    args = _backward_inputs(cuda, 15, B, H, H, S, S, False,
+                            (True, 64 ** -0.5, None, None), D=64)
+    before = att.launches()["flash_bwd_dq"]
+    dq = att.flash_bwd_dq(*args)
+    torch.cuda.synchronize()
+    assert att.launches()["flash_bwd_dq"] == before + 1
+    assert _rel(dq, att.flash_bwd_dq_plain(*args)) < 3e-2
+
+
+def _d64_backward_pair(cuda, seed):
+    """K3's and K4's D = 64 calls on one seeded GQA case with rope."""
+    args = _backward_inputs(cuda, seed, 2, 8, 2, 640, 640, True,
+                            (True, 64 ** -0.5, None, None), D=64)
+    return lambda: (att.flash_bwd_dq(*args), *att.flash_bwd_dkv(*args))
+
+
+def test_head_dim_64_work_counters_in_a_row_and_in_a_graph(cuda):
+    """K3 and K4 at D = 64 take their work tiles from a per-launch counter
+    that wraps back to 0 at the launch's last fetch: two launches in a
+    row give the same outputs, and so do two of each captured in one CUDA
+    graph and replayed twice, bit for bit with the eager ones."""
+    call = _d64_backward_pair(cuda, 16)
+    first, second = call(), call()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [call(), call()]
+    for _ in range(2):
+        for out in outs:
+            for t in out:
+                t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for out in outs:
+            for a, b in zip(out, first):
+                assert torch.equal(a, b)
+
+
+def test_head_dim_64_launches_on_two_streams(cuda):
+    """K3 and K4 at D = 64 launched on two streams at once (each launch
+    takes its own counter slot) give each stream's eager outputs."""
+    calls = [_d64_backward_pair(cuda, seed) for seed in (17, 18)]
+    want = [call() for call in calls]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in calls]
+    got = [[] for _ in calls]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(3):
+        for i, (s, call) in enumerate(zip(streams, calls)):
+            with torch.cuda.stream(s):
+                got[i].append(call())
+    torch.cuda.synchronize()
+    for outs, ref in zip(got, want):
+        for out in outs:
+            for a, b in zip(out, ref):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("S", [1024, 1000])
+def test_head_dim_64_delta_on_the_gpt2_do_view(cuda, S):
+    """K2 at D = 64 on do as models/gpt2.py's backward hands it over: the
+    [B, H, S, D] transpose of the out-projection input's [B, S, H * D]
+    gradient (row stride H * D), and o contiguous, at S 1024 and a ragged
+    1000, against its plain version within 1e-3 of the largest value
+    (chip_smoke.py's delta gate)."""
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    B, H = 2, 25
+    grad = torch.randn(B, S, H * 64, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    do = grad.view(B, S, H, 64).transpose(1, 2)
+    assert do.stride() == (S * H * 64, 64, H * 64, 1)
+    o = torch.randn(B, H, S, 64, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    delta = att.flash_bwd_preprocess(do, o)
+    assert _rel(delta, att.flash_bwd_preprocess_plain(do, o)) < 1e-3
+
+
 @pytest.mark.parametrize("B,H,KVH,S", [
     (2, 8, 8, 512),    # the [seq4] run's block shape (at B2), diagonal
     (1, 8, 2, 1000),   # GQA g = 4, ragged against 64- and 128-row tiles

@@ -9,8 +9,9 @@ DTensors) and of the ``tiny`` Llama preset (``attn_impl="flash"``, whose
 plain path runs on the CPU; f32 compute, remat none), then three steps
 of a 2-layer GPT-2 under ``fsdp=4``, the Llama's other paths on a
 mesh (bshd and reference attention, layer checkpoints, two
-microbatches, the chunked CE) against its flash run there,
-``vocab_parallel_cross_entropy`` over a ``tensor=4`` mesh, and each
+microbatches, the chunked CE) against its flash run there, two
+microbatches with labels ignored unevenly across rows against JAX's
+mesh, ``vocab_parallel_cross_entropy`` over a ``tensor=4`` mesh, and each
 mesh's batch placement. The assertions are parametrised over the
 cases, so each counts.
 
@@ -99,7 +100,7 @@ def _inputs():
 
     rng = np.random.RandomState(0)
     k1, k2 = jax.random.split(jax.random.key(0))
-    return {
+    inputs = {
         "toy_params": {
             "w1": np.asarray(jax.random.normal(k1, (16, 32)) * 0.02),
             "w2": np.asarray(jax.random.normal(k2, (32, 16)) * 0.02)},
@@ -119,6 +120,23 @@ def _inputs():
         "ce_labels": np.where(rng.rand(2, 8) < 0.2, -100,
                               rng.randint(0, 64, (2, 8))).astype(np.int32),
     }
+    inputs["accum_labels"] = [_uneven_labels(t)
+                              for t in inputs["llama_tokens"]]
+    return inputs
+
+
+# the accum case's labels: the first IGNORED[r] of row r's 32 ignored,
+# so that JAX's microbatches (rows 0-3 and 4-7 of the global batch) hold
+# 64 and 120 valid labels, and each rank's two halves of its rows (rows
+# 0, 1, 4, 5 and 2, 3, 6, 7 on fsdp=2) 80 and 104
+IGNORED = (24, 24, 16, 0, 0, 0, 8, 0)
+
+
+def _uneven_labels(tokens):
+    labels = tokens[:, 1:].copy()
+    for row, n in enumerate(IGNORED):
+        labels[row, :n] = -100
+    return labels
 
 
 def _adam_state(params_np):
@@ -215,6 +233,15 @@ def _variants(inputs):
     return out
 
 
+def _accum_batches(inputs, shifted):
+    """The accum case's batches: the tokens with the uneven labels; the
+    port's loss takes the inputs already cut (``shifted``), JAX's the
+    whole tokens."""
+    return [{"tokens": t[:, :-1] if shifted else t, "labels": labels}
+            for t, labels in zip(inputs["llama_tokens"],
+                                 inputs["accum_labels"])]
+
+
 def _sampler_rows(config):
     """(this rank's mesh coordinate, the first rows its sampler reads)."""
     index, count = batch_place(config)
@@ -280,6 +307,10 @@ def _gloo_worker(rank, store, out_dir, inputs):
                 [{"tokens": t} for t in inputs["llama_tokens"]])
             got["rows", name] = _sampler_rows(config)
         got["variants"] = _variants(inputs)
+        got["accum", "fsdp2-tensor2"] = _port_train(
+            llama_loss_fn(TINY), inputs["llama_params"],
+            llama_logical_axes(TINY), MeshConfig(**MESHES["fsdp2-tensor2"]),
+            _accum_batches(inputs, shifted=True), grad_accum=2)
         gcfg = GPT2Config(**GPT2_SMALL)
         got["gpt2", "fsdp4"] = _port_train(
             gpt2_loss_fn(gcfg), inputs["gpt2_params"],
@@ -332,7 +363,7 @@ def _restore_global_mesh(monkeypatch):
     monkeypatch.setattr(mesh, "_global_mesh", mesh._global_mesh)
 
 
-def _jax_train(loss_fn, p_np, axes, mesh_kw, batches):
+def _jax_train(loss_fn, p_np, axes, mesh_kw, batches, grad_accum=1):
     """Three optax.adamw steps on 4 virtual devices: (losses, params)."""
     import jax
     import jax.numpy as jnp
@@ -347,7 +378,7 @@ def _jax_train(loss_fn, p_np, axes, mesh_kw, batches):
         optax.adamw(LR, weight_decay=0.0), axes,
         strategy=JaxStrategy(mesh=JaxMesh(**mesh_kw),
                              compute_dtype="float32", remat="none",
-                             donate=False),
+                             donate=False, grad_accum=grad_accum),
         devices=jax.devices()[:N])
     state, losses = res.state, []
     for i, batch in enumerate(batches):
@@ -381,6 +412,28 @@ def _jax_llama(inputs, mesh_kw):
     return _jax_train(jax_loss(jc), inputs["llama_params"], jax_axes(jc),
                       mesh_kw, [{"tokens": t}
                                 for t in inputs["llama_tokens"]])
+
+
+def _jax_llama_accum(inputs, mesh_kw):
+    """Two microbatches a step under JAX's auto_accelerate, the loss the
+    mean over the given labels (the tiny preset has no MoE term)."""
+    import jax.numpy as jnp
+
+    from dlrover_tpu.models.llama import LlamaConfig as JaxConfig
+    from dlrover_tpu.models.llama import llama_apply as jax_apply
+    from dlrover_tpu.models.llama import llama_logical_axes as jax_axes
+    from dlrover_tpu.ops.cross_entropy import softmax_cross_entropy
+
+    jc = JaxConfig(**dataclasses.asdict(TINY))
+
+    def loss_fn(params, batch, rng):
+        logits = jax_apply(jc, params, batch["tokens"][:, :-1])
+        loss, valid = softmax_cross_entropy(logits, batch["labels"])
+        return loss.sum() / jnp.maximum(valid.sum(), 1)
+
+    return _jax_train(loss_fn, inputs["llama_params"], jax_axes(jc),
+                      mesh_kw, _accum_batches(inputs, shifted=False),
+                      grad_accum=2)
 
 
 def _jax_gpt2(inputs, mesh_kw):
@@ -464,6 +517,23 @@ def test_model_paths_on_a_mesh_match_flash(gloo_run, variant):
     for got in saved:
         np.testing.assert_allclose(got["variants"][variant],
                                    got["llama", mesh]["losses"], atol=1e-5)
+
+
+def test_grad_accum_on_a_mesh_matches_jax(gloo_run):
+    """Two microbatches a step on (fsdp=2, tensor=2), with labels ignored
+    unevenly across rows: microbatch i is each rank's share of the global
+    batch's i-th half, as JAX's, so the losses (each microbatch's mean
+    over its own valid labels) and the params agree with JAX's 4-device
+    mesh; cut from each rank's own rows, the halves hold other counts of
+    valid labels and the losses differ."""
+    inputs, saved = gloo_run
+    ref_losses, ref_params = _jax_llama_accum(inputs,
+                                              MESHES["fsdp2-tensor2"])
+    for got in saved:
+        got = got["accum", "fsdp2-tensor2"]
+        np.testing.assert_allclose(got["losses"], ref_losses, atol=1e-5)
+        assert got["losses"][-1] < got["losses"][0]
+        _assert_adam_params(got["params"], ref_params)
 
 
 def test_gpt2_fsdp4_matches_jax(gloo_run):
