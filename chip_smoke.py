@@ -15,10 +15,11 @@ Phases, each fatal on failure (no exception is caught):
    [B, H, S, D] with rope, K9-K11 on [B, S, H*D], per kernel on shared
    inputs and end to end (K1-K4 through flash_attention, K9-K11 and
    K1-K4 through both routes of flash_attention_bshd); at the slice's
-   shape each kernel's ms, its plain version's ms, SDPA's ms as the
-   library yardstick (its backward from CUDA-graph replays, forward and
-   backward less forward), and the bound (bytes or tensor-core
-   operations at the H100 SXM peaks), K1's time including its rope
+   shape each kernel's ms (CUDA-graph replays), its plain version's ms,
+   SDPA's ms as the library yardstick (forward and backward from
+   CUDA-graph replays, its backward as forward and backward less
+   forward), and the bound (bytes or tensor-core operations at the H100
+   SXM peaks), K1's time including its rope
    pre-pass, which is also checked against the plain rope and timed
    alone, and K3's and K4's each including the two pre-passes (q and k)
    that the backward runs once for both, also timed alone; at the GQA
@@ -95,8 +96,10 @@ Phases, each fatal on failure (no exception is caught):
    launches a step; the agent must persist a step whose CRC verifies;
    nvidia-smi must never count more CUDA contexts than the live
    workers (and the probe's child) hold; printed: the master's goodput
-   ledger, the restart's legs from the kill to the first step,
-   each save's blocking ms and each persist's seconds; every file, the
+   ledger, the restart's legs from the kill to the first step (the
+   port's package imports, ``init_distributed``, the CUDA context and
+   the kernel load each a leg of its own; no profiling module among the
+   imports), each save's blocking ms and each persist's seconds; every file, the
    sockets and the segments removed at the end, also when a check fails,
    ``[failover]``, the master survives its own death: ``python -m
    dlrover_tpu_torch.master.main --state-dir D --http-port 0 --addr-file
@@ -211,7 +214,28 @@ Phases, each fatal on failure (no exception is caught):
    temperature 1, 2 iterations: K1 32 launches per ``make_experience``
    and K1-K4 16 each per update, the rollout's logprobs within 2e-2 of
    the teacher-forced ones, finite stats, the actor moved; rollout
-   tokens/s, update ms, peak memory;
+   tokens/s, update ms, peak memory; then ``[prof]``: nano-350m (B8
+   S2048, bf16, adamw, K1-K4) through ``Trainer`` under the launcher,
+   a master of its own with its HTTP plane, and the agent, twice: with
+   ``DLROVER_PROF_SAMPLE_STEPS=0`` and ``profile=True`` over 2 steps
+   after step 41 (``StepProfiler.assert_ops_present`` must find K1-K4,
+   and the agent's ``/metrics`` serve them as ``dlrtpu_kernel_self_ms``),
+   then with ``DLROVER_PROF_SAMPLE_STEPS=4``: each sampled window's
+   categories and K1-K4 by name (ms, calls), each window's cost (the
+   first, cold one apart) and the sampler's overhead over steps 2-40
+   against the first run, then from step 41 200 extra bf16 GEMMs of
+   8192^3 a step (a device-side step-time regression) until the master's
+   SLO watchdog issues a capture directive, the agent relays it, the
+   worker captures 2 steps and ``/captures.json`` shows the record done:
+   its artifact's merged timeline must hold the host spans and K1-K4's
+   CUDA kernel events, and its attribution name matmul against the
+   stored baseline; ``[brain]``: ``python -m
+   dlrover_tpu_torch.brain.main`` in its own process, a BrainClient
+   persisting a record of the second run at each newer step it sees
+   (tokens/s, step, the card's peak memory), the ``worker_resource`` and
+   ``job_completion`` plans, and a BrainReporter on a dead address beside
+   8 steps of nano-350m (no step stalls, the client degrades to instant
+   no-ops);
 6. one JSON line with every kernel's numbers (K1-K4's head_dim 64
    instantiations as ``<name>_d64``, their launches from ``[gpt2]``),
    then the last line
@@ -625,32 +649,47 @@ def time_kernels(inputs):
     bwd_prepass = graph_ms(lambda: (att.flash_fwd_rope_k(q, cos, sin),
                                     att.flash_fwd_rope_k(k, cos, sin)), 50)
     log(json.dumps({"bwd_rope_q_and_k_graph_replays_ms": bwd_prepass}))
+    # K1, K3 and K4 (each with its rope pre-passes) from CUDA-graph
+    # replays as well (median of 5): an eager loop adds the host's cost
+    # per call to the device time
+    replays = {
+        "flash_fwd": graph_ms(
+            lambda: att.flash_fwd(q, k, v, cos, sin, True, scale), 20),
+        "flash_bwd_dq": graph_ms(lambda: att.flash_bwd_dq(*args), 20),
+        "flash_bwd_dkv": graph_ms(lambda: att.flash_bwd_dkv(*args), 20),
+    }
+    log(json.dumps({"kernel_graph_replays_ms": {"case": "slice",
+                                                **replays}}))
     times = {
         "flash_fwd": (
-            cuda_ms(lambda: att.flash_fwd(q, k, v, cos, sin, True, scale), 20),
+            statistics.median(replays["flash_fwd"]),
             cuda_ms(lambda: att.flash_fwd_plain(q, k, v, cos, sin, True,
                                                 scale), 3)),
         "flash_bwd_preprocess": (k2["kernel"], k2["plain"]),
         "flash_bwd_dq": (
-            cuda_ms(lambda: att.flash_bwd_dq(*args), 20),
+            statistics.median(replays["flash_bwd_dq"]),
             cuda_ms(lambda: att.flash_bwd_dq_plain(*args), 3)),
         "flash_bwd_dkv": (
-            cuda_ms(lambda: att.flash_bwd_dkv(*args), 20),
+            statistics.median(replays["flash_bwd_dkv"]),
             cuda_ms(lambda: att.flash_bwd_dkv_plain(*args), 3)),
     }
-    # library yardstick: SDPA (flash backend) on pre-roped q/k; timed
-    # here only, the port never calls it
+    # library yardstick: SDPA (flash backend) on pre-roped q/k, its
+    # forward from CUDA-graph replays too; timed here only, the port
+    # never calls it
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qr = att._rope(q, cos, sin).to(torch.bfloat16).requires_grad_()
     kr = att._rope(k, cos, sin).to(torch.bfloat16).requires_grad_()
     vr = v.clone().requires_grad_()
-    fwd_ms = cuda_ms(lambda: sdpa(qr, kr, vr, is_causal=True), 20)
     bwd_ms = sdpa_bwd_ms((qr, kr, vr), do, "slice")
+    fwd_ms = SDPA_FWD_MS["slice"]
     library = {"flash_fwd": fwd_ms, "flash_bwd_preprocess": k2["library"]}
     prepass_ms = {"flash_fwd": statistics.median(prepass)}
     prepass_ms["flash_bwd_dq"] = prepass_ms["flash_bwd_dkv"] = (
         statistics.median(bwd_prepass))
     return times, library, bwd_ms, prepass_ms
+
+
+SDPA_FWD_MS: dict = {}  # case -> SDPA's forward, median of graph replays
 
 
 def sdpa_bwd_ms(leaves, do, label, causal=True):
@@ -665,6 +704,8 @@ def sdpa_bwd_ms(leaves, do, label, causal=True):
     bwd = statistics.median(both) - statistics.median(fwd)
     log(json.dumps({"sdpa_graph_replays_ms": {
         "case": label, "fwd": fwd, "fwd_and_bwd": both, "bwd": bwd}}))
+    # the forward's median, the library yardstick of the forward kernels
+    SDPA_FWD_MS[label] = statistics.median(fwd)
     return bwd
 
 
@@ -678,18 +719,19 @@ def time_heads(inputs):
     H = SHAPES["slice"][1]
     args = (q, k, v, do, lse, delta, H, True, HEAD_DIM ** -0.5)
     fwd = (q, k, v, H, True, HEAD_DIM ** -0.5)
-    times = {}
+    times, replays = {}, {}
     for name, call in (("flash_fwd_heads", fwd), ("flash_bwd_dq_heads", args),
                        ("flash_bwd_dkv_heads", args)):
         kernel, plain = getattr(att, name), getattr(att, name + "_plain")
-        times[name] = (cuda_ms(lambda: kernel(*call), 20),
+        replays[name] = graph_ms(lambda: kernel(*call), 20)
+        times[name] = (statistics.median(replays[name]),
                        cuda_ms(lambda: plain(*call), 3))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+    log(json.dumps({"kernel_graph_replays_ms": {"case": "slice bshd",
+                                                **replays}}))
     views = [att._split_heads(t, H).detach().requires_grad_()
              for t in (q, k, v)]
-    fwd_ms = cuda_ms(lambda: sdpa(*views, is_causal=True), 20)
     bwd_ms = sdpa_bwd_ms(views, att._split_heads(do, H), "bshd views")
-    return times, {"flash_fwd_heads": fwd_ms}, bwd_ms
+    return times, {"flash_fwd_heads": SDPA_FWD_MS["bshd views"]}, bwd_ms
 
 
 def time_packing(shape):
@@ -3042,7 +3084,11 @@ def agent_run(cfg, run_tmp, job, uninterrupted) -> dict:
         "re_rendezvous_s": spawn1 - noticed,
         "rdzv_wait_s": rdzv[1]["dur"],
         "process_start_and_import_torch_s": start1["imported_at"] - spawn1,
-        "cuda_init_and_kernel_load_s": start1["t"] - start1["imported_at"],
+        # from torch's import to the startup event: the port's package
+        # imports, init_distributed, the CUDA context, the kernel load,
+        # and what is left between them (argument parsing, the device)
+        "package_import_s": start1["package_import_s"],
+        "init_distributed_s": start1["init_distributed_s"],
         "cuda_init_s": start1["cuda_init_s"],
         "kernel_load_s": start1["kernel_load_s"],
         "model_and_trainer_build_s": restore_start - start1["t"],
@@ -3050,7 +3096,17 @@ def agent_run(cfg, run_tmp, job, uninterrupted) -> dict:
         "to_first_step_s": (step1["t"] - step1["dur"]) - restore["t"],
         "first_step_s": step1["dur"],
     }
+    legs["startup_rest_s"] = (start1["t"] - start1["imported_at"]) - sum(
+        legs[k] for k in ("package_import_s", "init_distributed_s",
+                          "cuda_init_s", "kernel_load_s"))
     legs["total_s"] = step1["t"] - kill
+    # the profiling plane is imported where the Trainer is built: the
+    # package imports hold none of it
+    if start1["profiling_modules_at_import"]:
+        raise SystemExit(f"agent: the package imports loaded the profiling "
+                         f"plane: {start1['profiling_modules_at_import']}")
+    log(f"  [agent] profiling modules loaded by the package imports: "
+        f"{start1['profiling_modules_at_import']}")
     log(f"  [agent] restart latency {legs['total_s']:.3f} s: "
         f"{json.dumps(legs)} ({card})")
     saves = [{"incarnation": i, "step": e["step"], "blocking_ms":
@@ -4684,6 +4740,649 @@ def ppo_phase() -> dict:
     return report
 
 
+# -------------------------------------------------------- [prof] [brain]
+#
+# the deep-profiling plane on the main training path: the Trainer's
+# always-on device-time sampler and a deep capture the master triggers
+# through the agent, and the brain service fed by the same run
+
+PROF_SAMPLE_STEPS = 4
+PROF_HEALTHY = 40          # steps at the full rate, the measured range
+PROF_MAX_STEPS = 260       # the regressed run ends 2 steps after its ack
+PROF_GEMMS = 200           # the injected regression: extra bf16 GEMMs a
+PROF_GEMM_N = 8192         # step, ~1.1 TFLOP each (device time, matmul)
+PROF_PROFILE_AT = PROF_HEALTHY + 1   # profile=True window: 2 steps
+PROF_TIMEOUT_S = 420
+PROF_KERNELS = ("flash_fwd", "flash_bwd_preprocess", "flash_bwd_dq",
+                "flash_bwd_dkv")
+PROF_WORKER = '''
+"""[prof]'s worker: nano-350m (B8 S2048, bf16 over f32 masters, adamw,
+remat none, flash attention: K1-K4) through Trainer on the card, under
+the launcher. With ``gemms``, every step from ``healthy`` on first queues
+that many bf16 GEMMs on the card (a device-side step-time regression);
+the run ends 2 steps after the capture channel's ack. With ``profile``,
+``profile=True`` captures 2 steps from there, and the worker then waits
+for ``scraped`` (the agent's /metrics was read) before its last steps."""
+import json, os, sys, time
+
+import numpy as np
+import torch
+
+from dlrover_tpu_torch.models import PRESETS, llama_init, llama_loss_fn
+from dlrover_tpu_torch.models import llama_logical_axes
+from dlrover_tpu_torch.ops import launch_counts
+from dlrover_tpu_torch.parallel import Strategy
+from dlrover_tpu_torch.trainer import Trainer, TrainingArgs
+
+spec = json.loads(sys.argv[1])
+cfg = PRESETS["nano-350m"]
+B, S = spec["batch"], spec["seq"]
+
+
+class Stream:
+    """The example's stand-in corpus: seeded uniform tokens per step."""
+
+    def __iter__(self):
+        for i in range(10 ** 6):
+            yield {"tokens": np.random.RandomState(i).randint(
+                0, cfg.vocab_size, size=(B, S + 1), dtype=np.int32)}
+
+
+args = TrainingArgs(
+    output_dir=spec["out"], max_steps=spec["steps"], learning_rate=3e-4,
+    strategy=Strategy(remat="none"), flash_checkpoint=False, log_steps=2,
+    profile=bool(spec["profile"]), profile_start_step=spec["profile"] or 10,
+    profile_num_steps=2)
+trainer = Trainer(llama_loss_fn(cfg), lambda s, d: llama_init(cfg, s, d),
+                  llama_logical_axes(cfg), args, train_data=Stream(),
+                  device="cuda")
+if trainer._profiler is not None:
+    trainer._profiler.require_ops = tuple(spec["kernels"])
+n = spec["gemm_n"]
+a, b, c = (torch.randn(n, n, device="cuda", dtype=torch.bfloat16)
+           for _ in range(3))
+ack = os.path.join(os.environ.get("DLROVER_PROF_CAPTURE_DIR", ""),
+                   "capture_ack.json")
+done = {"ack_step": None, "scraped": None}
+
+
+def prestep(state, batch):
+    step = trainer.global_step
+    if spec["gemms"] and step >= spec["healthy"]:
+        for _ in range(spec["gemms"]):
+            torch.mm(a, b, out=c)
+    if spec["gemms"] and done["ack_step"] is None and os.path.exists(ack):
+        done["ack_step"] = step
+        args.max_steps = step + 2
+    prof = trainer._profiler
+    if prof is not None and prof._done and done["scraped"] is None:
+        t0 = time.time()
+        while not os.path.exists(spec["scraped"]) and time.time() - t0 < 90:
+            time.sleep(0.05)
+        done["scraped"] = time.time() - t0
+    return state, batch
+
+
+trainer.prestep = prestep
+trainer.train()
+out = {"launches": launch_counts(), "ack_step": done["ack_step"],
+       "scrape_wait_s": done["scraped"],
+       "peak_bytes": torch.cuda.max_memory_allocated(),
+       "sampling": trainer._prof.sampling_enabled,
+       "window_costs": list(trainer._prof.window_costs),
+       "first_window_cost_s": trainer._prof.first_window_cost_s,
+       "last_window_cost_s": trainer._prof.last_window_cost_s,
+       "last_gap": trainer._prof.last_gap,
+       "step_ewma_s": trainer._prof.step_ewma_s,
+       "profile_ops": (trainer._profiler.assert_ops_present(
+           tuple(spec["kernels"])) if trainer._profiler else None)}
+trainer.close()
+with open(spec["result"], "w") as f:
+    json.dump(out, f)
+'''
+
+
+class HttpWatch:
+    """Polls, while a run goes on, the master's /captures.json and
+    /metrics (its device-time gauges) and, where given, the agent's
+    /metrics; ``feed`` is called with the worker's newest telemetry
+    snapshot on each pass."""
+
+    def __init__(self, master_http, tele_dir, agent_metrics=None,
+                 feed=None):
+        import threading
+
+        self.master_http, self.tele_dir = master_http, tele_dir
+        self.agent_metrics, self.feed = agent_metrics, feed
+        self.captures: dict = {}
+        self.optime: list = []
+        self.agent_text = ""
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    @staticmethod
+    def get(url) -> str | None:
+        import urllib.request
+
+        try:
+            return urllib.request.urlopen(url, timeout=5).read().decode()
+        except OSError:
+            return None
+
+    def _loop(self):
+        while not self._stop.is_set():
+            text = self.get(f"http://{self.master_http}/captures.json")
+            if text:
+                for rec in json.loads(text).get("captures", ()):
+                    self.captures[rec["id"]] = rec
+            text = self.get(f"http://{self.master_http}/metrics")
+            lines = [line for line in (text or "").splitlines()
+                     if line.startswith("dlrtpu_device_optime_ms{")]
+            if lines:
+                self.optime = lines
+            if self.agent_metrics:
+                text = self.get(self.agent_metrics)
+                if text and "dlrtpu_kernel_self_ms{" in text:
+                    self.agent_text = text
+            if self.feed is not None:
+                snaps = [s for role, _src, s in
+                         telemetry_snapshots(self.tele_dir)
+                         if role == "worker"] if self.tele_dir.exists() else []
+                if snaps:
+                    self.feed(snaps[-1])
+            self._stop.wait(0.5)
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=60)
+
+
+def prof_launch(run_tmp, label, spec_extra, env_extra, feed=None,
+                agent_port=None, on_scraped=None) -> dict:
+    """One launcher run of PROF_WORKER under a master of its own with its
+    HTTP plane; returns what the run left: the worker's result, its log,
+    its telemetry, the master's polled /captures.json and gauges."""
+    import signal
+
+    run_dir = run_tmp / label
+    run_dir.mkdir()
+    tele_dir, log_dir = run_dir / "telemetry", run_dir / "logs"
+    script, result = run_dir / "prof_worker.py", run_dir / "result.json"
+    script.write_text(PROF_WORKER)
+    spec = {"out": str(run_dir / "out"), "result": str(result),
+            "batch": 8, "seq": 2048, "healthy": PROF_HEALTHY,
+            "gemm_n": PROF_GEMM_N, "kernels": list(PROF_KERNELS),
+            "scraped": str(run_dir / "scraped"), "gemms": 0, "profile": 0,
+            **spec_extra}
+    env = dict(os.environ)
+    for key in ("DLROVER_TPU_TORCH_SOCKET_DIR", "DLROVER_RUNTIME_METRICS_PATH",
+                "DLROVER_PARAL_CONFIG_PATH", "DLROVER_MASTER_ADDR",
+                "DLROVER_CHAOS"):
+        env.pop(key, None)
+    env.update({"TMPDIR": str(run_dir),
+                "ELASTIC_JOB_NAME": os.environ["ELASTIC_JOB_NAME"] + label,
+                "DLROVER_TELEMETRY_DIR": str(tele_dir),
+                "DLROVER_PROBE_DISABLE": "1",
+                "DLROVER_KERNEL_METRICS_PATH": str(run_dir / "kernels.json"),
+                **env_extra})
+    addr_file, master_log = run_dir / "master_addr", run_dir / "master.log"
+    with open(master_log, "wb") as out:
+        master = subprocess.Popen(
+            [sys.executable, "-m", "dlrover_tpu_torch.master.main",
+             "--port", "0", "--node_num", "1", "--http-port", "0",
+             "--addr-file", str(addr_file)], cwd=str(ROOT),
+            env=dict(env, DLROVER_TELEMETRY_ROLE="master"), stdout=out,
+            stderr=subprocess.STDOUT)
+    proc = watch = None
+    try:
+        t0 = time.perf_counter()
+        while not (addr_file.exists() and "DLROVER_MASTER_HTTP=" in
+                   master_log.read_text(errors="replace")):
+            if master.poll() is not None or time.perf_counter() - t0 > 60:
+                raise SystemExit(f"prof: the master never served:\n"
+                                 f"{master_log.read_text()[-3000:]}")
+            time.sleep(0.05)
+        http = [line.split("=", 1)[1] for line in
+                master_log.read_text().splitlines()
+                if line.startswith("DLROVER_MASTER_HTTP=")][0]
+        env["DLROVER_MASTER_ADDR"] = addr_file.read_text()
+        cmd = [sys.executable, "-m", "dlrover_tpu_torch.trainer.run",
+               "--nnodes", "1", "--nproc_per_node", "1", "--max-restarts",
+               "0", "--log-dir", str(log_dir)]
+        if agent_port is not None:
+            cmd += ["--metrics-port", str(agent_port)]
+        agent_metrics = (f"http://127.0.0.1:{agent_port}/metrics"
+                         if agent_port is not None else None)
+        t_run = time.perf_counter()
+        with open(run_dir / "tpu_run.log", "wb") as out:
+            proc = subprocess.Popen(
+                cmd + [str(script), json.dumps(spec)], cwd=str(ROOT),
+                env=env, stdout=out, stderr=subprocess.STDOUT,
+                start_new_session=True)
+        watch = HttpWatch(http, tele_dir, agent_metrics, feed)
+        deadline = time.perf_counter() + PROF_TIMEOUT_S
+        while proc.poll() is None and time.perf_counter() < deadline:
+            if on_scraped is not None and watch.agent_text and not (
+                    run_dir / "scraped").exists():
+                on_scraped(watch.agent_text)
+                (run_dir / "scraped").touch()
+            time.sleep(0.2)
+        rc = proc.poll()
+        run_s = time.perf_counter() - t_run
+    finally:
+        if watch is not None:
+            watch.stop()
+        if proc is not None:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+        if master.poll() is None:
+            master.terminate()
+        try:
+            master.wait(timeout=20)
+        except subprocess.TimeoutExpired:
+            master.kill()
+            master.wait()
+    text = (run_dir / "tpu_run.log").read_text(errors="replace")
+    worker_logs = sorted(log_dir.glob("worker_*.log"))
+    wlog = worker_logs[0].read_text(errors="replace") if worker_logs else ""
+    log(f"  [prof] {label}: tpu-run exit {rc} after {run_s:.1f} s")
+    if rc != 0:
+        for line in (text.splitlines()[-20:] + wlog.splitlines()[-40:]):
+            log(f"    {line[:240]}")
+        raise SystemExit(f"prof: {label} run exited {rc}, want 0")
+    snaps = [s for role, _src, s in telemetry_snapshots(tele_dir)
+             if role == "worker"]
+    run = {"result": json.loads(result.read_text()), "worker_log": wlog,
+           "agent_log": text, "snap": snaps[-1] if snaps else {},
+           "captures": dict(watch.captures), "optime": list(watch.optime),
+           "agent_text": watch.agent_text, "tele_dir": tele_dir,
+           "master_log": master_log.read_text(errors="replace"),
+           "run_s": run_s}
+    if not snaps:
+        raise SystemExit(f"prof: {label} left no worker telemetry")
+    return run
+
+
+def step_wall_s(snap, first: int, last: int) -> float:
+    """Wall time from the end of step ``first`` to the end of step
+    ``last`` (``step.end`` events): the steps in between and everything
+    the loop did between them, the sampler's windows included."""
+    ends = {e["step"]: e["t"] for e in events(snap, "step.end")}
+    if first not in ends or last not in ends:
+        raise SystemExit(f"prof: no step.end events for steps {first} and "
+                         f"{last}: {sorted(ends)[:5]}..{sorted(ends)[-5:]}")
+    return ends[last] - ends[first]
+
+
+def kernel_rows(ops) -> dict:
+    """K1-K4's rows of a window's top kernels: {name: {ms, calls}}."""
+    rows = {}
+    for name in PROF_KERNELS:
+        pattern = re.compile(rf"\b{name}_kernel\b")
+        found = [o for o in ops if pattern.search(o["op"])]
+        if found:
+            rows[name] = {"ms": sum(o["ms"] for o in found),
+                          "calls": sum(o["calls"] for o in found)}
+    return rows
+
+
+def prof_phase() -> dict:
+    """[prof]: the deep-profiling plane on the main path, nano-350m at
+    full width (B8 S2048, bf16, K1-K4) under the launcher twin, a master
+    of its own with its HTTP plane, and the agent. Two runs of
+    PROF_WORKER: the first with ``DLROVER_PROF_SAMPLE_STEPS=0`` (no
+    sampling) and ``profile=True`` over 2 steps after the measured range,
+    whose ``StepProfiler.assert_ops_present`` must find K1-K4 and whose
+    top kernels the agent's /metrics must serve as
+    ``dlrtpu_kernel_self_ms``; the second with
+    ``DLROVER_PROF_SAMPLE_STEPS=4`` (the governor at its default 2 %):
+    every sampled window's categories and K1-K4 by name (ms, calls) from
+    the worker's ``device-time sample`` lines, each window's cost and
+    legs (the first, cold, apart), and the sampler's overhead over steps
+    2 to 40 against the first run's; then from step 41 a device-side
+    regression (PROF_GEMMS extra bf16 GEMMs a step) that the master
+    must turn into a capture directive, the agent relay, the worker
+    capture for 2 steps and /captures.json show done, with an artifact
+    whose merged timeline holds the host spans and K1-K4's CUDA kernels
+    and whose attribution names matmul against the stored baseline. The
+    brain service runs beside the second run (see ``brain_phase``)."""
+    import shutil
+    import tempfile
+
+    from dlrover_tpu_torch.common.rpc import find_free_port
+
+    card = CARD["line"]
+    release()
+    run_tmp = Path(tempfile.mkdtemp(prefix="dlprof"))
+    t_phase = time.perf_counter()
+    brain = BrainFeeder(run_tmp)
+    try:
+        scraped = {}
+
+        def on_scraped(text):
+            scraped["lines"] = [line for line in text.splitlines()
+                                if line.startswith("dlrtpu_kernel_self_ms{")]
+
+        off = prof_launch(
+            run_tmp, "off", {"steps": PROF_PROFILE_AT + 3,
+                             "profile": PROF_PROFILE_AT},
+            {"DLROVER_PROF_SAMPLE_STEPS": "0"},
+            agent_port=find_free_port("127.0.0.1"), on_scraped=on_scraped)
+        on = prof_launch(
+            run_tmp, "on", {"steps": PROF_MAX_STEPS, "gemms": PROF_GEMMS},
+            {"DLROVER_PROF_SAMPLE_STEPS": str(PROF_SAMPLE_STEPS)},
+            feed=brain.feed)
+        report = prof_checks(off, on, scraped, card)
+        report["brain"] = brain_phase(brain, on)
+    finally:
+        brain.stop()
+        for label in ("off", "on"):
+            unlink_segments(os.environ["ELASTIC_JOB_NAME"] + label)
+        shutil.rmtree(run_tmp, ignore_errors=True)
+        log(f"  [prof] cleanup: removed {run_tmp}")
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"prof": report}))
+    return report
+
+
+def prof_checks(off, on, scraped, card) -> dict:
+    """The [prof] gates and figures over the two runs."""
+    want_launch = {name: 16 for name in PROF_KERNELS}
+    for label, run in (("off", off), ("on", on)):
+        res = run["result"]
+        steps = max(e["step"] for e in events(run["snap"], "step.end"))
+        if any(res["launches"].get(k, 0) != v * steps
+               for k, v in want_launch.items()):
+            raise SystemExit(f"prof: {label} launched {res['launches']} over "
+                             f"{steps} steps, want 16 a step for K1-K4")
+    # the profile=True window (first run): K1-K4 found, and served by
+    # the agent's /metrics
+    ops = off["result"]["profile_ops"]
+    lines = scraped.get("lines") or []
+    log(f"  [prof] profile=True: assert_ops_present found K1-K4 among "
+        f"{ops} kernels; the agent's /metrics served "
+        f"{len(lines)} dlrtpu_kernel_self_ms lines:")
+    for line in lines[:8]:
+        log(f"    {line[:200]}")
+    # the agent serves the window's top 15 kernels (K4 leads the flash
+    # kernels; K2's 0.5 ms a step is far down the table)
+    if not ops or not any("flash_bwd_dkv_kernel" in line for line in lines):
+        raise SystemExit("prof: the profile window's kernels are not on "
+                         "the agent's /metrics")
+    if off["result"]["window_costs"] or off["result"]["sampling"] is not False:
+        raise SystemExit("prof: the run without sampling sampled")
+
+    # the sampled windows (second run)
+    res = on["result"]
+    if not res["sampling"]:
+        raise SystemExit("prof: sampling was off on the card")
+    samples = [json.loads(line.split("device-time sample ", 1)[1])
+               for line in on["worker_log"].splitlines()
+               if "device-time sample " in line]
+    windows = []
+    for smp in samples:
+        rows = kernel_rows(smp["top_ops"])
+        windows.append({"step": smp["step"],
+                        "categories_ms": smp["categories"],
+                        "total_ms": smp["total_ms"],
+                        "device_events": smp["device_events"],
+                        "kernels": rows})
+        log(f"  [prof] sampled window at step {smp['step']}: "
+            f"{json.dumps(windows[-1])} ({card})")
+        if "cuda" not in smp["activities"] or set(rows) != set(
+                PROF_KERNELS):
+            raise SystemExit(f"prof: window at step {smp['step']} saw "
+                             f"{smp['activities']} and K1-K4 {sorted(rows)}")
+    healthy = [w for w in windows if w["step"] < PROF_HEALTHY]
+    if len(healthy) < 2:
+        raise SystemExit(f"prof: {len(healthy)} sampled windows before the "
+                         f"regression, want at least 2")
+    costs = res["window_costs"]
+    cold = [c for c in costs if c["cold"]]
+    steady = [c for c in costs if not c["cold"]]
+    log(f"  [prof] window costs (s, on the step thread): first (cold) "
+        f"{json.dumps(cold)}; steady {json.dumps(steady)}; gap after the "
+        f"last {res['last_gap']} steps at a step EWMA of "
+        f"{res['step_ewma_s']:.4f} s ({card})")
+    if len(cold) != 1 or not steady:
+        raise SystemExit(f"prof: window costs {costs}")
+    wall_off = step_wall_s(off["snap"], 2, PROF_HEALTHY)
+    wall_on = step_wall_s(on["snap"], 2, PROF_HEALTHY)
+    in_range = [c for c in costs if c["step"] < PROF_HEALTHY]
+    overhead = {
+        "steps": f"2..{PROF_HEALTHY}", "wall_s_sampling_off": wall_off,
+        "wall_s_sampling_on": wall_on,
+        "overhead_pct": (wall_on - wall_off) / wall_off * 100,
+        "windows_in_range": len(in_range),
+        "window_cost_s_in_range": sum(c["cost_s"] for c in in_range),
+        "cold_window_cost_s": cold[0]["cost_s"],
+        "overhead_pct_without_the_cold_window":
+            (wall_on - wall_off - cold[0]["cost_s"]) / wall_off * 100,
+        "window_cost_pct_of_wall": sum(c["cost_s"] for c in in_range)
+        / wall_on * 100,
+    }
+    log(f"  [prof] sampler overhead {json.dumps(overhead)} ({card})")
+
+    # the regression -> directive -> relay -> capture -> /captures.json
+    done = [r for r in on["captures"].values() if r.get("state") == "done"]
+    mlog = on["master_log"]
+    for line in mlog.splitlines():
+        if any(k in line for k in ("SLO breach step_time", "deep capture")):
+            log(f"    master: {line.strip()[:220]}")
+    if len(done) != 1 or res["ack_step"] is None:
+        raise SystemExit(f"prof: captures {on['captures']}, worker saw the "
+                         f"ack at step {res['ack_step']}")
+    rec = done[0]
+    # the directive reached the worker only through the agent's relay
+    # into its capture channel; the agent's own event where it flushed it
+    begun = [e for e in events(on["snap"], "prof.capture.begin")
+             if e.get("capture") == rec["id"]]
+    relayed = [e for role, _src, s in telemetry_snapshots(on["tele_dir"])
+               if role == "agent"
+               for e in events(s, "prof.capture.dispatch")]
+    log(f"  [prof] relay: agent {json.dumps(relayed)}, worker "
+        f"{json.dumps(begun)}")
+    if len(begun) != 1:
+        raise SystemExit(f"prof: the worker began {begun}")
+    summary = rec.get("summary") or {}
+    log(f"  [prof] /captures.json: " + json.dumps(
+        {k: rec.get(k) for k in ("id", "rank", "state", "reason",
+                                 "requested_t", "done_t", "artifact")}))
+    if "slo:step_time_regression" not in rec.get("reason", ""):
+        raise SystemExit(f"prof: capture reason {rec.get('reason')}")
+    if summary.get("end_step", 0) - summary.get("start_step", 0) + 1 != 2 \
+            or summary.get("steps") != 2:
+        raise SystemExit(f"prof: the capture spans {summary}")
+    attribution = summary.get("attribution") or []
+    log(f"  [prof] capture: steps {summary['start_step']}-"
+        f"{summary['end_step']}, categories {summary['categories']}, "
+        f"attribution {json.dumps(attribution)} ({card})")
+    matmul = [a for a in attribution if a["category"] == "matmul"]
+    if not (matmul and (matmul[0]["delta_pct"] or 0) > 100):
+        raise SystemExit(f"prof: the attribution does not name matmul: "
+                         f"{attribution}")
+    cap_rows = kernel_rows(summary.get("top_ops") or [])
+    art = Path(rec["artifact"])
+    with open(art / "timeline.perfetto.json") as f:
+        timeline = json.load(f)["traceEvents"]
+    host = {e["name"] for e in timeline if e.get("cat") == "host"}
+    kernel_names = [e["name"] for e in timeline if e.get("cat") == "kernel"]
+    found = {name: sum(1 for k in kernel_names
+                       if re.search(rf"\b{name}_kernel\b", k))
+             for name in PROF_KERNELS}
+    log(f"  [prof] artifact {sorted(os.listdir(art))}: "
+        f"{len(timeline)} timeline events, host spans "
+        f"{sorted(host)[:8]}, CUDA kernel events {len(kernel_names)}, "
+        f"K1-K4 events {found}; capture's K1-K4 rows {json.dumps(cap_rows)}")
+    if "train.step" not in host or not all(found.values()) or \
+            set(cap_rows) != set(PROF_KERNELS):
+        raise SystemExit("prof: the capture artifact lacks the host spans "
+                         "or K1-K4's kernel events")
+    regress = events(on["snap"], "device.optime.regression")
+    log(f"  [prof] device.optime.regression events {json.dumps(regress)}; "
+        f"master /metrics device-time gauges: {on['optime'][:6]}")
+    if not on["optime"]:
+        raise SystemExit("prof: the master's /metrics has no "
+                         "dlrtpu_device_optime_ms")
+    return {"card": card, "config": "nano-350m", "batch": 8, "seq": 2048,
+            "sample_steps": PROF_SAMPLE_STEPS, "windows": windows,
+            "window_costs": costs, "overhead": overhead,
+            "capture": {"id": rec["id"], "steps": [summary["start_step"],
+                                                   summary["end_step"]],
+                        "categories": summary["categories"],
+                        "attribution": attribution,
+                        "kernels": cap_rows,
+                        "ack_step": res["ack_step"]},
+            "profile_window_ops": ops,
+            "run_s": {"off": off["run_s"], "on": on["run_s"]},
+            "peak_gib": res["peak_bytes"] / 2 ** 30}
+
+
+class BrainFeeder:
+    """The brain service (``python -m dlrover_tpu_torch.brain.main``) in a
+    process of its own, and a BrainClient that persists a runtime record
+    of a run each time it is fed a newer step of the worker's telemetry:
+    its tokens/s, its step, the card's peak memory."""
+
+    JOB = ("prof-run", "nano-350m-b8-s2048")
+
+    def __init__(self, run_tmp):
+        from dlrover_tpu_torch.brain import BrainClient
+
+        self.log_path = run_tmp / "brain.log"
+        with open(self.log_path, "wb") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "dlrover_tpu_torch.brain.main",
+                 "--port", "0", "--db", str(run_tmp / "brain.sqlite")],
+                cwd=str(ROOT), stdout=out, stderr=subprocess.STDOUT)
+        t0 = time.perf_counter()
+        self.addr = None
+        while self.addr is None:
+            for line in self.log_path.read_text().splitlines():
+                if line.startswith("DLROVER_BRAIN_ADDR="):
+                    self.addr = line.split("=", 1)[1]
+            if self.proc.poll() is not None or time.perf_counter() - t0 > 60:
+                raise SystemExit(f"brain: never served:\n"
+                                 f"{self.log_path.read_text()[-2000:]}")
+            time.sleep(0.05)
+        self.start_s = time.perf_counter() - t0
+        self.client = BrainClient(self.addr)
+        self.persisted: list = []
+        self._last_step = 0
+
+    def feed(self, snap):
+        ends = events(snap, "step.end")
+        gauges = {g["name"]: g["value"] for g in snap.get("gauges", ())}
+        if not ends or ends[-1]["step"] <= self._last_step or \
+                "train.tokens_per_s" not in gauges:
+            return
+        self._last_step = ends[-1]["step"]
+        rec = {"worker_count": 1, "status": "running",
+               "global_step": self._last_step,
+               "speed": gauges["train.tokens_per_s"],
+               "used_memory_mb": gauges.get("device.hbm.peak_bytes", 0)
+               / 2 ** 20}
+        if self.client.persist_metrics(*self.JOB, rec):
+            self.persisted.append(rec)
+
+    def stop(self):
+        self.client.close()
+        if self.proc.poll() is None:
+            self.proc.terminate()
+        try:
+            self.proc.wait(timeout=20)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+
+
+BRAIN_STEPS = 8
+
+
+def brain_phase(brain, on) -> dict:
+    """[brain]: the plans of the brain service fed by [prof]'s second run
+    (``worker_resource``: the peak memory with headroom;
+    ``job_completion``: steps/s and the time to step PROF_MAX_STEPS), and
+    a BrainReporter on a dead address beside BRAIN_STEPS steps of
+    nano-350m: every step runs, none stalls, the client degrades to
+    instant no-ops. The brain is host code: this leg shows only that it
+    takes a card run's figures."""
+    from dlrover_tpu_torch.brain import BrainClient, BrainReporter
+    from dlrover_tpu_torch.common import retry
+    from dlrover_tpu_torch.common.rpc import find_free_port
+    from dlrover_tpu_torch.models import PRESETS, llama_init, llama_loss_fn
+    from dlrover_tpu_torch.parallel import Strategy, auto_accelerate
+    from dlrover_tpu_torch.trainer import build_optimizer
+
+    card = CARD["line"]
+    log(f"  [brain] serving at {brain.addr} (up in {brain.start_s:.2f} s), "
+        f"{len(brain.persisted)} records persisted from the run: first "
+        f"{json.dumps(brain.persisted[:1])}, last "
+        f"{json.dumps(brain.persisted[-1:])}")
+    records = brain.client.get_job_metrics(brain.JOB[0])
+    plans = {
+        "worker_resource": brain.client.optimize(*brain.JOB,
+                                                 "worker_resource"),
+        "job_completion": brain.client.optimize(
+            *brain.JOB, "job_completion", {"max_steps": PROF_MAX_STEPS}),
+    }
+    log(f"  [brain] plans {json.dumps(plans)} ({card})")
+    peak = max(r["used_memory_mb"] for r in brain.persisted)
+    if len(records) != len(brain.persisted) or len(records) < 3 or \
+            plans["worker_resource"] != {"memory_mb": int(peak * 1.4)} or \
+            not (plans["job_completion"] or {}).get("steps_per_second"):
+        raise SystemExit(f"brain: {len(records)} records, plans {plans}")
+
+    # a dead brain beside a training loop
+    release()
+    cfg = PRESETS["nano-350m"]
+    res = auto_accelerate(llama_loss_fn(cfg), lambda s, d: llama_init(
+        cfg, s, d), build_optimizer("adamw", SLICE_LR), Strategy(
+        remat="none"), device="cuda", seed=0)
+    state, batch = res.state, synthetic_batch(cfg.vocab_size, 2048, 8, 0)
+    retry.set_default_rpc_policy(retry.RetryPolicy(
+        max_attempts=1, base_delay=0.01, deadline=0.5, jitter=False))
+    try:
+        dead = BrainClient(f"127.0.0.1:{find_free_port('127.0.0.1')}")
+        reporter = BrainReporter(dead, "dead", "dead", interval=0.05)
+
+        def steps(n):
+            out = []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                res.train_step(state, batch, None)
+                torch.cuda.synchronize()
+                out.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        steps(2)
+        alone = steps(BRAIN_STEPS)
+        reporter.start()
+        beside = steps(BRAIN_STEPS)
+        reporter.stop()
+        t0 = time.perf_counter()
+        noop = (dead.persist_metrics("u", "j", {}),
+                dead.optimize("u", "j", "cold_create"))
+        noop_ms = (time.perf_counter() - t0) * 1e3
+        dead.close()
+    finally:
+        retry.set_default_rpc_policy(None)
+    dead_leg = {"step_ms_alone": alone, "step_ms_beside_dead_reporter":
+                beside, "median_ratio": statistics.median(beside)
+                / statistics.median(alone), "degraded": dead.degraded,
+                "noop_calls_ms": noop_ms}
+    log(f"  [brain] dead address: {json.dumps(dead_leg)} ({card})")
+    if not dead.degraded or noop != (False, None) or noop_ms > 50 or \
+            max(beside) > 2 * statistics.median(alone):
+        raise SystemExit(f"brain: the dead client {dead_leg}")
+    del res, state
+    release()
+    return {"records": len(records), "plans": plans, "dead_address": dead_leg}
+
 def main() -> int:
     """All phases. The job's name keys its shm segments (the step
     timer's ring, which every Trainer feeds, and the checkpoint's): they
@@ -4812,6 +5511,11 @@ def run_phases() -> int:
     serve_pool_phase()
     log("phase ppo:")
     ppo_phase()
+
+    # 5d. the deep-profiling plane on the main path (its launches are the
+    # workers', gated there), and the brain service fed by it
+    log("phase prof:")
+    prof_phase()
 
     # 6. kernel line, then the result line
     kernels = []

@@ -17,8 +17,9 @@ CUDA/NCCL error patterns to hardware-vs-software errors. The agent
 hosts the checkpoint saver and never creates a CUDA context itself (its
 probe's device legs run in a child process, and so do the network
 check's: ``--network-check`` runs agent/node_check.py in one child per
-local rank, on the cards unless ``accelerator`` is "cpu"). Deep captures
-(ROADMAP Queue 1 item 12) are acked as failed.
+local rank, on the cards unless ``accelerator`` is "cpu"). A master's
+deep-capture directive is relayed into local worker 0's capture channel
+by a background thread, one at a time, and its outcome reported back.
 """
 
 from __future__ import annotations
@@ -438,9 +439,11 @@ class ElasticTrainingAgent:
         # per-local-rank agent<->worker reshape channels
         self._last_round = -1
         self._reshape_channels: dict[int, object] = {}
-        # deep-profiling capture channels (agent <-> worker), and the
-        # id of the last capture directive acked
+        # deep-profiling capture channels (agent <-> worker), plus the
+        # executor thread and the in-flight directive id: the one-capture
+        # discipline means at most one capture runs here at a time
         self._capture_channels: dict[int, object] = {}
+        self._capture_thread = None
         self._capture_inflight = ""
 
     # ----------------------------------------------------------- lifecycle
@@ -916,22 +919,65 @@ class ElasticTrainingAgent:
     # ------------------------------------------------- deep captures
 
     def _maybe_execute_capture(self, directive: dict):
-        """A master capture directive gets a failed ack: the worker half
-        of a deep capture is not ported yet (ROADMAP Queue 1 item 12).
-        The directive re-serves on every diagnosis poll while it stands,
-        so each id is acked once."""
+        """Run a master capture directive against local worker 0 (one
+        device trace per host is the contract) in a background thread:
+        the capture spans multiple worker steps and must not stall the
+        monitor loop. The directive re-serves on every diagnosis poll
+        while it stands, so the in-flight guard below also absorbs the
+        re-serves."""
+        import threading
+
+        from dlrover_tpu_torch.common import profiling
+
         cid = str(directive["capture_id"])
-        if self._capture_inflight == cid:
+        if self._capture_inflight == cid or (
+            self._capture_thread is not None
+            and self._capture_thread.is_alive()
+        ):
+            return
+        channel = self._capture_channels.get(0)
+        if channel is None:
+            try:
+                self._client.report_capture_result(
+                    cid, self._config.node_rank, False,
+                    error="no worker capture channel",
+                )
+            except (ConnectionError, OSError):
+                pass
             return
         self._capture_inflight = cid
-        try:
-            self._client.report_capture_result(
-                cid, self._config.node_rank, False,
-                error="deep captures are not ported yet (ROADMAP Queue 1 "
-                "item 12)",
-            )
-        except (ConnectionError, OSError):
-            self._capture_inflight = ""  # re-served; ack on the next poll
+        worker0 = self._workers[0] if self._workers else None
+
+        def report_fn(capture_id, ok, artifact, summary, error):
+            try:
+                self._client.report_capture_result(
+                    capture_id, self._config.node_rank, ok,
+                    artifact=artifact, summary=summary, error=error,
+                )
+            except (ConnectionError, OSError):
+                # the master re-serves the directive on the next poll;
+                # the in-flight marker clears with the thread
+                logger.warning("capture result report failed")
+
+        def run():
+            try:
+                profiling.execute_capture(
+                    directive, channel, report_fn,
+                    alive_fn=(
+                        (lambda: worker0.returncode is None)
+                        if worker0 is not None else None
+                    ),
+                )
+            except Exception:  # noqa: BLE001 - a capture bug must not
+                # take the agent's monitor loop down
+                logger.exception("capture execution failed")
+            finally:
+                self._capture_inflight = ""
+
+        self._capture_thread = threading.Thread(
+            target=run, name="capture-executor", daemon=True
+        )
+        self._capture_thread.start()
 
     # --------------------------------------------- announced preemptions
 

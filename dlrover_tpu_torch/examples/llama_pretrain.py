@@ -32,14 +32,16 @@ takes this rank's replica along the batch axes, so the tensor ranks of
 one replica read the same rows.
 
 On the card the twin creates its CUDA context and loads every kernel
-library before the Trainer is built, and records those legs in a
-``worker.startup`` telemetry event.
+library before the Trainer is built, and records the legs of its start
+(the port's package imports, ``init_distributed``, the CUDA context, the
+kernel load) in a ``worker.startup`` telemetry event.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 import tempfile
 import time
 
@@ -92,16 +94,27 @@ def build_trainer(argv=None, device=None):
     stream, and the Trainer with Flash Checkpoint on."""
     args = parse_args(argv)
 
+    t0 = time.perf_counter()
     from dlrover_tpu_torch import trainer as torch_trainer
     from dlrover_tpu_torch.common import telemetry
     from dlrover_tpu_torch.common.constants import NodeEnv
     from dlrover_tpu_torch.device import resolve_device
 
+    startup = {"imported_at": IMPORTED_AT,
+               "restart": int(os.environ.get(NodeEnv.RESTART_COUNT, "0")),
+               "package_import_s": time.perf_counter() - t0,
+               # the profiling plane is imported where the Trainer is
+               # built, not by the package: none of it is in this leg
+               "profiling_modules_at_import": sorted(
+                   m for m in sys.modules
+                   if m.startswith("dlrover_tpu_torch.")
+                   and m.rsplit(".", 1)[1] in ("profiling", "profiler",
+                                               "trace_summary"))}
     device = resolve_device(device)
+    t0 = time.perf_counter()
     if not torch.distributed.is_initialized():
         torch_trainer.init_distributed(device)
-    startup = {"imported_at": IMPORTED_AT,
-               "restart": int(os.environ.get(NodeEnv.RESTART_COUNT, "0"))}
+    startup["init_distributed_s"] = time.perf_counter() - t0
     if device.type == "cuda":
         from dlrover_tpu_torch.ops import _build
 

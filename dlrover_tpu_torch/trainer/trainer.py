@@ -22,9 +22,20 @@ Trainer's ``{"train": state, "data": loader state as uint8}``; the
 train state is ``{"step", "params", "opt"}``, with ``opt`` the
 optimizer's ``state_dict()`` keyed by param name.
 
+Profiling, as in the JAX loop: ``profile=True`` captures steps
+``[profile_start_step, +profile_num_steps)`` into ``output_dir/profile``
+(``trainer/profiler.py``) and publishes their top kernels where the
+agent's ``/metrics`` serves them (``dlrtpu_kernel_self_ms``); the
+always-on ``DeviceTimeSampler`` (``common/profiling.py``) profiles one
+step every ``DLROVER_PROF_SAMPLE_STEPS`` into ``device.optime_ms``
+gauges and the op-cost baseline, and runs the agent's deep captures
+(``DLROVER_PROF_CAPTURE_DIR``). Kineto runs one window per process: on a
+step where both would open, the ``profile`` window opens first and the
+sampler's is refused and re-armed, as the JAX loop's ``jax.profiler``
+refuses it.
+
 What the port does not run yet raises ``NotImplementedError`` naming its
-ROADMAP Queue 1 item: profiling (``profile=True`` and the device-time
-sampler; item 12) and the in-process reshape (``reshape_channel``,
+ROADMAP Queue 1 item: the in-process reshape (``reshape_channel``,
 ``reshape_devices_fn``; item 8). The channel an agent offers through
 ``NodeEnv.RESHAPE_DIR`` is declined: the Trainer installs no watcher and
 never marks the channel ready, so the agent restarts the worker on a
@@ -102,7 +113,8 @@ class TrainingArgs:
     # logging/eval
     log_steps: int = 10
     eval_steps: int = 0
-    # profiling (ROADMAP Queue 1 item 12)
+    # profiling: capture a trace of steps
+    # [profile_start_step, +profile_num_steps) into output_dir/profile
     profile: bool = False
     profile_start_step: int = 10
     profile_num_steps: int = 3
@@ -179,9 +191,6 @@ class Trainer:
         reshape_devices_fn: Optional[Callable] = None,
         device=None,
     ):
-        if args.profile:
-            raise _unported("profile=True (the step profiler and the "
-                            "device-time sampler)", 12)
         if reshape_channel is not None or reshape_devices_fn is not None:
             raise _unported("the in-process reshape channel", 8)
         if os.environ.get(NodeEnv.RESHAPE_DIR, ""):
@@ -264,6 +273,32 @@ class Trainer:
             self._timer = get_step_timer()
         except Exception:  # noqa: BLE001 - shm unavailable (bare env)
             pass
+        self._profiler = None
+        if args.profile:
+            from dlrover_tpu_torch.trainer.profiler import StepProfiler
+
+            self._profiler = StepProfiler(
+                os.path.join(args.output_dir, "profile"),
+                start_step=args.profile_start_step,
+                num_steps=args.profile_num_steps,
+                # publish top-kernel self times where the agent's
+                # /metrics endpoint serves them (dlrtpu_kernel_self_ms)
+                publish_top_ops=True,
+                device=self.device,
+            )
+        # always-on device-time accounting + deep-capture execution
+        # (common/profiling.py): one sampled step every
+        # DLROVER_PROF_SAMPLE_STEPS becomes device.optime_ms gauges +
+        # the persisted op-cost baseline; the agent's capture channel
+        # (DLROVER_PROF_CAPTURE_DIR) is polled at every step boundary.
+        # Sampling is off where no card can be recorded (the CPU): the
+        # hooks then cost one branch per step.
+        from dlrover_tpu_torch.common import profiling
+
+        self._prof = profiling.DeviceTimeSampler(
+            os.path.join(args.output_dir, "prof"), device=self.device,
+        )
+        self._refresh_prof_context()
 
     # -------------------------------------------------------------- resume
 
@@ -384,6 +419,7 @@ class Trainer:
             self._load_state_tree(tree)
         self.global_step = int(step)
         self._restore_prestep_state()
+        self._refresh_prof_context()
         # a multi-GB restore takes wall time with zero step progress;
         # any active hang detector must restart its stall clock
         notify_progress_reset("checkpoint-restore")
@@ -684,6 +720,9 @@ class Trainer:
                 if self._timer is not None:
                     self._timer.record(Tag.DATA_WAIT, t_wait,
                                        time.time_ns() - t_wait)
+                if self._profiler is not None:
+                    self._profiler.maybe_start(self.global_step)
+                self._prof.on_step_start(self.global_step)
                 t0 = time.time_ns()
                 with tracing.span("train.step", step=self.global_step + 1):
                     rng = self._step_rng()
@@ -692,12 +731,20 @@ class Trainer:
                     self.state, metrics = self._accel.train_step(
                         self.state, batch, rng)
                     self.global_step += 1
+                    if self._profiler is not None:
+                        self._profiler.maybe_stop(self.global_step - 1,
+                                                  block_on=metrics)
                 if args.log_steps and "loss" in metrics:
                     self._pending_losses.append(
                         (self.global_step, metrics["loss"]))
                 dur_ns = time.time_ns() - t0
                 if self._timer is not None:
                     self._timer.record(Tag.STEP, t0, dur_ns)
+                # the step number the window opened at (pre-increment);
+                # the backend synchronises the device before a window
+                # stops, and a finished window parses off-thread
+                self._prof.on_step_end(self.global_step - 1, dur_ns / 1e9,
+                                       block_on=metrics)
                 self._step_telemetry(batch, dur_ns / 1e9)
                 if args.log_steps and self.global_step % args.log_steps == 0:
                     loss = float(metrics.get("loss", float("nan")))
@@ -768,6 +815,21 @@ class Trainer:
                         "train.mfu",
                         mfu.mfu(self._flops_per_token * tokens, dur_s))
         self._emit_device_gauges()
+
+    def _refresh_prof_context(self):
+        """The op-cost baseline key (model fingerprint + mesh shape),
+        computed once after the build and after a restore, never in the
+        step loop."""
+        from dlrover_tpu_torch.common import profiling
+
+        try:
+            self._prof.set_context(
+                profiling.model_fingerprint(self.state.params),
+                profiling.mesh_shape_key(self._accel.mesh),
+            )
+        except Exception:  # noqa: BLE001 - an odd state tree only
+            # loses baseline keying, never the training loop
+            self._prof.set_context("unfingerprinted", "devices=?")
 
     # -------------------------------------------- live MFU / HBM gauges
 
@@ -841,5 +903,8 @@ class Trainer:
         return loss
 
     def close(self):
+        if self._profiler is not None:
+            self._profiler.close()
+        self._prof.close()
         if self._engine is not None:
             self._engine.close()
