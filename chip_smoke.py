@@ -143,7 +143,11 @@ Phases, each fatal on failure (no exception is caught):
    ranks held in this process (the in-process transport), every
    attention on the ring-block kernels (n(n+1)/2 = 10 blocks per layer
    for each of K12-K14, K2 once per rank), losses within 2e-2 of adamw's,
-   with a profiled step; then the train step's other options:
+   with a profiled step; ``[ulysses4]``: the same with
+   ``attn_impl="ulysses"`` (the all-to-all regroups the 4 in-process
+   shards into 4 head groups, K1-K4 once per group and layer: 4 a layer
+   and step), losses within 2e-2 of adamw's; then the train step's other
+   options:
    ``[agd]``, ``build_optimizer("agd")`` on the slice's repeated batch
    (``optimizer.step`` device ms and state bytes against adamw's, losses
    finite and falling), then the example's chain with ``--optimizer
@@ -186,7 +190,17 @@ Phases, each fatal on failure (no exception is caught):
    ``torch.equal``) and the same 2 steps again, losses within 1e-5
    (relative); a profiled step, whose ``profiled_kernels`` line gives
    K1-K4's device ms and calls by name (as every profiled run's does);
-   then serving and RL: ``[serve]``, llama3-8b at full width (32
+   ``[moe]``: K1-K4 at Mixtral-8x7B's attention shape (B1 H32 KVH8
+   S4096) against their plain versions, then timed beside SDPA with
+   ``enable_gqa``, and a llama at Mixtral-8x7B's published widths (dim
+   4096, 32 heads over 8 kv heads, mlp 14336, 8 experts top-2, vocab
+   32000, rope theta 1e6; depth cut to 2 of 32 layers, capacity factor
+   1.25) through ``Trainer``, B1 S4096, bf16 over f32 masters, adamw,
+   1 + 5 steps on one repeated batch: losses finite and falling, the
+   first within 2e-2 of the same params' loss through the plain
+   attention, K1-K4 twice a step; step ms, tokens/s, MFU on the active
+   FLOPs, peak, aux/z/dropped per step, and a profiled step's device ms
+   by part; then serving and RL: ``[serve]``, llama3-8b at full width (32
    layers, dim 4096, 32 heads over 8 kv heads of 128, mlp 14336, vocab
    128256, rope_theta 5e5; 16.06 GB of bf16 weights drawn from a seed)
    in ``DecodeEngine(slots=8, capacity=2048)``, warmed up (every prompt
@@ -1378,11 +1392,15 @@ def attention_launches(cfg, steps, seq=1, fwd_runs=1):
     remat recompute runs it again); under a seq axis of ``seq`` ranks,
     for each ring-block kernel n(n+1)/2 per layer and step (the blocks
     not wholly in a shard's future) and for K2 n (one per rank); none for
-    the other routes' kernels."""
-    route = FLASH_KERNELS if cfg.attn_impl == "flash" else HEADS_KERNELS
+    the other routes' kernels. Ulysses (``attn_impl="ulysses"``) under a
+    seq axis of n ranks runs K1-K4 once per head group instead: n per
+    layer and step."""
+    route = HEADS_KERNELS if cfg.attn_impl == "bshd" else FLASH_KERNELS
     per_step = {name: 1 for name in route}
     per_step[route[0]] = fwd_runs
-    if seq > 1:
+    if seq > 1 and cfg.attn_impl == "ulysses":
+        per_step = {name: seq * n for name, n in per_step.items()}
+    elif seq > 1:
         per_step = {name: seq * (seq + 1) // 2 for name in RING_KERNELS}
         per_step["flash_bwd_preprocess"] = seq
     return {name: cfg.n_layers * steps * per_step.get(name, 0)
@@ -1558,6 +1576,9 @@ def train_slice(steps: int = 5):
     launches.update({name: counts[name] for name in RING_KERNELS
                      if name != "flash_bwd_preprocess"})
     loss_gap("seq4", losses, adamw_losses)
+    # Ulysses over the same 4 in-process ranks: K1-K4 per head group
+    ulysses_run(cfg, steps, adamw_losses)
+    release()
 
     # the train step's other options: AGD through the example's chain,
     # the chunked CE, and the rest of the optimizers
@@ -1570,6 +1591,39 @@ def train_slice(steps: int = 5):
     # NCCL DeviceMesh
     mesh1_phase(cfg, steps, adamw_losses, none_summary)
     return launches
+
+
+def ulysses_run(cfg, steps, adamw_losses):
+    """[ulysses4]: adamw with ``attn_impl="ulysses"`` under
+    ``MeshConfig(seq=4)`` in this process: the all-to-all regroups the 4
+    sequence shards into 4 head groups of 2 heads, K1-K4 run once per
+    group and layer over the whole sequence (train_run gates the
+    launches); losses within 2e-2 of adamw's; step ms, host enqueue ms,
+    K1-K4 launches per step."""
+    from dlrover_tpu_torch.parallel import MeshConfig, Strategy
+    from dlrover_tpu_torch.trainer import build_optimizer
+
+    ul = dataclasses.replace(cfg, attn_impl="ulysses")
+    res, state, _b, losses, counts, summary = train_run(
+        ul, "ulysses4", build_optimizer("adamw", SLICE_LR, weight_decay=0.0),
+        Strategy(remat="none", mesh=MeshConfig(seq=SEQ)), steps,
+        optimizer="adamw")
+    ring = res.mesh.ring
+    if ring.kind != "in-process" or ring.ranks != tuple(range(SEQ)):
+        raise SystemExit(f"ulysses4: ran on {ring.describe()}, want the "
+                         f"in-process transport with {SEQ} ranks")
+    del res, state
+    gap = loss_gap("ulysses4", losses, adamw_losses)
+    log(json.dumps({"ulysses4": {
+        "card": CARD["line"], "config": "nano-350m", "seq_ranks": SEQ,
+        "step_ms_median_2_to_5": summary["step_ms_median_2_to_5"],
+        "host_enqueue_ms_median_2_to_5":
+            summary["host_enqueue_ms_median_2_to_5"],
+        "tokens_per_s": summary["tokens_per_s"], "mfu": summary["mfu"],
+        "peak_mem_gib": summary["peak_mem_gib"],
+        "k1_k4_launches_per_step": {name: counts[name] / steps
+                                    for name in FLASH_KERNELS},
+        "loss_gap_to_adamw": gap}}))
 
 
 # --------------------------------------------------------------- [mesh1]
@@ -3811,6 +3865,298 @@ def gpt2_phase() -> dict:
     return launches
 
 
+# ------------------------------------------------------------- [moe]
+#
+# a llama at Mixtral-8x7B's published widths (mistralai/Mixtral-8x7B-v0.1)
+# through Trainer: K1-K4 at GQA 4 and S 4096, the routed FFN as torch ops
+
+MOE_LAYERS = 2         # of Mixtral's 32: see moe_config
+MOE_B, MOE_S, MOE_STEPS = 1, 4096, 5
+MOE_WARMUP = 1
+MIXTRAL_ATTN = (1, 32, 8, 4096)   # (B, H, KVH, S) of one [moe] layer
+
+
+def moe_config():
+    """Mixtral-8x7B's widths: dim 4096, 32 heads over 8 kv heads of 128,
+    mlp 14336, 8 experts, top-2, vocab 32000, rope theta 1e6, RMSNorm
+    eps 1e-5; capacity factor 1.25 (the JAX package's default; Mixtral
+    drops no token). Cut: MOE_LAYERS of 32 layers: 3.16 B params (2
+    layers) hold ~51 GB of f32 masters, AdamW moments and f32 grads."""
+    from dlrover_tpu_torch.models import LlamaConfig
+
+    return LlamaConfig(
+        vocab_size=32000, dim=4096, n_layers=MOE_LAYERS, n_heads=32,
+        n_kv_heads=8, mlp_dim=14336, max_seq_len=MOE_S, rope_theta=1e6,
+        norm_eps=1e-5, n_experts=8, moe_top_k=2, moe_capacity_factor=1.25)
+
+
+def moe_active_params(cfg) -> int:
+    """The params one token runs through: all but the E - k experts it
+    is not routed to."""
+    return cfg.param_count() - ((cfg.n_experts - cfg.moe_top_k) * 3
+                                * cfg.dim * cfg.mlp_dim * cfg.n_layers)
+
+
+def time_mixtral_attention(inputs) -> dict:
+    """K1-K4 at MIXTRAL_ATTN (CUDA-graph replays, median of 5; K1, K3
+    and K4 each with their rope pre-passes, which the backward runs once
+    for K3 and K4), their plain versions (CUDA events, 2 calls), SDPA's
+    forward and backward with ``enable_gqa`` on the pre-roped q/k as the
+    library yardstick, and the bounds."""
+    from dlrover_tpu_torch.ops import attention as att
+
+    q, k, v, do, cos, sin, o, lse, delta = inputs
+    scale = HEAD_DIM ** -0.5
+    args = (q, k, v, do, lse, delta, cos, sin, True, scale)
+
+    def med(fn, iters):
+        return statistics.median(graph_ms(fn, iters))
+
+    ms = {
+        "flash_fwd": med(lambda: att.flash_fwd(q, k, v, cos, sin, True,
+                                               scale), 10),
+        "flash_bwd_preprocess": med(
+            lambda: att.flash_bwd_preprocess(do, o), 20),
+        "flash_bwd_dq": med(lambda: att.flash_bwd_dq(*args), 10),
+        "flash_bwd_dkv": med(lambda: att.flash_bwd_dkv(*args), 10),
+    }
+    bwd_prepass = med(lambda: (att.flash_fwd_rope_k(q, cos, sin),
+                               att.flash_fwd_rope_k(k, cos, sin)), 20)
+    plain = {
+        "flash_fwd": cuda_ms(lambda: att.flash_fwd_plain(
+            q, k, v, cos, sin, True, scale), 2, warmup=1),
+        "flash_bwd_preprocess": cuda_ms(
+            lambda: att.flash_bwd_preprocess_plain(do, o), 2, warmup=1),
+        "flash_bwd_dq": cuda_ms(lambda: att.flash_bwd_dq_plain(*args), 2,
+                                warmup=1),
+        "flash_bwd_dkv": cuda_ms(lambda: att.flash_bwd_dkv_plain(*args), 2,
+                                 warmup=1),
+    }
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    leaves = (att._rope(q, cos, sin).to(torch.bfloat16).requires_grad_(),
+              att._rope(k, cos, sin).to(torch.bfloat16).requires_grad_(),
+              v.clone().requires_grad_())
+    fwd = med(lambda: sdpa(*leaves, is_causal=True, enable_gqa=True), 10)
+    both = med(lambda: torch.autograd.grad(
+        sdpa(*leaves, is_causal=True, enable_gqa=True), leaves, do), 10)
+    bound = bounds(MIXTRAL_ATTN)
+    out = {
+        "shape": dict(zip(("B", "H", "KVH", "S"), MIXTRAL_ATTN)),
+        "card": CARD["line"], "ms": ms, "plain_ms": plain,
+        "bound_ms": {name: bound[name][0] for name in ms},
+        "bound_by": {name: bound[name][1] for name in ms},
+        "share_of_bound": {name: bound[name][0] / ms[name] for name in ms},
+        "bwd_rope_prepass_ms": bwd_prepass,
+        "port_bwd_ms": ms["flash_bwd_preprocess"] + ms["flash_bwd_dq"]
+        + ms["flash_bwd_dkv"] - bwd_prepass,
+        "sdpa_gqa_fwd_ms": fwd, "sdpa_gqa_bwd_ms": both - fwd,
+    }
+    log(json.dumps({"mixtral_attention": out}))
+    return out
+
+
+def moe_breakdown(averages, cfg, B, S, busy_us) -> dict:
+    """A profiled [moe] step's device ms by part. The matmuls (aten mm
+    and bmm rows by input shape, forward and backward alike): the
+    router's (a dim of E), the dispatch and combine einsums' (a dim of
+    E x C), the expert GEMMs' (leading E and a dim of C) and the others
+    (attention projections, the head); the gating's own ops (sort,
+    cumsum, scatter, gather, one-hot); K1-K4 by kernel name; the foreach
+    AdamW (``aten::_foreach_*``); the copies (``aten::copy_``: the f32
+    masters to bf16, the grads back); the rest of the busy time (norms,
+    SwiGLU and rope elementwise, the CE, the embedding)."""
+    from dlrover_tpu_torch.parallel.moe import MoEConfig
+
+    E = cfg.n_experts
+    C = MoEConfig(E, cfg.moe_top_k,
+                  cfg.moe_capacity_factor).capacity(S)
+    parts = dict.fromkeys(("router", "dispatch_combine", "experts",
+                           "other_gemms", "gating", "adamw", "copies"), 0.0)
+    gating = ("aten::sort", "aten::cumsum", "aten::scatter_add",
+              "aten::scatter_add_", "aten::gather", "aten::one_hot")
+    for e in averages:
+        ms = e.self_device_time_total / 1e3
+        if not ms:
+            continue
+        if e.key in ("aten::mm", "aten::bmm", "aten::addmm",
+                     "aten::baddbmm"):
+            dims = [d for shape in e.input_shapes for d in shape]
+            if E * C in dims:
+                parts["dispatch_combine"] += ms
+            elif any(len(sh) == 3 and sh[0] == E and C in sh
+                     for sh in e.input_shapes):
+                parts["experts"] += ms
+            elif any(len(sh) == 2 and E in sh for sh in e.input_shapes):
+                parts["router"] += ms
+            else:
+                parts["other_gemms"] += ms
+        elif e.key in gating:
+            parts["gating"] += ms
+        elif e.key.startswith("aten::_foreach_"):
+            parts["adamw"] += ms
+        elif e.key == "aten::copy_":
+            parts["copies"] += ms
+    kernels = profiled_kernels(averages, "moe", busy_us)
+    parts["k1_k4"] = kernels["attention_ms"]
+    busy = busy_us / 1e3
+    parts["rest"] = busy - sum(parts.values())
+    return {"device_busy_ms": busy, "ms": parts,
+            "share": {k: v / busy for k, v in parts.items()},
+            "capacity": C, "kernels": kernels["kernels"]}
+
+
+def moe_phase(worst) -> dict:
+    """[moe]: K1-K4 at MIXTRAL_ATTN against their plain versions (into
+    ``worst``) and timed beside SDPA, then the Mixtral-width llama
+    through Trainer (bf16 over f32 masters, remat "none", adamw) on one
+    repeated seeded batch, B1 S4096, for MOE_WARMUP + MOE_STEPS steps:
+    losses finite and falling, the first within 2e-2 (relative) of the
+    same params' loss with the plain attention, K1-K4 once per layer and
+    step and no other attention kernel; step ms (median of the measured
+    steps), tokens/s, MFU on the active FLOPs (passed to the Trainer as
+    ``model_flops_per_token``), peak GiB, each step's aux, z and dropped
+    share (the layers' mean); then a profiled step, its device ms by
+    part (``moe_breakdown``). Returns its summary."""
+    from dlrover_tpu_torch.common import mfu
+    from dlrover_tpu_torch.models import llama_init, llama_loss_fn
+    from dlrover_tpu_torch.parallel import Strategy
+    from dlrover_tpu_torch.parallel.moe import record_metrics
+    from dlrover_tpu_torch.trainer import Trainer, TrainingArgs
+
+    attn = check_shape("mixtral", MIXTRAL_ATTN, 7, worst)
+    attention = time_mixtral_attention(attn)
+    del attn
+    release()
+
+    cfg = moe_config()
+    B, S, steps = MOE_B, MOE_S, MOE_WARMUP + MOE_STEPS
+    active = moe_active_params(cfg)
+    per_token = mfu.transformer_step_flops(active, 1, cfg.n_layers,
+                                           cfg.dim, S)
+    log(f"  [moe] Mixtral-8x7B widths, {cfg.n_layers} of 32 layers: "
+        f"{cfg.param_count()} params, {active} active a token; MFU counts "
+        f"{per_token:.6e} FLOPs a token (6 x active + causal attention), "
+        f"not the dense 6 x all {6.0 * cfg.param_count():.6e}")
+    batch = synthetic_batch(cfg.vocab_size, S, B, 0)
+    job = os.environ["ELASTIC_JOB_NAME"]
+    t_phase = time.perf_counter()
+    with flash_env("moe", job):
+        trainer = Trainer(
+            llama_loss_fn(cfg),
+            lambda seed, device: llama_init(cfg, seed, device), None,
+            TrainingArgs(
+                output_dir=str(CKPT_DIR / "moe"), max_steps=steps,
+                num_epochs=1, learning_rate=SLICE_LR, optimizer="adamw",
+                strategy=Strategy(remat="none"), flash_checkpoint=False,
+                log_steps=0, model_flops_per_token=per_token),
+            train_data=[batch] * steps, device="cuda")
+        # the same initial params through the plain attention
+        tokens = {"tokens": torch.as_tensor(batch["tokens"], device="cuda")}
+        with torch.no_grad():
+            plain = llama_loss_fn(dataclasses.replace(
+                cfg, attn_impl="reference"))(
+                {n: p.to(torch.bfloat16)
+                 for n, p in trainer.state.params.items()},
+                tokens, None).item()
+        release()
+        inner = trainer._accel.train_step
+        losses, step_s, per_step = [], [], []
+
+        def timed(state, batch, rng):
+            t0 = time.perf_counter()
+            with record_metrics() as seen:
+                state, metrics = inner(state, batch, rng)
+            losses.append(metrics["loss"].item())
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            per_step.append({k: statistics.mean(m[k].item() for m in seen)
+                             for k in ("aux_loss", "z_loss", "dropped")})
+            return state, metrics
+
+        trainer._accel.train_step = timed
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        trainer.train()
+        launches = launch_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        log(f"  [moe] losses: {losses}")
+        log(f"  [moe] step seconds: {step_s}")
+        log(f"  [moe] aux, z, dropped per step (mean of the layers): "
+            f"{json.dumps(per_step)}")
+        log(f"  [moe] launches over {steps} steps: {launches}")
+        if not all(math.isfinite(x) for x in losses):
+            raise SystemExit(f"moe: non-finite loss: {losses}")
+        if not losses[-1] < losses[0]:
+            raise SystemExit(f"moe: loss did not fall: {losses}")
+        first_gap = abs(losses[0] - plain) / abs(plain)
+        log(f"  [moe] first step's loss {losses[0]} against the plain "
+            f"attention's {plain}: relative gap {first_gap:.3e}")
+        if first_gap > 2e-2:
+            raise SystemExit(f"moe: the first loss {losses[0]} leaves the "
+                             f"plain attention's {plain} by {first_gap}")
+        want = {name: cfg.n_layers * steps * int(name in FLASH_KERNELS)
+                for name in FLASH_KERNELS + HEADS_KERNELS + RING_KERNELS}
+        for name, n in want.items():
+            if launches[name] != n:
+                raise SystemExit(f"moe: {name} launched {launches[name]} "
+                                 f"times, want {n}")
+        steady = statistics.median(step_s[MOE_WARMUP:])
+        summary = {
+            "config": "Mixtral-8x7B widths", "card": CARD["line"],
+            "n_layers": cfg.n_layers, "n_layers_published": 32,
+            "params": cfg.param_count(), "active_params": active,
+            "batch": B, "seq": S, "optimizer": "adamw", "remat": "none",
+            "capacity_factor": cfg.moe_capacity_factor,
+            "warmup_steps": MOE_WARMUP, "measured_steps": MOE_STEPS,
+            "step_ms_median": steady * 1e3,
+            "first_step_ms": step_s[0] * 1e3,
+            "tokens_per_s": B * S / steady,
+            "flops_per_token": per_token,
+            "mfu_active": mfu.mfu(per_token * B * S, steady),
+            "mfu_peak_flops": mfu.peak_flops(), "peak_mem_gib": peak_gib,
+            "moe_per_step": per_step,
+            "k1_k4_launches_per_step": {
+                name: launches[name] / steps for name in FLASH_KERNELS},
+            "first_loss": losses[0], "plain_attention_first_loss": plain,
+            "loss_last": losses[-1], "attention": attention,
+        }
+        trainer._accel.train_step = inner
+        summary["profile"] = profile_moe_step(trainer, batch, cfg, B, S)
+        del trainer, inner
+        release()
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"moe": summary}))
+    return summary
+
+
+def profile_moe_step(trainer, batch, cfg, B, S) -> dict:
+    """One more [moe] step under torch.profiler with input shapes: its
+    ``moe_breakdown`` line and the table (chiprun_out/profile_step_moe.txt)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        trainer._accel.train_step(trainer.state, batch, None)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    averages = prof.key_averages()
+    busy_us = sum(e.self_device_time_total for e in averages
+                  if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation)
+    out = moe_breakdown(prof.key_averages(group_by_input_shape=True), cfg,
+                        B, S, busy_us)
+    out.update(wall_ms=wall_us / 1e3, device_idle_share=1 - busy_us / wall_us)
+    log(json.dumps({"moe_profiled_step": out}))
+    OUT.mkdir(exist_ok=True)
+    (OUT / "profile_step_moe.txt").write_text(
+        averages.table(sort_by="cuda_time_total", row_limit=60))
+    return out
+
+
 def profiled_kernels(averages, label, busy_us) -> dict:
     """The hand-written kernels' device ms and calls in a profiled step,
     found by name whatever their rank in the table (the rope pre-pass
@@ -5502,6 +5848,13 @@ def run_phases() -> int:
     gpt2_launches = gpt2_phase()
     launches.update({name + "_d64": gpt2_launches[name]
                      for name in FLASH_KERNELS})
+    release()
+
+    # 5b'. MoE: a llama at Mixtral-8x7B's widths through Trainer, K1-K4
+    # at GQA 4 and S 4096
+    log("phase moe:")
+    moe_phase(worst)
+    release()
 
     # 5c. serving and RL: llama3-8b in the slotted decode engine, decode
     # workers under the port's own master, PPO through K1-K4

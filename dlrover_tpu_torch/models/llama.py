@@ -14,14 +14,25 @@ the fused-heads kernels, no transposes); ``"reference"`` runs the plain
 attention with rope applied outside. When the active mesh's ``seq`` axis
 is above 1, every ``attn_impl`` takes the sequence-parallel branch, as
 in the JAX package: rope outside at global positions, q/k/v transposed
-to [B,H,S,Dh], then ring attention over the ring-block kernels
-(parallel/sequence.py). What the port does not run yet raises
-``NotImplementedError`` naming its ROADMAP item.
+to [B,H,S,Dh], then ring attention over the ring-block kernels, or with
+``attn_impl="ulysses"`` the Ulysses all-to-all around K1-K4
+(parallel/sequence.py); ``"ulysses"`` without a seq axis runs the plain
+attention, as the JAX package's does. What the port does not run yet
+raises ``NotImplementedError`` naming its ROADMAP item.
+
+MoE (``n_experts > 1``, Mixtral-style): the FFN of every layer is
+``parallel/moe.py``'s ``moe_ffn`` over the stacked ``router`` [L, D, E]
+and experts ``w_gate``/``w_up`` [L, E, D, M], ``w_down`` [L, E, M, D];
+each layer adds ``moe_aux_weight * aux_loss + moe_z_weight * z_loss``
+to the loss (``llama_apply(..., return_aux=True)``). On an ``expert``
+mesh axis each rank runs its E/n experts (parallel/shard_ops.py);
+under ``tensor`` or a seq process group the MoE FFN raises.
 
 Sharded params: when the params are DTensors on a ``DeviceMesh`` (the
-data, fsdp and tensor axes, parallel/accelerate.py), the forward takes
-each stack's local shard once, gathers each layer's slice over the axes
-that shard it but ``tensor`` (parallel/shard_ops.py), and computes on
+data, fsdp, expert and tensor axes, parallel/accelerate.py), the forward
+takes each stack's local shard once, gathers each layer's slice over the
+axes that shard it but ``tensor`` (and ``expert`` for the expert
+stacks; parallel/shard_ops.py), and computes on
 local tensors: ``H/t`` heads, ``KVH/t`` kv heads, ``M/t`` mlp columns
 and ``V/t`` vocab rows, the rows of this rank's batch. The embedding is
 looked up in this rank's vocab rows and summed over ``tensor``; the
@@ -58,7 +69,12 @@ from dlrover_tpu_torch.ops.cross_entropy import (
     vocab_parallel_cross_entropy,
 )
 from dlrover_tpu_torch.parallel import remat as remat_lib
-from dlrover_tpu_torch.parallel.mesh import axis_index, seq_ring
+from dlrover_tpu_torch.parallel.mesh import (
+    ProcessGroupRing,
+    axis_index,
+    seq_ring,
+)
+from dlrover_tpu_torch.parallel.moe import MoEConfig, moe_ffn
 from dlrover_tpu_torch.parallel.sequence import sequence_sharded_attention
 from dlrover_tpu_torch.parallel.shard_ops import ShardContext
 
@@ -76,8 +92,8 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"          # activation/compute dtype
     # "flash" (hand-written kernels, [B,H,S,Dh]) | "bshd" (fused-heads
-    # kernels, [B,S,H,Dh]) | "reference"; a seq mesh axis runs the ring
-    # whatever this says; the JAX package's "ulysses" is not ported yet
+    # kernels, [B,S,H,Dh]) | "reference" | "ulysses"; a seq mesh axis
+    # runs Ulysses with "ulysses" and the ring with any other value
     attn_impl: str = "flash"
     # checkpoint each layer under remat_policy: dots_attn |
     # dots_attn_offload | dots_no_batch | dots (parallel/remat.py)
@@ -116,6 +132,10 @@ class LlamaConfig:
     @property
     def is_moe(self) -> bool:
         return self.n_experts > 1
+
+    def moe_config(self) -> MoEConfig:
+        return MoEConfig(n_experts=self.n_experts, top_k=self.moe_top_k,
+                         capacity_factor=self.moe_capacity_factor)
 
     def param_count(self) -> int:
         d, v, h = self.dim, self.vocab_size, self.head_dim
@@ -159,30 +179,35 @@ PRESETS = {
 
 LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
               "w_up", "w_down")
+MOE_LAYER_KEYS = LAYER_KEYS[:6] + ("router", "w_gate", "w_up", "w_down")
+# the experts' dim of each MoE expert stack (split over ``expert``)
+EXPERT_DIMS = {"w_gate": 1, "w_up": 1, "w_down": 1}
 
 # the dim of each layer stack split over the ``tensor`` axis (None:
 # replicated), the layout the local compute is written for: q/k/v and
 # gate/up column-parallel, wo and w_down row-parallel
 TENSOR_DIMS = {"attn_norm": None, "wq": 2, "wk": 2, "wv": 2, "wo": 1,
-               "mlp_norm": None, "w_gate": 2, "w_up": 2, "w_down": 1}
+               "mlp_norm": None, "router": None, "w_gate": 2, "w_up": 2,
+               "w_down": 1}
+
+
+def layer_keys(config: LlamaConfig) -> tuple:
+    """The names of one layer's params (``"layers.<name>"`` stacks)."""
+    return MOE_LAYER_KEYS if config.is_moe else LAYER_KEYS
 
 
 def check_supported(config: LlamaConfig) -> None:
     """Raise for the settings this slice of the port does not run."""
-    if config.is_moe:
-        raise NotImplementedError(
-            "MoE FFN is not ported yet (ROADMAP Queue 1 item 10)")
     if config.pipe_schedule != "gpipe" or config.pipe_virtual_stages != 1:
         raise NotImplementedError(
             "pipeline schedules are not ported yet (ROADMAP Queue 1 "
             "item 10)")
     if config.remat:
         remat_lib.layer_policy(config.remat_policy)  # raises if unknown
-    if config.attn_impl not in ("flash", "bshd", "reference"):
-        raise NotImplementedError(
-            f"attn_impl={config.attn_impl!r} is not ported yet (ROADMAP "
-            "Queue 1 item 10: Ulysses sequence parallelism; a seq mesh "
-            "axis runs ring attention with any other attn_impl)")
+    if config.attn_impl not in ("flash", "bshd", "reference", "ulysses"):
+        raise ValueError(
+            f"attn_impl={config.attn_impl!r}: want flash, bshd, reference "
+            "or ulysses")
 
 
 # ---------------------------------------------------------------------------
@@ -192,8 +217,9 @@ def check_supported(config: LlamaConfig) -> None:
 
 def llama_init(config: LlamaConfig, seed: int = 0, device=None) -> dict:
     """fp32 master params with the shapes and distributions of the JAX
-    ``llama_init``: projections N(0, 1/fan_in), embed and lm_head
-    N(0, 0.02^2), norms 1; layer params stacked on axis 0. Drawn from a
+    ``llama_init``: projections N(0, 1/fan_in) (the MoE router and
+    experts too), embed and lm_head N(0, 0.02^2), norms 1; layer params
+    stacked on axis 0. Drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device`` (the numbers
     differ from jax.random's; tests bridge weights with
     ``params_from_jax``)."""
@@ -210,6 +236,20 @@ def llama_init(config: LlamaConfig, seed: int = 0, device=None) -> dict:
     def ones(*shape):
         return torch.ones(shape, device=device)
 
+    if config.is_moe:
+        E = config.n_experts
+        ffn = {
+            "layers.router": normal((L, d, E), d ** -0.5),
+            "layers.w_gate": normal((L, E, d, m), d ** -0.5),
+            "layers.w_up": normal((L, E, d, m), d ** -0.5),
+            "layers.w_down": normal((L, E, m, d), m ** -0.5),
+        }
+    else:
+        ffn = {
+            "layers.w_gate": normal((L, d, m), d ** -0.5),
+            "layers.w_up": normal((L, d, m), d ** -0.5),
+            "layers.w_down": normal((L, m, d), m ** -0.5),
+        }
     return {
         "embed": normal((config.vocab_size, d), 0.02),
         "layers.attn_norm": ones(L, d),
@@ -218,9 +258,7 @@ def llama_init(config: LlamaConfig, seed: int = 0, device=None) -> dict:
         "layers.wv": normal((L, d, kvh * hd), d ** -0.5),
         "layers.wo": normal((L, h * hd, d), (h * hd) ** -0.5),
         "layers.mlp_norm": ones(L, d),
-        "layers.w_gate": normal((L, d, m), d ** -0.5),
-        "layers.w_up": normal((L, d, m), d ** -0.5),
-        "layers.w_down": normal((L, m, d), m ** -0.5),
+        **ffn,
         "final_norm": ones(d),
         "lm_head": normal((d, config.vocab_size), 0.02),
     }
@@ -241,6 +279,13 @@ def llama_logical_axes(config: LlamaConfig) -> dict:
         "w_up": ("layer", "embed", "mlp"),
         "w_down": ("layer", "mlp", "embed"),
     }
+    if config.is_moe:
+        layer.update({
+            "router": ("layer", "embed", None),
+            "w_gate": ("layer", "expert", "embed", "mlp"),
+            "w_up": ("layer", "expert", "embed", "mlp"),
+            "w_down": ("layer", "expert", "mlp", "embed"),
+        })
     return {
         "embed": ("vocab", "embed"),
         **{f"layers.{k}": v for k, v in layer.items()},
@@ -313,13 +358,15 @@ def _maybe_full_rope(config, cos, sin, ring=None):
 def _attention(config, q, k, v, ring=None):
     """Attention off the einsum-form flash branch (the JAX package's
     ``_attention``, shared with models/gpt2.py): q [B,S,H,Dh], k/v
-    [B,S,KVH,Dh] -> [B,S,H,Dh]. Under a seq axis (``ring``) the ring over
-    [B,H,S,Dh]; with ``attn_impl="bshd"`` the model-native layout end to
-    end (no q/k/v/o transposes); else plain attention."""
+    [B,S,KVH,Dh] -> [B,S,H,Dh]. Under a seq axis (``ring``) Ulysses with
+    ``attn_impl="ulysses"``, else the ring, over [B,H,S,Dh]; with
+    ``attn_impl="bshd"`` the model-native layout end to end (no q/k/v/o
+    transposes); else plain attention."""
     if ring is not None:
+        impl = "ulysses" if config.attn_impl == "ulysses" else "ring"
         return sequence_sharded_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=True).transpose(1, 2)
+            impl=impl, causal=True).transpose(1, 2)
     if config.attn_impl == "bshd":
         return flash_attention_bshd(q, k, v, causal=True)
     return mha_reference(q.transpose(1, 2), k.transpose(1, 2),
@@ -331,12 +378,14 @@ def _layer(config: LlamaConfig, x, p, rope_cos, rope_sin, ring=None,
     """One transformer block. x: [B,S,D]; p: this layer's params;
     ``ring``: the seq axis' transport, or None; ``shard``: (the mesh's
     ``ShardContext``, the gathers of each param) when ``p`` holds local
-    shards, or None."""
+    shards, or None. Returns (x, aux): the layer's weighted MoE losses,
+    None for a dense layer."""
     B, S, D = x.shape
     hd = config.head_dim
     to_tensor = from_tensor = _identity
+    ctx = experts = None
     if shard is not None:
-        ctx, gathers = shard
+        ctx, gathers, experts = shard
         p = {k: ctx.gather(v, gathers[k]) for k, v in p.items()}
         to_tensor, from_tensor = ctx.to_tensor, ctx.from_tensor
     # this rank's heads (all of them off a tensor axis)
@@ -362,9 +411,18 @@ def _layer(config: LlamaConfig, x, p, rope_cos, rope_sin, ring=None,
         attn = _attention(config, q, k, v, ring)
         x = x + from_tensor(attn.reshape(B, S, h * hd) @ p["wo"])
 
+    if config.is_moe:
+        y = _rms_norm(x, p["mlp_norm"], config.norm_eps)
+        out, metrics = moe_ffn(
+            y, p, config.moe_config(),
+            group=experts,
+            batch_mean=None if ctx is None else ctx.batch_mean)
+        aux = (config.moe_aux_weight * metrics["aux_loss"]
+               + config.moe_z_weight * metrics["z_loss"])
+        return x + out, aux
     y = to_tensor(_rms_norm(x, p["mlp_norm"], config.norm_eps))
     mlp = F.silu(y @ p["w_gate"]) * (y @ p["w_up"])
-    return x + from_tensor(mlp @ p["w_down"])
+    return x + from_tensor(mlp @ p["w_down"]), None
 
 
 def _identity(x):
@@ -404,8 +462,23 @@ def check_tensor_heads(config, shard) -> None:
             f"and n_kv_heads={config.n_kv_heads}")
 
 
+def _check_moe_mesh(config, shard, ring) -> None:
+    """MoE runs unsharded, on the in-process seq transport, and on a
+    DeviceMesh whose ``tensor`` axis is 1."""
+    if not config.is_moe:
+        return
+    if isinstance(ring, ProcessGroupRing):
+        raise NotImplementedError(
+            "MoE under a seq process group (routing over sequence shards) "
+            "is not ported yet (ROADMAP Queue 1 item 10)")
+    if shard is not None and shard.tensor_size > 1:
+        raise NotImplementedError(
+            "MoE under a tensor axis (experts split by column and row) is "
+            "not ported yet (ROADMAP Queue 1 item 10)")
+
+
 def llama_apply(config: LlamaConfig, params: dict, tokens, positions=None,
-                return_hidden: bool = False):
+                return_hidden: bool = False, return_aux: bool = False):
     """tokens [B, S] int -> logits [B, S, vocab] float32.
 
     ``params`` are used in their own dtype except that every weight is
@@ -418,11 +491,17 @@ def llama_apply(config: LlamaConfig, params: dict, tokens, positions=None,
     CE applies the norm and the head itself, chunk by chunk). With
     DTensor params (a DeviceMesh) ``tokens`` are this rank's rows (a
     DTensor split over the batch axes, or its local tensor) and the
-    logits are this rank's rows and vocab columns."""
+    logits are this rank's rows and vocab columns.
+
+    ``return_aux=True`` also returns the layers' summed MoE losses
+    (``moe_aux_weight * aux_loss + moe_z_weight * z_loss`` per layer; a
+    0-d f32 zero for a dense model). On a DeviceMesh it is this rank's
+    term: the batch ranks' terms average to the global batch's."""
     check_supported(config)
     dtype = getattr(torch, config.dtype)
     ring = seq_ring()
     shard = ShardContext.of(params)
+    _check_moe_mesh(config, shard, ring)
     if shard is not None:
         check_tensor_heads(config, shard)
         tokens = shard.local_rows(tokens)
@@ -436,51 +515,76 @@ def llama_apply(config: LlamaConfig, params: dict, tokens, positions=None,
                             config.rope_theta, dtype)
     cos, sin = _maybe_full_rope(config, cos, sin, ring)
 
+    keys = layer_keys(config)
+    experts = EXPERT_DIMS if config.is_moe else {}
     if shard is None:
         stacks = {k: params["layers." + k].to(dtype).unbind(0)
-                  for k in LAYER_KEYS}
+                  for k in keys}
         layer_shard = None
     else:
-        for k in LAYER_KEYS:
-            shard.expect_tensor_dim("layers." + k, params["layers." + k],
-                                    TENSOR_DIMS[k])
+        for k in keys:
+            if k in experts:
+                shard.expect_expert_dim("layers." + k, params["layers." + k],
+                                        experts[k])
+            else:
+                shard.expect_tensor_dim("layers." + k,
+                                        params["layers." + k],
+                                        TENSOR_DIMS[k])
         stacks = {k: shard.local(params["layers." + k]).to(dtype).unbind(0)
-                  for k in LAYER_KEYS}
+                  for k in keys}
         layer_shard = (shard, {
-            k: shard.gathers(params["layers." + k], drop_leading=1)
-            for k in LAYER_KEYS})
+            k: shard.gathers(params["layers." + k], drop_leading=1,
+                             local_axes=("tensor", "expert") if k in experts
+                             else ("tensor",))
+            for k in keys},
+            shard.expert_group(params["layers.w_gate"]) if experts
+            else None)
     # under remat each layer keeps only what its policy saves; without
     # gradients there is nothing to keep
     remat = (config.remat and torch.is_grad_enabled()
              and not remat_lib.remat_disabled())
     policy = remat_lib.layer_policy(config.remat_policy) if remat else None
+    aux = None
     for i in range(config.n_layers):
         p = {k: v[i] for k, v in stacks.items()}
         if remat:
-            x = remat_lib.checkpoint(_layer, config, x, p, cos, sin, ring,
-                                     layer_shard, policy=policy)
+            x, layer_aux = remat_lib.checkpoint(
+                _layer, config, x, p, cos, sin, ring, layer_shard,
+                policy=policy)
         else:
-            x = _layer(config, x, p, cos, sin, ring, layer_shard)
+            x, layer_aux = _layer(config, x, p, cos, sin, ring, layer_shard)
+        if layer_aux is not None:
+            aux = layer_aux if aux is None else aux + layer_aux
 
     if return_hidden:
-        return x
-    if shard is None:
+        out = x
+    elif shard is None:
         x = _rms_norm(x, params["final_norm"], config.norm_eps)
-        return (x @ params["lm_head"].to(dtype)).float()
-    norm = _sharded_weight(shard, params, "final_norm", dtype, None)
-    head = _sharded_weight(shard, params, "lm_head", dtype, 1)
-    x = shard.to_tensor(_rms_norm(x, norm, config.norm_eps))
-    return (x @ head).float()
+        out = (x @ params["lm_head"].to(dtype)).float()
+    else:
+        norm = _sharded_weight(shard, params, "final_norm", dtype, None)
+        head = _sharded_weight(shard, params, "lm_head", dtype, 1)
+        x = shard.to_tensor(_rms_norm(x, norm, config.norm_eps))
+        out = (x @ head).float()
+    if not return_aux:
+        return out
+    return out, (aux if aux is not None
+                 else torch.zeros((), dtype=torch.float32, device=x.device))
 
 
-def sharded_loss(shard, loss_sum, valid_sum):
+def sharded_loss(shard, loss_sum, valid_sum, aux=None):
     """A rank's term of the global mean loss over a DeviceMesh: its rows'
     loss over the valid labels of every rank's rows (None: no mesh, the
-    mean itself)."""
+    mean itself), plus its share of the MoE losses ``aux`` (this rank's
+    term of the batch's, from ``llama_apply``; its batch ranks' terms
+    average to the global value)."""
     if shard is None:
-        return loss_sum / valid_sum.clamp(min=1)
-    return shard.loss_term(
-        loss_sum / shard.batch_sum(valid_sum).clamp(min=1))
+        loss = loss_sum / valid_sum.clamp(min=1)
+        return loss if aux is None else loss + aux
+    term = loss_sum / shard.batch_sum(valid_sum).clamp(min=1)
+    if aux is not None:
+        term = term + aux / shard.batch_size
+    return shard.loss_term(term)
 
 
 def llama_loss_fn(config: LlamaConfig):
@@ -489,12 +593,17 @@ def llama_loss_fn(config: LlamaConfig):
     labels. ``batch["tokens"]`` [B, S+1] is shifted into inputs and
     labels, unless ``batch["labels"]`` [B, S] comes with them.
 
+    A MoE model adds its layers' weighted aux and z losses
+    (``llama_apply(..., return_aux=True)``) in both CE paths, as the JAX
+    loss does.
+
     At ``config.ce_chunks > 1`` the final norm, the head and the CE run
     chunked (``fused_linear_cross_entropy`` over the hidden states), as
     the JAX loss does. That loss recomputes its logits in its own
     backward, so the closure names its two halves as ``remat_split``:
-    ``(body, head)``, ``body(params, batch, rng) -> hidden`` and
-    ``head(params, batch, hidden) -> loss``. A strategy remat then
+    ``(body, head)``, ``body(params, batch, rng) -> hidden`` (a MoE
+    model's ``(hidden, aux)``) and ``head(params, batch, body's output)
+    -> loss``. A strategy remat then
     checkpoints the body only (parallel/accelerate.py ``_remat_wrap``),
     and the chunked loss's forward runs once a step.
 
@@ -518,9 +627,11 @@ def llama_loss_fn(config: LlamaConfig):
         def body(params, batch, rng):
             shard = ShardContext.of(params)
             return llama_apply(config, params, split(batch, shard)[0],
-                               return_hidden=True)
+                               return_hidden=True,
+                               return_aux=config.is_moe)
 
-        def head(params, batch, hidden):
+        def head(params, batch, body_out):
+            hidden, aux = body_out if config.is_moe else (body_out, None)
             shard = ShardContext.of(params)
             labels = split(batch, shard)[1]
             if shard is None:
@@ -537,7 +648,7 @@ def llama_loss_fn(config: LlamaConfig):
             loss_sum, valid_sum = fused_linear_cross_entropy(
                 hidden, w, labels, n_chunks=config.ce_chunks,
                 norm_scale=norm, norm_eps=config.norm_eps)
-            return sharded_loss(shard, loss_sum, valid_sum)
+            return sharded_loss(shard, loss_sum, valid_sum, aux)
 
         def chunked_loss_fn(params, batch, rng):
             return head(params, batch, body(params, batch, rng))
@@ -548,12 +659,13 @@ def llama_loss_fn(config: LlamaConfig):
     def loss_fn(params, batch, rng):
         shard = ShardContext.of(params)
         inputs, labels = split(batch, shard)
-        logits = llama_apply(config, params, inputs)
+        out = llama_apply(config, params, inputs, return_aux=config.is_moe)
+        logits, aux = out if config.is_moe else (out, None)
         if shard is not None and shard.tensor_size > 1:
             loss, valid = vocab_parallel_cross_entropy(
                 logits, labels, shard, shard.offset(params["lm_head"], 1))
         else:
             loss, valid = softmax_cross_entropy(logits, labels)
-        return sharded_loss(shard, loss.sum(), valid.sum())
+        return sharded_loss(shard, loss.sum(), valid.sum(), aux)
 
     return loss_fn

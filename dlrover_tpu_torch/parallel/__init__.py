@@ -1,7 +1,8 @@
 """Strategy, its planner auto_strategy, and auto_accelerate, which makes
 the train step (with remat, parallel/remat.py); the mesh (a DeviceMesh
-for the data, fsdp and tensor axes), the logical rule table's
-placements, and the seq axis' ring attention."""
+for the data, fsdp, expert and tensor axes), the logical rule table's
+placements, the seq axis' ring and Ulysses attention, and the MoE FFN
+(parallel/moe.py)."""
 
 from dlrover_tpu_torch.parallel.accelerate import (  # noqa: F401
     AccelerateResult,
@@ -20,6 +21,7 @@ from dlrover_tpu_torch.parallel.mesh import (  # noqa: F401
 from dlrover_tpu_torch.parallel.sequence import (  # noqa: F401
     ring_attention,
     sequence_sharded_attention,
+    ulysses_attention,
 )
 from dlrover_tpu_torch.parallel.shard_ops import (  # noqa: F401
     ShardContext,

@@ -1,7 +1,7 @@
 """``auto_accelerate`` — from (loss fn, init fn, optimizer) to a train step
 (port of dlrover_tpu/parallel/accelerate.py: one device, a ``seq`` mesh
-axis, or the ``data``, ``fsdp`` and ``tensor`` axes over a process
-group).
+axis, or the ``data``, ``fsdp``, ``expert`` and ``tensor`` axes over a
+process group).
 
 The step keeps the JAX step's semantics: fp32 master params are cast to
 the compute dtype for the forward and backward, the loss runs under the
@@ -22,8 +22,9 @@ its loss is weighted by its share of the valid labels, and the loss and
 the gradients are summed over the group, so every rank returns the
 global loss and applies the same update.
 
-The ``data``, ``fsdp`` and ``tensor`` axes (a process group, no seq
-axis) lay a ``DeviceMesh`` over the ranks (parallel/mesh.py). Each fp32
+The ``data``, ``fsdp``, ``expert`` and ``tensor`` axes (a process
+group, no seq axis) lay a ``DeviceMesh`` over the ranks
+(parallel/mesh.py). Each fp32
 master param becomes a DTensor placed by its logical axes under the
 strategy's rule table (parallel/sharding.py), built on every rank from
 the same seed-made global tensor, as the JAX package's jitted init gives
@@ -144,9 +145,9 @@ def _remat_wrap(loss_fn: Callable, mode: str) -> Callable:
         body, head = split
 
         def wrapped_split(params, batch, rng):
-            hidden = remat_lib.checkpoint(body, params, batch, rng,
-                                          policy=policy)
-            return head(params, batch, hidden)
+            body_out = remat_lib.checkpoint(body, params, batch, rng,
+                                            policy=policy)
+            return head(params, batch, body_out)
 
         return wrapped_split
 

@@ -3,26 +3,28 @@
 The JAX package lays a ``jax.sharding.Mesh`` over its devices and lets
 XLA derive the collectives. Here the axes run one of two ways:
 
-- ``data``, ``fsdp`` and ``tensor`` over a ``torch.distributed`` process
-  group, one process per card: :func:`build_mesh` lays a
-  ``DeviceMesh`` over the group's ranks with the dims of size above 1
-  plus ``data`` and ``fsdp`` (the batch axes), in ``AXIS_ORDER``. The
-  state lives on it as DTensors placed by the logical rule table
-  (parallel/sharding.py), and the models gather and reduce explicitly
-  (models/llama.py).
-- ``seq``, sequence (context) parallelism for ring attention, over one
-  of two ring transports that carry one ring schedule
+- ``data``, ``fsdp``, ``expert`` and ``tensor`` over a
+  ``torch.distributed`` process group, one process per card:
+  :func:`build_mesh` lays a ``DeviceMesh`` over the group's ranks with
+  the dims of size above 1 plus ``data`` and ``fsdp`` (the batch axes),
+  in ``AXIS_ORDER``. The state lives on it as DTensors placed by the
+  logical rule table (parallel/sharding.py), and the models gather and
+  reduce explicitly (models/llama.py).
+- ``seq``, sequence (context) parallelism for ring or Ulysses attention,
+  over one of two transports that carry one schedule
   (parallel/sequence.py): :class:`ProcessGroupRing`, when a process
   group exists (the axis is the group's ranks; NCCL, gloo on the CPU;
   :meth:`~ProcessGroupRing.shift` sends to rank + 1 and receives from
-  rank - 1 in one ``batch_isend_irecv``, into fresh buffers); and
-  :class:`InProcessRing`, when none exists (this process holds every
+  rank - 1 in one ``batch_isend_irecv``, into fresh buffers;
+  :meth:`~ProcessGroupRing.all_to_all` is one ``all_to_all_single``);
+  and :class:`InProcessRing`, when none exists (this process holds every
   rank of the axis on its one device, the counterpart of the JAX tests'
-  virtual CPU devices, and a shift rotates a list).
+  virtual CPU devices: a shift rotates a list, an all-to-all regroups
+  it).
 
 Without a process group every axis but ``seq`` must be 1. ``seq``
 together with another axis above 1 is ROADMAP Queue 1 item 7's rest,
-``expert`` and ``pipe`` are item 10's: they raise.
+``pipe`` is item 10's: they raise.
 """
 
 from __future__ import annotations
@@ -67,6 +69,15 @@ class InProcessRing:
         one's."""
         return [blocks[-1]] + list(blocks[:-1])
 
+    def all_to_all(self, xs: list, split_dim: int, concat_dim: int) -> list:
+        """``xs[i]`` is what rank ``ranks[i]`` holds; each rank cuts its
+        tensor into ``size`` chunks along ``split_dim`` and sends chunk
+        r to rank r, which concatenates what it receives along
+        ``concat_dim`` in rank order (``lax.all_to_all(tiled=True)``)."""
+        chunks = [x.chunk(self.size, dim=split_dim) for x in xs]
+        return [torch.cat([c[r] for c in chunks], dim=concat_dim)
+                for r in range(self.size)]
+
     def describe(self) -> str:
         return f"in-process, {self.size} ranks on one device"
 
@@ -106,6 +117,13 @@ class ProcessGroupRing:
         dist.all_reduce(tensor)
         return tensor
 
+    def all_to_all(self, xs: list, split_dim: int, concat_dim: int) -> list:
+        """As :meth:`InProcessRing.all_to_all`, over the group (``xs``
+        holds this rank's tensor). Differentiable: the gradient takes
+        the inverse all-to-all."""
+        (x,) = xs
+        return [_AllToAll.apply(x, split_dim, concat_dim, self.size)]
+
     def describe(self) -> str:
         return (f"process-group ({dist.get_backend()}), rank {self.rank} of "
                 f"{self.size}")
@@ -124,12 +142,36 @@ class _Shift(torch.autograd.Function):
         return (None, *ctx.ring.exchange(grads, -1))
 
 
+def _all_to_all(x, split_dim: int, concat_dim: int, n: int):
+    """One ``all_to_all_single`` over the default group: chunk r of ``x``
+    along ``split_dim`` to rank r, the received chunks concatenated along
+    ``concat_dim`` in rank order."""
+    send = torch.stack(x.chunk(n, dim=split_dim)).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send)
+    return torch.cat(recv.unbind(0), dim=concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`_all_to_all`; its gradient goes back by the inverse one."""
+
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, n):
+        ctx.dims = split_dim, concat_dim, n
+        return _all_to_all(x, split_dim, concat_dim, n)
+
+    @staticmethod
+    def backward(ctx, grad):
+        split_dim, concat_dim, n = ctx.dims
+        return _all_to_all(grad, concat_dim, split_dim, n), None, None, None
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """Axis sizes (every axis of ``AXIS_ORDER``), the seq axis'
     transport (None when the axis is 1), and the ``DeviceMesh`` of the
-    data, fsdp and tensor axes (None without a process group, or under
-    a seq axis)."""
+    data, fsdp, expert and tensor axes (None without a process group, or
+    under a seq axis)."""
 
     shape: dict
     ring: Optional[object] = None
@@ -162,18 +204,18 @@ def resolve_sizes(config: MeshConfig, world: Optional[int]) -> dict:
 def _check_axes(sizes: dict, world: Optional[int]) -> None:
     """Raise for what no transport runs yet."""
     wide = {a: s for a, s in sizes.items() if s > 1}
-    later = {a: s for a, s in wide.items() if a in ("expert", "pipe")}
+    later = {a: s for a, s in wide.items() if a == "pipe"}
     if world is None and set(wide) - {"seq"}:
         raise NotImplementedError(
             f"mesh axes {wide} without a process group: this process "
-            "holds one card, so every axis but seq must be 1; data, fsdp "
-            "and tensor run over a torch.distributed process group, one "
-            "process per card (ROADMAP Queue 1 item 7); expert and pipe "
-            "are item 10")
+            "holds one card, so every axis but seq must be 1; data, fsdp, "
+            "expert and tensor run over a torch.distributed process group, "
+            "one process per card (ROADMAP Queue 1 item 7); pipe is item "
+            "10")
     if later:
         raise NotImplementedError(
-            f"mesh axes {later}: expert and pipe parallelism are not "
-            "ported yet (ROADMAP Queue 1 item 10)")
+            f"mesh axes {later}: pipeline parallelism is not ported yet "
+            "(ROADMAP Queue 1 item 10)")
     if "seq" in wide and len(wide) > 1:
         raise NotImplementedError(
             f"mesh axes {wide}: the seq axis together with another axis "
@@ -184,10 +226,10 @@ def build_mesh(config: Optional[MeshConfig] = None) -> Mesh:
     """The mesh of ``config``. An axis of -1 absorbs what the others
     leave of the process group's ranks (1 without a group).
 
-    With a process group and no seq axis, the data, fsdp and tensor axes
-    become a ``DeviceMesh`` over the group (on the group's device type:
-    ``cuda`` under NCCL, ``cpu`` under gloo), ranks laid out row-major in
-    ``AXIS_ORDER`` as the JAX package lays devices. A seq axis must span
+    With a process group and no seq axis, the data, fsdp, expert and
+    tensor axes become a ``DeviceMesh`` over the group (on the group's
+    device type: ``cuda`` under NCCL, ``cpu`` under gloo), ranks laid out
+    row-major in ``AXIS_ORDER`` as the JAX package lays devices. A seq axis must span
     the whole group. Raises for the rest (see :func:`_check_axes`)."""
     config = config or MeshConfig()
     world = dist.get_world_size() if dist.is_initialized() else None

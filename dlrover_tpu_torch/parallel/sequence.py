@@ -1,5 +1,5 @@
-"""Sequence (context) parallelism: ring attention (port of the ring half
-of dlrover_tpu/parallel/sequence.py).
+"""Sequence (context) parallelism: ring attention and Ulysses (port of
+dlrover_tpu/parallel/sequence.py).
 
 Each rank of the ``seq`` axis keeps its q shard resident while the k/v
 shards travel around the ring; each visiting block is merged online, so
@@ -19,8 +19,14 @@ transport, the whole sequence with the in-process one; parallel/mesh.py).
 - Non-causal rings run the einsum ring (plain torch through autograd, as
   in the JAX package, where it is no Pallas kernel either).
 
-Ulysses (all-to-all over heads) is not ported yet (ROADMAP Queue 1 item
-10).
+Ulysses (:func:`ulysses_attention`, DeepSpeed-Ulysses) trades the
+sequence split for a head split: an all-to-all turns each rank's
+[b, h, s/n, d] shard into [b, h/n, s, d], the rank runs
+``flash_attention`` (K1-K4) over its head group and the whole sequence,
+and the inverse all-to-all brings the output back to [b, h, s/n, d].
+Over a process group the all-to-all is one ``all_to_all_single`` in an
+autograd function whose backward is the inverse; in process it regroups
+the held shards (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -38,7 +44,8 @@ from dlrover_tpu_torch.ops.attention import (
 )
 from dlrover_tpu_torch.parallel.mesh import get_mesh
 
-__all__ = ["ring_attention", "sequence_sharded_attention"]
+__all__ = ["ring_attention", "sequence_sharded_attention",
+           "ulysses_attention"]
 
 
 def _shards(t, parts: int):
@@ -216,17 +223,49 @@ def ring_attention(q, k, v, mesh=None, causal: bool = True,
     return _einsum_ring(q, k, v, ring, float(sm_scale))
 
 
+def ulysses_attention(q, k, v, mesh=None, causal: bool = True,
+                      sm_scale: Optional[float] = None):
+    """Ulysses attention over the ``seq`` axis of ``mesh`` (default: the
+    active mesh): all-to-all from sequence shards to head groups,
+    ``flash_attention`` over each group's whole sequence, all-to-all
+    back. q [batch, heads, seq_local, head_dim], k/v [batch, kv_heads,
+    seq_local, head_dim], the held ranks' shards as in
+    :func:`ring_attention`; heads and kv_heads must be divisible by the
+    axis size (``ValueError`` otherwise, as in the JAX package)."""
+    mesh = mesh or get_mesh()
+    n = mesh.shape.get("seq", 1)
+    if n == 1:
+        return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
+    if q.shape[1] % n or k.shape[1] % n:
+        raise ValueError(
+            f"ulysses needs heads divisible by axis size: q heads "
+            f"{q.shape[1]}, kv heads {k.shape[1]}, axis {n}")
+    ring = mesh.ring
+    held = len(ring.ranks)
+    for t in (q, k, v):
+        if t.shape[2] % held:
+            raise ValueError(
+                f"a seq axis of {n} ranks ({held} in this process) does "
+                f"not divide the sequence of {t.shape[2]}")
+
+    def to_heads(x):  # held [b, h, s/n, d] shards -> [b, h/n, s, d] groups
+        return ring.all_to_all(list(_shards(x, held)), 1, 2)
+
+    out = [flash_attention(qg, kg, vg, causal=causal, sm_scale=sm_scale)
+           for qg, kg, vg in zip(to_heads(q), to_heads(k), to_heads(v))]
+    return torch.cat(ring.all_to_all(out, 2, 1), dim=2)
+
+
 def sequence_sharded_attention(q, k, v, mesh=None, impl: str = "ring",
                                causal: bool = True,
                                sm_scale: Optional[float] = None):
     """Attention over the sequence shards of ``mesh``'s seq axis (default:
     the active mesh), [batch, heads, seq_local, head_dim] as in
-    :func:`ring_attention`. ``impl="ring"`` runs :func:`ring_attention`;
-    ``"ulysses"`` is not ported yet."""
+    :func:`ring_attention`. ``impl="ring"`` runs :func:`ring_attention`,
+    ``"ulysses"`` :func:`ulysses_attention`."""
     if impl == "ulysses":
-        raise NotImplementedError(
-            "impl='ulysses' (all-to-all over heads) is not ported yet "
-            "(ROADMAP Queue 1 item 10)")
+        return ulysses_attention(q, k, v, mesh=mesh, causal=causal,
+                                 sm_scale=sm_scale)
     if impl != "ring":
         raise ValueError(f"unknown sequence-parallel impl {impl!r}")
     return ring_attention(q, k, v, mesh=mesh, causal=causal,

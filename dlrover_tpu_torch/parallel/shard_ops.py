@@ -18,7 +18,11 @@ local shard once (:meth:`ShardContext.local`), and in each layer:
   its backward sums over ``tensor``) and leaves a row-parallel one
   through :meth:`from_tensor` (a sum over ``tensor``, its backward the
   identity): Megatron's f and g. Every tensor rank then holds the same
-  activations and the same loss.
+  activations and the same loss;
+- on the ``expert`` axis the same f and g (:meth:`expert_group`) wrap
+  the MoE FFN (parallel/moe.py): the rows are replicated over the axis
+  as over ``tensor``, each rank runs its own experts, whose stacks it
+  does not gather, and the partial outputs are summed.
 
 Rows split over ``data`` and ``fsdp``: a rank's loss is its rows' term of
 the global mean, and the gradient of a param replicated over a batch
@@ -115,12 +119,15 @@ class ShardContext:
     def __init__(self, device_mesh):
         self.mesh = device_mesh
         self.names = tuple(device_mesh.mesh_dim_names)
-        self.tensor_size = (device_mesh.size(self.names.index("tensor"))
-                            if "tensor" in self.names else 1)
+        self.tensor_size = self._size("tensor")
         self.tensor_group = (device_mesh.get_group("tensor")
                              if self.tensor_size > 1 else None)
         self.tensor_rank = (device_mesh.get_local_rank("tensor")
                             if self.tensor_size > 1 else 0)
+        self.expert_size = self._size("expert")
+        self._expert_pg = (device_mesh.get_group("expert")
+                           if self.expert_size > 1 else None)
+        self.batch_size = self._size("data") * self._size("fsdp")
 
     @classmethod
     def of(cls, params: dict) -> Optional["ShardContext"]:
@@ -129,6 +136,8 @@ class ShardContext:
         return cls(p.device_mesh) if isinstance(p, DTensor) else None
 
     def _size(self, name: str) -> int:
+        if name not in self.names:
+            return 1
         return self.mesh.size(self.names.index(name))
 
     # ------------------------------------------------------------ params
@@ -145,16 +154,19 @@ class ShardContext:
             else pl for name, pl in zip(self.names, p.placements)]
         return p.to_local(grad_placements=grad_placements)
 
-    def gathers(self, p, drop_leading: int = 0) -> tuple:
+    def gathers(self, p, drop_leading: int = 0,
+                local_axes: tuple = ("tensor",)) -> tuple:
         """The (mesh dim name, tensor dim) pairs to all-gather ``p``'s
-        local shard over, innermost mesh dim first: every mesh axis but
-        ``tensor`` that shards it. ``drop_leading`` leading dims are
-        unbound before the gather (a layer stack's)."""
+        local shard over, innermost mesh dim first: every mesh axis that
+        shards it but ``local_axes``, whose shards the model computes on
+        (``tensor``; ``expert`` too for the expert stacks).
+        ``drop_leading`` leading dims are unbound before the gather (a
+        layer stack's)."""
         if not isinstance(p, DTensor):
             return ()
         out = []
         for name, pl in reversed(list(zip(self.names, p.placements))):
-            if name == "tensor" or not isinstance(pl, Shard):
+            if name in local_axes or not isinstance(pl, Shard):
                 continue
             if pl.dim < drop_leading:
                 raise NotImplementedError(
@@ -172,12 +184,25 @@ class ShardContext:
             x = _AllGather.apply(x, dim, self.mesh.get_group(name))
         return x
 
-    def tensor_dim(self, p) -> Optional[int]:
-        """The dim of ``p`` sharded over ``tensor`` (None: replicated)."""
-        if self.tensor_size == 1 or not isinstance(p, DTensor):
+    def tensor_dim(self, p, axis: str = "tensor") -> Optional[int]:
+        """The dim of ``p`` sharded over ``axis`` (None: replicated)."""
+        if self._size(axis) == 1 or not isinstance(p, DTensor):
             return None
-        pl = p.placements[self.names.index("tensor")]
+        pl = p.placements[self.names.index(axis)]
         return pl.dim if isinstance(pl, Shard) else None
+
+    def expect_expert_dim(self, name: str, p, dim: int):
+        """Raise unless ``p`` is sharded over ``expert`` on ``dim`` (its
+        experts' dim): each expert rank runs the experts it holds. Off an
+        expert axis anything goes."""
+        if self.expert_size == 1:
+            return
+        got = self.tensor_dim(p, "expert")
+        if got != dim:
+            raise NotImplementedError(
+                f"{name} is sharded over 'expert' on dim {got}, the MoE "
+                f"layer runs each rank's experts, dim {dim}: other expert "
+                "layouts are not ported (ROADMAP Queue 1 item 10)")
 
     def expect_tensor_dim(self, name: str, p, dim: Optional[int]):
         """Raise unless ``p`` is sharded over ``tensor`` on ``dim`` (None:
@@ -211,6 +236,20 @@ class ShardContext:
             return x
         return _ReduceFromGroup.apply(x, self.tensor_group)
 
+    def expert_group(self, p):
+        """The :class:`~dlrover_tpu_torch.parallel.moe.ExpertGroup` of the
+        experts this rank holds of an expert stack ``p`` (experts on its
+        dim 1), or None off an expert axis."""
+        from dlrover_tpu_torch.parallel.moe import ExpertGroup
+
+        if self._expert_pg is None:
+            return None
+        group = self._expert_pg
+        return ExpertGroup(
+            first=self.offset(p, 1),
+            copy=lambda x: _CopyToGroup.apply(x, group),
+            reduce=lambda x: _ReduceFromGroup.apply(x, group))
+
     def tensor_max(self, x):
         """Elementwise max over ``tensor``, no gradient."""
         if self.tensor_group is None:
@@ -233,10 +272,14 @@ class ShardContext:
                 dist.all_reduce(out, group=self.mesh.get_group(name))
         return out
 
+    def batch_mean(self, x):
+        """``x`` averaged over the batch axes, no gradient."""
+        return self.batch_sum(x) / self.batch_size
+
     def loss_term(self, term):
         """A rank's term of the global loss as a DTensor: ``Partial`` over
         the batch axes (the terms sum to the loss), ``Replicate`` over
-        ``tensor`` (every tensor rank holds the same term)."""
+        ``tensor`` and ``expert`` (their ranks hold the same term)."""
         placements = [Partial() if name in BATCH_AXES else Replicate()
                       for name in self.names]
         return DTensor.from_local(term, self.mesh, placements,

@@ -283,8 +283,9 @@ def test_sampling_is_a_function_of_the_seed(dense):
 
 def test_moe_params_and_decode_without_the_training_raise():
     """``params_from_jax`` carries the router and the [L, E, D, M] expert
-    leaves; the decode path runs MoE, where the training forward still
-    raises (ROADMAP item 10)."""
+    leaves; the training forward runs MoE (its logits JAX's
+    ``llama_apply``'s within the file's tolerance), and so does the decode
+    path."""
     jc, tc = configs("moe")
     jp = jax_llama.llama_init(jc, jax.random.key(0))
     tp = params_from_jax(jax.tree.map(np.asarray, jp))
@@ -295,8 +296,10 @@ def test_moe_params_and_decode_without_the_training_raise():
     assert tp["layers.w_down"].shape == (L, E, M, D)
     np.testing.assert_array_equal(tp["layers.router"].numpy(),
                                   np.asarray(jp["layers"]["router"]))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        port_llama.llama_apply(tc, tp, torch.zeros(1, 3, dtype=torch.long))
+    toks = tokens(3, (2, 6))
+    assert_close(port_llama.llama_apply(tc, tp, torch.as_tensor(toks)),
+                 jax_llama.llama_apply(jc, jp, jnp.asarray(toks)),
+                 "MoE training forward")
     res = tg.KVCacheGenerationBackend(
         tc, tg.GenerateConfig(max_new_tokens=4), device="cpu").generate(
         tp, np.zeros((1, 3), np.int32), 0)

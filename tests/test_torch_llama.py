@@ -128,8 +128,7 @@ def test_presets_match_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("n_experts", 4), ("pipe_virtual_stages", 2),
-    ("attn_impl", "ulysses"), ("pipe_schedule", "1f1b"),
+    ("pipe_virtual_stages", 2), ("pipe_schedule", "1f1b"),
 ])
 def test_unported_settings_raise(field, value):
     cfg = LlamaConfig(**dict(SMALL, **{field: value}))

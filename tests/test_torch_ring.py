@@ -235,11 +235,18 @@ def test_ring_refuses_a_sequence_it_does_not_divide():
 
 
 def test_ulysses_is_not_ported():
+    """What Ulysses does not run: heads the seq axis does not divide
+    raise ``ValueError``, as in the JAX package; the impl itself runs
+    (tests/test_torch_ulysses.py holds it against JAX's)."""
+    mesh = build_mesh(MeshConfig(seq=N))
+    q = torch.zeros(1, 6, 8, 16)
+    with pytest.raises(ValueError, match="divisible by axis size"):
+        sequence_sharded_attention(q, q, q, mesh=mesh, impl="ulysses")
     q = torch.zeros(1, 4, 8, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        sequence_sharded_attention(q, q, q,
-                                   mesh=build_mesh(MeshConfig(seq=N)),
-                                   impl="ulysses")
+    out = sequence_sharded_attention(q, q, q, mesh=mesh, impl="ulysses")
+    assert out.shape == q.shape
+    with pytest.raises(ValueError, match="unknown"):
+        sequence_sharded_attention(q, q, q, mesh=mesh, impl="striped")
 
 
 def test_single_process_init_distributed_is_a_no_op(monkeypatch):

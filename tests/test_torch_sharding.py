@@ -139,7 +139,7 @@ TINY = dataclasses.replace(PRESETS["tiny"], attn_impl="flash")
 
 
 @pytest.mark.parametrize("config,item", [
-    (MeshConfig(data=1, expert=4), "item 10"),
+    (MeshConfig(data=1, expert=2, seq=2), "item 7"),
     (MeshConfig(data=1, pipe=4), "item 10"),
     (MeshConfig(data=1, seq=2, fsdp=2), "item 7"),
     (MeshConfig(data=1, seq=2, tensor=2), "item 7"),
