@@ -200,7 +200,34 @@ Phases, each fatal on failure (no exception is caught):
    first within 2e-2 of the same params' loss through the plain
    attention, K1-K4 twice a step; step ms, tokens/s, MFU on the active
    FLOPs, peak, aux/z/dropped per step, and a profiled step's device ms
-   by part; then serving and RL: ``[serve]``, llama3-8b at full width (32
+   by part; ``[lowp]``, low-precision compute: K15 ``quantize_fp8`` (e4m3
+   and e5m2, both layouts, a given scale that overflows), K16
+   ``quantize_int8_channels`` (rows and columns) and K17
+   ``dequantize_int32`` (both orders, bf16 and f32) against their plain
+   versions bit for bit on the main path's operands (M = B4 x S2048 =
+   8192 rows), ``torch._int_mm`` against the exact integer products and
+   ``torch._scaled_mm`` within 1e-2 of the plain dequantized matmul; at
+   llama3-8b's projection shapes (K x N: 4096x6144 q/k/v stacked,
+   4096x4096 o, 4096x14336 gate or up, 14336x4096 down) each of K15/K16
+   on the activation and the weight, K17 on the product, the fp8, int8
+   and bf16 GEMMs and the quantized matmul's forward end to end (CUDA
+   graph replays) against their bounds (bytes; 2MNK over 1,979 TFLOP/s
+   for fp8/int8, 989 for bf16); then llama3-8b's published widths (dim
+   4096, 32 heads over 8 kv heads of 128, mlp 14336, vocab 128256, rope
+   theta 5e5; depth cut to 4 of 32 layers, 1.92 B params) through
+   ``Trainer``, B4 S2048, adamw over f32 masters, 6 steps on one repeated
+   seeded batch from the same weights under ``compute_dtype`` bfloat16,
+   fp8 and int8 (remat "none") and int8 under remat "minimal", each
+   followed by a profiled step (device ms by part: GEMMs by type,
+   K15-K17, K1-K4, the rest): losses finite and falling, the first
+   within 2e-2 (relative) of the bf16 run's, K1-K4 and the mode's
+   quantize kernels launched (K15 3 a projection under fp8; K16 2 and
+   K17 1 under int8, the same under "minimal", whose recompute takes
+   the saved quantized matmuls) and no other mode's; step ms, tokens/s,
+   MFU against 989 TFLOP/s and (named so) 1,979, peak; then gpt2-1.5b's
+   widths (2 of 48 layers, head_dim 64 through K1-K4) 3 steps under
+   each mode with the same gates; then serving and RL: ``[serve]``,
+   llama3-8b at full width (32
    layers, dim 4096, 32 heads over 8 kv heads of 128, mlp 14336, vocab
    128256, rope_theta 5e5; 16.06 GB of bf16 weights drawn from a seed)
    in ``DecodeEngine(slots=8, capacity=2048)``, warmed up (every prompt
@@ -251,7 +278,9 @@ Phases, each fatal on failure (no exception is caught):
    8 steps of nano-350m (no step stalls, the client degrades to instant
    no-ops);
 6. one JSON line with every kernel's numbers (K1-K4's head_dim 64
-   instantiations as ``<name>_d64``, their launches from ``[gpt2]``),
+   instantiations as ``<name>_d64``, their launches from ``[gpt2]``;
+   K15-K17's launches from ``[lowp]``'s fp8 and int8 runs, their times
+   at the q/k/v shape's activation and product),
    then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -332,6 +361,17 @@ KERNEL_INFO = {
                       "dlrover_tpu/ops/attention.py:1583"),
     "flash_ring_dkv": ("dlrover_tpu_torch/ops/csrc/flash_ring.cu",
                        "dlrover_tpu/ops/attention.py:1612"),
+    # low-precision compute: no TPU kernel; XLA fuses these chains into
+    # the dots of the functions named
+    "quantize_fp8": ("dlrover_tpu_torch/ops/csrc/lowp.cu",
+                     "none: dlrover_tpu/ops/fp8.py:169 quantize_e4m3 "
+                     "(fused by XLA)"),
+    "quantize_int8_channels": ("dlrover_tpu_torch/ops/csrc/lowp.cu",
+                               "none: dlrover_tpu/ops/quantization.py:187 "
+                               "_per_channel_q (fused by XLA)"),
+    "dequantize_int32": ("dlrover_tpu_torch/ops/csrc/lowp.cu",
+                         "none: dlrover_tpu/ops/quantization.py:201 "
+                         "_int8_dot_impl's epilogue (fused by XLA)"),
 }
 # K1-K4's head_dim 64 instantiations: the same sources and TPU kernels
 KERNEL_INFO.update({name + "_d64": KERNEL_INFO[name] for name in (
@@ -1047,9 +1087,14 @@ def time_ring(inputs):
 
 
 def kernel_modules():
-    from dlrover_tpu_torch.ops import attention, fused_optim, quantization
+    from dlrover_tpu_torch.ops import (
+        attention,
+        fused_optim,
+        lowp,
+        quantization,
+    )
 
-    return attention, quantization, fused_optim
+    return attention, quantization, fused_optim, lowp
 
 
 def reset_launches() -> None:
@@ -4231,6 +4276,435 @@ def profile_step(res, state, batch, label="adamw", top=16):
     return ce_rows
 
 
+# ------------------------------------------------------------- [lowp]
+#
+# low-precision compute: K15-K17 against their plain versions, the fp8 and
+# int8 GEMMs beside bf16 at llama3-8b's projection shapes, then llama3-8b's
+# widths (4 of 32 layers) and gpt2-1.5b's (2 of 48) through Trainer under
+# compute_dtype bfloat16, fp8 and int8
+
+PEAK_LOWP = 1979e12  # H100 SXM dense fp8 and int8 tensor-core rate
+LOWP_M = 8192        # the slice's rows: B4 x S2048
+# llama3-8b's projections (K, N): q/k/v stacked, o, gate or up, down
+LOWP_GEMMS = {"qkv": (4096, 6144), "o": (4096, 4096),
+              "gate_up": (4096, 14336), "down": (14336, 4096)}
+LOWP_LAYERS = 4      # of llama3-8b's 32: see lowp_config
+LOWP_B, LOWP_S, LOWP_STEPS = 4, 2048, 6
+LOWP_GPT2_LAYERS, LOWP_GPT2_STEPS = 2, 3
+LOWP_KERNELS = ("quantize_fp8", "quantize_int8_channels", "dequantize_int32")
+# the fp8 GEMM against the plain dequantized matmul (bf16 operands), of
+# the largest value: the plain side rounds each dequantized operand to
+# bf16 (2^-9) and both round the output to bf16
+LOWP_GEMM_TOL = 1e-2
+# a quant run's first loss against the bf16 run's (relative): the same
+# weights and batch, so the gap is the quantized forward's own error. The
+# later steps are not gated: on one repeated batch at lr 3e-4 the 1.92 B
+# model memorizes it in a few steps along a path that amplifies any
+# difference (the bf16 run's own loss rises from step 3 to 4), and a
+# quant run's step-5 loss left bf16's by 7.9% in a first run
+LOWP_LOSS_TOL = 2e-2
+
+
+def lowp_config(layers=LOWP_LAYERS):
+    """llama3-8b at its published widths (dim 4096, 32 heads over 8 kv
+    heads of 128, mlp 14336, vocab 128256, rope theta 5e5), depth cut to
+    ``layers``: 4 layers hold 1.92 B params, ~31 GB of f32 masters,
+    grads and AdamW moments, beside the B4 S2048 activations and logits."""
+    from dlrover_tpu_torch.models import PRESETS
+
+    return dataclasses.replace(PRESETS["llama3-8b"], n_layers=layers)
+
+
+def lowp_check(worst) -> None:
+    """K15-K17 against their plain versions on the main path's operands
+    (bit for bit), and the GEMM routes against the plain products."""
+    from dlrover_tpu_torch.ops import lowp
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    a, w = randn(LOWP_M, 4096, scale=2.0), randn(4096, 6144)
+    g, ragged = randn(LOWP_M, 6144, scale=1e-3), randn(1000, 200)
+    errs = {name: 0.0 for name in LOWP_KERNELS}
+
+    def codes_err(got, want):
+        got, want = got.float(), want.float()
+        same_nan = torch.equal(got.isnan(), want.isnan())
+        diff = (got - want).nan_to_num(0.0, 0.0, 0.0).abs().max().item()
+        return diff if same_nan else math.inf
+
+    cases = [(a, "e4m3", None), (w, "e4m3", None), (g, "e5m2", None),
+             (ragged, "e4m3", None),
+             (a, "e4m3", torch.tensor(2e-3, device="cuda")),   # overflows
+             (g, "e5m2", torch.tensor(1e-9, device="cuda"))]
+    for x, fmt, scale in cases:
+        q, qt, s = lowp.quantize_fp8(x, fmt, scale, layout="both")
+        pq, pqt, ps = lowp.quantize_fp8_plain(x, fmt, scale, layout="both")
+        errs["quantize_fp8"] = max(errs["quantize_fp8"], codes_err(q, pq),
+                                   codes_err(qt, pqt),
+                                   abs(s.item() - ps.item()))
+    for x, channels in ((a, "rows"), (w, "cols"), (randn(14336, 4096),
+                                                    "cols"),
+                        (ragged, "rows"), (ragged, "cols")):
+        q, s = lowp.quantize_int8_channels(x, channels)
+        pq, ps = lowp.quantize_int8_channels_plain(x, channels)
+        errs["quantize_int8_channels"] = max(
+            errs["quantize_int8_channels"],
+            (q.int() - pq.int()).abs().max().item(),
+            (s - ps).abs().max().item())
+    qa, sa = lowp.quantize_int8_channels(a, "rows")
+    qbt, sb = lowp.quantize_int8_channels(w, "cols")
+    acc = lowp.int8_mm(qa, qbt)
+    int_exact = torch.equal(acc, (qa.double() @ qbt.double().t()).to(
+        torch.int32))
+    for product_first in (False, True):
+        for dtype in (torch.bfloat16, torch.float32):
+            got = lowp.dequantize_int32(acc, sa, sb, dtype, product_first)
+            want = lowp.dequantize_int32_plain(acc, sa, sb, dtype,
+                                               product_first)
+            errs["dequantize_int32"] = max(
+                errs["dequantize_int32"],
+                (got.float() - want.float()).abs().max().item())
+    qa8, _, sa8 = lowp.quantize_fp8(a)
+    _, qbt8, sb8 = lowp.quantize_fp8(w, layout="col")
+    out = lowp.fp8_mm(qa8, qbt8.t(), sa8, sb8, torch.bfloat16)
+    plain = (lowp.dequantize_fp8(qa8, sa8, torch.bfloat16)
+             @ lowp.dequantize_fp8(qbt8.t(), sb8, torch.bfloat16))
+    _, gemm_rel = rel_err(out, plain)
+    torch.cuda.synchronize()
+    failures = []
+    for name, err in errs.items():
+        ok = err == 0.0
+        log(f"  lowp   {name:22s} max_abs_err={err:.3e} (bit-equal "
+            f"required) {'ok' if ok else 'FAIL'}")
+        worst[name] = err
+        if not ok:
+            failures.append(name)
+    log(f"  lowp   int8 GEMM (torch._int_mm) exact integer products: "
+        f"{'ok' if int_exact else 'FAIL'}")
+    log(f"  lowp   fp8 GEMM (torch._scaled_mm) vs the plain dequantized "
+        f"matmul: rel_err={gemm_rel:.3e} (tol {LOWP_GEMM_TOL}) "
+        f"{'ok' if gemm_rel <= LOWP_GEMM_TOL else 'FAIL'}")
+    if not int_exact:
+        failures.append("int8_mm")
+    if gemm_rel > LOWP_GEMM_TOL:
+        failures.append("fp8_mm")
+    if failures:
+        raise SystemExit(f"lowp kernel check failed: {failures}")
+
+
+# f32 operations an element of K15 (abs, max, divide, convert), K16 (abs,
+# max, divide, round, two clamps, convert) and K17 (convert, two products)
+LOWP_OPS = {"quantize_fp8": 4, "quantize_int8_channels": 7,
+            "dequantize_int32": 3}
+
+
+def lowp_bound(name, nbytes, elems):
+    """Least time (ms) of K15-K17 on ``elems`` elements: the bytes each
+    must move (each input read once, each output written once) over HBM
+    bandwidth, or its f32 operations over the f32 peak."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = LOWP_OPS[name] * elems / PEAK_F32 * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations")
+
+
+def lowp_times(times, library, bound) -> dict:
+    """The table at each of llama3-8b's projection shapes (M = 8192, CUDA
+    graph replays, medians of 5): K15 on the activation and the weight,
+    K16 likewise, K17 on the product, the fp8, int8 and bf16 GEMMs
+    against their bounds, and the quantized matmul end to end (quantize,
+    GEMM, dequantize; the forward of ``fp8_dot``/``int8_dot``) beside
+    ``torch.matmul`` in bf16. The kernels line's entries take the q/k/v
+    shape's activation (K15, K16) and product (K17)."""
+    from dlrover_tpu_torch.ops import fp8, lowp, quantization
+
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    M, table = LOWP_M, {}
+
+    def med(fn, iters):
+        return statistics.median(graph_ms(fn, iters))
+
+    for label, (K, N) in LOWP_GEMMS.items():
+        a = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
+        w = (torch.randn(K, N, generator=gen, device="cuda")
+             * K ** -0.5).bfloat16()
+        qa, _, sa = lowp.quantize_fp8(a)
+        _, qbt, sb = lowp.quantize_fp8(w, layout="col")
+        ia, isa = lowp.quantize_int8_channels(a, "rows")
+        ibt, isb = lowp.quantize_int8_channels(w, "cols")
+        acc = lowp.int8_mm(ia, ibt)
+        flops = 2.0 * M * N * K
+        row = {
+            "K": K, "N": N,
+            "k15_act_ms": med(lambda: lowp.quantize_fp8(a, layout="both"),
+                              20),
+            "k15_act_bound_ms": lowp_bound("quantize_fp8", M * K * 4,
+                                           M * K)[0],
+            "k15_weight_ms": med(
+                lambda: lowp.quantize_fp8(w, layout="both"), 20),
+            "k15_weight_bound_ms": lowp_bound("quantize_fp8", K * N * 4,
+                                              K * N)[0],
+            "k16_act_ms": med(
+                lambda: lowp.quantize_int8_channels(a, "rows"), 20),
+            "k16_act_bound_ms": lowp_bound(
+                "quantize_int8_channels", M * K * 3 + M * 4, M * K)[0],
+            "k16_weight_ms": med(
+                lambda: lowp.quantize_int8_channels(w, "cols"), 20),
+            "k16_weight_bound_ms": lowp_bound(
+                "quantize_int8_channels", K * N * 3 + N * 4, K * N)[0],
+            "k17_ms": med(lambda: lowp.dequantize_int32(
+                acc, isa, isb, torch.bfloat16), 20),
+            "k17_bound_ms": lowp_bound(
+                "dequantize_int32", M * N * 6 + (M + N) * 4, M * N)[0],
+            "fp8_gemm_ms": med(lambda: lowp.fp8_mm(
+                qa, qbt.t(), sa, sb, torch.bfloat16), 10),
+            "int8_gemm_ms": med(lambda: lowp.int8_mm(ia, ibt), 10),
+            "bf16_gemm_ms": med(lambda: torch.matmul(a, w), 10),
+            "fp8_int8_gemm_bound_ms": flops / PEAK_LOWP * 1e3,
+            "bf16_gemm_bound_ms": flops / PEAK_BF16 * 1e3,
+            "fp8_dot_fwd_ms": med(lambda: fp8.fp8_dot_op(a, w, None, None),
+                                  10),
+            "int8_dot_fwd_ms": med(lambda: quantization.int8_dot_op(a, w),
+                                   10),
+        }
+        table[label] = row
+        if label == "qkv":
+            inv = lowp._INV_FMAX["e4m3"]
+            times["quantize_fp8"] = (row["k15_act_ms"], med(
+                lambda: lowp.quantize_fp8_plain(a, layout="both"), 5))
+            bound["quantize_fp8"] = lowp_bound("quantize_fp8", M * K * 4,
+                                               M * K)
+            library["quantize_fp8"] = med(
+                lambda: (a.float() / (a.abs().amax().float() * inv)).to(
+                    torch.float8_e4m3fn), 10)
+            times["quantize_int8_channels"] = (row["k16_act_ms"], med(
+                lambda: lowp.quantize_int8_channels_plain(a, "rows"), 5))
+            bound["quantize_int8_channels"] = lowp_bound(
+                "quantize_int8_channels", M * K * 3 + M * 4, M * K)
+            library["quantize_int8_channels"] = None
+            times["dequantize_int32"] = (row["k17_ms"], med(
+                lambda: lowp.dequantize_int32_plain(acc, isa, isb,
+                                                    torch.bfloat16), 5))
+            bound["dequantize_int32"] = lowp_bound(
+                "dequantize_int32", M * N * 6 + (M + N) * 4, M * N)
+            library["dequantize_int32"] = None
+        del a, w, qa, qbt, ia, ibt, acc
+        release()
+    log(json.dumps({"lowp_gemms": {"card": CARD["line"], "M": M,
+                                   "shapes": table}}))
+    return table
+
+
+def lowp_breakdown(averages, busy_us) -> dict:
+    """A profiled step's device ms by part: the GEMMs by type (the aten
+    rows ``_scaled_mm``, ``_int_mm``; bf16 ``mm``/``addmm``/``bmm``, the
+    backward's and the head's included), K15-K17 and K1-K4 by kernel
+    name, and the rest."""
+    from torch.autograd import DeviceType
+
+    def op_ms(*names):
+        return sum(e.device_time_total for e in averages
+                   if e.device_type == DeviceType.CPU
+                   and e.key in names) / 1e3
+
+    def kernel_ms(*patterns):
+        return sum(e.self_device_time_total for e in averages
+                   if e.device_type == DeviceType.CUDA
+                   and any(p in e.key for p in patterns)) / 1e3
+
+    parts = {
+        "gemm_fp8": op_ms("aten::_scaled_mm"),
+        "gemm_int8": op_ms("aten::_int_mm"),
+        "gemm_bf16": op_ms("aten::mm", "aten::addmm", "aten::bmm"),
+        "k15_quantize_fp8": kernel_ms("fp8_amax_kernel", "fp8_quant_kernel"),
+        "k16_quantize_int8": kernel_ms("int8_rows_kernel",
+                                       "int8_cols_kernel"),
+        "k17_dequantize_int32": kernel_ms("dequant_kernel"),
+        "k1_k4": kernel_ms(*(f"{n}_kernel" for n in FLASH_KERNELS),
+                           "flash_fwd_rope_k_kernel"),
+    }
+    parts["rest"] = busy_us / 1e3 - sum(parts.values())
+    return parts
+
+
+def lowp_train(cfg, label, mode, remat, steps, B, S, loss_fn,
+               init_fn) -> dict:
+    """``steps`` Trainer steps of ``cfg`` under ``compute_dtype=mode`` on
+    one repeated seeded batch (the same seeded weights in every run),
+    then a profiled step; returns the run's summary with its losses."""
+    from dlrover_tpu_torch.common import mfu
+    from dlrover_tpu_torch.parallel import Strategy
+    from dlrover_tpu_torch.trainer import Trainer, TrainingArgs
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = synthetic_batch(cfg.vocab_size, S, B, 0)
+    trainer = Trainer(
+        loss_fn(cfg), lambda seed, device: init_fn(cfg, seed, device), None,
+        TrainingArgs(output_dir=str(CKPT_DIR / label), max_steps=steps,
+                     num_epochs=1, learning_rate=SLICE_LR,
+                     optimizer="adamw", compute_dtype=mode,
+                     strategy=Strategy(remat=remat), flash_checkpoint=False,
+                     log_steps=0),
+        train_data=[batch] * steps, device="cuda")
+    inner = trainer._accel.train_step
+    losses, step_s = [], []
+
+    def timed(state, batch, rng):
+        t0 = time.perf_counter()
+        state, metrics = inner(state, batch, rng)
+        losses.append(metrics["loss"].item())
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        return state, metrics
+
+    trainer._accel.train_step = timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    trainer.train()
+    launches = launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    trainer._accel.train_step = inner
+    tokens = {"tokens": torch.as_tensor(batch["tokens"], device="cuda")}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        inner(trainer.state, tokens, None)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    averages = prof.key_averages()
+    busy_us = sum(e.self_device_time_total for e in averages
+                  if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation)
+    OUT.mkdir(exist_ok=True)
+    (OUT / f"profile_step_{label}.txt").write_text(
+        averages.table(sort_by="cuda_time_total", row_limit=60))
+    del trainer, inner
+    release()
+    steady = statistics.median(step_s[1:])
+    flops = mfu.transformer_step_flops(cfg.param_count(), B * S,
+                                       cfg.n_layers, cfg.dim, S)
+    summary = {
+        "run": label, "compute_dtype": mode, "remat": remat,
+        "n_layers": cfg.n_layers, "params": cfg.param_count(),
+        "batch": B, "seq": S, "steps": steps,
+        "step_ms_median_2_on": steady * 1e3,
+        "first_step_ms": step_s[0] * 1e3, "tokens_per_s": B * S / steady,
+        "mfu_bf16_peak": mfu.mfu(flops, steady, PEAK_BF16),
+        "mfu_fp8_int8_peak_1979": mfu.mfu(flops, steady, PEAK_LOWP),
+        "peak_mem_gib": peak_gib, "losses": losses,
+        "launches": {n: launches[n] for n in FLASH_KERNELS + LOWP_KERNELS},
+        "profiled_step": dict(
+            wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+            device_idle_share=1 - busy_us / wall_us,
+            parts_ms=lowp_breakdown(averages, busy_us)),
+    }
+    log(f"  [{label}] losses: {losses}")
+    log(f"  [{label}] step seconds: {step_s}")
+    log(json.dumps({"lowp_run": summary}))
+    if not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"{label}: non-finite loss: {losses}")
+    return summary
+
+
+def lowp_gate(runs, ref) -> None:
+    """Each quant run launched K1-K4 and its quantize kernels (and no
+    other mode's), its loss fell and its first loss is within
+    LOWP_LOSS_TOL (relative) of the bf16 run's; prints the first and the
+    largest gap and the bf16 step time beside the run's."""
+    base = runs[ref]
+    for label, run in runs.items():
+        if label == ref:
+            continue
+        gaps = [abs(x - y) / abs(y)
+                for x, y in zip(run["losses"], base["losses"])]
+        log(f"  [{label}] loss gap to {ref} (relative): first "
+            f"{gaps[0]:.3e}, largest {max(gaps):.3e}; step "
+            f"{run['step_ms_median_2_on']:.2f} ms against {ref}'s "
+            f"{base['step_ms_median_2_on']:.2f}")
+        counts = run["launches"]
+        want = {"fp8": ("quantize_fp8",),
+                "int8": ("quantize_int8_channels", "dequantize_int32")}[
+            run["compute_dtype"]]
+        missing = [n for n in FLASH_KERNELS + want if counts[n] == 0]
+        stray = [n for n in LOWP_KERNELS if n not in want and counts[n]]
+        if missing or stray:
+            raise SystemExit(f"{label}: kernels not launched {missing}, "
+                             f"launched off their path {stray}")
+        if gaps[0] > LOWP_LOSS_TOL or not run["losses"][-1] < run[
+                "losses"][0]:
+            raise SystemExit(f"{label}: losses {run['losses']} against the "
+                             f"bf16 run's {base['losses']}")
+    if any(base["launches"][n] for n in LOWP_KERNELS):
+        raise SystemExit(f"{ref}: a quantize kernel ran in the bf16 run")
+
+
+def lowp_phase(worst, times, library, bound) -> dict:
+    """[lowp]: the kernel checks and the GEMM table, then llama3-8b's
+    widths through Trainer under bfloat16, fp8, int8 and int8 with remat
+    "minimal" (6 steps each, then a profiled step), and gpt2-1.5b's
+    under each mode (3 steps). Returns the launches of K15-K17 on the
+    main path (fp8's run for K15, int8's for K16 and K17)."""
+    from dlrover_tpu_torch.models import (
+        GPT2_PRESETS,
+        gpt2_init,
+        gpt2_loss_fn,
+        llama_init,
+        llama_loss_fn,
+    )
+
+    t_phase = time.perf_counter()
+    lowp_check(worst)
+    table = lowp_times(times, library, bound)
+    cfg = lowp_config()
+    log(f"  [lowp] llama3-8b widths, {cfg.n_layers} of 32 layers: "
+        f"{cfg.param_count()} params, B{LOWP_B} S{LOWP_S}")
+    job = os.environ["ELASTIC_JOB_NAME"]
+    runs = {}
+    with flash_env("lowp", job):
+        for label, mode, remat in (
+                ("lowp-bf16", "bfloat16", "none"), ("lowp-fp8", "fp8",
+                                                    "none"),
+                ("lowp-int8", "int8", "none"),
+                ("lowp-int8-minimal", "int8", "minimal")):
+            runs[label] = lowp_train(cfg, label, mode, remat, LOWP_STEPS,
+                                     LOWP_B, LOWP_S, llama_loss_fn,
+                                     llama_init)
+        lowp_gate(runs, "lowp-bf16")
+        # the quantized matmuls are saved under remat: the recompute
+        # re-runs no quantize (K16/K17 as under "none"), only K1 again
+        a, b = runs["lowp-int8"]["launches"], runs[
+            "lowp-int8-minimal"]["launches"]
+        for name in ("quantize_int8_channels", "dequantize_int32"):
+            if a[name] != b[name]:
+                raise SystemExit(f"lowp-int8-minimal: {name} {b[name]} "
+                                 f"launches against remat none's {a[name]}")
+        gcfg = dataclasses.replace(GPT2_PRESETS["gpt2-1.5b"],
+                                   n_layers=LOWP_GPT2_LAYERS)
+        gruns = {}
+        for mode in ("bfloat16", "fp8", "int8"):
+            label = f"lowp-gpt2-{mode}"
+            gruns[label] = lowp_train(gcfg, label, mode, "none",
+                                      LOWP_GPT2_STEPS, 8, 1024,
+                                      gpt2_loss_fn, gpt2_init)
+        lowp_gate(gruns, "lowp-gpt2-bfloat16")
+    summary = {"card": CARD["line"], "gemms": table,
+               "runs": {k: {f: v[f] for f in (
+                   "step_ms_median_2_on", "tokens_per_s", "mfu_bf16_peak",
+                   "mfu_fp8_int8_peak_1979", "peak_mem_gib", "launches")}
+                   for k, v in {**runs, **gruns}.items()},
+               "phase_s": time.perf_counter() - t_phase}
+    log(json.dumps({"lowp": summary}))
+    return {"quantize_fp8": runs["lowp-fp8"]["launches"]["quantize_fp8"],
+            **{n: runs["lowp-int8"]["launches"][n]
+               for n in ("quantize_int8_channels", "dequantize_int32")}}
+
+
 # ------------------------------------------------------------- [serve]
 #
 # the serving arm and the RL loop: llama3-8b in the slotted decode engine
@@ -5854,6 +6328,12 @@ def run_phases() -> int:
     # at GQA 4 and S 4096
     log("phase moe:")
     moe_phase(worst)
+    release()
+
+    # 5b''. low-precision compute: K15-K17, the fp8/int8 GEMMs, llama3-8b's
+    # and gpt2-1.5b's widths under compute_dtype fp8 and int8
+    log("phase lowp:")
+    launches.update(lowp_phase(worst, times, library, bound))
     release()
 
     # 5c. serving and RL: llama3-8b in the slotted decode engine, decode

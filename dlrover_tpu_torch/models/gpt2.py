@@ -18,6 +18,13 @@ bshd route at head_dim 64 is K1-K4 on transposed views, and the ring's
 kernels K12-K14 are built for head_dim 128 only (ROADMAP R8), so on the
 card a seq axis raises here.
 
+Low-precision compute (ops/fp8.py ``quant_autocast``): the JAX
+package's sites, ``attn_qkv``, ``attn_out`` and ``mlp``. Under "int8"
+the einsum-form branch stays, its qkv the JAX package's
+``bsd,dthk->tbhsk`` in int8 (a [3, B, H, S, 64] view of one GEMM's
+product) and its output ``bhsk,hkd->bsd``; under "fp8" the ``qdot``
+branch (``_attention``: K1-K4 on the transposed q/k/v).
+
 Sharded params (DTensors on a DeviceMesh, parallel/accelerate.py): the
 ``data`` and ``fsdp`` axes run as the Llama model runs them, each
 layer's slice gathered over the axes that shard it and the rows this
@@ -43,11 +50,15 @@ from dlrover_tpu_torch.device import resolve_device
 from dlrover_tpu_torch.models.llama import (
     _attention,
     _first_position,
+    _flash_path,
+    _int8_site,
     _positions,
+    project_out,
     sharded_loss,
 )
 from dlrover_tpu_torch.ops.attention import flash_attention
 from dlrover_tpu_torch.ops.cross_entropy import softmax_cross_entropy
+from dlrover_tpu_torch.ops.fp8 import qdot, qeinsum
 from dlrover_tpu_torch.parallel import remat as remat_lib
 from dlrover_tpu_torch.parallel.mesh import seq_ring
 from dlrover_tpu_torch.parallel.shard_ops import ShardContext
@@ -230,21 +241,32 @@ def _block(config: GPT2Config, x, p, ring=None, shard=None):
     h, hd = config.n_heads, config.head_dim
 
     y = _layer_norm(x, p["ln1_scale"], p["ln1_bias"], config.norm_eps)
-    qkv = y @ p["w_qkv"] + p["b_qkv"]
-    if config.attn_impl == "flash" and ring is None:
+    if _flash_path(config, ring) and _int8_site("attn_qkv"):
+        # the JAX package's einsum-form qkv in int8: [3, B, H, S, Dh], a
+        # view of the [B, S, 3*D] product
+        qkv4 = qeinsum("bsd,dthk->tbhsk", y,
+                       p["w_qkv"].view(D, 3, h, hd), site="attn_qkv")
+        q, k, v = (qkv4 + p["b_qkv"].view(3, 1, h, 1, hd)).unbind(0)
+        out = flash_attention(q, k, v, causal=True)
+        attn_out = project_out(out, p["w_proj"], "attn_out")
+    elif _flash_path(config, ring):
+        qkv = y @ p["w_qkv"] + p["b_qkv"]
         # [B, S, 3, H, Dh] viewed as q/k/v [B, H, S, Dh] (no copies): the
         # kernels read heads and rows by stride
         q, k, v = qkv.view(B, S, 3, h, hd).transpose(1, 3).unbind(2)
         out = flash_attention(q, k, v, causal=True)
-        attn = out.transpose(1, 2).reshape(B, S, D)
+        attn_out = project_out(out, p["w_proj"], "attn_out")
     else:
+        qkv = qdot(y, p["w_qkv"], site="attn_qkv") + p["b_qkv"]
         q, k, v = (t.view(B, S, h, hd) for t in qkv.split(D, dim=-1))
         attn = _attention(config, q, k, v, ring).reshape(B, S, D)
-    x = x + attn @ p["w_proj"] + p["b_proj"]
+        attn_out = qdot(attn, p["w_proj"], site="attn_out")
+    x = x + attn_out + p["b_proj"]
 
     y = _layer_norm(x, p["ln2_scale"], p["ln2_bias"], config.norm_eps)
-    hmid = F.gelu(y @ p["w_fc"] + p["b_fc"], approximate="tanh")
-    return x + hmid @ p["w_out"] + p["b_out"]
+    hmid = F.gelu(qdot(y, p["w_fc"], site="mlp") + p["b_fc"],
+                  approximate="tanh")
+    return x + qdot(hmid, p["w_out"], site="mlp") + p["b_out"]
 
 
 def _gpt2_embed(config: GPT2Config, embed, pos_embed, tokens, positions,

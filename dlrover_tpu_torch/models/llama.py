@@ -20,6 +20,18 @@ to [B,H,S,Dh], then ring attention over the ring-block kernels, or with
 attention, as the JAX package's does. What the port does not run yet
 raises ``NotImplementedError`` naming its ROADMAP item.
 
+Low-precision compute (``quant_autocast``, ops/fp8.py; set by
+``auto_accelerate`` for ``compute_dtype`` "fp8" or "int8"): the
+projections go through ``qdot``/``qeinsum`` with the JAX package's site
+tags (``attn_qkv``, ``attn_out``, ``mlp``). Under "int8" the einsum-form
+flash branch stays, its projections the JAX package's einsums
+(``bsd,dhk->bhsk``, ``bhsk,hkd->bsd``) in int8; under "fp8" it yields to
+the ``qdot`` branch (rope outside, then K1-K4 on the transposed q/k/v),
+with gate and up two matmuls (per-tensor scales). The port keeps q/k/v
+and gate/up separate under "int8" too: per-channel scales make the JAX
+package's stacked weights give the same numbers. The LM head and the MoE
+router never quantize.
+
 MoE (``n_experts > 1``, Mixtral-style): the FFN of every layer is
 ``parallel/moe.py``'s ``moe_ffn`` over the stacked ``router`` [L, D, E]
 and experts ``w_gate``/``w_up`` [L, E, D, M], ``w_down`` [L, E, M, D];
@@ -67,6 +79,12 @@ from dlrover_tpu_torch.ops.cross_entropy import (
     fused_linear_cross_entropy,
     softmax_cross_entropy,
     vocab_parallel_cross_entropy,
+)
+from dlrover_tpu_torch.ops.fp8 import (
+    qdot,
+    qeinsum,
+    quant_mode,
+    quant_site_enabled,
 )
 from dlrover_tpu_torch.parallel import remat as remat_lib
 from dlrover_tpu_torch.parallel.mesh import (
@@ -343,8 +361,37 @@ def _positions(tokens, ring):
 
 def _flash_path(config, ring) -> bool:
     """Whether the einsum-form flash branch applies (the JAX package's
-    ``flash_einsum_path``): ``attn_impl="flash"`` and no seq axis."""
-    return config.attn_impl == "flash" and ring is None
+    ``flash_einsum_path``): ``attn_impl="flash"``, no seq axis, and no fp8
+    (int8 keeps the branch)."""
+    return (config.attn_impl == "flash" and ring is None
+            and quant_mode() != "fp8")
+
+
+def _int8_site(site) -> bool:
+    """Whether an einsum-form site runs the JAX package's int8 einsum."""
+    return quant_mode() == "int8" and quant_site_enabled(site)
+
+
+def project_heads(y, w, heads, head_dim, site):
+    """The einsum-form projection ``bsd,dhk->bhsk``: ``y`` [B,S,D] times
+    ``w`` [D, heads*head_dim] as [B, heads, S, head_dim] (a view of the
+    [B, S, heads*head_dim] product, no copy), int8 where ``qeinsum``
+    quantizes the site."""
+    B, S, D = y.shape
+    if _int8_site(site):
+        return qeinsum("bsd,dhk->bhsk", y, w.view(D, heads, head_dim),
+                       site=site)
+    return (y @ w).view(B, S, heads, head_dim).transpose(1, 2)
+
+
+def project_out(out, w, site):
+    """The einsum-form output projection ``bhsk,hkd->bsd``: ``out``
+    [B, H, S, Dh] times ``w`` [H*Dh, D], int8 where ``qeinsum`` quantizes
+    the site."""
+    B, H, S, hd = out.shape
+    if _int8_site(site):
+        return qeinsum("bhsk,hkd->bsd", out, w.view(H, hd, -1), site=site)
+    return out.transpose(1, 2).reshape(B, S, H * hd) @ w
 
 
 def _maybe_full_rope(config, cos, sin, ring=None):
@@ -361,7 +408,8 @@ def _attention(config, q, k, v, ring=None):
     [B,S,KVH,Dh] -> [B,S,H,Dh]. Under a seq axis (``ring``) Ulysses with
     ``attn_impl="ulysses"``, else the ring, over [B,H,S,Dh]; with
     ``attn_impl="bshd"`` the model-native layout end to end (no q/k/v/o
-    transposes); else plain attention."""
+    transposes); with ``attn_impl="flash"`` (the fp8 branch) K1-K4 on the
+    transposed q/k/v, rope applied before; else plain attention."""
     if ring is not None:
         impl = "ulysses" if config.attn_impl == "ulysses" else "ring"
         return sequence_sharded_attention(
@@ -369,6 +417,11 @@ def _attention(config, q, k, v, ring=None):
             impl=impl, causal=True).transpose(1, 2)
     if config.attn_impl == "bshd":
         return flash_attention_bshd(q, k, v, causal=True)
+    if config.attn_impl == "flash":
+        # off the einsum-form branch (fp8): rope already applied
+        return flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2),
+                               causal=True).transpose(1, 2)
     return mha_reference(q.transpose(1, 2), k.transpose(1, 2),
                          v.transpose(1, 2), causal=True).transpose(1, 2)
 
@@ -395,21 +448,21 @@ def _layer(config: LlamaConfig, x, p, rope_cos, rope_sin, ring=None,
     if _flash_path(config, ring):
         # projections viewed as [B,H,S,Dh] (no copies): the kernels read
         # heads and rows by stride
-        qt = (y @ p["wq"]).view(B, S, h, hd).transpose(1, 2)
-        kt = (y @ p["wk"]).view(B, S, kvh, hd).transpose(1, 2)
-        vt = (y @ p["wv"]).view(B, S, kvh, hd).transpose(1, 2)
+        qt = project_heads(y, p["wq"], h, hd, "attn_qkv")
+        kt = project_heads(y, p["wk"], kvh, hd, "attn_qkv")
+        vt = project_heads(y, p["wv"], kvh, hd, "attn_qkv")
         out = flash_attention(qt, kt, vt, causal=True, rope_cos=rope_cos,
                               rope_sin=rope_sin)
-        x = x + from_tensor(
-            out.transpose(1, 2).reshape(B, S, h * hd) @ p["wo"])
+        x = x + from_tensor(project_out(out, p["wo"], "attn_out"))
     else:
-        q = (y @ p["wq"]).view(B, S, h, hd)
-        k = (y @ p["wk"]).view(B, S, kvh, hd)
-        v = (y @ p["wv"]).view(B, S, kvh, hd)
+        q = qdot(y, p["wq"], site="attn_qkv").view(B, S, h, hd)
+        k = qdot(y, p["wk"], site="attn_qkv").view(B, S, kvh, hd)
+        v = qdot(y, p["wv"], site="attn_qkv").view(B, S, kvh, hd)
         q = _rope_apply(q, rope_cos, rope_sin)
         k = _rope_apply(k, rope_cos, rope_sin)
         attn = _attention(config, q, k, v, ring)
-        x = x + from_tensor(attn.reshape(B, S, h * hd) @ p["wo"])
+        x = x + from_tensor(qdot(attn.reshape(B, S, h * hd), p["wo"],
+                                 site="attn_out"))
 
     if config.is_moe:
         y = _rms_norm(x, p["mlp_norm"], config.norm_eps)
@@ -421,8 +474,9 @@ def _layer(config: LlamaConfig, x, p, rope_cos, rope_sin, ring=None,
                + config.moe_z_weight * metrics["z_loss"])
         return x + out, aux
     y = to_tensor(_rms_norm(x, p["mlp_norm"], config.norm_eps))
-    mlp = F.silu(y @ p["w_gate"]) * (y @ p["w_up"])
-    return x + from_tensor(mlp @ p["w_down"]), None
+    mlp = (F.silu(qdot(y, p["w_gate"], site="mlp"))
+           * qdot(y, p["w_up"], site="mlp"))
+    return x + from_tensor(qdot(mlp, p["w_down"], site="mlp")), None
 
 
 def _identity(x):

@@ -18,8 +18,13 @@ from dlrover_tpu_torch.ops.quantization import (  # noqa: F401
 
 def launch_counts() -> dict:
     """Every kernel wrapper's launch count in this process, by kernel."""
-    from dlrover_tpu_torch.ops import attention, fused_optim, quantization
+    from dlrover_tpu_torch.ops import (
+        attention,
+        fused_optim,
+        lowp,
+        quantization,
+    )
 
     return {kernel.__name__: kernel.launches
-            for mod in (attention, quantization, fused_optim)
+            for mod in (attention, quantization, fused_optim, lowp)
             for kernel in mod.KERNELS}

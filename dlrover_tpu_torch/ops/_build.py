@@ -37,6 +37,7 @@ SOURCES = {
     "flash_heads": "flash_heads.cu",
     "flash_ring": "flash_ring.cu",
     "optim": "optim.cu",
+    "lowp": "lowp.cu",
 }
 HEADERS = ("flash_common.cuh", "sm90_common.cuh", "flash_fwd_sm90.cuh",
            "flash_fwd_sm90_d64.cuh", "flash_bwd_sm90.cuh")
@@ -137,3 +138,12 @@ def launch(symbol: str, library: str, argtypes, *args) -> None:
     err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{symbol}: CUDA error {err} at launch")
+
+
+def check_one_device(name, *tensors) -> None:
+    """Raise unless every tensor (None skipped) is on one device: a
+    wrapper takes its kernel when any operand is off the CPU, so a CPU
+    tensor among them is a mixed-device call."""
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: mixed devices {sorted(map(str, devices))}")

@@ -44,7 +44,6 @@ from dlrover_tpu_torch.ops.quantization import (
     _INV_LOG_STEP,
     _LOG_LO,
     _LOG_STEP,
-    _check_one_device,
     _n_rows,
     _symmetric_scale,
 )
@@ -282,7 +281,7 @@ def fused_adamw32(sc, params, grads, mu, nu, meta, *, b1=0.9, b2=0.999,
               clip_norm=clip_norm)
     if _is_cpu(sc, mu, nu, *params, *grads):
         return fused_adamw32_plain(sc, params, grads, mu, nu, meta, **kw)
-    _check_one_device("fused_adamw32", sc, mu, nu, *params, *grads)
+    _build.check_one_device("fused_adamw32", sc, mu, nu, *params, *grads)
     rows = (meta.total_rows, BLOCK)
     _check_arrays("fused_adamw32", (sc, torch.float32, (4,)),
                   (mu, torch.float32, rows), (nu, torch.float32, rows))
@@ -304,7 +303,7 @@ def fused_adamw8(sc, params, grads, mu_q, mu_scale, nu_q, nu_scale, u, meta,
     state = (mu_q, mu_scale, nu_q, nu_scale, u)
     if _is_cpu(sc, *state, *params, *grads):
         return fused_adamw8_plain(sc, params, grads, *state, meta, **kw)
-    _check_one_device("fused_adamw8", sc, *state, *params, *grads)
+    _build.check_one_device("fused_adamw8", sc, *state, *params, *grads)
     rows, scales = (meta.total_rows, BLOCK), (meta.total_rows, 1)
     _check_arrays("fused_adamw8", (sc, torch.float32, (4,)),
                   (mu_q, torch.int8, rows), (nu_q, torch.uint8, rows),

@@ -22,6 +22,16 @@ its loss is weighted by its share of the valid labels, and the loss and
 the gradients are summed over the group, so every rank returns the
 global loss and applies the same update.
 
+Low-precision compute (``compute_dtype`` "fp8" or "int8", the JAX
+package's): the masters are cast to bf16 and each microbatch's loss runs
+under ``quant_autocast(mode, sites=strategy.quant_sites)``, so that the
+models' tagged matmuls (ops/fp8.py ``qdot``/``qeinsum``) run on the fp8
+or int8 tensor cores. On a CUDA device, "fp8" needs compute capability
+8.9 (Ada, Hopper) and "int8" 8.0; below that the step raises rather than
+emulate. A quant mode on a process group (a sharded mesh or a seq group)
+raises: per-tensor fp8 scales over local shards are not the global
+tensor's (ROADMAP Queue 1 item 12).
+
 The ``data``, ``fsdp``, ``expert`` and ``tensor`` axes (a process
 group, no seq axis) lay a ``DeviceMesh`` over the ranks
 (parallel/mesh.py). Each fp32
@@ -48,6 +58,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import torch
@@ -56,6 +67,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from dlrover_tpu_torch.common.log import get_logger
 from dlrover_tpu_torch.device import resolve_device
 from dlrover_tpu_torch.ops.cross_entropy import IGNORE_INDEX
+from dlrover_tpu_torch.ops.fp8 import QUANT_MODES, quant_autocast
 from dlrover_tpu_torch.ops.fused_optim import tree_order
 from dlrover_tpu_torch.parallel import remat as remat_lib
 from dlrover_tpu_torch.parallel.mesh import (
@@ -70,7 +82,12 @@ from dlrover_tpu_torch.parallel.strategy import DEFAULT_RULES, Strategy
 
 logger = get_logger(__name__)
 
-_COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# the dtype the masters are cast to for the forward and backward; a quant
+# mode computes in bf16 around its quantized matmuls
+_COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+                   "fp8": torch.bfloat16, "int8": torch.bfloat16}
+# the least CUDA compute capability with the mode's tensor cores
+_QUANT_CAPABILITY = {"fp8": (8, 9), "int8": (8, 0)}
 
 
 @dataclasses.dataclass
@@ -105,9 +122,9 @@ def _check_strategy(strategy: Strategy) -> None:
     if strategy.remat != "none":
         remat_lib.strategy_policy(strategy.remat)  # raises if unknown
     if strategy.compute_dtype not in _COMPUTE_DTYPES:
-        raise NotImplementedError(
-            f"compute_dtype={strategy.compute_dtype!r} is not ported yet "
-            "(fp8/int8: ROADMAP Queue 1 item 12)")
+        raise ValueError(
+            f"compute_dtype={strategy.compute_dtype!r}: want one of "
+            f"{', '.join(_COMPUTE_DTYPES)}")
     if strategy.overlap_collectives != "off":
         raise NotImplementedError(
             "overlap_collectives (parallel/overlap.py) is not ported yet "
@@ -117,12 +134,27 @@ def _check_strategy(strategy: Strategy) -> None:
             "donate=False: the port's step always updates the state in "
             "place; keeping the old buffers is not ported (ROADMAP Queue 1 "
             "item 7)")
-    if strategy.quant_sites != "all":
-        raise NotImplementedError(
-            f"quant_sites={strategy.quant_sites!r} selects int8/fp8 matmul "
-            "sites, not ported yet (ROADMAP Queue 1 item 12)")
     if int(strategy.grad_accum) < 1:
         raise ValueError(f"grad_accum must be >= 1, got {strategy.grad_accum}")
+
+
+def _check_quant(quant, device, mesh: Mesh) -> None:
+    """Raise where a quant mode has no tensor cores or no port yet."""
+    if quant is None:
+        return
+    if device.type == "cuda":
+        have = torch.cuda.get_device_capability(device)
+        need = _QUANT_CAPABILITY[quant]
+        if have < need:
+            raise NotImplementedError(
+                f"compute_dtype={quant!r} needs compute capability "
+                f"{need[0]}.{need[1]} ({quant} tensor cores); "
+                f"{torch.cuda.get_device_name(device)} has "
+                f"{have[0]}.{have[1]}")
+    if mesh.sharded or isinstance(mesh.ring, ProcessGroupRing):
+        raise NotImplementedError(
+            f"compute_dtype={quant!r} on a process group (per-tensor scales "
+            "over local shards) is not ported yet (ROADMAP Queue 1 item 12)")
 
 
 def _remat_wrap(loss_fn: Callable, mode: str) -> Callable:
@@ -285,6 +317,9 @@ def auto_accelerate(
     # a process group splits the batch; the in-process ring needs nothing
     group = mesh.ring if isinstance(mesh.ring, ProcessGroupRing) else None
     compute_dtype = _COMPUTE_DTYPES[strategy.compute_dtype]
+    quant = (strategy.compute_dtype if strategy.compute_dtype in QUANT_MODES
+             else None)
+    _check_quant(quant, device, mesh)
     accum = int(strategy.grad_accum)
     inner_loss = _remat_wrap(loss_fn, strategy.remat)
 
@@ -341,6 +376,9 @@ def auto_accelerate(
         # remat="none" means none: the model checkpoints no layer either
         rctx = (remat_lib.no_remat if strategy.remat == "none"
                 else contextlib.nullcontext)
+        qctx = (contextlib.nullcontext if quant is None else
+                functools.partial(quant_autocast, quant,
+                                  sites=strategy.quant_sites))
         for mb in micro:
             cparams = {n: p.to(compute_dtype)
                        for n, p in state.params.items()}
@@ -351,7 +389,7 @@ def auto_accelerate(
                 share = valid / group.all_reduce(valid.clone()).clamp(min=1)
             if mesh.sharded:
                 mb = {k: as_rows(v) for k, v in mb.items()}
-            with rctx():
+            with rctx(), qctx():
                 loss = inner_loss(cparams, mb, rng)
             if group is not None:
                 loss = loss * share

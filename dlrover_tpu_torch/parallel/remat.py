@@ -27,6 +27,16 @@ JAX ring's forward (a ``custom_vjp``) is invisible to its policies.
 ``Strategy.remat="none"`` means none: :func:`no_remat` is active around
 the loss, and the model then checkpoints no layer whatever its config
 says (the JAX package's ``no_remat_autocast``).
+
+Low-precision compute (``compute_dtype`` "fp8" or "int8"): every table
+also saves the quantized matmul ops (``fp8_dot``, ``int8_dot``,
+``int8_einsum``: their product and their fp8/int8 residuals), even under
+``"full"``, the JAX package's ``quant_aware_policy`` ("qdot_out" and
+"qdot_res" always saved). Their integer accumulator stays inside the op
+and is never saved. The quant mode is module state read when the model
+runs, so each checkpoint captures it at the forward and restores it for
+the recompute in the backward, which runs after ``quant_autocast`` has
+exited.
 """
 
 from __future__ import annotations
@@ -40,8 +50,10 @@ import torch.utils.checkpoint
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_map
 
-# registers the ops of K1 and K9 that the policies name
+# registers the ops of K1 and K9 and the quantized matmuls that the
+# policies name
 import dlrover_tpu_torch.ops.attention  # noqa: F401
+from dlrover_tpu_torch.ops import fp8 as fp8_lib
 
 aten = torch.ops.aten
 
@@ -51,10 +63,15 @@ _DOTS_NO_BATCH = (aten.mm.default, aten.addmm.default)
 _BATCHED_DOTS = (aten.bmm.default, aten.baddbmm.default)
 _ATTN = (torch.ops.dlrover_tpu_torch.flash_fwd.default,
          torch.ops.dlrover_tpu_torch.flash_fwd_heads.default)
+# the quantized matmuls: saved on the device by every table
+QUANT = (torch.ops.dlrover_tpu_torch.fp8_dot.default,
+         torch.ops.dlrover_tpu_torch.int8_dot.default,
+         torch.ops.dlrover_tpu_torch.int8_einsum.default)
 
 
 def _table(save=(), offload=()):
-    return {**{op: SAVE for op in save}, **{op: OFFLOAD for op in offload}}
+    return {**{op: SAVE for op in save + QUANT},
+            **{op: OFFLOAD for op in offload}}
 
 
 def strategy_policy(mode: str) -> dict:
@@ -65,7 +82,7 @@ def strategy_policy(mode: str) -> dict:
     if mode == "offload":
         return _table(offload=_DOTS_NO_BATCH)
     if mode == "full":
-        return {}
+        return _table()
     raise ValueError(f"unknown remat mode {mode!r}: none | minimal | "
                      "offload | full")
 
@@ -146,9 +163,8 @@ class _ReplayMode(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-def _contexts(policy: dict):
-    """``context_fn`` of :func:`torch.utils.checkpoint.checkpoint`: the
-    library's selective contexts where the policy only saves, the
+def _selective(policy: dict):
+    """The library's selective contexts where the policy only saves, the
     offloading pair above where it offloads."""
     if OFFLOAD in policy.values():
         store = defaultdict(list)
@@ -162,6 +178,22 @@ def _contexts(policy: dict):
 
     return torch.utils.checkpoint.create_selective_checkpoint_contexts(
         choose)
+
+
+@contextlib.contextmanager
+def _recompute(inner, quant):
+    """The recompute's context: ``inner`` under the quant mode the
+    forward ran with."""
+    with fp8_lib.restored(quant), inner:
+        yield
+
+
+def _contexts(policy: dict):
+    """``context_fn`` of :func:`torch.utils.checkpoint.checkpoint`, called
+    at the forward: the selective pair, the recompute's under the
+    forward's quant mode."""
+    forward, recompute = _selective(policy)
+    return forward, _recompute(recompute, fp8_lib.capture())
 
 
 def checkpoint(fn, *args, policy: dict):

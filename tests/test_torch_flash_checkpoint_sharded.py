@@ -17,8 +17,10 @@ spawned processes import it.
 """
 
 import dataclasses
+import faulthandler
 import os
 import time
+import traceback
 
 import numpy as np
 import pytest
@@ -203,7 +205,30 @@ def _trainer_cases(out_dir):
             "eval": (ref_eval, second_eval)}
 
 
+def _mark(tmp, rank, what):
+    """Append ``what`` and the time to this rank's progress file."""
+    with open(os.path.join(tmp, f"rank{rank}.log"), "a") as f:
+        f.write(f"{time.monotonic():.3f} {what}\n")
+
+
 def _worker(rank, store, tmp, job):
+    """One rank; its traceback (or, if it is still running shortly
+    before the deadline, every thread's stack) goes to ``rank<r>.err``
+    for the fixture's message."""
+    err = open(os.path.join(tmp, f"rank{rank}.err"), "w")
+    faulthandler.dump_traceback_later(GLOO_DEADLINE_S - 10, file=err)
+    try:
+        _rank_cases(rank, store, tmp, job)
+    except BaseException:
+        err.write(traceback.format_exc())
+        raise
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+        err.close()
+
+
+def _rank_cases(rank, store, tmp, job):
+    _mark(tmp, rank, "start")
     os.environ.update({
         "RANK": str(rank), "WORLD_SIZE": str(N), "LOCAL_RANK": str(rank),
         "LOCAL_WORLD_SIZE": str(N), "NODE_RANK": "0",
@@ -216,22 +241,28 @@ def _worker(rank, store, tmp, job):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=N)
+    _mark(tmp, rank, "process group")
     try:
         got = _engine_cases(os.path.join(tmp, "ckpt"))
+        _mark(tmp, rank, "engine cases")
         dist.barrier()
         AsyncCheckpointSaver.reset()
         got["trainer"] = _trainer_cases(os.path.join(tmp, "trainer"))
+        _mark(tmp, rank, "trainer cases")
         torch.save(got, os.path.join(tmp, f"rank{rank}.pt"))
     finally:
         AsyncCheckpointSaver.reset()
+        # the timer ring is one segment for the job: every rank tries
+        # it, and another rank may unlink it between this rank's open
+        # and its unlink
         for name in (f"dlrtpu_torch_ckpt_{job}_{rank}",
                      f"dlrtpu_torch_timer_{job}"):
             try:
                 seg = PersistentSharedMemory(name=name)
+                seg.close()
+                seg.unlink()
             except FileNotFoundError:
                 continue
-            seg.close()
-            seg.unlink()
         dist.destroy_process_group()
 
 
@@ -248,16 +279,33 @@ def sharded_run(tmp_path_factory):
     deadline = time.monotonic() + GLOO_DEADLINE_S
     for proc in procs:
         proc.join(max(0.0, deadline - time.monotonic()))
-    hung = [p.pid for p in procs if p.is_alive()]
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
     for proc in procs:
         if proc.is_alive():
             proc.kill()
             proc.join()
-    assert not hung, (f"gloo ranks {hung} still running after "
-                      f"{GLOO_DEADLINE_S} s; killed")
-    assert [p.exitcode for p in procs] == [0] * N
+    codes = [p.exitcode for p in procs]
+    assert not hung and codes == [0] * N, _failure(tmp, hung, codes)
     return tmp, [torch.load(tmp / f"rank{r}.pt", weights_only=False)
                  for r in range(N)]
+
+
+def _failure(tmp, hung, codes):
+    """The fixture's message: which ranks hung, the exit codes, each
+    rank's progress and traceback, and the inherited environment that
+    the package reads."""
+    lines = [f"ranks still running after {GLOO_DEADLINE_S} s (killed): "
+             f"{hung}; exit codes {codes}"]
+    for r in range(N):
+        for suffix in ("log", "err"):
+            path = tmp / f"rank{r}.{suffix}"
+            text = path.read_text() if path.exists() else "(none)"
+            lines.append(f"--- rank {r} {suffix}:\n{text.strip()}")
+    env = {k: v for k, v in os.environ.items()
+           if k.startswith(("DLROVER", "ELASTIC", "MASTER", "RANK",
+                            "WORLD", "LOCAL", "NODE", "TORCH"))}
+    lines.append(f"--- inherited environment: {env}")
+    return "\n".join(lines)
 
 
 def _assert_tree_equal(got, want):

@@ -276,12 +276,15 @@ def test_unported_settings_raise_naming_their_items():
         gpt2_init(GPT2Config(**dict(SMALL, attn_impl="ulysses")),
                   device="cpu")
     tc = GPT2Config(**SMALL)
+    # item 12's compute dtypes are ported: the strategies build and run
+    # (tests/test_torch_fp8.py holds them against the JAX package)
     for dtype in ("int8", "fp8"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            auto_accelerate(gpt2_loss_fn(tc), lambda s, d: {},
-                            build_optimizer("sgd", 0.1),
-                            Strategy(remat="none", compute_dtype=dtype),
-                            device="cpu")
+        res = auto_accelerate(gpt2_loss_fn(tc),
+                              lambda s, d: gpt2_init(tc, s, d),
+                              build_optimizer("sgd", 0.1),
+                              Strategy(remat="none", compute_dtype=dtype),
+                              device="cpu")
+        assert f"dtype={dtype}" in res.strategy.describe()
     with pytest.raises(NotImplementedError, match="pipe"):
         build_mesh(MeshConfig(pipe=2))
 
