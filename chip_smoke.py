@@ -178,7 +178,17 @@ Phases, each fatal on failure (no exception is caught):
    Trainer's restore (every leaf's local shard ``torch.equal``,
    placements kept; its seconds) and 2 more steps within 1e-5
    (relative) of the first Trainer's continuation; the group destroyed
-   after; then ``[gpt2]``: gpt2-124m's logits (12 layers, full width,
+   after; ``[reshape1]``, the in-process reshape at one rank: nano-350m
+   through the Trainer on a one-rank NCCL DeviceMesh with Flash
+   Checkpoint and a reshape channel, 3 steps, then a request of round 2
+   for the same world (1 -> 1) at that boundary: the agreement, a save
+   of the step, the group destroyed and formed anew on NCCL from
+   another store, the mesh and the optimizer rebuilt, the state moved
+   by the mover, and 3 more steps: the ack ok, the losses after the
+   round within 1e-5 of an uninterrupted run from the same weights
+   (bit-equality printed), K1-K4 16 a step on both sides, one process,
+   the state on the card; each leg's seconds with the card's name and
+   power limit in a ``{"reshape1": ...}`` line; then ``[gpt2]``: gpt2-124m's logits (12 layers, full width,
    head_dim 64) through the flash branch and the bshd route against the
    reference branch; gpt2-1.5b at full width and depth (48 layers, dim
    1600, 25 heads, mlp 6400, vocab 50257) through ``Trainer``: B8 S1024,
@@ -1853,6 +1863,207 @@ def mesh1_chain(cfg, run_dir) -> dict:
             "loss_gap_after_restore": gap}
 
 
+# --------------------------------------------------------------- [reshape1]
+
+RESHAPE1_STEPS = 3  # steps on each side of the round
+
+
+class TokenRows:
+    """Token rows as examples/llama_pretrain.py makes them (row ``idx`` is
+    RandomState(idx)'s), for an elastic loader."""
+
+    def __init__(self, vocab, seq_len, n):
+        self.vocab, self.seq_len, self.n = vocab, seq_len, n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, idx):
+        return np.random.RandomState(idx).randint(
+            0, self.vocab, size=(self.seq_len + 1,), dtype=np.int32)
+
+
+def reshape1_trainer(cfg, out, channel, B=8, S=2048):
+    """nano-350m through the port's Trainer on a one-rank DeviceMesh
+    (``MeshConfig(fsdp=-1)``, bf16 over f32 masters, adamw), Flash
+    Checkpoint saving to shm at step RESHAPE1_STEPS; each step's loss,
+    wall ms (synchronised) and launch counts kept."""
+    from dlrover_tpu_torch.models import (
+        llama_init,
+        llama_logical_axes,
+        llama_loss_fn,
+    )
+    from dlrover_tpu_torch.parallel import MeshConfig, Strategy
+    from dlrover_tpu_torch.trainer import Trainer, TrainingArgs
+    from dlrover_tpu_torch.trainer.elastic import (
+        ElasticDataLoader,
+        ElasticSampler,
+    )
+
+    n = B * 2 * RESHAPE1_STEPS
+    loader = ElasticDataLoader(
+        TokenRows(cfg.vocab_size, S, n), batch_size=B,
+        sampler=ElasticSampler(n, num_replicas=1, rank=0, shuffle=False),
+        collate_fn=lambda rows: {"tokens": np.stack(rows)})
+
+    class Recording(Trainer):
+        def _adopt_accel(self, params):
+            super()._adopt_accel(params)
+            self.wrap()
+
+        def wrap(self):
+            inner = self._accel.train_step
+
+            def step(state, batch, rng):
+                t0 = time.perf_counter()
+                state, metrics = inner(state, batch, rng)
+                torch.cuda.synchronize()
+                self.steps.append({
+                    "step": state.step, "loss": metrics["loss"],
+                    "ms": (time.perf_counter() - t0) * 1e3,
+                    "launches": launch_counts()})
+                if self.after_step is not None:
+                    self.after_step(state.step)
+                return state, metrics
+
+            self._accel.train_step = step
+
+    args = TrainingArgs(
+        output_dir=str(out), max_steps=2 * RESHAPE1_STEPS,
+        learning_rate=SLICE_LR, log_steps=0,
+        flash_checkpoint=channel is not None, save_steps=RESHAPE1_STEPS,
+        save_storage_every=1000,
+        strategy=Strategy(remat="none", mesh=MeshConfig(data=1, fsdp=-1)))
+    Recording.steps, Recording.after_step = None, None
+    tr = Recording(
+        llama_loss_fn(cfg), lambda s, d: llama_init(cfg, s, d),
+        llama_logical_axes(cfg), args, train_data=loader,
+        reshape_channel=channel, device="cuda")
+    tr.steps = []
+    tr.wrap()
+    return tr
+
+
+def reshape1_phase(cfg):
+    """[reshape1]: the in-process reshape on the card, 1 -> 1. A one-rank
+    NCCL group from a ``file://`` store, nano-350m through the Trainer
+    with Flash Checkpoint and a reshape channel; after step
+    RESHAPE1_STEPS a request of round 2 for the same world arrives, and
+    at that boundary the Trainer agrees on it, saves the step, destroys
+    the group and forms a new one on NCCL (another store), rebuilds the
+    DeviceMesh and the optimizer, moves the state through the mover and
+    trains RESHAPE1_STEPS more. Gates: the ack ok; the losses after the
+    round within LOSS_TOL (absolute) of an uninterrupted run from the
+    same weights (bit-equality printed); K1-K4 16 a step on both sides;
+    one process (no restart), the state on the card on an NCCL group.
+    Prints each leg of the reshape with the card's name and power
+    limit. The group is destroyed at the end, also when a check fails;
+    no fallback: a failed ack or any exception fails the run."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from dlrover_tpu_torch.parallel import set_mesh
+    from dlrover_tpu_torch.trainer.elastic.reshape import (
+        ReshapeChannel,
+        ReshapeRequest,
+    )
+
+    if dist.is_initialized():
+        raise SystemExit("reshape1: a process group already exists")
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="reshape1")
+    pid = os.getpid()
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store1",
+                            rank=0, world_size=1)
+    per_step = {name: n for name, n in attention_launches(cfg, 1).items()
+                if name in FLASH_KERNELS}
+    try:
+        job = os.environ["ELASTIC_JOB_NAME"]
+        with flash_env("reshape1", job):
+            channel = ReshapeChannel(os.path.join(tmp, "chan"))
+            request = ReshapeRequest(
+                round=2, world={0: 1}, prev_world={0: 1}, total=1,
+                coordinator=f"file://{tmp}/store2")
+            tr = reshape1_trainer(cfg, CKPT_DIR / "reshape1", channel)
+            # the agent's request lands during the last step before it
+            tr.after_step = lambda step: (
+                channel.signal(request) if step == RESHAPE1_STEPS else None)
+            reset_launches()
+            t_train = time.perf_counter()
+            tr.train()
+            train_s = time.perf_counter() - t_train
+            ack = channel.read_ack(2)
+            if not ack or not ack.get("ok"):
+                raise SystemExit(f"reshape1: the round was not adopted: {ack}")
+            if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+                raise SystemExit("reshape1: not on a one-rank NCCL group")
+            placed = {(type(p).__name__, p.device.type,
+                       getattr(getattr(p, "device_mesh", None),
+                               "device_type", None))
+                      for p in tr.state.params.values()}
+            if placed != {("DTensor", "cuda", "cuda")}:
+                raise SystemExit(f"reshape1: params after the round {placed}")
+            got = tr.steps
+            tr.close()
+            del tr
+            release()
+        set_mesh(None)
+        ref_tr = reshape1_trainer(cfg, CKPT_DIR / "reshape1-ref", None)
+        ref_tr.train()
+        ref = ref_tr.steps
+        del ref_tr
+        release()
+    finally:
+        set_mesh(None)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if os.getpid() != pid or len(got) != 2 * RESHAPE1_STEPS:
+        raise SystemExit(f"reshape1: {len(got)} steps in this process")
+    losses = [r["loss"].item() for r in got]
+    ref_losses = [r["loss"].item() for r in ref]
+    after = slice(RESHAPE1_STEPS, None)
+    gap = max(abs(a - b) for a, b in zip(losses[after], ref_losses[after]))
+    if gap > LOSS_TOL:
+        raise SystemExit(f"reshape1: losses after the round {losses[after]} "
+                         f"against the uninterrupted {ref_losses[after]}")
+    prev = {name: 0 for name in per_step}
+    for r in got:
+        delta = {name: r["launches"][name] - prev[name] for name in per_step}
+        prev = {name: r["launches"][name] for name in per_step}
+        if delta != per_step:
+            raise SystemExit(f"reshape1: step {r['step']} launched {delta}, "
+                             f"want {per_step}")
+    steady = statistics.median(r["ms"] for r in got[1:RESHAPE1_STEPS])
+    legs = {k: ack[k] for k in ("agree_s", "boundary_save_s",
+                                "group_reform_s", "adopt_s", "restore_s")}
+    report = {
+        "card": CARD["line"], "config": "nano-350m", "batch": 8,
+        "seq": 2048, "world": "1 -> 1 (NCCL)", "ack_ok": ack["ok"],
+        "boundary_step": ack["step"], "moved": ack["moved"],
+        "pulled": ack["pulled"], "legs_s": legs,
+        "reshape_total_s": ack["dur"],
+        "first_step_after_ms": got[RESHAPE1_STEPS]["ms"],
+        "steady_step_ms_median_2_to_3": steady,
+        "first_step_after_over_steady": got[RESHAPE1_STEPS]["ms"] / steady,
+        "step_ms": [r["ms"] for r in got], "losses": losses,
+        "uninterrupted_losses": ref_losses,
+        "loss_gap_after_round": gap,
+        "bit_equal_after_round": losses[after] == ref_losses[after],
+        "launches_per_step": per_step, "train_s_with_final_persist": train_s,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    log(f"  [reshape1] {CARD['line']}: round 2 adopted at step "
+        f"{ack['step']} in {ack['dur']:.3f} s; legs {legs}; first step "
+        f"after {got[RESHAPE1_STEPS]['ms']:.1f} ms (steady {steady:.1f}); "
+        f"loss gap {gap:.3g} (bit-equal {report['bit_equal_after_round']})")
+    log(json.dumps({"reshape1": report}))
+    return report
+
+
 def loss_gap(label, losses, adamw_losses, limit=2e-2, relative=False,
              to="adamw"):
     """Fail when a run's losses leave the adamw run's (or another run's,
@@ -2940,6 +3151,10 @@ class ContextWatch:
                 role = "probe"
             elif "agent.node_check" in cmd:
                 role = "node_check"
+            elif "trainer.run" in cmd:
+                # the launcher's own command line (which names the worker
+                # script) in a child it forked and that has not exec'd
+                role = "other: a fork of the launcher"
             elif "llama_pretrain" in cmd or "failover_worker" in cmd:
                 role = "worker"
             else:
@@ -5153,6 +5368,7 @@ POOL_CAPACITY = 1024
 POOL_SEED = 7
 POOL_KILL_RANK = 1
 POOL_KILL_AFTER_DONE = 16
+POOL_STOP_GRACE_S = 0.2
 POOL_TIMEOUT_S = 150
 POOL_DIR = ROOT / "_serve_pool"
 
@@ -5208,7 +5424,8 @@ def serve_worker(spec: dict) -> int:
                                 "latency_s": fin.latency_s}) + "\n")
         written += len(fins)
         f.flush()
-        write_json(spec["stats"], worker.scheduler.stats())
+        write_json(spec["stats"], dict(worker.scheduler.stats(),
+                                       held=worker.scheduler.held()))
 
     with open(spec["out"], "a") as f:
         while not os.path.exists(spec["stop"]):
@@ -5234,21 +5451,44 @@ def read_json(path):
         return None
 
 
+def kill_if_leased(victim, spec: dict, client) -> list:
+    """SIGKILL a [serve-pool] worker only while the master's ledger has
+    requests leased to it, and return their ids; else resume it and
+    return []. The worker is stopped (SIGSTOP) before the check, so what
+    it holds cannot change under it, and a report sent just before the
+    stop lands during POOL_STOP_GRACE_S. A request the stopped worker
+    held (its last stats) and the master still has leased can then only
+    come back through the lease's expiry."""
+    import signal
+
+    victim.send_signal(signal.SIGSTOP)
+    time.sleep(POOL_STOP_GRACE_S)
+    held = (read_json(spec["stats"]) or {}).get("held", [])
+    leased = [rid for rid in held
+              if client.serve_fetch(rid).state == "leased"]
+    if not leased:
+        victim.send_signal(signal.SIGCONT)
+        return []
+    victim.send_signal(signal.SIGKILL)
+    victim.wait(30)
+    return leased
+
+
 def serve_pool_phase() -> dict:
     """[serve-pool]: ``python -m dlrover_tpu_torch.master.main --platform
     local --port 0``, two decode worker processes on the card (each a
     DecodeWorker over RpcServingClient with a nano-350m engine at full
     width, bf16, 8 slots of 1024), a seeded Poisson sweep of 64 requests
     (prompts 16-512, 16-128 new tokens, greedy) through
-    ``MasterClient.serve_submit``, worker 1 SIGKILLed mid-sweep while it
-    holds requests. Gates: every request fetched ``done`` with the
-    tokens a reference engine in this process (same weights, same pool
-    shape) gives it; the ledger's done count 64, failed 0, at most 2
-    attempts, at least one re-queue; overlap >= 2; no CUDA context
+    ``MasterClient.serve_submit``, worker 1 SIGKILLed mid-sweep while the
+    master has requests leased to it (``kill_if_leased``). Gates: every
+    request fetched ``done`` with the tokens a reference engine in this
+    process (same weights, same pool shape) gives it; the ledger's done
+    count 64, failed 0, at most 2 attempts, every request leased to the
+    victim re-queued; overlap >= 2; no CUDA context
     beyond this process's once the workers are gone. Every process and
     file is removed at the end, also when a check fails."""
     import shutil
-    import signal
     import threading
 
     from dlrover_tpu_torch.agent.master_client import MasterClient
@@ -5324,17 +5564,15 @@ def serve_pool_phase() -> dict:
         while time.monotonic() < deadline:
             counts = status_client.serve_status()["counts"]
             if killed is None and counts["done"] >= POOL_KILL_AFTER_DONE:
-                stats = read_json(specs[POOL_KILL_RANK]["stats"]) or {}
-                if stats.get("live", 0) > 0:
-                    victim = workers[POOL_KILL_RANK]
-                    victim.send_signal(signal.SIGKILL)
-                    victim.wait(30)
+                leased = kill_if_leased(workers[POOL_KILL_RANK],
+                                        specs[POOL_KILL_RANK], status_client)
+                if leased:
                     killed = {"at_s": time.monotonic() - t_sweep,
                               "done_before": counts["done"],
-                              "live_in_victim": stats["live"]}
+                              "leased_in_victim": len(leased)}
                     log(f"  [serve-pool] SIGKILLed worker {POOL_KILL_RANK} "
                         f"at {killed['at_s']:.2f} s into the sweep, "
-                        f"holding {stats['live']} live request(s)")
+                        f"holding {len(leased)} leased request(s)")
             if submitted and counts["done"] + counts["failed"] >= \
                     POOL_REQUESTS:
                 break
@@ -5384,8 +5622,11 @@ def serve_pool_phase() -> dict:
             failures.append(f"ledger {counts}")
         if counts.get("max_attempts_seen", 0) > 2:
             failures.append("a request was leased more than twice")
-        if killed is not None and counts.get("requeued_total", 0) < 1:
-            failures.append("nothing was re-queued after the kill")
+        if killed is not None and counts.get("requeued_total", 0) < \
+                killed["leased_in_victim"]:
+            failures.append(f"{counts.get('requeued_total', 0)} re-queued "
+                            f"after the kill, {killed['leased_in_victim']} "
+                            f"leased to the victim")
         if overlap < 2:
             failures.append(f"overlap {overlap}")
         if wrong:
@@ -6315,6 +6556,12 @@ def run_phases() -> int:
     # 5. the training slice through the kernels, once per optimizer
     log("phase slice:")
     launches = train_slice()
+    release()
+
+    # 5a. the in-process reshape on the card: 1 -> 1 over a re-formed
+    # NCCL group, K1-K4 on both sides of the round
+    log("phase reshape1:")
+    reshape1_phase(slice_config())
     release()
 
     # 5b. the GPT-2 family: gpt2-1.5b through Trainer, K1-K4 at head_dim 64

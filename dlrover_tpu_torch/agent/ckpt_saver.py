@@ -967,8 +967,12 @@ class AsyncCheckpointSaver:
                 )
             step_dir = self._step_dir(event.path, meta.step)
             self._save_shard(step_dir, meta, data, local_rank)
+            # a sharded save names the shards its step's commit waits
+            # for (its process group's size, which an in-process reshape
+            # changes under a fixed local world)
             self._commit_checkpoint(
-                step_dir, meta.step, local_rank, engine=meta.engine
+                step_dir, meta.step, local_rank, engine=meta.engine,
+                shards=int((meta.user_meta or {}).get("commit_shards", 0)),
             )
         finally:
             if acquired:
@@ -1047,7 +1051,8 @@ class AsyncCheckpointSaver:
         )
 
     def _commit_checkpoint(
-        self, step_dir: str, step: int, local_rank, engine: str = "sharded"
+        self, step_dir: str, step: int, local_rank, engine: str = "sharded",
+        shards: int = 0,
     ):
         """.done marker per shard; when all expected shards are done,
         update the tracker file (reference commit_checkpoint :847)."""
@@ -1060,7 +1065,7 @@ class AsyncCheckpointSaver:
         if engine == "replicated":
             total_shards = self.local_shard_num
         else:
-            total_shards = self.local_shard_num * self.num_hosts
+            total_shards = shards or self.local_shard_num * self.num_hosts
         deadline = time.time() + CheckpointConstant.SAVE_TIMEOUT
         while time.time() < deadline:
             done = len(

@@ -438,6 +438,7 @@ class ElasticTrainingAgent:
         # workers were spawned into (or last reshaped to), and the
         # per-local-rank agent<->worker reshape channels
         self._last_round = -1
+        self._last_world: dict = {}
         self._reshape_channels: dict[int, object] = {}
         # deep-profiling capture channels (agent <-> worker), plus the
         # executor thread and the in-flight directive id: the one-capture
@@ -497,6 +498,7 @@ class ElasticTrainingAgent:
             self._rdzv_handler.last_restore_step,
         )
         self._last_round = rdzv_round
+        self._last_world = dict(world)
         self._start_worker_processes(rank_offset, total, coordinator)
 
     def _worker_env(self, local_rank: int, global_rank: int, total: int, coordinator: str):
@@ -1029,15 +1031,25 @@ class ElasticTrainingAgent:
         )
         return True
 
+    # the seconds a drained host keeps for persisting its segments and
+    # stopping its workers after they acked their departure
+    PERSIST_BUDGET_S = 5.0
+
     def _execute_predrain(self, deadline: float, plan_id: str):
-        """The doomed host's half of a predictive-drain plan, ordered
-        for maximal overlap with the survivors' reshape: (1) the drain
-        report — survivors start reshaping around this host
-        immediately; (2) flush the shm checkpoint to storage so the
-        replacement resumes with zero replay; (3) stop workers cleanly
-        before the platform kill lands. The ``elastic.drained`` marker
-        is what re-charges the teardown gap from ``restart`` to
-        ``reshape`` in the goodput ledger."""
+        """The doomed host's half of a predictive-drain plan. Its workers
+        are alive at the drain point, so they take part in the survivors'
+        in-process reshape before they go: (1) the drain report; (2) wait
+        for the round formed without this host; (3) signal the workers a
+        request that marks them leaving: they save their shards at the
+        round's boundary with every other rank and ack; (4) wait for the
+        acks, within the plan's deadline less the persist's budget (a
+        worker late to ack stops unsaved, and its peers' boundary
+        agreement then finds it gone: a dead departure for them); (5)
+        flush the shm checkpoint to storage, where survivors on other
+        hosts read this host's slices and a replacement resumes with zero
+        replay; (6) stop the workers before the platform kill lands. The
+        ``elastic.drained`` marker re-charges the teardown gap from
+        ``restart`` to ``reshape`` in the goodput ledger."""
         t0 = time.monotonic()
         self._draining = True
         try:
@@ -1047,15 +1059,66 @@ class ElasticTrainingAgent:
                 "drain report failed; survivors will see a dead "
                 "departure instead"
             )
+        acked = self._depart_in_process(deadline)
         self._save_ckpt_at_breakpoint()
         budget = max(deadline - time.time() - 1.0, 1.0)
         self._stop_workers(timeout=min(budget, 30.0))
         telemetry.event(
             "elastic.drained", rank=self._config.node_rank,
             plan=plan_id, dur=time.monotonic() - t0,
-            deadline=deadline,
+            deadline=deadline, acked=acked,
         )
         telemetry.flush()
+
+    def _depart_in_process(self, deadline: float) -> bool:
+        """Steps (2)-(4) of a drain: True when every local worker acked
+        its departure at the new round's boundary."""
+        if not self._workers_reshape_ready() or not self._workers_alive():
+            return False
+        budget = deadline - time.time() - self.PERSIST_BUDGET_S
+        if budget <= 0:
+            return False
+        world = self._await_departure_round(budget)
+        if world is None:
+            logger.warning("no round formed without this host before the "
+                           "drain's deadline; its workers stop unsaved")
+            return False
+        acked = self._signal_reshape(
+            world, leaving=True,
+            timeout=max(deadline - time.time() - self.PERSIST_BUDGET_S,
+                        0.1))
+        if acked:
+            self._last_round = world.round
+            logger.info("workers left at round %s in process", world.round)
+        else:
+            logger.warning(
+                "workers did not ack their departure at round %s in time; "
+                "they stop unsaved (a dead departure for the survivors)",
+                world.round)
+            telemetry.event("elastic.drain.late_ack", round=world.round,
+                            rank=self._config.node_rank)
+        return acked
+
+    def _await_departure_round(self, timeout: float):
+        """The next formed round without this host, or None on timeout
+        (or when a worker died)."""
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            if not self._workers_alive():
+                return None
+            try:
+                world = self._client.get_comm_world(
+                    RendezvousName.ELASTIC_TRAINING,
+                    self._config.node_rank,
+                )
+            except (ConnectionError, OSError):
+                time.sleep(0.5)
+                continue
+            if (world and world.world and world.round != self._last_round
+                    and self._config.node_rank not in world.world):
+                return world
+            time.sleep(0.2)
+        return None
 
     def _membership_changed(self) -> bool:
         try:
@@ -1160,6 +1223,7 @@ class ElasticTrainingAgent:
             return
         if self._signal_reshape(world):
             self._last_round = world.round
+            self._last_world = dict(world.world)
             telemetry.event(
                 "elastic.reshape.adopted",
                 round=world.round,
@@ -1176,9 +1240,11 @@ class ElasticTrainingAgent:
             )
             self._restart_workers()
 
-    def _signal_reshape(self, world) -> bool:
+    def _signal_reshape(self, world, leaving: bool = False,
+                        timeout: float | None = None) -> bool:
         """Write the reshape request to every local worker and wait for
-        all acks. False = restart fallback required."""
+        all acks (``leaving``: the workers depart at the round's
+        boundary). False = restart fallback required."""
         from dlrover_tpu_torch.trainer.elastic.reshape import ReshapeRequest
 
         request = ReshapeRequest(
@@ -1190,11 +1256,15 @@ class ElasticTrainingAgent:
             total=sum(world.world.values()),
             coordinator=world.coordinator_addr,
             departed=dict(getattr(world, "departed", None) or {}),
+            prev_world=dict(self._last_world),
+            leaving=leaving,
         )
+        if timeout is None:
+            timeout = self._config.reshape_ack_timeout
         try:
             for w in self._workers:
                 self._reshape_channels[w.local_rank].signal(request)
-            deadline = time.time() + self._config.reshape_ack_timeout
+            deadline = time.time() + timeout
             for w in self._workers:
                 channel = self._reshape_channels[w.local_rank]
                 ack = channel.await_ack(

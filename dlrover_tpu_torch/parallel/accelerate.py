@@ -77,7 +77,11 @@ from dlrover_tpu_torch.parallel.mesh import (
     build_mesh,
     set_mesh,
 )
-from dlrover_tpu_torch.parallel.sharding import distribute_logical
+from dlrover_tpu_torch.parallel.shard_ops import shard_box
+from dlrover_tpu_torch.parallel.sharding import (
+    distribute_logical,
+    logical_placements,
+)
 from dlrover_tpu_torch.parallel.strategy import DEFAULT_RULES, Strategy
 
 logger = get_logger(__name__)
@@ -218,6 +222,31 @@ def _sharded_params(raw: dict, device, mesh: Mesh, axes, rules) -> dict:
         for name, p in raw.items()}
 
 
+def empty_params(like: dict, device, mesh: Mesh, axes=None,
+                 rules=None) -> dict:
+    """Uninitialised fp32 masters of ``like``'s global shapes laid out on
+    ``mesh`` as ``auto_accelerate`` lays them (DTensors placed by their
+    logical axes on a DeviceMesh, plain tensors off one): each rank
+    allocates its shard only. An in-process reshape fills them from the
+    live state (``auto_accelerate(reuse_params=...)``)."""
+    axes = axes or {}
+    out = {}
+    for name, p in like.items():
+        shape = tuple(int(n) for n in p.shape)
+        if not mesh.sharded:
+            out[name] = torch.empty(shape, dtype=torch.float32,
+                                    device=device)
+            continue
+        dm = mesh.device_mesh
+        placements = logical_placements(axes.get(name), dm, rules)
+        local, _ = shard_box(shape, dm, placements)
+        out[name] = DTensor.from_local(
+            torch.empty(local, dtype=torch.float32, device=device), dm,
+            list(placements), run_check=False, shape=torch.Size(shape),
+            stride=torch.empty(shape, device="meta").stride())
+    return out
+
+
 def _batch_placements(device_mesh) -> list:
     """A batch leaf's placements: rows split over the batch axes (data
     major), replicated over the rest."""
@@ -265,6 +294,7 @@ def auto_accelerate(
     device=None,
     seed: int = 0,
     param_logical_axes: Optional[dict] = None,
+    reuse_params: Optional[dict] = None,
 ) -> AccelerateResult:
     """Build the state and the train step for ``strategy`` on this
     process's device (``cuda`` unless ``device`` says otherwise), and set
@@ -296,6 +326,12 @@ def auto_accelerate(
     ``i``-th contiguous chunk, as the JAX package cuts it (the batch is
     gathered over the batch ranks to cut it so); the loss is the global
     one on every rank.
+
+    ``reuse_params`` (the JAX package's ``reuse_state``): fp32 masters
+    already laid out on this strategy's mesh over the current process
+    group (an in-process reshape's, see :func:`empty_params`) become the
+    state's params as they are; ``init_fn`` is not called, and the
+    optimizer is a fresh one over them.
     """
     strategy = strategy or Strategy()
     _check_strategy(strategy)
@@ -323,16 +359,21 @@ def auto_accelerate(
     accum = int(strategy.grad_accum)
     inner_loss = _remat_wrap(loss_fn, strategy.remat)
 
-    raw = init_fn(seed, device)
-    if mesh.sharded:
-        params = _sharded_params(raw, device, mesh, param_logical_axes,
-                                 strategy.rules)
+    if reuse_params is not None:
+        params = {name: p.detach().requires_grad_()
+                  for name, p in reuse_params.items()}
     else:
-        params = {
-            name: p.to(device=device, dtype=torch.float32).requires_grad_()
-            for name, p in raw.items()
-        }
-    del raw
+        raw = init_fn(seed, device)
+        if mesh.sharded:
+            params = _sharded_params(raw, device, mesh, param_logical_axes,
+                                     strategy.rules)
+        else:
+            params = {
+                name: p.to(device=device,
+                           dtype=torch.float32).requires_grad_()
+                for name, p in raw.items()
+            }
+        del raw
     # the optimizer sees the params in the JAX package's leaf order, so
     # that flat optimizer state and per-leaf seeds line up with JAX's, and
     # by name, so that what keys on names (muP's multipliers) finds them

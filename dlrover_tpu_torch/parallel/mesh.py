@@ -45,7 +45,7 @@ logger = get_logger(__name__)
 __all__ = [
     "InProcessRing", "Mesh", "MeshConfig", "ProcessGroupRing",
     "axis_index", "axis_size", "batch_place", "build_mesh", "get_mesh",
-    "resolve_sizes", "seq_ring", "set_mesh",
+    "reform_process_group", "resolve_sizes", "seq_ring", "set_mesh",
 ]
 
 # the mesh axes a batch is split over; a DeviceMesh always has them
@@ -261,6 +261,29 @@ def build_mesh(config: Optional[MeshConfig] = None) -> Mesh:
                 dict(zip(device_mesh.mesh_dim_names, device_mesh.shape))
                 if device_mesh is not None else "none")
     return Mesh(shape=sizes, ring=ring, device_mesh=device_mesh)
+
+
+def reform_process_group(url: str, rank: int, size: int, device) -> bool:
+    """Leave this process's default process group, if it has one (locally:
+    a dead peer is never waited on), and join a new one of ``size`` ranks
+    at ``rank`` through the store at ``url`` (a ``tcp://host:port`` or
+    ``file://`` URL ``init_process_group`` takes; a bare ``host:port`` is
+    tcp): NCCL on a ``cuda`` device, gloo on the CPU. A group of one
+    without a URL is none. Returns whether a group was formed. The
+    in-process reshape's re-forming; a DeviceMesh built before it belongs
+    to the group it left."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    if size <= 1 and not url:
+        return False
+    if "://" not in url:
+        url = f"tcp://{url}"
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=url, rank=rank,
+                            world_size=size)
+    logger.info("formed a %s process group: rank %d of %d at %s", backend,
+                rank, size, url)
+    return True
 
 
 def batch_place(config: Optional[MeshConfig] = None) -> tuple:

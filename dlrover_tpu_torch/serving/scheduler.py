@@ -160,6 +160,13 @@ class ContinuousBatchingScheduler:
         with self._lock:
             return len(self._slots)
 
+    def held(self) -> list[str]:
+        """The ids of every request queued or in a slot, left in place."""
+        with self._lock:
+            return [r.request_id for r in self._queue] + [
+                s.request.request_id for s in self._slots.values()
+            ]
+
     def abandon(self) -> list[str]:
         """Drop everything (crash simulation / shutdown without
         drain): returns the request ids left un-served so the caller

@@ -66,6 +66,12 @@ class ReshapeRequest:
     # optional explicit device count for the new mesh (0 = worker
     # decides; single-host tests emulate scale with device subsets)
     device_count: int = 0
+    # node_rank -> local_world_size of the world before this round: the
+    # old ranks of a departed node (whose shards a dead one took along)
+    prev_world: dict = dataclasses.field(default_factory=dict)
+    # this worker departs at the round's boundary: it saves its shards
+    # there with every other rank of the old world, acks, and exits
+    leaving: bool = False
 
     def to_json(self) -> dict:
         return dataclasses.asdict(self)
@@ -81,7 +87,14 @@ class ReshapeRequest:
             int(r): str(v)
             for r, v in (kw.get("departed") or {}).items()
         }
+        kw["prev_world"] = {
+            int(r): int(v) for r, v in (kw.get("prev_world") or {}).items()
+        }
         return cls(**kw)
+
+    def dead(self) -> bool:
+        """A node of the old world died with its state this round."""
+        return any(v == "dead" for v in self.departed.values())
 
 
 def _write_atomic(path: str, payload: dict):

@@ -64,6 +64,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Shard
 
 from dlrover_tpu_torch import native as dlrtpu_native
@@ -589,6 +590,9 @@ class CheckpointEngine:
             num_hosts=self._num_hosts,
             total_bytes=offset,
         )
+        shards = self._commit_shards()
+        if shards:
+            ckpt_meta.user_meta = {"commit_shards": shards}
         return ckpt_meta, card_pieces, host_parts, card
 
     def _write_shm_locked(self, step: int, state_dict, staged=None) -> int:
@@ -786,6 +790,18 @@ class CheckpointEngine:
             )
             return True
 
+    def _commit_shards(self) -> int:
+        """The shards a persisted step's commit waits for (the meta's
+        ``user_meta["commit_shards"]``): for the sharded engine one a rank
+        of the process group, one without a group (the process is the
+        world, whatever the local world); 0, the saver's own count, for
+        the other engines."""
+        if self.engine_name != "sharded":
+            return 0
+        if dist.is_available() and dist.is_initialized():
+            return dist.get_world_size()
+        return 1
+
     def _notify(self, event: SaveEvent):
         if self._event_queue is not None:
             self._event_queue.put(event)
@@ -837,7 +853,9 @@ class CheckpointEngine:
 
     # ---------------------------------------------------------- load paths
 
-    def load(self, path: str = "", target=None, zero_copy: bool = False):
+    def load(self, path: str = "", target=None, zero_copy: bool = False,
+             step: int | None = None, held=None,
+             wait_s: float = 0.0):
         """Restore, preferring shm (survives worker restarts within the
         host) and falling back to storage.
 
@@ -849,10 +867,43 @@ class CheckpointEngine:
         and they must never be written or passed back into a save).
 
         When the master brokered a restore-step consensus
-        (``DLROVER_TPU_RESTORE_STEP``), shm is used only if it holds
-        exactly that step, and storage candidates are capped at it."""
+        (``DLROVER_TPU_RESTORE_STEP``), shm is used only where the local
+        segments hold exactly that step, and storage candidates are
+        capped at it.
+
+        ``step`` restores exactly that step (the in-process reshape's
+        boundary): from the local segments that hold it, else from its
+        storage directory, waited for up to ``wait_s`` seconds (another
+        host's persist may still be landing); None when neither has it.
+        ``held`` (``{leaf name: (global box as slices, local tensor)}``)
+        names pieces this process already holds: a saved piece with that
+        box is copied from the tensor, not read."""
         with tracing.span("ckpt.restore.load"):
+            if step is not None:
+                return self._load_step(int(step), target, held, wait_s)
             return self._load_traced(path, target, zero_copy)
+
+    def _load_step(self, step: int, target, held, wait_s: float):
+        t0 = time.monotonic()
+        self.wait_for_shm_save()
+        self.last_restore_stats = {}
+        result = self._load_from_memory(target, step=step, held=held)
+        if result is not None:
+            self._record_restore(result, "shm", t0, None)
+            return result
+        step_dir = os.path.join(
+            self.checkpoint_dir,
+            f"{CheckpointConstant.STEP_DIR_PREFIX}{step}")
+        deadline = time.monotonic() + wait_s
+        while not self._tracker_at_least(step):
+            if time.monotonic() >= deadline:
+                return None
+            self.wait_for_persist_progress(min(
+                1.0, max(deadline - time.monotonic(), 0.01)))
+        result = self.load_from_storage(step_dir, target)
+        if result is not None:
+            self._record_restore(result, "storage", t0, None)
+        return result
 
     def _load_traced(
         self, path: str = "", target=None, zero_copy: bool = False
@@ -862,10 +913,8 @@ class CheckpointEngine:
         self.wait_for_shm_save()
         self.last_restore_stats = {}
         consensus = self._consensus_restore_step()
-        use_shm = True
         if consensus is not None:
             shm_step = self._shm_handler.get_checkpoint_step()
-            use_shm = shm_step == consensus
             if shm_step > consensus:
                 telemetry.event(
                     "ckpt.consensus.forced",
@@ -877,11 +926,11 @@ class CheckpointEngine:
                     "consensus restore step %d overrides newer local "
                     "shm checkpoint (step %d)", consensus, shm_step,
                 )
-        if use_shm:
-            result = self._load_from_memory(target, zero_copy=zero_copy)
-            if result is not None:
-                self._record_restore(result, "shm", t0, consensus)
-                return result
+        result = self._load_from_memory(target, zero_copy=zero_copy,
+                                        step=consensus)
+        if result is not None:
+            self._record_restore(result, "shm", t0, consensus)
+            return result
         result = self.load_from_storage(
             path, target, max_step=consensus
         )
@@ -949,56 +998,70 @@ class CheckpointEngine:
         telemetry.observe("ckpt.restore.seconds", fields["dur"])
         _publish_restore_stats(self.last_restore_stats)
 
-    def _load_from_memory(self, target=None, zero_copy: bool = False):
+    def _load_from_memory(self, target=None, zero_copy: bool = False,
+                          step: int | None = None, held=None):
         with tracing.span("ckpt.restore.shm"):
-            return self._load_from_memory_traced(target, zero_copy)
+            return self._load_from_memory_traced(target, zero_copy, step,
+                                                 held)
 
-    def _sibling_segments(self, step: int):
-        """The sibling local ranks' segments holding ``step``: [(meta,
-        handler)], or None when one of them holds another step or none
-        (a restore then falls back to storage). Only the sharded engine
-        spreads one step over the local ranks."""
-        if self.engine_name != "sharded":
-            return []
+    def _local_segments(self):
+        """This host's segments that hold a checkpoint: [(meta,
+        handler)], this process's own first. Only the sharded engine
+        spreads one step over the local ranks; the others read their own
+        segment alone."""
         out = []
+        got = self._shm_handler.read()
+        if got is not None:
+            out.append((got[0], self._shm_handler))
+        if self.engine_name != "sharded":
+            return out
         for j in range(self._local_world):
             if j == self._local_rank:
                 continue
             handler = SharedMemoryHandler(j)
             got = handler.read()
-            if got is None or got[0].step != step:
+            if got is None:
                 handler.close()
-                for _meta, h in out:
-                    h.close()
-                logger.info("local rank %d's shm segment does not hold "
-                            "step %s; falling back to storage", j, step)
-                return None
+                continue
             out.append((got[0], handler))
         return out
 
     def _load_from_memory_traced(
-        self, target=None, zero_copy: bool = False
+        self, target=None, zero_copy: bool = False,
+        step: int | None = None, held=None,
     ):
-        result = self._shm_handler.read()
-        if result is None:
-            return None
-        meta, buf = result
-        siblings = self._sibling_segments(meta.step)
-        if siblings is None:
-            return None
+        """The newest step whose segments on this host tile every leaf
+        (``step`` alone when given): each step is read from the segments
+        that hold it, so a segment at another step (a rank that left, or
+        one that joined since) is passed over, not fatal."""
+        segments = self._local_segments()
         try:
-            return self._load_segments(meta, buf, siblings, target,
-                                       zero_copy)
+            steps = sorted({m.step for m, _ in segments}, reverse=True)
+            if step is not None:
+                steps = [s for s in steps if s == step]
+            for s in steps:
+                holders = [(m, h) for m, h in segments if m.step == s]
+                result = self._load_segments(holders, target, zero_copy,
+                                             held)
+                if result is not None:
+                    return result
+                logger.info("the local segments at step %s do not hold "
+                            "every piece", s)
+            return None
         finally:
-            for _meta, handler in siblings:
-                handler.close()
+            for _meta, handler in segments:
+                if handler is not self._shm_handler:
+                    handler.close()
 
-    def _load_segments(self, meta, buf, siblings, target, zero_copy):
+    def _load_segments(self, holders, target, zero_copy, held=None):
+        """Restore from ``holders`` ([(meta, handler)], one step's
+        segments); None when they do not hold every piece."""
+        meta = holders[0][0]
         # copies out of shm read the segments through their descriptors:
         # a restarted process's fresh mapping would take a page fault per
         # 4 KiB page inside the copies
         entries = []
-        for m, handler in [(meta, self._shm_handler)] + siblings:
+        for m, handler in holders:
             shm = handler.shm
             start = 8 + int.from_bytes(bytes(shm.buf[:8]), "little")
             entries += [(leaf, shm._fd, start) for leaf in m.leaves]
@@ -1028,17 +1091,20 @@ class CheckpointEngine:
             return None
         if target is not None:
             result = self._fill_from_pieces(
-                piece_map, target, meta.step, self._file_source
+                piece_map, target, meta.step, self._file_source, held
             )
             logger.info("restored step %s from shared memory", meta.step)
             return result
         t0 = time.perf_counter()
         state = {}
         nbytes = 0
-        own_fd = self._shm_handler.shm._fd
+        own = [h for _m, h in holders if h is self._shm_handler]
+        own_fd = own[0].shm._fd if own else None
+        # the own segment's payload: zero-copy views point into it
+        buf = own[0].read()[1] if own else None
         for name, pieces in piece_map.items():
             # views of this rank's own mapping only
-            if (zero_copy and _single_piece(pieces)
+            if (zero_copy and own and _single_piece(pieces)
                     and pieces[0][1] == own_fd):
                 leaf = pieces[0][0]
                 raw = torch.frombuffer(
@@ -1263,14 +1329,17 @@ class CheckpointEngine:
         logger.info("restored step %s from %s", step, step_dir)
         return result
 
-    def _fill_from_pieces(self, piece_map, target, step, source):
+    def _fill_from_pieces(self, piece_map, target, step, source,
+                          held=None):
         """Rebuild the target tree from saved pieces, each leaf on its
         target's device with its dtype. Card leaves stream through the
         pinned chunks: chunk c is read into its slot (``source``: shm or
         a shard file) while chunks before it are still crossing to the
         card on the side stream; the compute stream waits on the side
         stream before anything it runs next. Host leaves are read
-        straight into fresh arrays, so no restored leaf aliases shm."""
+        straight into fresh arrays, so no restored leaf aliases shm.
+        ``held``: see :meth:`load`."""
+        held = held or {}
         tnames, tleaves, treedef = _tree_flatten_with_names(target)
         new_leaves: list = [None] * len(tnames)
         card = _card_of([_as_leaf(x) for x in tleaves])
@@ -1304,11 +1373,18 @@ class CheckpointEngine:
             if isinstance(leaf_t, DTensor):
                 t0 = time.perf_counter()
                 new_leaves[i], n = self._fill_shard(name, pieces, leaf_t,
-                                                    source, ring)
+                                                    source, ring,
+                                                    held.get(name))
                 read_s += time.perf_counter() - t0
                 nbytes_total += n
                 continue
             nbytes = _leaf_nbytes(meta0)
+            have = held.get(name)
+            if (have is not None and isinstance(leaf_t, torch.Tensor)
+                    and tuple(have[1].shape) == want_shape):
+                # the whole leaf is in this process already
+                new_leaves[i] = have[1].to(leaf_t.device, copy=True)
+                continue
             nbytes_total += nbytes
             if not _single_piece(pieces):
                 # pieces of a sharded save: assemble on the host first
@@ -1340,11 +1416,13 @@ class CheckpointEngine:
             time.perf_counter() - t_all)
         return _unflatten(treedef, new_leaves), step
 
-    def _fill_shard(self, name, pieces, leaf_t, source, ring):
+    def _fill_shard(self, name, pieces, leaf_t, source, ring, held=None):
         """A DTensor target's local shard from the saved pieces that
         intersect its global box, each read only where it intersects,
         through a host buffer the size of that intersection (never larger
-        than the target's shard). Returns (the DTensor, bytes read)."""
+        than the target's shard); a piece whose box is ``held``'s (box,
+        tensor) is copied from that tensor instead. Returns (the DTensor,
+        bytes read)."""
         mesh, placements = leaf_t.device_mesh, leaf_t.placements
         shape, offset = shard_box(leaf_t.shape, mesh, placements)
         local_t = leaf_t.to_local()
@@ -1356,6 +1434,9 @@ class CheckpointEngine:
                                       stride=leaf_t.stride())
 
         whole = tuple(slice(o, o + n) for o, n in zip(offset, shape))
+        if held is not None and tuple(held[0]) == whole:
+            dst.copy_(held[1])
+            return wrap(dst), 0
         if _is_cuda(dst):
             # a saved piece that is exactly this shard streams to the
             # card through the pinned chunks (a restore onto the mesh it
@@ -1375,6 +1456,15 @@ class CheckpointEngine:
             if any(a >= b for a, b in zip(lo, hi)):
                 continue
             ext = [b - a for a, b in zip(lo, hi)]
+            region = tuple(slice(a - o, b - o)
+                           for a, b, o in zip(lo, hi, offset))
+            if held is not None and tuple(held[0]) == box:
+                # this piece is what the process holds: copy its part
+                dst[region].copy_(held[1][tuple(
+                    slice(a - b.start, c - b.start)
+                    for a, c, b in zip(lo, hi, box))])
+                covered += _count(ext)
+                continue
             staging = np.empty(ext, dtype=np_dtype)
             flat = staging.reshape(-1).view(np.uint8)
             stats["max_staging_bytes"] = max(
@@ -1392,8 +1482,6 @@ class CheckpointEngine:
                             * strides[d] for d in range(len(ext)))
                 source.read(src1, src2, meta, first * itemsize,
                             flat[n_run * run:(n_run + 1) * run])
-            region = tuple(slice(a - o, b - o)
-                           for a, b, o in zip(lo, hi, offset))
             # reinterpret the bytes: bf16 and fp8 stage as uint16 / uint8
             dst[region].copy_(_typed(torch.from_numpy(flat),
                                      pieces[0][0].dtype, ext))
@@ -1406,9 +1494,12 @@ class CheckpointEngine:
         return wrap(dst), covered * itemsize
 
     def latest_step(self) -> int:
-        shm_step = self._shm_handler.get_checkpoint_step()
-        disk_step = AsyncCheckpointSaver.get_latest_step(self.checkpoint_dir)
-        return max(shm_step, disk_step)
+        return max(self._shm_handler.get_checkpoint_step(),
+                   self.persisted_step())
+
+    def persisted_step(self) -> int:
+        """The newest step committed to storage (-1 for none)."""
+        return AsyncCheckpointSaver.get_latest_step(self.checkpoint_dir)
 
     def close(self):
         self.wait_for_shm_save()
@@ -1545,8 +1636,9 @@ def _single_piece(pieces) -> bool:
 
 
 def _covers_global(leaf_map) -> bool:
-    """Every leaf's pieces must tile its full global shape (pieces are
-    non-overlapping unique shards, so volumes may be summed)."""
+    """Every leaf's pieces must tile its full global shape exactly (one
+    save's pieces are non-overlapping unique shards, so volumes may be
+    summed)."""
     for _name, pieces in leaf_map.items():
         meta0 = pieces[0][0]
         if meta0.index is None or tuple(meta0.shape) == tuple(
@@ -1555,7 +1647,8 @@ def _covers_global(leaf_map) -> bool:
             continue
         total = _count(meta0.global_shape)
         have = sum(_count(p[0].shape) for p in pieces)
-        if have < total:
+        # more than the whole: pieces of two saves at one step overlap
+        if have != total:
             return False
     return True
 

@@ -34,13 +34,31 @@ step where both would open, the ``profile`` window opens first and the
 sampler's is refused and re-armed, as the JAX loop's ``jax.profiler``
 refuses it.
 
-What the port does not run yet raises ``NotImplementedError`` naming its
-ROADMAP Queue 1 item: the in-process reshape (``reshape_channel``,
-``reshape_devices_fn``; item 8). The channel an agent offers through
-``NodeEnv.RESHAPE_DIR`` is declined: the Trainer installs no watcher and
-never marks the channel ready, so the agent restarts the worker on a
-membership change. Under a master, ``adopt_cadence`` adopts the brain's
-checkpoint cadence (``save_steps``) at log boundaries.
+The in-process reshape, as in the JAX loop: with a ``reshape_channel``
+(or the one an agent offers through ``NodeEnv.RESHAPE_DIR``) the Trainer
+adopts a membership change at a step boundary without a restart. The
+ranks first agree on the newest pending round (a MAX all-reduce over a
+CPU gloo group; nothing at a world of one), so that every rank enters
+the reshape at one boundary. Where every rank of the old world is alive,
+each saves its shards at the live step into its shm segment (the Flash
+Checkpoint save), the ranks that depart then ack and leave, and the
+others re-form the process group (``reshape_devices_fn(request)`` gives
+the new rank, size and store URL; by default the request's offset plus
+the local rank, its total and its coordinator), rebuild the DeviceMesh
+and the optimizer, and fill each new shard through the engine's targeted
+load at exactly that step: what a rank held stays on its device, the
+rest is read from the segment of the rank that held it (storage for one
+on another host). A dead rank took its shards along: what the survivors
+cover moves, the rest comes from a checkpoint at the live step, an older
+one rolls the state back in process, and none fails the ack. A failure
+restores the old world, its process group included, where every rank of
+it is still there; the round is acked either way, and a failed ack
+sends the agent down the restart path. A worker that cannot reshape
+(Flash Checkpoint off, an optimizer with no DeviceMesh step, a seq axis
+or a quant mode) leaves the agent's channel unmarked, so the agent
+restarts it instead, and raises on a channel passed in. Under a master,
+``adopt_cadence`` adopts the brain's checkpoint cadence (``save_steps``)
+at log boundaries.
 
 With ``log_steps`` set, each step's loss stays on the device until the
 next log boundary (or the end of ``train()``), where it is read and
@@ -61,6 +79,8 @@ from typing import Any, Callable, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from dlrover_tpu_torch.agent.monitor import write_runtime_metrics
 from dlrover_tpu_torch.common import flight, mfu, telemetry, tracing
@@ -72,6 +92,13 @@ from dlrover_tpu_torch.ops import launch_counts
 from dlrover_tpu_torch.parallel.accelerate import (
     auto_accelerate,
     global_value,
+)
+from dlrover_tpu_torch.parallel.mesh import reform_process_group
+from dlrover_tpu_torch.parallel.reshaper import (
+    _is_array,
+    reshape_state,
+    shard_boxes,
+    survivors_cover,
 )
 from dlrover_tpu_torch.parallel.strategy import Strategy
 from dlrover_tpu_torch.trainer.fault_tolerance import notify_progress_reset
@@ -121,11 +148,6 @@ class TrainingArgs:
     # model FLOPs per TOKEN for the live ``train.mfu`` gauge. 0 = the
     # dense estimate 6 * param_count (common/mfu.py for the exact value)
     model_flops_per_token: float = 0.0
-
-
-def _unported(what: str, item: int, hint: str = "") -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item {item}){hint}")
 
 
 def _leaves(tree):
@@ -191,12 +213,6 @@ class Trainer:
         reshape_devices_fn: Optional[Callable] = None,
         device=None,
     ):
-        if reshape_channel is not None or reshape_devices_fn is not None:
-            raise _unported("the in-process reshape channel", 8)
-        if os.environ.get(NodeEnv.RESHAPE_DIR, ""):
-            logger.info("the agent's reshape channel is declined (the "
-                        "in-process reshape is ROADMAP Queue 1 item 8): "
-                        "a membership change restarts this worker")
         self.args = args
         # the shm segments' job name where no agent set one
         set_default_job_name(default_job_name(args.output_dir))
@@ -299,6 +315,15 @@ class Trainer:
             os.path.join(args.output_dir, "prof"), device=self.device,
         )
         self._refresh_prof_context()
+        self._make_side_group()
+        # restart-free elasticity: the channel the agent exports (or a
+        # test passes) is polled at every step boundary
+        self._reshape_devices_fn = reshape_devices_fn
+        self._reshape_round = -1
+        self._departed = False    # this worker left at a reshape
+        self._world_lost = False  # a failed reshape could not restore it
+        self._reshape_channel = self._install_reshape_channel(
+            reshape_channel)
 
     # -------------------------------------------------------------- resume
 
@@ -692,7 +717,7 @@ class Trainer:
         flight.install()
         resumed = self.maybe_resume()
         metrics = {}
-        shm_saves = 0
+        self._shm_saves = 0
         # a job resumed at/after max_steps is already done: don't train
         # an extra step or overwrite the final checkpoint
         stop = bool(args.max_steps) and self.global_step >= args.max_steps
@@ -709,68 +734,88 @@ class Trainer:
             if epoch != start_epoch and sampler is not None and hasattr(
                     sampler, "set_epoch"):
                 sampler.set_epoch(epoch)
-            data_iter = iter(self.train_data)
-            while True:
-                # the input pipeline's stall, timed into the shm ring
-                t_wait = time.time_ns()
-                try:
-                    batch = next(data_iter)
-                except StopIteration:
-                    break
-                if self._timer is not None:
-                    self._timer.record(Tag.DATA_WAIT, t_wait,
-                                       time.time_ns() - t_wait)
-                if self._profiler is not None:
-                    self._profiler.maybe_start(self.global_step)
-                self._prof.on_step_start(self.global_step)
-                t0 = time.time_ns()
-                with tracing.span("train.step", step=self.global_step + 1):
-                    rng = self._step_rng()
-                    if self.prestep is not None:
-                        self.state, batch = self.prestep(self.state, batch)
-                    self.state, metrics = self._accel.train_step(
-                        self.state, batch, rng)
-                    self.global_step += 1
-                    if self._profiler is not None:
-                        self._profiler.maybe_stop(self.global_step - 1,
-                                                  block_on=metrics)
-                if args.log_steps and "loss" in metrics:
-                    self._pending_losses.append(
-                        (self.global_step, metrics["loss"]))
-                dur_ns = time.time_ns() - t0
-                if self._timer is not None:
-                    self._timer.record(Tag.STEP, t0, dur_ns)
-                # the step number the window opened at (pre-increment);
-                # the backend synchronises the device before a window
-                # stops, and a finished window parses off-thread
-                self._prof.on_step_end(self.global_step - 1, dur_ns / 1e9,
-                                       block_on=metrics)
-                self._step_telemetry(batch, dur_ns / 1e9)
-                if args.log_steps and self.global_step % args.log_steps == 0:
-                    loss = float(metrics.get("loss", float("nan")))
-                    logger.info("step %d epoch %d loss %.5f",
-                                self.global_step, epoch, loss)
-                    self._publish_losses()
-                    telemetry.flush()
-                    self._maybe_adopt_cadence()
-                write_runtime_metrics(self.global_step)
-                if (self._engine is not None and args.save_steps
-                        and self.global_step % args.save_steps == 0):
-                    shm_saves += 1
-                    self.save_checkpoint(
-                        persist=shm_saves % max(args.save_storage_every, 1)
-                        == 0)
-                if args.eval_steps and self.eval_data is not None \
-                        and self.global_step % args.eval_steps == 0:
-                    self.evaluate()
-                if args.max_steps and self.global_step >= args.max_steps:
-                    stop = True
-                    break
+            # a reshape re-enters iter(self.train_data) WITHOUT advancing
+            # the epoch: the remainder was re-sharded over the new world,
+            # and consumption is recorded before each yield, so the fresh
+            # iterator continues exactly after the trained batches
+            reshaped = True
+            while reshaped and not stop:
+                reshaped = False
+                stop, reshaped, metrics = self._train_epoch(epoch, metrics)
         self._publish_losses()
-        if self._engine is not None:
+        if self._engine is not None and not self._departed:
             self._final_save()
         telemetry.flush()
         return self.state, metrics
+
+    def _train_epoch(self, epoch: int, metrics: dict):
+        """Steps over one iterator of ``train_data``: (stop, reshaped,
+        metrics). ``reshaped``: a reshape was adopted at a boundary and
+        the epoch goes on over a fresh iterator."""
+        args = self.args
+        data_iter = iter(self.train_data)
+        while True:
+            # the step boundary: adopt a pending membership change
+            if self._maybe_reshape():
+                return self._departed, not self._departed, metrics
+            if self._world_lost:
+                raise RuntimeError(
+                    "an in-process reshape failed and the old world is "
+                    "gone: this worker must be restarted")
+            # the input pipeline's stall, timed into the shm ring
+            t_wait = time.time_ns()
+            try:
+                batch = next(data_iter)
+            except StopIteration:
+                return False, False, metrics
+            if self._timer is not None:
+                self._timer.record(Tag.DATA_WAIT, t_wait,
+                                   time.time_ns() - t_wait)
+            if self._profiler is not None:
+                self._profiler.maybe_start(self.global_step)
+            self._prof.on_step_start(self.global_step)
+            t0 = time.time_ns()
+            with tracing.span("train.step", step=self.global_step + 1):
+                rng = self._step_rng()
+                if self.prestep is not None:
+                    self.state, batch = self.prestep(self.state, batch)
+                self.state, metrics = self._accel.train_step(
+                    self.state, batch, rng)
+                self.global_step += 1
+                if self._profiler is not None:
+                    self._profiler.maybe_stop(self.global_step - 1,
+                                              block_on=metrics)
+            if args.log_steps and "loss" in metrics:
+                self._pending_losses.append(
+                    (self.global_step, metrics["loss"]))
+            dur_ns = time.time_ns() - t0
+            if self._timer is not None:
+                self._timer.record(Tag.STEP, t0, dur_ns)
+            # the step number the window opened at (pre-increment);
+            # the backend synchronises the device before a window
+            # stops, and a finished window parses off-thread
+            self._prof.on_step_end(self.global_step - 1, dur_ns / 1e9,
+                                   block_on=metrics)
+            self._step_telemetry(batch, dur_ns / 1e9)
+            if args.log_steps and self.global_step % args.log_steps == 0:
+                loss = float(metrics.get("loss", float("nan")))
+                logger.info("step %d epoch %d loss %.5f",
+                            self.global_step, epoch, loss)
+                self._publish_losses()
+                telemetry.flush()
+                self._maybe_adopt_cadence()
+            write_runtime_metrics(self.global_step)
+            if (self._engine is not None and args.save_steps
+                    and self.global_step % args.save_steps == 0):
+                self._shm_saves += 1
+                self.save_checkpoint(
+                    persist=self._shm_saves
+                    % max(args.save_storage_every, 1) == 0)
+            if args.eval_steps and self.eval_data is not None \
+                    and self.global_step % args.eval_steps == 0:
+                self.evaluate()
+            if args.max_steps and self.global_step >= args.max_steps:
+                return True, False, metrics
 
     def _final_save(self):
         """The final persisted save. A cadence save's persist may still
@@ -870,6 +915,492 @@ class Trainer:
                     and _is_integer(dtype):
                 return int(shape[0]) * int(shape[1])
         return 0
+
+    # ------------------------------------------- in-process reshape
+
+    # how long a rank waits for its own request once its peers agreed on
+    # a round, and for another host's persist of the boundary step
+    reshape_wait_s = 120.0
+
+    def _reshape_unsupported(self) -> str:
+        """Why this worker cannot reshape in process ('' when it can)."""
+        from dlrover_tpu_torch.parallel.accelerate import _MESH_OPTIMIZERS
+
+        strategy = self._accel.strategy
+        if self._engine is None:
+            return ("flash_checkpoint is off, and the reshape moves the "
+                    "state through it (a device-to-device mover is "
+                    "ROADMAP Queue 1 item 8)")
+        if type(self.state.optimizer) not in _MESH_OPTIMIZERS:
+            return (f"{type(self.state.optimizer).__name__} has no "
+                    "DeviceMesh step (ROADMAP Queue 1 item 7)")
+        if strategy.mesh.seq != 1:
+            return "a seq axis (ROADMAP Queue 1 item 8)"
+        if strategy.compute_dtype in ("fp8", "int8"):
+            return (f"compute_dtype={strategy.compute_dtype!r} on a process "
+                    "group (ROADMAP Queue 1 item 12)")
+        return ""
+
+    def _install_reshape_channel(self, channel):
+        """The channel to poll: the one passed in (raising when this
+        worker cannot reshape), else the agent's, marked ready only when
+        it can; unmarked, the agent keeps the restart path."""
+        from dlrover_tpu_torch.trainer.elastic.reshape import ReshapeChannel
+
+        why = self._reshape_unsupported()
+        if channel is not None and why:
+            raise NotImplementedError(f"in-process reshape: {why}")
+        if channel is None:
+            rdir = os.environ.get(NodeEnv.RESHAPE_DIR, "")
+            if not rdir:
+                return None
+            if why:
+                logger.info("the agent's reshape channel is declined (%s): "
+                            "a membership change restarts this worker", why)
+                return None
+            channel = ReshapeChannel(rdir)
+        # advertise the watcher: only now does the agent signal a reshape
+        # instead of restarting this worker
+        channel.mark_ready()
+        return channel
+
+    def _make_side_group(self):
+        """The CPU group the boundary agreement runs over: the default
+        group under gloo, a gloo group beside NCCL (created by every rank
+        after each mesh, a collective), none at a world of one."""
+        self._side_group = None
+        if (dist.is_initialized() and dist.get_world_size() > 1
+                and dist.get_backend() != "gloo"):
+            self._side_group = dist.new_group(backend="gloo")
+
+    @staticmethod
+    def _world() -> tuple:
+        """(rank, size) of this process in the default group; (0, 1)
+        without one."""
+        if not dist.is_initialized():
+            return 0, 1
+        return dist.get_rank(), dist.get_world_size()
+
+    def _await_request(self, least_round: int):
+        """This worker's request of ``least_round`` or later, waited for up
+        to ``reshape_wait_s``; None on timeout."""
+        deadline = time.monotonic() + self.reshape_wait_s
+        while True:
+            req = self._reshape_channel.poll(least_round - 1)
+            if req is not None or time.monotonic() >= deadline:
+                return req
+            time.sleep(0.02)
+
+    def _agreed_request(self):
+        """The request every rank adopts at this boundary, or None. Ranks
+        read their requests at different boundaries, so with a world above
+        one they first take the MAX of their newest pending rounds over
+        the side group; a rank behind waits for its own request. A request
+        naming a dead departure skips the old group (a dead rank never
+        answers), and so does a rank whose agreement failed because a peer
+        died: its agent's request names the death."""
+        req = self._reshape_channel.poll(self._reshape_round)
+        if self._world()[1] <= 1 or (req is not None and req.dead()):
+            return req
+        mine = torch.tensor([req.round if req is not None else -1])
+        try:
+            dist.all_reduce(mine, op=dist.ReduceOp.MAX,
+                            group=self._side_group)
+        except RuntimeError:
+            logger.warning("the boundary agreement failed (a peer died); "
+                           "waiting for this worker's request")
+            req = self._await_request(self._reshape_round + 1)
+            if req is None or not req.departed:
+                raise
+            # a peer gone before the boundary save took its shards along,
+            # whatever its agent reported (a drained worker late to ack
+            # its departure is stopped unsaved): a dead departure
+            req.departed = {n: "dead" for n in req.departed}
+            return req
+        agreed = int(mine.item())
+        if agreed <= self._reshape_round:
+            return None
+        if req is None or req.round < agreed:
+            req = self._await_request(agreed)
+            if req is None:
+                raise RuntimeError(
+                    f"the ranks agreed on reshape round {agreed} and this "
+                    f"worker's request did not come in "
+                    f"{self.reshape_wait_s:.0f} s")
+        return req
+
+    def _reshape_place(self, req) -> tuple:
+        """(rank, size, store URL) of this worker in the request's group:
+        ``reshape_devices_fn(req)``, else the request's offset plus the
+        local rank, its total and its coordinator."""
+        if self._reshape_devices_fn is not None:
+            rank, size, url = self._reshape_devices_fn(req)
+            return int(rank), int(size), str(url)
+        local = int(os.environ.get(NodeEnv.LOCAL_RANK, "0") or 0)
+        return req.rank_offset + local, max(int(req.total), 1), req.coordinator
+
+    @staticmethod
+    def _node_ranks(world: dict, node: int) -> range:
+        """The global ranks of ``node`` in ``world`` (node ranks ascending,
+        each with its local world)."""
+        offset = sum(n for r, n in sorted(world.items()) if r < node)
+        return range(offset, offset + world.get(node, 0))
+
+    def _departed_ranks(self, req, reason: str) -> set:
+        """Old ranks of the nodes that left for ``reason``."""
+        nodes = [n for n, why in req.departed.items() if why == reason]
+        if nodes and not req.prev_world:
+            raise ValueError(
+                f"round {req.round}: nodes {nodes} {reason} but the request "
+                "has no prev_world to place their ranks")
+        return {r for n in nodes for r in self._node_ranks(req.prev_world, n)}
+
+    def _maybe_reshape(self) -> bool:
+        """Adopt a pending membership change IN PROCESS at this step
+        boundary. Returns True when a reshape happened (the caller
+        restarts its epoch iterator, or stops when this worker departed).
+        A failed reshape acks failure, after restoring the old world where
+        it can; the agent then falls back to the restart path."""
+        if self._reshape_channel is None or self._departed:
+            return False
+        t_agree = time.monotonic()
+        req = self._agreed_request()
+        if req is None:
+            return False
+        t0 = time.monotonic()
+        self._reshape_legs = {"agree_s": round(t0 - t_agree, 6)}
+        ok, stats = False, {}
+        # transaction snapshot: a failure past any mutation must not
+        # leave a half-adopted world behind a failed ack
+        sampler = getattr(self.train_data, "sampler", None)
+        snap = dict(
+            accel=self._accel, state=self.state, step=self.global_step,
+            compiled=self._compiled_once, world=self._world(),
+            group=dist.group.WORLD if dist.is_initialized() else None,
+            sampler=((sampler.num_replicas, sampler.rank,
+                      sampler.state_dict())
+                     if sampler is not None and hasattr(sampler, "state_dict")
+                     else None),
+            batch_size=getattr(self.train_data, "batch_size", None))
+        with tracing.span("elastic.reshape", round=req.round,
+                          step=self.global_step):
+            try:
+                stats = self._apply_reshape(req, snap)
+                ok = True
+            except Exception as e:  # noqa: BLE001 - ANY failure here must
+                # surface as a failed ack, never hang the agent on it
+                logger.exception(
+                    "in-process reshape for round %s failed; acking failure "
+                    "(the agent restarts this worker)", req.round)
+                stats = {"error": f"{type(e).__name__}: {e}"[:200]}
+                self._restore_world(req, snap)
+        dur = time.monotonic() - t0
+        stats.update(self._reshape_legs)
+        # ``step``: the boundary the new world takes over at (the step
+        # rolled back to on the rollback path)
+        self._reshape_channel.ack(req.round, ok, dur=dur,
+                                  step=self.global_step, **stats)
+        # consume the round even on failure: the agent's restart is the
+        # retry path, and re-polling it would re-run the reshape
+        self._reshape_round = req.round
+        if not ok:
+            return False
+        telemetry.event(
+            "elastic.reshape", dur=dur, round=req.round,
+            step=self.global_step, shards_moved=stats.get("moved", 0),
+            shards_pulled=stats.get("pulled", 0),
+            rolled_back_to=stats.get("rolled_back_to", -1))
+        telemetry.observe("elastic.reshape.seconds", dur)
+        telemetry.counter_inc("elastic.reshape.count")
+        if stats.get("pulled"):
+            telemetry.counter_inc("elastic.reshape.shards_pulled",
+                                  stats["pulled"])
+        telemetry.gauge_set("elastic.reshape.last_s", dur)
+        telemetry.flush()
+        logger.info(
+            "%s round %s in process in %.3fs (world=%s, moved=%s pulled=%s "
+            "rolled_back_to=%s)",
+            "left at" if self._departed else "adopted", req.round, dur,
+            req.world, stats.get("moved"), stats.get("pulled"),
+            stats.get("rolled_back_to", -1))
+        return True
+
+    def _leg(self, name: str, t0: float) -> float:
+        """Record a reshape leg's seconds since ``t0``; returns now."""
+        now = time.monotonic()
+        self._reshape_legs[f"{name}_s"] = round(now - t0, 6)
+        return now
+
+    def _apply_reshape(self, req, snap: dict) -> dict:
+        from dlrover_tpu_torch.trainer.flash_checkpoint.engine import (
+            _tree_flatten_with_names,
+        )
+
+        chaos_point("elastic.reshape", verb="drain", step=self.global_step,
+                    round=req.round)
+        rank, size, url = self._reshape_place(req)
+        old_rank, old_size = snap["world"]
+        dead = self._departed_ranks(req, "dead") if req.dead() else set()
+        names, old_leaves, _ = _tree_flatten_with_names(
+            {"train": self._state_tree()})
+        held = self._held_pieces(names, old_leaves, old_rank)
+        t = time.monotonic()
+        if req.leaving and dead:
+            # its peers could not agree on a boundary: it goes unsaved
+            self._leave()
+            return {"departed": True, "moved": 0, "pulled": 0}
+        if not dead:
+            # every rank of the old world is alive here: each saves its
+            # shards at this step, and none reads before all have. A node
+            # that joins or leaves may be another host, whose slices cross
+            # through storage: then the step is persisted too
+            self._boundary_save(persist=bool(
+                req.prev_world and set(req.world) != set(req.prev_world)))
+            if old_size > 1:
+                dist.barrier(group=self._side_group)
+            t = self._leg("boundary_save", t)
+            if req.leaving:
+                self._leave()
+                return {"departed": True, "moved": 0, "pulled": 0}
+        else:
+            survivors = (sum(req.prev_world.values()) - len(dead)
+                         - len(self._departed_ranks(req, "drained")))
+            if size > survivors:
+                raise NotImplementedError(
+                    f"round {req.round}: a dead departure and a joining "
+                    "rank in one round (the joiner would restore at a step "
+                    "the survivors may roll back from)")
+            if any(not survivors_cover(leaf, dead) for leaf in old_leaves):
+                # CONSISTENCY GATE: a lost shard can only come from a
+                # checkpoint, and one older than the live step would mix
+                # steps inside one state: pull at the live step, roll the
+                # whole state back in process when older, fail when none
+                ckpt_step = self._engine.latest_step()
+                if ckpt_step < 0:
+                    raise ValueError(
+                        "shards lost with a dead rank and no checkpoint "
+                        "exists - in-process reshape would lose state")
+                if ckpt_step != self.global_step:
+                    return self._reshape_rollback(req, rank, size, url)
+            elif self._engine.latest_step() != self.global_step:
+                # the survivors hold everything: save it at this step
+                self._boundary_save(persist=False)
+        chaos_point("elastic.reshape", verb="reshard", step=self.global_step,
+                    round=req.round)
+        reform_process_group(url, rank, size, self.device)
+        if dead and size > 1:
+            dist.barrier()  # every survivor's boundary save landed
+        t = self._leg("group_reform", t)
+        self._adopt_accel(self._empty_params())
+        t = self._leg("adopt", t)
+        report = self._move_state(names, old_leaves, held, dead)
+        t = self._leg("restore", t)
+        chaos_point("elastic.reshape", verb="resume", step=self.global_step,
+                    round=req.round)
+        self._reshape_data(req)
+        return {"moved": report.moved, "pulled": report.pulled,
+                "move_s": round(report.move_seconds, 6), "devices": size}
+
+    def _leave(self):
+        """This worker departs: out of the group, and no more steps."""
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        self._departed = True
+
+    def _held_pieces(self, names, leaves, rank: int) -> dict:
+        """``{name: (global box, local tensor)}`` of what this rank holds
+        of each tensor leaf: the mover copies these, not reads them."""
+        held = {}
+        for name, leaf in zip(names, leaves):
+            if isinstance(leaf, DTensor):
+                box = shard_boxes(leaf.shape, leaf.device_mesh.mesh,
+                                  leaf.placements)[rank]
+                held[name] = (box, leaf.to_local())
+            elif isinstance(leaf, torch.Tensor):
+                held[name] = (tuple(slice(0, n) for n in leaf.shape), leaf)
+        return held
+
+    def _empty_params(self) -> dict:
+        """The params' layout on the mesh of the current group, unfilled."""
+        from dlrover_tpu_torch.parallel.accelerate import empty_params
+        from dlrover_tpu_torch.parallel.mesh import build_mesh
+
+        strategy = self._accel.strategy
+        return empty_params(self.state.params, self.device,
+                            build_mesh(strategy.mesh),
+                            self.param_logical_axes, strategy.rules)
+
+    def _move_state(self, names, old_leaves, held, dead):
+        """Fill the adopted (empty) state from the live one at this step:
+        ``reshape_state`` over the engine's targeted load, held pieces
+        copied, the dead ranks' leaves from the checkpoint."""
+        from dlrover_tpu_torch.trainer.flash_checkpoint.engine import (
+            _tree_flatten_with_names,
+            _unflatten,
+        )
+
+        materialize_optimizer_state(self.state.optimizer)
+        tnames, targets, treedef = _tree_flatten_with_names(
+            {"train": self._state_tree()})
+        if tnames != names:
+            raise ValueError("the state's leaves changed across the "
+                             f"reshape: {sorted(set(tnames) ^ set(names))[:3]}")
+
+        def move(requests):
+            got = self._engine.load(target=dict(requests),
+                                    step=self.global_step, held=held,
+                                    wait_s=self.reshape_wait_s)
+            if got is None:
+                raise ValueError(f"step {self.global_step} is in no local "
+                                 "segment and not in storage")
+            return got[0]
+
+        leaves, report = reshape_state(old_leaves, targets, names, move,
+                                       lost_ranks=dead,
+                                       fallback=self._pull_lost_shards)
+        self._load_state_tree(_unflatten(treedef, leaves)["train"])
+        return report
+
+    def _pull_lost_shards(self, requests: dict) -> dict:
+        """Fallback loader for leaves whose only shards died with a rank:
+        a TARGETED engine load at exactly the live step, keyed by the
+        checkpoint's leaf names, so each new shard reads only the byte
+        ranges it needs from shm (preferred) or verified storage."""
+        result = self._engine.load(target=dict(requests),
+                                   step=self.global_step)
+        if result is None:
+            raise ValueError(
+                f"lost shards {sorted(requests)[:3]} are not restorable at "
+                f"the live step {self.global_step} from any checkpoint")
+        return result[0]
+
+    def _reshape_rollback(self, req, rank: int, size: int, url: str) -> dict:
+        """Lost shards and no checkpoint at the live step: the whole state
+        returns to the newest restorable checkpoint IN PROCESS (train
+        state, loader progress, prestep sidecar) on the new group."""
+        logger.warning(
+            "reshape round %s: shards lost with a dead rank and the newest "
+            "checkpoint predates the live step - rolling back in process",
+            req.round)
+        chaos_point("elastic.reshape", verb="reshard", step=self.global_step,
+                    round=req.round)
+        reform_process_group(url, rank, size, self.device)
+        self._adopt_accel(self._empty_params())
+        materialize_optimizer_state(self.state.optimizer)
+        self.global_step = 0
+        resumed = self.maybe_resume()
+        chaos_point("elastic.reshape", verb="resume", step=self.global_step,
+                    round=req.round)
+        self._reshape_data(req)
+        from dlrover_tpu_torch.trainer.flash_checkpoint.engine import (
+            _tree_flatten_with_names,
+        )
+
+        leaves = _tree_flatten_with_names({"train": self._state_tree()})[1]
+        return {"moved": 0, "pulled": sum(map(_is_array, leaves)),
+                "rolled_back_to": resumed, "devices": size}
+
+    def _adopt_accel(self, params: dict):
+        """A fresh ``auto_accelerate`` over the current process group with
+        ``params`` (already laid out on its mesh) as the state's params;
+        the optimizer is new and its state empty until filled."""
+        self._accel = auto_accelerate(
+            self.loss_fn, self.init_fn, self.optimizer,
+            strategy=self._accel.strategy, device=self.device,
+            seed=self.args.seed, param_logical_axes=self.param_logical_axes,
+            reuse_params=params)
+        self.state = self._accel.state
+        self._compiled_once = False
+        self._make_side_group()
+        self._refresh_flops()
+        self._refresh_prof_context()
+
+    def _reshape_data(self, req):
+        """Exactly-once re-accounting: the epoch remainder re-sharded over
+        the new world's replicas along the batch axes, with the
+        per-replica batch rescaled so the global batch stays the same."""
+        loader = self.train_data
+        if not hasattr(loader, "reshape"):
+            return
+        from dlrover_tpu_torch.parallel.mesh import batch_place
+
+        index, count = batch_place(self._accel.strategy.mesh)
+        old = getattr(getattr(loader, "sampler", None), "num_replicas", count)
+        bs = int(getattr(loader, "batch_size", 0) or 0)
+        if bs and old != count:
+            if (bs * old) % count:
+                raise ValueError(
+                    f"a global batch of {bs * old} rows does not split over "
+                    f"{count} replicas")
+            loader.update_batch_size(bs * old // count)
+        loader.reshape(count, index)
+
+    def _boundary_save(self, persist: bool):
+        """Save this step for a reshape (blocking), retried while a
+        persist holds the shm lock; with ``persist``, wait for it. A step
+        already committed to storage is not saved again: a round adopted
+        at the boundary of the one before, with no step between, finds it
+        there from that round's save, at that world's layout, and a second
+        save at this world's layout would leave pieces of both layouts at
+        one step, in shm and in its storage dir, which no restore tiles."""
+        if self._engine.persisted_step() == self.global_step:
+            return
+        deadline = time.monotonic() + self.reshape_wait_s
+        while not self.save_checkpoint(persist=persist):
+            if time.monotonic() >= deadline:
+                raise RuntimeError(
+                    f"the reshape's save at step {self.global_step} kept "
+                    "getting skipped")
+            self._engine.wait_for_persist_progress(1.0)
+        if persist and not self._engine.wait_for_persist(
+                self.global_step, timeout=self.reshape_wait_s):
+            raise RuntimeError(f"the persist of step {self.global_step} did "
+                               "not land")
+
+    def _restore_world(self, req, snap: dict):
+        """After a failed reshape: back to the snapshot's world. Where the
+        old group was left, it is formed again (every rank of it must be
+        here: no departure, the same size) and the old state re-laid on it
+        from what this rank held; otherwise the world is lost and the
+        agent's restart takes over."""
+        self.global_step = snap["step"]
+        if snap["sampler"] is not None:
+            sampler = self.train_data.sampler
+            sampler.num_replicas, sampler.rank = snap["sampler"][:2]
+            sampler.load_state_dict(snap["sampler"][2])
+        if snap["batch_size"] is not None:
+            self.train_data.update_batch_size(snap["batch_size"])
+        self._departed = False
+        group = dist.group.WORLD if dist.is_initialized() else None
+        if group is snap["group"]:
+            self._accel, self.state = snap["accel"], snap["state"]
+            self._compiled_once = snap["compiled"]
+            # a dead rank's group answers no collective again
+            self._world_lost = req.dead()
+            return
+        old_rank, old_size = snap["world"]
+        if req.departed or req.leaving or int(req.total) != old_size:
+            self._world_lost = True
+            return
+        from dlrover_tpu_torch.trainer.flash_checkpoint.engine import (
+            _tree_flatten_with_names,
+        )
+
+        try:
+            _, _, url = self._reshape_place(req)
+            if url.startswith("file://"):
+                url += f".rollback{req.round}"
+            reform_process_group(url, old_rank, old_size, self.device)
+            self._accel, self.state = snap["accel"], snap["state"]
+            names, leaves, _ = _tree_flatten_with_names(
+                {"train": self._state_tree()})
+            held = self._held_pieces(names, leaves, old_rank)
+            self._adopt_accel(self._empty_params())
+            self._move_state(names, leaves, held, set())
+        except Exception:  # noqa: BLE001 - then the world is lost
+            logger.exception("could not restore the world before round %s",
+                             req.round)
+            self._world_lost = True
 
     # ---------------------------------------------------------------- eval
 
