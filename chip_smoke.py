@@ -287,6 +287,38 @@ Phases, each fatal on failure (no exception is caught):
    ``job_completion`` plans, and a BrainReporter on a dead address beside
    8 steps of nano-350m (no step stalls, the client degrades to instant
    no-ops);
+   ``[recsys]``, the CTR job: ``RecsysConfig(dim=128, fields=26,
+   hidden=64, device_capacity=2**22)`` (MLPerf DLRM-dcnv2's 26 Criteo
+   fields of dim 128) through the Trainer with ``TieredBatchPreparer``
+   and GroupAdam at f32 compute, batch 8192; first the small config
+   (dim 8, capacity 64, 4 fields, vocab 512), whose 8 losses on the card
+   must be within 1e-5 of the port's CPU run from the same weights, and
+   a demote -> promote round-trip of 4096 rows and their aux rows on the
+   card, bit-identical; then 2**23 warm triples imported (half spill to
+   the host tier), 20 steps of a Zipf id stream with 3% never-seen ids
+   (every batch id resident before its step, gated), Flash Checkpoint's
+   save at step 6 of 12, a PS version bump before step 3 whose
+   ``PsFailoverMonitor`` migration (export, a fresh tier's import) must
+   keep every triple and leave the master's workers synced; a child
+   process (``--recsys-child``) restores step 6 (the table, GroupAdam's
+   state with int32 counts, the tier's sidecar) and trains steps 7-12
+   within 1e-5 of the uninterrupted run; printed: step ms and the
+   prestep's host ms (medians of steps 2-12), rows demoted, promoted and
+   fresh a step, device bytes of the table and GroupAdam's state, the
+   host tier's bytes, the save, restore and migration seconds and a
+   profiled iteration's idle share;
+   ``[coworker]``, the input pipeline: nano-350m (B8 S2048, flash, adamw)
+   through the Trainer fed in process, by
+   ``DevicePrefetcher(CoworkerDataset(...))`` with a
+   ``CoworkerDataService`` process and by a ``ShmBatchWriter`` process ->
+   ``ShmDataLoader`` -> ``DevicePrefetcher`` (``--coworker-child``); each
+   arm's 8 losses within 1e-5 of the in-process feed's, K1-K4 16 launches
+   a step; printed: each arm's step ms, the prefetcher's copy ms on its
+   side stream, the handoff ms a batch and a profiled iteration's idle
+   share; then ``ElasticTrainer`` at world sizes 1, 2 and 4 (accum 4, 2
+   and 1 at global 8, micro 2; the ranks in turn on the card, their
+   gradients averaged; 2 layers, f32, the reference attention), whose
+   losses must agree within 1e-5;
 6. one JSON line with every kernel's numbers (K1-K4's head_dim 64
    instantiations as ``<name>_d64``, their launches from ``[gpt2]``;
    K15-K17's launches from ``[lowp]``'s fp8 and int8 runs, their times
@@ -4162,7 +4194,7 @@ def time_mixtral_attention(inputs) -> dict:
     and K4 each with their rope pre-passes, which the backward runs once
     for K3 and K4), their plain versions (CUDA events, 2 calls), SDPA's
     forward and backward with ``enable_gqa`` on the pre-roped q/k as the
-    library yardstick, and the bounds."""
+    library yardstick (``linalg.vecdot`` for K2), and the bounds."""
     from dlrover_tpu_torch.ops import attention as att
 
     q, k, v, do, cos, sin, o, lse, delta = inputs
@@ -4210,6 +4242,8 @@ def time_mixtral_attention(inputs) -> dict:
         "port_bwd_ms": ms["flash_bwd_preprocess"] + ms["flash_bwd_dq"]
         + ms["flash_bwd_dkv"] - bwd_prepass,
         "sdpa_gqa_fwd_ms": fwd, "sdpa_gqa_bwd_ms": both - fwd,
+        # K2's library yardstick, as at the slice's shape
+        "vecdot_ms": med(lambda: torch.linalg.vecdot(do, o, dim=-1), 20),
     }
     log(json.dumps({"mixtral_attention": out}))
     return out
@@ -6444,6 +6478,831 @@ def brain_phase(brain, on) -> dict:
     release()
     return {"records": len(records), "plans": plans, "dead_address": dead_leg}
 
+
+# ------------------------------------------------------------ [recsys]
+#
+# the CTR job through the port's Trainer: a tiered KvEmbedding at MLPerf
+# DLRM-dcnv2's widths (26 categorical fields of dim 128, Criteo 1TB) with
+# a 2**22-row device table, GroupAdam, batch 8192 (the reference's global
+# 65536 over 8 cards), 2**23 warm ids imported so that half live on the
+# host tier from the first step, a Zipf id stream with a few percent of
+# never-seen ids; Flash Checkpoint saves step 6, a child process resumes
+# there, a PS version bump migrates the tier mid-run
+
+RECSYS = dict(dim=128, fields=26, hidden=64, device_capacity=1 << 22)
+RECSYS_SMALL = dict(dim=8, fields=4, hidden=16, device_capacity=64)
+RECSYS_BATCH = 8192
+RECSYS_VOCAB = 1 << 23     # warm ids: twice the device table
+RECSYS_SMALL_VOCAB = 512
+RECSYS_ZIPF = 1.2
+RECSYS_FRESH = 0.03        # share of each batch's ids never seen before
+# 12 steps (the issue's 20 cut to keep the smoke in its limit): a save
+# at step 6, the child trains 7-12
+RECSYS_STEPS = 12
+RECSYS_SAVE_STEP = 6
+RECSYS_BUMP_STEP = 3       # the PS version bump, before this step's prestep
+RECSYS_LR = 1e-2
+RECSYS_SEED = 17
+RECSYS_DIR = ROOT / "_recsys_smoke"
+# ids of the warm vocabulary (an odd multiplier is a bijection mod 2**40)
+# and of never-seen ones (above 2**41)
+WARM_MULT, FRESH_BASE = 2654435761, 1 << 41
+
+
+def warm_ids(ranks):
+    return (np.asarray(ranks, np.int64) * WARM_MULT) % (1 << 40)
+
+
+def recsys_tier(cfg):
+    """``make_tiered_embedding``'s tier with its host tier sized for the
+    warm vocabulary up front (the default starts at the device table's
+    size and doubles on the first demotion, touching 12 GB of host
+    memory in one step)."""
+    from dlrover_tpu_torch.ops.sparse_embedding import TieredKvEmbedding
+
+    return TieredKvEmbedding(dim=cfg.dim, capacity=cfg.device_capacity,
+                             init_scale=cfg.init_scale, seed=cfg.seed,
+                             host_capacity=RECSYS_VOCAB)
+
+
+class RecsysStream:
+    """Step ``i``'s batch, made from (seed, i): ``ids`` [B, fields] from a
+    Zipf stream over the warm vocabulary's ranks with a share of
+    never-seen ids, ``labels`` the parity of the first field's rank. Its
+    position rides the checkpoint (``state_dict``), as a loader's does."""
+
+    def __init__(self, seed, steps, batch, fields, vocab):
+        self.seed, self.steps, self.batch_size = seed, steps, batch
+        self.fields, self.vocab, self.pos = fields, vocab, 0
+
+    def batch(self, i):
+        rng = np.random.default_rng([self.seed, i])
+        shape = (self.batch_size, self.fields)
+        ranks = (rng.zipf(RECSYS_ZIPF, size=shape) - 1) % self.vocab
+        ids = warm_ids(ranks)
+        fresh = rng.random(shape) < RECSYS_FRESH
+        ids[fresh] = FRESH_BASE + rng.integers(0, 1 << 40,
+                                               size=int(fresh.sum()))
+        return {"ids": ids, "labels": (ranks[:, 0] % 2).astype(np.float32)}
+
+    def __iter__(self):
+        while self.pos < self.steps:
+            i = self.pos
+            self.pos += 1
+            yield self.batch(i)
+
+    def state_dict(self):
+        return {"pos": self.pos}
+
+    def load_state_dict(self, sd):
+        self.pos = int(sd["pos"])
+
+
+def recsys_preparer(kv, on_call=None):
+    """The TieredBatchPreparer with each call's host ms, its rows moved
+    (the tier's counters before and after) and the residency gate: every
+    id of the batch resident, at the slot handed to the step."""
+    from dlrover_tpu_torch.models import TieredBatchPreparer
+
+    class Timed(TieredBatchPreparer):
+        calls: list = []
+
+        def __call__(self, state, batch, count=True):
+            if on_call is not None:
+                on_call(len(self.calls) + 1)
+            before = dict(self.kv.counters)
+            raw = np.asarray(batch["ids"])
+            t0 = time.perf_counter()
+            state, out = super().__call__(state, batch, count=count)
+            ms = (time.perf_counter() - t0) * 1e3
+            slots = self.kv.mapper.resident_slots(raw)
+            if (slots < 0).any() or not np.array_equal(slots, out["slots"]):
+                raise SystemExit(
+                    f"recsys: {int((slots < 0).sum())} ids of the batch are "
+                    f"not resident before the step")
+            self.calls.append({"host_ms": ms, **{
+                k: self.kv.counters[k] - before.get(k, 0)
+                for k in ("demoted_rows", "promoted_rows", "fresh_rows")}})
+            return state, out
+
+    return Timed(kv)
+
+
+def recsys_trainer(cfg, out, stream, prep, device="cuda", flash=True,
+                   save_steps=RECSYS_SAVE_STEP, init_params=None):
+    """The port's Trainer over the CTR model: GroupAdam, f32 compute (see
+    ``recsys_phase``), the preparer as its prestep."""
+    from dlrover_tpu_torch.models import (
+        recsys_init,
+        recsys_logical_axes,
+        recsys_loss_fn,
+    )
+    from dlrover_tpu_torch.optimizers import group_adam
+    from dlrover_tpu_torch.trainer import Trainer, TrainingArgs
+
+    def init(seed, dev):
+        if init_params is not None:
+            return {k: v.to(dev) for k, v in init_params.items()}
+        return recsys_init(cfg, torch.Generator(dev).manual_seed(seed),
+                           prep.kv, dev)
+
+    return Trainer(
+        recsys_loss_fn(cfg), init, recsys_logical_axes(cfg),
+        TrainingArgs(output_dir=str(out), max_steps=stream.steps,
+                     learning_rate=RECSYS_LR, compute_dtype="float32",
+                     flash_checkpoint=flash, save_steps=save_steps,
+                     save_storage_every=10 ** 6, log_steps=0),
+        train_data=stream, optimizer=group_adam(RECSYS_LR), prestep=prep,
+        device=device)
+
+
+def recsys_import(kv, table, vocab, seed):
+    """Import ``vocab`` warm (id, vector, freq) triples, hottest rank
+    first: the device table fills, the rest spills to the host tier.
+    Vectors are drawn on the card; freqs follow the Zipf law's shape."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    vecs = torch.randn((vocab, kv.dim), generator=gen, device="cuda") \
+        * kv.init_scale
+    ranks = np.arange(vocab, dtype=np.int64)
+    freqs = np.maximum(1, (1e6 * (ranks + 1.0) ** -RECSYS_ZIPF)).astype(
+        np.int64)
+    kv.import_(table, warm_ids(ranks), vecs, freqs)
+    del vecs
+
+
+def recsys_roundtrip_check() -> None:
+    """A demote -> promote round-trip of rows and their aux rows (int32
+    counts, f32 moments) on the card: bit-identical."""
+    from dlrover_tpu_torch.ops.sparse_embedding import TieredKvEmbedding
+
+    cap, dim = 4096, RECSYS["dim"]
+    kv = TieredKvEmbedding(dim=dim, capacity=cap, seed=1)
+    gen = torch.Generator("cuda").manual_seed(3)
+    table = kv.init_table(gen)
+    aux = [torch.randint(0, 99, (cap, 1), generator=gen, device="cuda",
+                         dtype=torch.int32),
+           torch.randn((cap, dim), generator=gen, device="cuda"),
+           torch.rand((cap, dim), generator=gen, device="cuda")]
+    ids = warm_ids(np.arange(cap))
+    slots = kv.mapper.lookup(ids)   # resident at the random rows above
+    idx = torch.as_tensor(slots, dtype=torch.long, device="cuda")
+    before = [t.index_select(0, idx).clone() for t in [table] + aux]
+    kv.prepare_batch(table, FRESH_BASE + np.arange(cap), aux=aux)  # demote all
+    if kv.host_ids != cap:
+        raise SystemExit(f"recsys: {kv.host_ids} rows demoted, want {cap}")
+    _, slots, _ = kv.prepare_batch(table, ids, aux=aux)            # promote
+    idx = torch.as_tensor(slots, dtype=torch.long, device="cuda")
+    same = [torch.equal(t.index_select(0, idx), b)
+            for t, b in zip([table] + aux, before)]
+    log(f"  [recsys] demote -> promote round-trip of {cap} rows on the card: "
+        f"table, steps, mu, nu bit-identical {same}")
+    if not all(same):
+        raise SystemExit("recsys: a demote/promote round-trip changed bits")
+
+
+def recsys_small_check() -> dict:
+    """The small configuration's first 8 losses on the card at f32
+    compute against the port's CPU run from the same weights."""
+    from dlrover_tpu_torch.models import RecsysConfig, make_tiered_embedding
+    from dlrover_tpu_torch.models import recsys_init
+
+    cfg = RecsysConfig(**RECSYS_SMALL)
+    init = recsys_init(cfg, torch.Generator().manual_seed(0),
+                       device="cpu")
+    losses = {}
+    for device in ("cuda", "cpu"):
+        stream = RecsysStream(RECSYS_SEED, 8, 16, cfg.fields,
+                              RECSYS_SMALL_VOCAB)
+        tr = recsys_trainer(cfg, RECSYS_DIR / f"small_{device}", stream,
+                            recsys_preparer(make_tiered_embedding(cfg)),
+                            device=device, flash=False, init_params=init)
+        got = record_losses(tr)
+        tr.train()
+        losses[device] = [x.item() for x in got]
+        tr.close()
+    gap = max(abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    log(f"  [recsys] small config (dim 8, capacity 64, fields 4, vocab 512) "
+        f"losses on the card {losses['cuda']}, on the CPU {losses['cpu']}: "
+        f"largest gap {gap:.3e}")
+    if len(losses["cuda"]) != 8 or gap > LOSS_TOL:
+        raise SystemExit(f"recsys: the card's small-config losses leave the "
+                         f"CPU's by {gap}")
+    return {"small_losses_gap_to_cpu": gap}
+
+
+def recsys_child(spec: dict) -> int:
+    """The [recsys] resume: a fresh Trainer over the phase's job restores
+    step 6 (the table, GroupAdam's state, the tier's sidecar) and trains
+    steps 7-12; its losses, the restore's seconds and the tier go to
+    ``spec["report"]``. It saves nothing (the phase measures the restore).
+    Started early, it imports and makes its CUDA context, then waits for
+    ``spec["go"]``."""
+    from dlrover_tpu_torch.models import RecsysConfig
+    from dlrover_tpu_torch.trainer import Trainer
+
+    torch.cuda.init()
+    go, deadline = Path(spec["go"]), time.monotonic() + 900
+    while not go.exists():
+        if time.monotonic() > deadline:
+            return 3
+        time.sleep(0.05)
+    cfg = RecsysConfig(**RECSYS)
+    prep = recsys_preparer(recsys_tier(cfg))
+    stream = RecsysStream(RECSYS_SEED, RECSYS_STEPS, RECSYS_BATCH,
+                          cfg.fields, RECSYS_VOCAB)
+    tr = recsys_trainer(cfg, spec["out"], stream, prep, save_steps=0)
+    tr._final_save = lambda: None
+    seen = {}
+    inner = Trainer.maybe_resume
+
+    def maybe_resume(self):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seen["step"] = inner(self)
+        torch.cuda.synchronize()
+        seen["restore_s"] = time.perf_counter() - t0
+        return seen["step"]
+
+    Trainer.maybe_resume = maybe_resume
+    losses = record_losses(tr)
+    tr.train()
+    table = tr.state.params["table"]
+    steps_dtype = str(tr.state.optimizer.state[table]["steps"].dtype)
+    Path(spec["report"]).write_text(json.dumps({
+        "resumed_from": seen["step"], "restore_s": seen["restore_s"],
+        "losses": [x.item() for x in losses], "steps_dtype": steps_dtype,
+        "host_ids": prep.kv.host_ids, "calls": prep.calls}))
+    tr.close()
+    return 0
+
+
+def profile_iteration(fn, label) -> dict:
+    """One call of ``fn`` (a whole loop iteration) under torch.profiler:
+    the wall ms, the device's busy ms and its idle share; the table goes
+    to chiprun_out/profile_step_<label>.txt."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    averages = prof.key_averages()
+    busy_us = sum(e.self_device_time_total for e in averages
+                  if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation)
+    OUT.mkdir(exist_ok=True)
+    (OUT / f"profile_step_{label}.txt").write_text(
+        averages.table(sort_by="cuda_time_total", row_limit=40))
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1 - busy_us / wall_us}
+
+
+def recsys_phase() -> dict:
+    """[recsys]: the CTR job on the card. RecsysConfig(dim=128, fields=26,
+    hidden=64, device_capacity=2**22), GroupAdam, batch 8192, f32 compute
+    (under bf16 the step would cast the whole 2 GiB table each step:
+    ``auto_accelerate`` casts every master before the loss). Gates: the
+    small config's losses on the card against the CPU's; a bit-identical
+    demote -> promote round-trip; every batch id resident before its
+    step; the PS bump's migration keeps every (id, vector, freq) triple
+    and the master sees the worker synced; the child's losses for steps
+    7-12 within 1e-5 of the uninterrupted run's, its GroupAdam counts
+    int32. The embedding's backward is ``F.embedding``'s (deterministic
+    on CUDA: it sorts the slots and sums each run of equal slots in
+    order), so the resumed losses are expected bit-equal; the gate takes
+    1e-5."""
+    import shutil
+    import threading
+
+    from dlrover_tpu_torch.agent.ckpt_saver import AsyncCheckpointSaver
+    from dlrover_tpu_torch.agent.master_client import MasterClient
+    from dlrover_tpu_torch.master.master import LocalJobMaster
+    from dlrover_tpu_torch.models import RecsysConfig
+    from dlrover_tpu_torch.scheduler.job import new_job_args
+    from dlrover_tpu_torch.trainer.elastic.ps_failover import (
+        PsFailoverClient,
+        PsFailoverMonitor,
+    )
+
+    t_phase = time.perf_counter()
+    card = CARD["line"]
+    shutil.rmtree(RECSYS_DIR, ignore_errors=True)
+    RECSYS_DIR.mkdir()
+    outer_job = os.environ.get("ELASTIC_JOB_NAME", "")
+    job = f"{outer_job}rec"
+    os.environ["ELASTIC_JOB_NAME"] = job
+    master = None
+    # the resuming child starts now (its imports and CUDA context overlap
+    # the run) and waits for the go file
+    report, go = RECSYS_DIR / "child.json", RECSYS_DIR / "go"
+    child_log = RECSYS_DIR / "child.log"
+    with open(child_log, "w") as out:
+        child = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--recsys-child",
+             json.dumps({"out": str(RECSYS_DIR / "run"),
+                         "report": str(report), "go": str(go)})],
+            cwd=str(ROOT), stdout=out, stderr=subprocess.STDOUT)
+    try:
+        summary = recsys_small_check()
+        recsys_roundtrip_check()
+        release()
+
+        cfg = RecsysConfig(**RECSYS)
+        kv = recsys_tier(cfg)
+        master = LocalJobMaster(0, new_job_args("local", "recsys",
+                                                node_num=1))
+        master.prepare()
+        failover = PsFailoverClient(MasterClient(
+            f"127.0.0.1:{master.port}", 0, "worker"))
+        migration = {}
+        migrated = threading.Event()
+
+        def bump(step):
+            # the master migrates the PS once, mid-run; the monitor's
+            # migration runs while this step's prestep waits for it
+            if step != RECSYS_BUMP_STEP:
+                return
+            master.elastic_ps_service.inc_global_cluster_version()
+            if not migrated.wait(300):
+                raise SystemExit("recsys: the PS migration never ran")
+
+        prep = recsys_preparer(kv, on_call=bump)
+        stream = RecsysStream(RECSYS_SEED, RECSYS_STEPS, RECSYS_BATCH,
+                              cfg.fields, RECSYS_VOCAB)
+        tr = recsys_trainer(cfg, RECSYS_DIR / "run", stream, prep)
+        tr._final_save = lambda: None  # step 6's save is the one resumed
+        table = tr.state.params["table"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recsys_import(kv, table, RECSYS_VOCAB, RECSYS_SEED)
+        torch.cuda.synchronize()
+        import_s = time.perf_counter() - t0
+        log(f"  [recsys] imported {RECSYS_VOCAB} warm triples in "
+            f"{import_s:.2f} s: {len(kv.mapper)} on the card, "
+            f"{kv.host_ids} on the host tier")
+
+        def on_migrate(old, new):
+            t0 = time.perf_counter()
+            ids, vecs, freqs = prep.kv.export(table)
+            fresh = recsys_tier(cfg)
+            fresh.import_(table, ids, vecs, freqs)
+            # a migrated PS carries (id, vector, freq) triples, not the
+            # optimizer's slots: the table's GroupAdam state starts fresh
+            for t in prep.aux_tensors(tr.state.optimizer, table):
+                t.zero_()
+            prep.kv = fresh
+            torch.cuda.synchronize()
+            migration.update(seconds=time.perf_counter() - t0,
+                             rows=int(ids.size), versions=(old, new))
+            ids2, vecs2, freqs2 = fresh.export(table)
+            a, b = np.argsort(ids), np.argsort(ids2)
+            migration["triples_equal"] = bool(
+                np.array_equal(ids[a], ids2[b])
+                and np.array_equal(vecs[a], vecs2[b])
+                and np.array_equal(freqs[a], freqs2[b]))
+            migrated.set()
+
+        monitor = PsFailoverMonitor(failover, on_migrate, interval=0.05)
+        monitor.start()
+        saves = []
+        inner_save = tr.save_checkpoint
+
+        def save_checkpoint(persist=False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ok = inner_save(persist=persist)
+            saves.append({"step": tr.global_step, "ok": ok,
+                          "blocking_s": time.perf_counter() - t0})
+            tr.args.save_steps = 0   # one save: step 6's
+            return ok
+
+        tr.save_checkpoint = save_checkpoint
+        inner_step, losses, spans = tr._accel.train_step, [], []
+
+        def recording(state, batch, rng):
+            t0 = time.perf_counter()
+            state, metrics = inner_step(state, batch, rng)
+            torch.cuda.synchronize()
+            spans.append((t0, time.perf_counter()))
+            losses.append(metrics["loss"])
+            return state, metrics
+
+        tr._accel.train_step = recording
+        t0 = time.perf_counter()
+        tr.train()
+        train_s = time.perf_counter() - t0
+        monitor.stop()
+        synced = master.elastic_ps_service.all_workers_synced()
+        run_losses = [x.item() for x in losses]
+        calls = prep.calls
+        step_ms = [(spans[i][1] - spans[i - 1][1]) * 1e3
+                   for i in range(1, len(spans))]
+        device_bytes = table.numel() * table.element_size() + sum(
+            t.numel() * t.element_size()
+            for t in tr.state.optimizer.state[table].values())
+        host_bytes = prep.kv.host_bytes()
+        log(f"  [recsys] losses {run_losses}")
+        log(f"  [recsys] PS bump before step {RECSYS_BUMP_STEP}: "
+            f"{json.dumps(migration)}, all_workers_synced {synced}")
+        if (not migration.get("triples_equal") or not synced
+                or failover.local_version != 1):
+            raise SystemExit(f"recsys: the PS migration failed: {migration}, "
+                             f"synced {synced}")
+        if len(saves) != 1 or not saves[0]["ok"] \
+                or saves[0]["step"] != RECSYS_SAVE_STEP:
+            raise SystemExit(f"recsys: saves {saves}, want one at step "
+                             f"{RECSYS_SAVE_STEP}")
+        if len(run_losses) != RECSYS_STEPS or not all(
+                math.isfinite(x) for x in run_losses):
+            raise SystemExit(f"recsys: losses {run_losses}")
+
+        # one more loop iteration (prestep and step) under the profiler
+        extra = stream.batch(RECSYS_STEPS)
+        profiled = profile_iteration(lambda: inner_step(
+            *prep(tr.state, extra), None), "recsys")
+        tr.close()
+        del tr, table, kv, prep
+        AsyncCheckpointSaver.reset()
+        release()
+
+        # the resume in the child process
+        t0 = time.perf_counter()
+        go.write_text("")
+        child.wait(timeout=600)
+        child_s = time.perf_counter() - t0
+        if child.returncode != 0:
+            log(child_log.read_text()[-4000:])
+            raise SystemExit(f"recsys: the resuming child exited "
+                             f"{child.returncode}")
+        resumed = json.loads(report.read_text())
+        log(f"  [recsys] child: resumed from step {resumed['resumed_from']} "
+            f"in {resumed['restore_s']:.2f} s, losses {resumed['losses']}, "
+            f"GroupAdam steps {resumed['steps_dtype']}, {child_s:.1f} s")
+        if resumed["resumed_from"] != RECSYS_SAVE_STEP \
+                or resumed["steps_dtype"] != "torch.int32" \
+                or len(resumed["losses"]) != RECSYS_STEPS - RECSYS_SAVE_STEP:
+            raise SystemExit(f"recsys: the child {resumed}")
+        gap = loss_gap("recsys-resume", resumed["losses"],
+                       run_losses[RECSYS_SAVE_STEP:], LOSS_TOL,
+                       to="the uninterrupted run")
+
+        def median(key, rows):
+            return statistics.median(r[key] for r in rows)
+
+        steady = calls[1:]
+        summary.update({
+            "config": "RecsysConfig(dim=128, fields=26, hidden=64, "
+                      "device_capacity=2**22), GroupAdam, f32 compute",
+            "batch": RECSYS_BATCH, "steps": RECSYS_STEPS,
+            "warm_vocab": RECSYS_VOCAB, "import_s": import_s,
+            "step_ms_median_2_on": statistics.median(step_ms),
+            "prestep_host_ms_median_2_on": median("host_ms", steady),
+            "demoted_rows_per_step_median": median("demoted_rows", steady),
+            "promoted_rows_per_step_median": median("promoted_rows", steady),
+            "fresh_rows_per_step_median": median("fresh_rows", steady),
+            "rows_per_step": calls,
+            "device_bytes_table_and_optimizer": device_bytes,
+            "host_tier_bytes": host_bytes,
+            "save_blocking_s": saves[0]["blocking_s"],
+            "restore_s": resumed["restore_s"], "child_s": child_s,
+            "migration_s": migration["seconds"],
+            "migration_rows": migration["rows"],
+            "resume_loss_gap": gap, "train_s": train_s,
+            "profiled_iteration": profiled,
+            "phase_s": time.perf_counter() - t_phase, "card": card})
+        log(json.dumps({"recsys": summary}))
+        return summary
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        if master is not None:
+            master.stop()
+        os.environ["ELASTIC_JOB_NAME"] = outer_job
+        gone = unlink_segments(job)
+        if gone:
+            log(f"  [recsys] cleanup: unlinked {gone}")
+        shutil.rmtree(RECSYS_DIR, ignore_errors=True)
+
+
+# ---------------------------------------------------------- [coworker]
+#
+# the input pipeline feeding the slice's Trainer: nano-350m (B8 S2048,
+# flash, adamw) fed in process, by DevicePrefetcher(CoworkerDataset) with
+# a CoworkerDataService process, and by ShmBatchWriter (a process) ->
+# ShmDataLoader -> DevicePrefetcher; every arm the same token batches
+
+COWORKER_STEPS = 8
+COWORKER_ELASTIC_LAYERS = 2
+COWORKER_WORLDS = (1, 2, 4)     # accum 4, 2, 1 at global 8, micro 2
+COWORKER_MICRO = 2
+
+
+def coworker_batches(vocab, S, B, n):
+    """The example's token stream, ``n`` batches of ``B`` rows in order."""
+    from dlrover_tpu_torch.examples.llama_pretrain import (
+        synthetic_token_stream,
+    )
+
+    ds = synthetic_token_stream(vocab, S, n_samples=B * n)
+    return [{"tokens": np.stack([ds[i * B + r] for r in range(B)])}
+            for i in range(n)]
+
+
+def coworker_child(spec: dict) -> int:
+    """A feeder process: ``spec["role"]`` "coworker" serves the batches
+    through a CoworkerDataService announcing to ``spec["info"]``; "shm"
+    puts them through a ShmBatchWriter. Runs until ``spec["stop"]``
+    exists."""
+    batches = coworker_batches(spec["vocab"], spec["seq"], spec["batch"],
+                               spec["n"])
+    stop = Path(spec["stop"])
+    if spec["role"] == "coworker":
+        from dlrover_tpu_torch.trainer.elastic.coworker import (
+            CoworkerDataService,
+        )
+
+        cw = CoworkerDataService(lambda: iter(batches),
+                                 announce_to=spec["info"], announce_every=1,
+                                 queue_size=4)
+        cw.start()
+        closer = cw.stop
+    else:
+        from dlrover_tpu_torch.trainer.elastic import ShmBatchWriter
+
+        writer = ShmBatchWriter(spec["name"], slots=4,
+                                slot_bytes=spec["slot_bytes"])
+        for b in batches:
+            writer.put(b, timeout=120)
+        writer.end()
+        closer = lambda: writer.close(unlink=True)  # noqa: E731
+    deadline = time.monotonic() + 600
+    while not stop.exists() and time.monotonic() < deadline:
+        time.sleep(0.02)
+    closer()
+    return 0
+
+
+class TimedFeed:
+    """An iterable whose iterator records each ``next``'s wall ms: the
+    handoff, what the Trainer waits for a batch."""
+
+    def __init__(self, inner):
+        self.inner, self.ms = inner, []
+
+    def __iter__(self):
+        it = iter(self.inner)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            yield item
+
+
+def coworker_train(cfg, label, feed, steps=COWORKER_STEPS):
+    """nano-350m through the Trainer over ``feed``: (losses, step ms of
+    steps 2..n, launches, trainer)."""
+    from dlrover_tpu_torch.models import llama_init, llama_loss_fn
+    from dlrover_tpu_torch.parallel import Strategy
+    from dlrover_tpu_torch.trainer import Trainer, TrainingArgs
+
+    tr = Trainer(
+        llama_loss_fn(cfg), lambda seed, device: llama_init(cfg, seed, device),
+        None, TrainingArgs(output_dir=str(OUT / f"coworker_{label}"),
+                           max_steps=steps, learning_rate=SLICE_LR,
+                           optimizer="adamw", strategy=Strategy(remat="none"),
+                           flash_checkpoint=False, log_steps=0),
+        train_data=feed, device="cuda")
+    inner, losses, starts = tr._accel.train_step, [], []
+
+    def recording(state, batch, rng):
+        starts.append(time.perf_counter())
+        state, metrics = inner(state, batch, rng)
+        losses.append(metrics["loss"])
+        return state, metrics
+
+    tr._accel.train_step = recording
+    torch.cuda.synchronize()
+    reset_launches()
+    tr.train()
+    torch.cuda.synchronize()
+    end = time.perf_counter()
+    launches = launch_counts()
+    step_ms = [(b - a) * 1e3 for a, b in zip(starts[1:], starts[2:] + [end])]
+    return [x.item() for x in losses], step_ms, launches, tr
+
+
+def elastic_world_runs(cfg, batches) -> dict:
+    """ElasticTrainer at world sizes 1, 2 and 4 over the same global
+    batches of 8 at micro 2 (accum 4, 2, 1): 2 layers of nano-350m, f32
+    compute (the reference attention: the flash kernels take bf16), the
+    ranks of a world run in turn on the card and their gradients are
+    averaged before one AdamW update. Their losses must agree within
+    1e-5."""
+    from dlrover_tpu_torch.models import llama_init, llama_loss_fn
+    from dlrover_tpu_torch.trainer.elastic import ElasticTrainer
+
+    small = dataclasses.replace(cfg, n_layers=COWORKER_ELASTIC_LAYERS,
+                                attn_impl="reference", dtype="float32")
+    loss_fn = llama_loss_fn(small)
+    init = {k: v.float() for k, v in llama_init(small, 0, "cuda").items()}
+    out = {}
+    for world in COWORKER_WORLDS:
+        et = ElasticTrainer(len(batches[0]["tokens"]), COWORKER_MICRO, world)
+        params = {k: v.clone().requires_grad_() for k, v in init.items()}
+        opt = torch.optim.AdamW(list(params.values()), lr=SLICE_LR,
+                                weight_decay=0.0)
+        taken = []
+
+        def grad_fn(p, mb):
+            loss = loss_fn(p, mb, None)
+            grads = torch.autograd.grad(loss, list(p.values()))
+            return loss.detach(), dict(zip(p, grads))
+
+        step = et.wrap_step(grad_fn, lambda p, o, g: (taken.append(g) or p,
+                                                      o))
+        losses = []
+        for batch in batches:
+            tokens = torch.as_tensor(batch["tokens"], device="cuda")
+            local = et.local_batch_size
+            rank_losses = []
+            for rank in range(world):
+                _, _, loss = step(params, None, {
+                    "tokens": tokens[rank * local:(rank + 1) * local]})
+                rank_losses.append(loss)
+            with torch.no_grad():
+                for name, p in params.items():
+                    p.grad = sum(g[name] for g in taken) / world
+            taken.clear()
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+            losses.append((sum(rank_losses) / world).item())
+        out[world] = {"accum": et.accum_steps, "losses": losses}
+        del params, opt
+        release()
+    ref = out[COWORKER_WORLDS[0]]["losses"]
+    gap = max(abs(a - b) for w in COWORKER_WORLDS[1:]
+              for a, b in zip(out[w]["losses"], ref))
+    log(f"  [coworker] ElasticTrainer worlds {json.dumps(out)}; largest "
+        f"gap to world 1: {gap:.3e}")
+    if gap > LOSS_TOL:
+        raise SystemExit(f"coworker: ElasticTrainer's losses differ across "
+                         f"world sizes by {gap}")
+    return {"elastic_worlds": out, "elastic_world_gap": gap}
+
+
+def coworker_phase() -> dict:
+    """[coworker]: the input pipeline feeding nano-350m (B8 S2048, flash,
+    adamw) through the port's Trainer. The in-process feed first; then
+    DevicePrefetcher(CoworkerDataset) with one CoworkerDataService
+    process; then a ShmBatchWriter process -> ShmDataLoader ->
+    DevicePrefetcher. Every arm trains on the same token batches, so its 8
+    losses must be within 1e-5 of the in-process run's, with K1-K4 16
+    launches a step. Printed: each arm's step ms beside the in-process
+    feed's, the prefetcher's copy ms on its side stream, the handoff ms
+    per batch, a profiled iteration's idle share. Before the arms,
+    ElasticTrainer at world sizes 1, 2 and 4."""
+    from dlrover_tpu_torch.common.ipc import socket_path
+    from dlrover_tpu_torch.trainer.elastic import (
+        DevicePrefetcher,
+        ShmDataLoader,
+    )
+    from dlrover_tpu_torch.trainer.elastic.coworker import (
+        CoworkerDataset,
+        DataInfoService,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = slice_config()
+    B, S, n = 8, 2048, COWORKER_STEPS
+    batches = coworker_batches(cfg.vocab_size, S, B, n)
+    want = attention_launches(cfg, n)
+    runs = {}
+
+    def gate(label, losses, launches):
+        for name in FLASH_KERNELS:
+            if launches[name] != want[name]:
+                raise SystemExit(f"coworker: {label}: {name} launched "
+                                 f"{launches[name]} times, want "
+                                 f"{want[name]}")
+        if label != "in-process":
+            runs[label]["loss_gap"] = loss_gap(
+                f"coworker-{label}", losses, runs["in-process"]["losses"],
+                LOSS_TOL, to="the in-process feed")
+
+    stop = OUT / "coworker.stop"
+    stop.unlink(missing_ok=True)
+    spec = {"vocab": cfg.vocab_size, "seq": S, "batch": B, "stop": str(stop)}
+    info = DataInfoService()
+    info.start()
+    procs = []
+
+    def feeder(role, **extra):
+        proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--coworker-child", json.dumps({**spec, "role": role,
+                                             **extra})], cwd=str(ROOT))
+        procs.append(proc)
+        return proc
+
+    try:
+        # both feeders start first: their start-up overlaps the
+        # ElasticTrainer runs, which time nothing. The coworker's service
+        # holds two batches more, for the profiled iteration after its run;
+        # the shm writer fills its 4 slots and waits for the loader
+        name = f"cw{os.getpid()}"
+        slot_bytes = 2 * B * (S + 1) * 4 + (1 << 16)
+        feeder("coworker", info=info.addr, n=n + 2)
+        feeder("shm", name=name, slot_bytes=slot_bytes, n=n)
+        elastic = elastic_world_runs(cfg, batches)
+        losses, step_ms, launches, tr = coworker_train(cfg, "inproc",
+                                                       batches)
+        runs["in-process"] = {"losses": losses,
+                              "step_ms_median": statistics.median(step_ms)}
+        gate("in-process", losses, launches)
+        tr.close()
+        del tr
+        release()
+
+        # the coworker arm
+        prefetch = DevicePrefetcher(
+            CoworkerDataset(info.addr, n_batches=n, fetch_timeout=60.0),
+            device="cuda", depth=2)
+        feed = TimedFeed(prefetch)
+        losses, step_ms, launches, tr = coworker_train(cfg, "coworker", feed)
+        runs["coworker"] = {
+            "losses": losses, "step_ms_median": statistics.median(step_ms),
+            "copy_ms_median": statistics.median(prefetch.copy_ms()),
+            "handoff_ms_median": statistics.median(feed.ms)}
+        gate("coworker", losses, launches)
+        # a steady iteration of the same feed under the profiler: the
+        # first of two more batches warms a fresh dataset's fetch thread
+        extra = iter(DevicePrefetcher(
+            CoworkerDataset(info.addr, n_batches=2, fetch_timeout=60.0),
+            device="cuda"))
+        tr._accel.train_step(tr.state, next(extra), None)
+
+        def one_iteration():
+            tr._accel.train_step(tr.state, next(extra), None)
+
+        runs["coworker"]["profiled_iteration"] = profile_iteration(
+            one_iteration, "coworker")
+        tr.close()
+        del tr
+        release()
+
+        # the shm arm
+        deadline = time.monotonic() + 120
+        sock = Path(socket_path("queue", f"batchfill_{name}"))
+        while not sock.exists():
+            if time.monotonic() > deadline:
+                raise SystemExit("coworker: the shm writer never started")
+            time.sleep(0.02)
+        loader = ShmDataLoader(name, slots=4, slot_bytes=slot_bytes)
+        prefetch = DevicePrefetcher(loader, device="cuda", depth=2)
+        feed = TimedFeed(prefetch)
+        losses, step_ms, launches, tr = coworker_train(cfg, "shm", feed)
+        runs["shm"] = {"losses": losses,
+                       "step_ms_median": statistics.median(step_ms),
+                       "copy_ms_median": statistics.median(prefetch.copy_ms()),
+                       "handoff_ms_median": statistics.median(feed.ms)}
+        gate("shm", losses, launches)
+        tr.close()
+        loader.close()
+        del tr
+        release()
+    finally:
+        stop.write_text("")
+        for proc in procs:
+            try:
+                proc.wait(60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        info.stop()
+        stop.unlink(missing_ok=True)
+    for proc in procs:
+        if proc.returncode != 0:
+            raise SystemExit(f"coworker: a feeder exited {proc.returncode}")
+
+    summary = {"config": "nano-350m", "batch": B, "seq": S, "steps": n,
+               **{k: {kk: vv for kk, vv in v.items() if kk != "losses"}
+                  for k, v in runs.items()}}
+    summary.update(elastic)
+    summary.update(phase_s=time.perf_counter() - t_phase, card=CARD["line"])
+    for label, run in runs.items():
+        log(f"  [coworker] {label}: losses {run['losses']}")
+    log(json.dumps({"coworker": summary}))
+    return summary
+
+
 def main() -> int:
     """All phases. The job's name keys its shm segments (the step
     timer's ring, which every Trainer feeds, and the checkpoint's): they
@@ -6597,6 +7456,16 @@ def run_phases() -> int:
     log("phase prof:")
     prof_phase()
 
+    # 5e. the recsys family: the tiered-KvEmbedding CTR job through the
+    # Trainer (spill, PS migration, a resume in a child), then the input
+    # pipeline (coworker and shm feeds through the side-stream prefetcher)
+    log("phase recsys:")
+    recsys_phase()
+    release()
+    log("phase coworker:")
+    coworker_phase()
+    release()
+
     # 6. kernel line, then the result line
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -6622,4 +7491,8 @@ if __name__ == "__main__":
         sys.exit(ckpt_child(json.loads(sys.argv[2])))
     if sys.argv[1:2] == ["--serve-worker"]:
         sys.exit(serve_worker(json.loads(sys.argv[2])))
+    if sys.argv[1:2] == ["--recsys-child"]:
+        sys.exit(recsys_child(json.loads(sys.argv[2])))
+    if sys.argv[1:2] == ["--coworker-child"]:
+        sys.exit(coworker_child(json.loads(sys.argv[2])))
     sys.exit(main())

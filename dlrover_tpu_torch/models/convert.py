@@ -8,7 +8,9 @@ arrays (for example ``jax.tree.map(np.asarray, tree)``), so that this
 module needs neither jax nor the JAX package. On a DeviceMesh both give
 DTensors: the params placed by their logical axes under the rule table,
 the moments as their params are placed (the JAX package's
-``compute_state_shardings``).
+``compute_state_shardings``). ``recsys_params_from_jax`` and
+``tiered_state_from_jax`` carry the recsys model's params and a
+``TieredKvEmbedding``'s state (mapper, host tier) across.
 """
 
 from __future__ import annotations
@@ -185,3 +187,45 @@ def _adam_state(st, optimizer) -> dict:
                 "exp_avg": like(mu[name], p),
                 "exp_avg_sq": like(nu[name], p)}
             for i, (name, p) in enumerate(zip(names, params))}
+
+
+_RECSYS_LEAVES = ("table", "w1", "b1", "w2", "b2")
+
+
+def recsys_params_from_jax(params_np: dict, device="cpu") -> dict:
+    """``dlrover_tpu.models.recsys_init``'s params (numpy leaves) -> the
+    port's: the same five leaves (the table and the two-layer tower),
+    values and dtypes unchanged, on ``device``."""
+    missing = [k for k in _RECSYS_LEAVES if k not in params_np]
+    if missing:
+        raise KeyError(f"not a recsys param tree: no {missing}")
+    return params_from_jax({k: params_np[k] for k in _RECSYS_LEAVES},
+                           device)
+
+
+def _host_array(a) -> np.ndarray:
+    """A host-tier array in the port's host form: ``bfloat16`` rows (an
+    ml_dtypes type on the JAX side) as their int16 bit patterns."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return a.view(np.int16).copy()
+    return a.copy()
+
+
+def tiered_state_from_jax(state: dict) -> dict:
+    """A JAX ``TieredKvEmbedding.state_dict()`` (numpy arrays) -> a state
+    the port's ``TieredKvEmbedding.load_state_dict`` takes: the same
+    mapper arrays, host ids, host rows and aux rows (the legacy
+    ``host_store`` layout too), copied, with bfloat16 rows as bits."""
+    out = {"mapper": {k: (np.asarray(v).copy()
+                          if isinstance(v, np.ndarray) else v)
+                      for k, v in state["mapper"].items()}}
+    if "host_store" in state:
+        out["host_store"] = {int(k): _host_array(v)
+                             for k, v in state["host_store"].items()}
+    else:
+        out["host_ids"] = np.asarray(state["host_ids"], np.int64).copy()
+        out["host_rows"] = _host_array(state["host_rows"])
+    if state.get("host_aux") is not None:
+        out["host_aux"] = [_host_array(a) for a in state["host_aux"]]
+    return out

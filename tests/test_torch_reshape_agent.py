@@ -331,7 +331,7 @@ class _Paced:
         return self.rows[idx]
 
 
-def _flap_trainer(tmp, name, chan_dir, save_steps):
+def _flap_trainer(tmp, name, chan_dir, save_steps, out="out"):
     index, count = batch_place(MeshConfig(data=1, fsdp=-1))
     loader = ElasticDataLoader(
         _Paced(os.path.join(tmp, f"consumed.{name}")),
@@ -359,7 +359,7 @@ def _flap_trainer(tmp, name, chan_dir, save_steps):
     tr = Progress(
         llama_loss_fn(TINY), lambda s, d: llama_init(TINY, s, d),
         llama_logical_axes(TINY),
-        TrainingArgs(output_dir=os.path.join(tmp, "out"), log_steps=0,
+        TrainingArgs(output_dir=os.path.join(tmp, out), log_steps=0,
                      learning_rate=1e-3, save_steps=save_steps,
                      save_storage_every=10 ** 6,
                      strategy=Strategy(mesh=MeshConfig(data=1, fsdp=-1),
@@ -411,7 +411,11 @@ def _flap_proc(tmp, job, name, slot, join, schedule):
         if join is not None:
             reform_process_group(*join, "cpu")
         chan = os.path.join(tmp, f"chan.{name}")
-        tr = _flap_trainer(tmp, name, chan, save_steps=1)
+        # each arm persists into its own storage: a control that found the
+        # elastic arm's final checkpoint would resume from it instead of
+        # training, and under load its ranks raced over rewriting it
+        tr = _flap_trainer(tmp, name, chan, save_steps=1,
+                           out="out" if schedule is None else "out.control")
         if join is not None and join[0].endswith("store3"):
             tr._reshape_round = 3
         if schedule is None:
