@@ -178,7 +178,18 @@ Phases, each fatal on failure (no exception is caught):
    Trainer's restore (every leaf's local shard ``torch.equal``,
    placements kept; its seconds) and 2 more steps within 1e-5
    (relative) of the first Trainer's continuation; the group destroyed
-   after; ``[reshape1]``, the in-process reshape at one rank: nano-350m
+   after; ``[mesh1-opt]``: on that mesh again, every optimizer (FusedAdamW
+   bits 32 with a clip, K7, and bits 8, K8; per-leaf Adam8bit, K5/K6;
+   AGD, group Adam, OffloadAdam, WSAM over adamw) and adamw under
+   ``overlap_collectives`` "xla" and "manual", each against its
+   optimizer's unsharded run (losses within 1e-5 relative, bit-equality
+   printed; K7/K8 one a step, K5/K6 one a leaf a step, K1-K4 16 a step;
+   every param and param-shaped moment a DTensor; the overlap arms equal
+   to ``[mesh1]`` with no ring call), each arm's step and optimizer-step
+   ms beside the unsharded run's, its state bytes on the card and the
+   grad all-gather's ms, then ``[reshape1]``'s round with fused 8-bit
+   Adam, bit-equal after it, in a ``{"mesh1_opt": ...}`` line;
+   ``[reshape1]``, the in-process reshape at one rank: nano-350m
    through the Trainer on a one-rank NCCL DeviceMesh with Flash
    Checkpoint and a reshape channel, 3 steps, then a request of round 2
    for the same world (1 -> 1) at that boundary: the agreement, a save
@@ -1620,6 +1631,8 @@ def train_slice(steps: int = 5):
                      if name not in FLASH_KERNELS})
     loss_gap("bshd", losses, adamw_losses)
 
+    # each unsharded run's losses and summary, for [mesh1-opt]
+    refs = {}
     n_leaves = 12
     variants = (
         ("adam8bit", build_optimizer("adam8bit", SLICE_LR, weight_decay=0.0),
@@ -1632,11 +1645,12 @@ def train_slice(steps: int = 5):
          Strategy(remat="none"), {"fused_adamw32": steps}),
     )
     for label, factory, strategy, want in variants:
-        res, state, batch, losses, counts, _s = train_run(
+        res, state, batch, losses, counts, summary = train_run(
             cfg, label, factory, strategy, steps)
         profile_step(res, state, batch, label, top=8)
         del res, state
         release()
+        refs[label] = {"losses": losses, "summary": summary}
         for name in ("quantize_int8", "dequantize_int8", "fused_adamw32",
                      "fused_adamw8"):
             if counts[name] != want.get(name, 0):
@@ -1672,11 +1686,14 @@ def train_slice(steps: int = 5):
     agd_phase(cfg, steps, trainer_summary, none_summary)
     release()
     ce_chunk_runs(cfg, steps, adamw_losses, none_summary, ce1_rows)
-    optimizer_runs(cfg, none_summary)
+    refs.update(optimizer_runs(cfg, none_summary))
     release()
     # the data, fsdp and tensor axes' path: DTensor state on a one-rank
     # NCCL DeviceMesh
-    mesh1_phase(cfg, steps, adamw_losses, none_summary)
+    refs["mesh1"] = mesh1_phase(cfg, steps, adamw_losses, none_summary)
+    release()
+    # every optimizer and the overlap modes on that mesh
+    mesh1_opt_phase(cfg, refs)
     return launches
 
 
@@ -1798,6 +1815,7 @@ def mesh1_phase(cfg, steps, adamw_losses, none_summary):
         **chain, "phase_s": time.perf_counter() - t_phase,
     }
     log(json.dumps({"mesh1": report}))
+    return {"losses": losses, "summary": summary}
 
 
 def mesh1_chain(cfg, run_dir) -> dict:
@@ -1895,6 +1913,285 @@ def mesh1_chain(cfg, run_dir) -> dict:
             "loss_gap_after_restore": gap}
 
 
+# ------------------------------------------------------------ [mesh1-opt]
+
+# [mesh1-opt]: the clip norm of FusedAdamW bits 32's arm (nano-350m's
+# grads reach norms above 1 in its first steps)
+MESH1_OPT_CLIP = 1.0
+
+
+def timed_whole_grads():
+    """Wrap ``FusedAdamW.whole_grads`` (the grads all-gathered whole: the
+    step's new collective, a no-op at one rank) with CUDA events; returns
+    (the event pairs, a function that unwraps it)."""
+    from dlrover_tpu_torch.ops.fused_optim import FusedAdamW
+
+    inner, events = FusedAdamW.__dict__["whole_grads"], []
+
+    def whole_grads(params):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner.__func__(params)
+        end.record()
+        events.append((start, end))
+        return out
+
+    FusedAdamW.whole_grads = staticmethod(whole_grads)
+    return events, lambda: setattr(FusedAdamW, "whole_grads", inner)
+
+
+def check_mesh_state(label, state):
+    """Every param a DTensor, and every moment of a param's shape too
+    (OffloadAdam's live on the host: its ``state_dict()`` places them as
+    their params)."""
+    from torch.distributed.tensor import DTensor
+
+    from dlrover_tpu_torch.optimizers import OffloadAdam
+
+    opt = state.optimizer
+    if {type(p).__name__ for p in state.params.values()} != {"DTensor"}:
+        raise SystemExit(f"{label}: a param is not a DTensor")
+    host = isinstance(opt, OffloadAdam)
+    entries = (opt.state_dict()["state"].values() if host
+               else opt.state.values())
+    params = [p for g in opt.param_groups for p in g["params"]]
+    shapes = {tuple(p.shape) for p in params}
+    for entry in entries:
+        if not isinstance(entry, dict):
+            continue
+        for key, v in entry.items():
+            if (isinstance(v, torch.Tensor) and v.is_floating_point()
+                    and tuple(v.shape) in shapes and v.dim()
+                    and not isinstance(v, DTensor)):
+                raise SystemExit(f"{label}: moment {key} of a param's "
+                                 "shape is not a DTensor")
+
+
+def mesh1_wsam_run(cfg, steps, axes, B=8, S=2048):
+    """The decoupled WSAM step over torch AdamW on the one-rank mesh (the
+    params and the base optimizer from ``auto_accelerate``, remat
+    "none", bf16 over f32 masters as ``wsam_run``): (losses, step
+    seconds, state)."""
+    from dlrover_tpu_torch.models import llama_init, llama_loss_fn
+    from dlrover_tpu_torch.optimizers import make_wsam_step_fn
+    from dlrover_tpu_torch.parallel import (
+        MeshConfig,
+        Strategy,
+        auto_accelerate,
+    )
+    from dlrover_tpu_torch.parallel import remat as remat_lib
+    from dlrover_tpu_torch.parallel.accelerate import global_value
+    from dlrover_tpu_torch.trainer import build_optimizer
+
+    res = auto_accelerate(
+        llama_loss_fn(cfg), lambda seed, device: llama_init(cfg, seed,
+                                                            device),
+        build_optimizer("adamw", SLICE_LR, weight_decay=0.0),
+        Strategy(remat="none", mesh=MeshConfig(data=1, fsdp=-1)),
+        device="cuda", seed=0, param_logical_axes=axes)
+    inner = llama_loss_fn(cfg)
+
+    def loss_fn(p, batch, rng):
+        with remat_lib.no_remat():
+            return inner({n: t.to(torch.bfloat16) for n, t in p.items()},
+                         batch, rng)
+
+    step = make_wsam_step_fn(loss_fn, res.state.optimizer, SLICE_LR)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in
+             synthetic_batch(cfg.vocab_size, S, B, 0).items()}
+    torch.cuda.synchronize()
+    reset_launches()
+    losses, step_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(global_value(step(res.state.params, batch,
+                                        None)).item())
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches = launch_counts()
+    for name, want in attention_launches(cfg, 2 * steps).items():
+        if launches[name] != want:
+            raise SystemExit(f"mesh1-opt wsam: {name} launched "
+                             f"{launches[name]} times, want {want}")
+    return losses, step_s, res.state
+
+
+def mesh1_opt_phase(cfg, refs):
+    """[mesh1-opt]: every optimizer and the overlap modes on [mesh1]'s
+    one-rank NCCL DeviceMesh (``MeshConfig(data=1, fsdp=-1)``),
+    nano-350m at full width, B8 S2048, flash, remat "none", on the
+    repeated batch of the unsharded runs in ``refs``: FusedAdamW bits 32
+    with ``clip_norm`` (K7) and bits 8 (K8), per-leaf Adam8bit (K5/K6),
+    AGD, group Adam, OffloadAdam and WSAM over AdamW (OPT_STEPS steps,
+    as their unsharded runs), and AdamW under ``overlap_collectives``
+    "xla" and "manual". The unsharded runs of FusedAdamW with the clip
+    and of AGD are made here first, before the group. Gates: every param
+    and every moment of a param's shape a DTensor; each arm's losses
+    within LOSS_TOL (relative) of its optimizer's unsharded run
+    (bit-equality printed), K1-K4 16 a step, K7 and K8 one a step, K5
+    and K6 one a leaf a step; the overlap arms' losses equal to
+    [mesh1]'s (adamw, "off") and no ring call (fsdp is 1). Prints per
+    arm: step ms and optimizer-step ms beside the unsharded run's, the
+    state's bytes on the card, the grad all-gather's ms (FusedAdamW,
+    Adam8bit) and the leaves it gathered (none at one rank). Then
+    [reshape1]'s 1 -> 1 round with FusedAdamW bits 8,
+    its losses after the round bit-equal to an uninterrupted run. The
+    group is destroyed at the end, also when a check fails."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.models import llama_logical_axes
+    from dlrover_tpu_torch.ops import collectives
+    from dlrover_tpu_torch.ops.fused_optim import fused_adamw
+    from dlrover_tpu_torch.optimizers import (
+        OffloadAdam,
+        adam8bit,
+        agd,
+        group_adam,
+    )
+    from dlrover_tpu_torch.parallel import (
+        MeshConfig,
+        Strategy,
+        mesh_state,
+        set_mesh,
+    )
+    from dlrover_tpu_torch.trainer import build_optimizer
+
+    t_phase = time.perf_counter()
+    steps = MESH1_STEPS
+    # the unsharded runs the smoke makes nowhere else
+    for label, factory, n in (
+            ("fused_adamw32_clip", fused_adamw(SLICE_LR,
+                                               clip_norm=MESH1_OPT_CLIP),
+             steps),
+            ("agd", agd(SLICE_LR), OPT_STEPS)):
+        res, state, _b, losses, _c, summary = train_run(
+            cfg, label, factory, Strategy(remat="none"), n)
+        del res, state
+        release()
+        refs[label] = {"losses": losses, "summary": summary}
+    n_leaves = 12
+    arms = (
+        # label, factory, steps, the unsharded run, optimizer kernels,
+        # strategy fields, optimizer-step timer
+        ("fused_adamw32", fused_adamw(SLICE_LR, clip_norm=MESH1_OPT_CLIP),
+         steps, "fused_adamw32_clip", {"fused_adamw32": steps}, {}, None),
+        ("fused_adamw8", adam8bit(SLICE_LR, fused=True), steps,
+         "adam8bit_fused", {"fused_adamw8": steps},
+         {"fused_optim": True}, None),
+        ("adam8bit", build_optimizer("adam8bit", SLICE_LR,
+                                     weight_decay=0.0), steps, "adam8bit",
+         {"quantize_int8": n_leaves * steps,
+          "dequantize_int8": n_leaves * steps}, {}, None),
+        ("agd", agd(SLICE_LR), OPT_STEPS, "agd", {}, {}, None),
+        ("group_adam", group_adam(SLICE_LR), OPT_STEPS, "group_adam", {},
+         {}, None),
+        ("offload_adam", lambda params: OffloadAdam(params, lr=SLICE_LR),
+         OPT_STEPS, "offload_adam", {}, {}, time_offload_steps),
+        ("overlap_xla", build_optimizer("adamw", SLICE_LR,
+                                        weight_decay=0.0), steps, "mesh1",
+         {}, {"overlap_collectives": "xla"}, None),
+        ("overlap_manual", build_optimizer("adamw", SLICE_LR,
+                                           weight_decay=0.0), steps,
+         "mesh1", {}, {"overlap_collectives": "manual"}, None),
+    )
+    axes = llama_logical_axes(cfg)
+    mesh = MeshConfig(data=1, fsdp=-1)
+    if dist.is_initialized():
+        raise SystemExit("mesh1-opt: a process group already exists")
+    store = tempfile.mkdtemp(prefix="mesh1opt")
+    dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                            rank=0, world_size=1)
+    report = {"card": CARD["line"], "config": "nano-350m", "batch": 8,
+              "seq": 2048, "mesh": {"data": 1, "fsdp": 1}, "arms": {}}
+    try:
+        for label, factory, n, ref, kernels, fields, timer in arms:
+            gathers, unwrap = timed_whole_grads()
+            calls = dict(collectives.ring_calls)
+            leaves = mesh_state.gathered["leaves"]
+            try:
+                res, state, _b, losses, counts, summary = train_run(
+                    cfg, f"mesh1-opt {label}", factory,
+                    Strategy(remat="none", mesh=mesh, **fields), n,
+                    optimizer=label, time_opt=timer, axes=axes)
+            finally:
+                unwrap()
+            check_mesh_state(label, state)
+            del res, state
+            release()
+            for name in ("quantize_int8", "dequantize_int8",
+                         "fused_adamw32", "fused_adamw8"):
+                if counts[name] != kernels.get(name, 0):
+                    raise SystemExit(
+                        f"mesh1-opt {label}: {name} launched {counts[name]} "
+                        f"times, want {kernels.get(name, 0)}")
+            ring = {k: collectives.ring_calls[k] - calls[k] for k in calls}
+            unsharded = refs[ref]
+            if ref == "mesh1":
+                if losses != unsharded["losses"] or any(ring.values()):
+                    raise SystemExit(
+                        f"mesh1-opt {label}: losses {losses} against "
+                        f"[mesh1]'s {unsharded['losses']}, ring calls "
+                        f"{ring}")
+                gap = 0.0
+            else:
+                gap = loss_gap(f"mesh1-opt {label}", losses,
+                               unsharded["losses"], LOSS_TOL, relative=True,
+                               to=f"the unsharded {ref} run")
+            gather_ms = [a.elapsed_time(b) for a, b in gathers]
+            report["arms"][label] = {
+                "steps": n, "reference": ref,
+                "bit_equal": losses == unsharded["losses"],
+                "loss_gap_relative": gap,
+                "step_ms_median_from_2": summary["step_ms_median_2_to_5"],
+                "unsharded_step_ms_median_from_2": unsharded["summary"][
+                    "step_ms_median_2_to_5"],
+                "opt_step_ms_median_from_2": summary[
+                    "opt_step_ms_median_2_to_5"],
+                "unsharded_opt_step_ms_median_from_2": unsharded[
+                    "summary"].get("opt_step_ms_median_2_to_5"),
+                "state_gb_on_card": summary["opt_state_gb_on_device"],
+                "grad_gather_ms_median": (statistics.median(gather_ms)
+                                          if gather_ms else None),
+                "leaves_gathered": mesh_state.gathered["leaves"] - leaves,
+                "ring_calls": ring,
+                "optimizer_launches": {k: counts[k] for k in kernels},
+            }
+            log(f"  [mesh1-opt] {label}: {json.dumps(report['arms'][label])}")
+        losses, step_s, state = mesh1_wsam_run(cfg, OPT_STEPS, axes)
+        check_mesh_state("wsam", state)
+        del state
+        release()
+        gap = loss_gap("mesh1-opt wsam", losses, refs["wsam"]["losses"],
+                       LOSS_TOL, relative=True, to="the unsharded wsam run")
+        report["arms"]["wsam"] = {
+            "steps": OPT_STEPS, "reference": "wsam",
+            "bit_equal": losses == refs["wsam"]["losses"],
+            "loss_gap_relative": gap,
+            "step_ms_median_from_2": statistics.median(step_s[1:]) * 1e3,
+            "unsharded_step_ms_median_from_2": refs["wsam"]["summary"][
+                "step_ms_median_2_to_5"]}
+        log(f"  [mesh1-opt] wsam: {json.dumps(report['arms']['wsam'])}")
+    finally:
+        set_mesh(None)
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    release()
+    reshape = reshape1_phase(cfg, adam8bit(SLICE_LR, fused=True),
+                             label="mesh1-opt-reshape",
+                             optimizer_kernels={"fused_adamw8": 1},
+                             bit_equal=True)
+    report["reshape_fused_adamw8"] = {
+        k: reshape[k] for k in ("legs_s", "reshape_total_s",
+                                "bit_equal_after_round",
+                                "loss_gap_after_round")}
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"mesh1_opt": report}))
+
+
 # --------------------------------------------------------------- [reshape1]
 
 RESHAPE1_STEPS = 3  # steps on each side of the round
@@ -1915,11 +2212,12 @@ class TokenRows:
             0, self.vocab, size=(self.seq_len + 1,), dtype=np.int32)
 
 
-def reshape1_trainer(cfg, out, channel, B=8, S=2048):
+def reshape1_trainer(cfg, out, channel, optimizer=None, B=8, S=2048):
     """nano-350m through the port's Trainer on a one-rank DeviceMesh
-    (``MeshConfig(fsdp=-1)``, bf16 over f32 masters, adamw), Flash
-    Checkpoint saving to shm at step RESHAPE1_STEPS; each step's loss,
-    wall ms (synchronised) and launch counts kept."""
+    (``MeshConfig(fsdp=-1)``, bf16 over f32 masters, adamw unless
+    ``optimizer``, a factory, says otherwise), Flash Checkpoint saving
+    to shm at step RESHAPE1_STEPS; each step's loss, wall ms
+    (synchronised) and launch counts kept."""
     from dlrover_tpu_torch.models import (
         llama_init,
         llama_logical_axes,
@@ -1970,13 +2268,14 @@ def reshape1_trainer(cfg, out, channel, B=8, S=2048):
     tr = Recording(
         llama_loss_fn(cfg), lambda s, d: llama_init(cfg, s, d),
         llama_logical_axes(cfg), args, train_data=loader,
-        reshape_channel=channel, device="cuda")
+        reshape_channel=channel, device="cuda", optimizer=optimizer)
     tr.steps = []
     tr.wrap()
     return tr
 
 
-def reshape1_phase(cfg):
+def reshape1_phase(cfg, optimizer=None, label="reshape1",
+                   optimizer_kernels=None, bit_equal=False):
     """[reshape1]: the in-process reshape on the card, 1 -> 1. A one-rank
     NCCL group from a ``file://`` store, nano-350m through the Trainer
     with Flash Checkpoint and a reshape channel; after step
@@ -1990,7 +2289,12 @@ def reshape1_phase(cfg):
     one process (no restart), the state on the card on an NCCL group.
     Prints each leg of the reshape with the card's name and power
     limit. The group is destroyed at the end, also when a check fails;
-    no fallback: a failed ack or any exception fails the run."""
+    no fallback: a failed ack or any exception fails the run.
+    ``optimizer`` (a factory; adamw without), ``label``: another arm of
+    the same round ([mesh1-opt]'s FusedAdamW bits 8), whose
+    ``optimizer_kernels`` (name: launches a step) are gated with K1-K4,
+    and with ``bit_equal`` the losses after the round must equal the
+    uninterrupted run's bit for bit."""
     import shutil
     import tempfile
 
@@ -2004,22 +2308,23 @@ def reshape1_phase(cfg):
     )
 
     if dist.is_initialized():
-        raise SystemExit("reshape1: a process group already exists")
+        raise SystemExit(f"{label}: a process group already exists")
     t_phase = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="reshape1")
+    tmp = tempfile.mkdtemp(prefix=label)
     pid = os.getpid()
     dist.init_process_group("nccl", init_method=f"file://{tmp}/store1",
                             rank=0, world_size=1)
     per_step = {name: n for name, n in attention_launches(cfg, 1).items()
                 if name in FLASH_KERNELS}
+    per_step.update(optimizer_kernels or {})
     try:
         job = os.environ["ELASTIC_JOB_NAME"]
-        with flash_env("reshape1", job):
+        with flash_env(label, job):
             channel = ReshapeChannel(os.path.join(tmp, "chan"))
             request = ReshapeRequest(
                 round=2, world={0: 1}, prev_world={0: 1}, total=1,
                 coordinator=f"file://{tmp}/store2")
-            tr = reshape1_trainer(cfg, CKPT_DIR / "reshape1", channel)
+            tr = reshape1_trainer(cfg, CKPT_DIR / label, channel, optimizer)
             # the agent's request lands during the last step before it
             tr.after_step = lambda step: (
                 channel.signal(request) if step == RESHAPE1_STEPS else None)
@@ -2029,21 +2334,22 @@ def reshape1_phase(cfg):
             train_s = time.perf_counter() - t_train
             ack = channel.read_ack(2)
             if not ack or not ack.get("ok"):
-                raise SystemExit(f"reshape1: the round was not adopted: {ack}")
+                raise SystemExit(f"{label}: the round was not adopted: {ack}")
             if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
-                raise SystemExit("reshape1: not on a one-rank NCCL group")
+                raise SystemExit(f"{label}: not on a one-rank NCCL group")
             placed = {(type(p).__name__, p.device.type,
                        getattr(getattr(p, "device_mesh", None),
                                "device_type", None))
                       for p in tr.state.params.values()}
             if placed != {("DTensor", "cuda", "cuda")}:
-                raise SystemExit(f"reshape1: params after the round {placed}")
+                raise SystemExit(f"{label}: params after the round {placed}")
             got = tr.steps
             tr.close()
             del tr
             release()
         set_mesh(None)
-        ref_tr = reshape1_trainer(cfg, CKPT_DIR / "reshape1-ref", None)
+        ref_tr = reshape1_trainer(cfg, CKPT_DIR / f"{label}-ref", None,
+                                  optimizer)
         ref_tr.train()
         ref = ref_tr.steps
         del ref_tr
@@ -2054,20 +2360,20 @@ def reshape1_phase(cfg):
             dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
     if os.getpid() != pid or len(got) != 2 * RESHAPE1_STEPS:
-        raise SystemExit(f"reshape1: {len(got)} steps in this process")
+        raise SystemExit(f"{label}: {len(got)} steps in this process")
     losses = [r["loss"].item() for r in got]
     ref_losses = [r["loss"].item() for r in ref]
     after = slice(RESHAPE1_STEPS, None)
     gap = max(abs(a - b) for a, b in zip(losses[after], ref_losses[after]))
-    if gap > LOSS_TOL:
-        raise SystemExit(f"reshape1: losses after the round {losses[after]} "
+    if gap > LOSS_TOL or (bit_equal and losses[after] != ref_losses[after]):
+        raise SystemExit(f"{label}: losses after the round {losses[after]} "
                          f"against the uninterrupted {ref_losses[after]}")
     prev = {name: 0 for name in per_step}
     for r in got:
         delta = {name: r["launches"][name] - prev[name] for name in per_step}
         prev = {name: r["launches"][name] for name in per_step}
         if delta != per_step:
-            raise SystemExit(f"reshape1: step {r['step']} launched {delta}, "
+            raise SystemExit(f"{label}: step {r['step']} launched {delta}, "
                              f"want {per_step}")
     steady = statistics.median(r["ms"] for r in got[1:RESHAPE1_STEPS])
     legs = {k: ack[k] for k in ("agree_s", "boundary_save_s",
@@ -2088,11 +2394,11 @@ def reshape1_phase(cfg):
         "launches_per_step": per_step, "train_s_with_final_persist": train_s,
         "phase_s": time.perf_counter() - t_phase,
     }
-    log(f"  [reshape1] {CARD['line']}: round 2 adopted at step "
+    log(f"  [{label}] {CARD['line']}: round 2 adopted at step "
         f"{ack['step']} in {ack['dur']:.3f} s; legs {legs}; first step "
         f"after {got[RESHAPE1_STEPS]['ms']:.1f} ms (steady {steady:.1f}); "
         f"loss gap {gap:.3g} (bit-equal {report['bit_equal_after_round']})")
-    log(json.dumps({"reshape1": report}))
+    log(json.dumps({label: report}))
     return report
 
 
@@ -2409,7 +2715,8 @@ def optimizer_runs(cfg, none_summary):
     mup_rescale_init at MUP_WIDTH_MULT), group_adam, OffloadAdam (with
     its legs and the device memory it saves against adamw) and the
     decoupled WSAM step over adamw; losses finite and falling, K1-K4 16
-    a step a pass."""
+    a step a pass. Returns each run's losses and summary by label, the
+    references of [mesh1-opt]."""
     from dlrover_tpu_torch.models import llama_init, llama_logical_axes
     from dlrover_tpu_torch.optimizers import (
         OffloadAdam,
@@ -2431,12 +2738,14 @@ def optimizer_runs(cfg, none_summary):
         ("offload_adam", lambda params: OffloadAdam(params, lr=SLICE_LR),
          None, time_offload_steps),
     )
+    refs = {}
     for label, factory, init, time_opt in runs:
-        res, state, _b, _l, _c, summary = train_run(
+        res, state, _b, losses, _c, summary = train_run(
             cfg, label, factory, Strategy(remat="none"), OPT_STEPS,
             init=init, time_opt=time_opt)
         del res, state
         release()
+        refs[label] = {"losses": losses, "summary": summary}
         report[label] = {k: summary[k] for k in (
             "step_ms_median_2_to_5", "opt_step_ms_median_2_to_5",
             "peak_mem_gib", "opt_state_gb", "opt_state_gb_on_device")}
@@ -2455,8 +2764,12 @@ def optimizer_runs(cfg, none_summary):
         "step_ms_median_from_2": statistics.median(step_s[1:]) * 1e3,
         "step_ratio_to_adamw": statistics.median(step_s[1:]) * 1e3
         / none_summary["step_ms_median_2_to_5"]}
+    refs["wsam"] = {"losses": losses, "summary": {
+        "step_ms_median_2_to_5": report["wsam_adamw"][
+            "step_ms_median_from_2"]}}
     release()
     log(json.dumps({"optimizers": report, "card": CARD["line"]}))
+    return refs
 
 
 # [agd]: the example's chain with --optimizer agd for AGD_STEPS steps, a
@@ -3606,13 +3919,15 @@ def dispatched_count(http_addr) -> float | None:
     count of the WAL-append histogram's ``dispatch`` records), after
     /report.json folded the master's own telemetry in; None while it is
     not answering."""
+    import http.client
     import urllib.request
 
     base = f"http://{http_addr}"
     try:
         urllib.request.urlopen(base + "/report.json", timeout=5).read()
         text = urllib.request.urlopen(base + "/metrics", timeout=5).read()
-    except OSError:
+    except (OSError, http.client.HTTPException):
+        # not answering, or killed mid-response (an IncompleteRead)
         return None
     for line in text.decode().splitlines():
         if line.startswith("dlrtpu_master_wal_append_seconds_count") and \

@@ -61,6 +61,7 @@ from dlrover_tpu_torch.ops.cross_entropy import softmax_cross_entropy
 from dlrover_tpu_torch.ops.fp8 import qdot, qeinsum
 from dlrover_tpu_torch.parallel import remat as remat_lib
 from dlrover_tpu_torch.parallel.mesh import seq_ring
+from dlrover_tpu_torch.parallel.overlap import layer_gather_fn, plain_gather
 from dlrover_tpu_torch.parallel.shard_ops import ShardContext
 
 
@@ -232,11 +233,10 @@ def _layer_norm(x, scale, bias, eps):
 def _block(config: GPT2Config, x, p, ring=None, shard=None):
     """One pre-LN block. x: [B,S,D]; p: this layer's params (weights and
     biases in the compute dtype, norm params f32); ``ring``: the seq
-    axis' transport, or None; ``shard``: (the mesh's ``ShardContext``,
-    the gathers of each param) when ``p`` holds local shards."""
+    axis' transport, or None; ``shard``: ``gather(key, local) -> whole``
+    for each param when ``p`` holds local shards."""
     if shard is not None:
-        ctx, gathers = shard
-        p = {k: ctx.gather(v, gathers[k]) for k, v in p.items()}
+        p = {k: shard(k, v) for k, v in p.items()}
     B, S, D = x.shape
     h, hd = config.n_heads, config.head_dim
 
@@ -307,9 +307,8 @@ def gpt2_apply(config: GPT2Config, params: dict, tokens, positions=None):
         tokens = shard.local_rows(tokens)
         if positions is not None:
             positions = shard.local_rows(positions)
-        layer_shard = (shard, {
-            k: shard.gathers(params["layers." + k], drop_leading=1)
-            for k in LAYER_KEYS})
+        gathers = {k: shard.gathers(params["layers." + k], drop_leading=1)
+                   for k in LAYER_KEYS}
         # every other param whole on every rank (the gathers' backward
         # reduce-scatters their gradients)
         params = {n: p if n.startswith("layers.") else shard.gather(
@@ -321,9 +320,14 @@ def gpt2_apply(config: GPT2Config, params: dict, tokens, positions=None):
     x = _gpt2_embed(config, embed, params["pos_embed"].to(dtype), tokens,
                     positions, ring)
 
-    stacks = {k: (params["layers." + k] if k in _NORM_KEYS
-                  else params["layers." + k].to(dtype)).unbind(0)
-              for k in LAYER_KEYS}
+    stacked = {k: (params["layers." + k] if k in _NORM_KEYS
+                   else params["layers." + k].to(dtype))
+               for k in LAYER_KEYS}
+    # the fsdp gathers one layer ahead under overlap_collectives
+    overlapped = (layer_gather_fn(shard, gathers) if shard is not None
+                  else None)
+    stacks = (overlapped.split(stacked) if overlapped is not None else
+              {k: v.unbind(0) for k, v in stacked.items()})
     # under remat each layer keeps only the weight matmuls; without
     # gradients there is nothing to keep
     remat = (config.remat and torch.is_grad_enabled()
@@ -331,6 +335,9 @@ def gpt2_apply(config: GPT2Config, params: dict, tokens, positions=None):
     policy = remat_lib.layer_policy("dots_no_batch") if remat else None
     for i in range(config.n_layers):
         p = {k: v[i] for k, v in stacks.items()}
+        if shard is not None:
+            layer_shard = (plain_gather(shard, gathers) if overlapped is None
+                           else overlapped.layer(i, stacks))
         if remat:
             x = remat_lib.checkpoint(_block, config, x, p, ring,
                                      layer_shard, policy=policy)

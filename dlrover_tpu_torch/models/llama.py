@@ -93,6 +93,7 @@ from dlrover_tpu_torch.parallel.mesh import (
     seq_ring,
 )
 from dlrover_tpu_torch.parallel.moe import MoEConfig, moe_ffn
+from dlrover_tpu_torch.parallel.overlap import layer_gather_fn, plain_gather
 from dlrover_tpu_torch.parallel.sequence import sequence_sharded_attention
 from dlrover_tpu_torch.parallel.shard_ops import ShardContext
 
@@ -430,16 +431,16 @@ def _layer(config: LlamaConfig, x, p, rope_cos, rope_sin, ring=None,
            shard=None):
     """One transformer block. x: [B,S,D]; p: this layer's params;
     ``ring``: the seq axis' transport, or None; ``shard``: (the mesh's
-    ``ShardContext``, the gathers of each param) when ``p`` holds local
-    shards, or None. Returns (x, aux): the layer's weighted MoE losses,
-    None for a dense layer."""
+    ``ShardContext``, ``gather(key, local) -> whole`` for each param, the
+    expert group) when ``p`` holds local shards, or None. Returns (x,
+    aux): the layer's weighted MoE losses, None for a dense layer."""
     B, S, D = x.shape
     hd = config.head_dim
     to_tensor = from_tensor = _identity
     ctx = experts = None
     if shard is not None:
-        ctx, gathers, experts = shard
-        p = {k: ctx.gather(v, gathers[k]) for k, v in p.items()}
+        ctx, gather, experts = shard
+        p = {k: gather(k, v) for k, v in p.items()}
         to_tensor, from_tensor = ctx.to_tensor, ctx.from_tensor
     # this rank's heads (all of them off a tensor axis)
     h, kvh = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
@@ -584,15 +585,20 @@ def llama_apply(config: LlamaConfig, params: dict, tokens, positions=None,
                 shard.expect_tensor_dim("layers." + k,
                                         params["layers." + k],
                                         TENSOR_DIMS[k])
-        stacks = {k: shard.local(params["layers." + k]).to(dtype).unbind(0)
-                  for k in keys}
-        layer_shard = (shard, {
+        gathers = {
             k: shard.gathers(params["layers." + k], drop_leading=1,
                              local_axes=("tensor", "expert") if k in experts
                              else ("tensor",))
-            for k in keys},
-            shard.expert_group(params["layers.w_gate"]) if experts
-            else None)
+            for k in keys}
+        stacked = {k: shard.local(params["layers." + k]).to(dtype)
+                   for k in keys}
+        # the fsdp gathers one layer ahead under overlap_collectives
+        overlapped = layer_gather_fn(shard, gathers)
+        stacks = (overlapped.split(stacked) if overlapped is not None else
+                  {k: v.unbind(0) for k, v in stacked.items()})
+        plain = plain_gather(shard, gathers)
+        group = (shard.expert_group(params["layers.w_gate"]) if experts
+                 else None)
     # under remat each layer keeps only what its policy saves; without
     # gradients there is nothing to keep
     remat = (config.remat and torch.is_grad_enabled()
@@ -601,6 +607,9 @@ def llama_apply(config: LlamaConfig, params: dict, tokens, positions=None,
     aux = None
     for i in range(config.n_layers):
         p = {k: v[i] for k, v in stacks.items()}
+        if shard is not None:
+            layer_shard = (shard, plain if overlapped is None
+                           else overlapped.layer(i, stacks), group)
         if remat:
             x, layer_aux = remat_lib.checkpoint(
                 _layer, config, x, p, cos, sin, ring, layer_shard,

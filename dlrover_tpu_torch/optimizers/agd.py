@@ -22,6 +22,11 @@ are f32, as JAX computes them on the device. The step count is global,
 as JAX's ``ScaleByAgdState.count``: ``state["count"]``, beside each
 param's ``mu``/``nu`` (and ``max_nu`` only with ``amsgrad``), all
 created with the optimizer.
+
+On a DeviceMesh the moments are DTensors placed as their params (JAX
+shards a state that mirrors the params as the params), and the
+``_foreach`` ops run on the local shards (``parallel/mesh_state.py``
+``local``): the unsharded step's operations on the same elements.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from typing import Callable, Optional, Union
 import torch
 
 from dlrover_tpu_torch.ops.fused_optim import Schedule, _bias_correction
+from dlrover_tpu_torch.parallel.mesh_state import local
 
 
 class AGD(torch.optim.Optimizer):
@@ -38,6 +44,8 @@ class AGD(torch.optim.Optimizer):
     grad counts as a zero grad, as in the JAX step, whose grad tree is
     whole. ``lr`` may be a schedule of the pre-increment count
     (``optax.scale_by_schedule``)."""
+
+    steps_on_mesh = True
 
     def __init__(self, params, lr: Union[float, Schedule] = 1e-3,
                  b1: float = 0.9, b2: float = 0.999, delta: float = 1e-5,
@@ -70,15 +78,16 @@ class AGD(torch.optim.Optimizer):
 
     def _group_step(self, group, count: int, t: int) -> None:
         b1, b2, delta = group["b1"], group["b2"], group["delta"]
-        params = group["params"]
-        if not params:
+        if not group["params"]:
             return
-        grads = [p.grad.float() if p.grad is not None
-                 else torch.zeros_like(p, dtype=torch.float32)
-                 for p in params]
-        states = [self.state[p] for p in params]
-        mus = [st["mu"] for st in states]
-        nus = [st["nu"] for st in states]
+        # the local shards of DTensor params and moments
+        params = [local(p) for p in group["params"]]
+        grads = [local(p.grad).float() if p.grad is not None
+                 else torch.zeros_like(lp, dtype=torch.float32)
+                 for p, lp in zip(group["params"], params)]
+        states = [self.state[p] for p in group["params"]]
+        mus = [local(st["mu"]) for st in states]
+        nus = [local(st["nu"]) for st in states]
         bc1 = _bias_correction(b1, t)
         bc2 = _bias_correction(b2, t)
         # the previous bias-corrected moment, before mu moves
@@ -100,7 +109,7 @@ class AGD(torch.optim.Optimizer):
         torch._foreach_add_(nus, sq)
         del sq
         if group["amsgrad"]:
-            max_nus = [st["max_nu"] for st in states]
+            max_nus = [local(st["max_nu"]) for st in states]
             torch._foreach_maximum_(max_nus, nus)
             nus = max_nus
         den = torch._foreach_div(nus, bc2)

@@ -14,6 +14,14 @@ add_decayed_weights -> scale_by_learning_rate`` does:
 So a step launches K5 and K6 once per leaf. ``adam8bit(fused=True)`` is
 the one-launch alternative (``ops/fused_optim.py``, K8).
 
+On a DeviceMesh (DTensor params) the codes and scales are laid out as
+the JAX package lays them there: over each leaf's global blocks,
+replicated (a plain tensor on every rank), since they do not mirror the
+params. A step takes each grad and each sharded param whole
+(``parallel/mesh_state.py`` ``whole``), runs the leaf's update over the
+global array with the global rounding field of its seed, and writes
+this rank's shard of the param back: the unsharded step, bit for bit.
+
 Leaf ``i`` is the optimizer's i-th param; ``auto_accelerate`` passes the
 params in the JAX flattening order (``fused_optim.tree_order``), so the
 rounding seed ``count * 7919 + i`` names the same leaf as in JAX.
@@ -26,6 +34,7 @@ from typing import Callable, Optional, Union
 import torch
 
 from dlrover_tpu_torch.ops.fused_optim import (
+    FusedAdamW,
     Schedule,
     _clip,
     _global_norm,
@@ -40,6 +49,7 @@ from dlrover_tpu_torch.ops.quantization import (
     quantize_int8,
     quantize_pos_log,
 )
+from dlrover_tpu_torch.parallel.mesh_state import whole, write_local
 
 
 class Adam8bit(torch.optim.Optimizer):
@@ -55,6 +65,8 @@ class Adam8bit(torch.optim.Optimizer):
     State: ``state["count"]`` and, per param, ``mu_q``/``mu_scale``/
     ``nu_q``/``nu_scale`` ([rows, BLOCK] codes, [rows, 1] scales).
     """
+
+    steps_on_mesh = True
 
     def __init__(self, params, lr: Union[float, Schedule] = 1e-3,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -113,14 +125,15 @@ class Adam8bit(torch.optim.Optimizer):
         count = self.state["count"]
         count_inc = count + 1
         b1, b2 = self.b1, self.b2
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in params]
+        grads = [torch.zeros(p.shape, device=p.device) if g is None else g
+                 for p, g in zip(params, FusedAdamW.whole_grads(params))]
         g_norm = (_global_norm(grads) if self.clip_norm is not None
                   else None)
         sc = _scalars(count, count_inc, self.param_groups[0]["lr"], b1, b2,
                       g_norm, params[0].device)
         for i, (p, g) in enumerate(zip(params, grads)):
             st = self.state[p]
+            target = whole(p)
             g = _clip(g.float(), sc, self.clip_norm)
             mu = dequantize_int8(st["mu_q"], st["mu_scale"], p.shape)
             nu = dequantize_pos_log(st["nu_q"], st["nu_scale"], p.shape)
@@ -128,8 +141,9 @@ class Adam8bit(torch.optim.Optimizer):
             nu = b2 * nu + (1 - b2) * g * g
             upd = (mu / sc[1]) / (torch.sqrt(nu / sc[2]) + self.eps)
             if self.weight_decay:
-                upd = upd + self.weight_decay * p
-            p.add_(upd * sc[0])
+                upd = upd + self.weight_decay * target
+            target.add_(upd * sc[0])
+            write_local(p, target)
             u = self._draw_uniform(count_inc, i, st["mu_q"].shape[0],
                                    p.device)
             st["mu_q"], st["mu_scale"], _ = quantize_int8(mu, u=u)

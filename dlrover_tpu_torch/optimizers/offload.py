@@ -19,6 +19,14 @@ All copies run on the current stream in order, so a step's copy into a
 leaf's host buffer never overtakes the previous step's copy out of it.
 This trades device memory (two f32 moments per param, 8 bytes a param)
 for PCIe traffic (each grad down, each update up) and host compute.
+
+On a DeviceMesh each rank keeps the host moments of its local shards
+only, and copies, computes and updates local shards
+(``parallel/mesh_state.py`` ``local``): the JAX package's update, which
+is elementwise, on this rank's elements. ``state_dict()`` then gives
+each moment as a DTensor placed as its param over the host shard, so a
+sharded checkpoint and the in-process reshape move it as they move the
+params.
 """
 
 from __future__ import annotations
@@ -26,8 +34,10 @@ from __future__ import annotations
 import time
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from dlrover_tpu_torch.common.log import get_logger
+from dlrover_tpu_torch.parallel.mesh_state import local
 
 logger = get_logger(__name__)
 
@@ -45,6 +55,8 @@ class OffloadAdam(torch.optim.Optimizer):
     copies back into the host buffers: the state never visits the
     device."""
 
+    steps_on_mesh = True
+
     def __init__(self, params, lr: float = 1e-3, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8,
                  weight_decay: float = 0.0):
@@ -54,20 +66,20 @@ class OffloadAdam(torch.optim.Optimizer):
         self._host_grads = {}
         host_bytes = 0
         for p in self._params():
-            pin = p.is_cuda
+            lp = local(p)
 
             def buf():
-                return torch.empty(p.shape, dtype=torch.float32,
-                                   pin_memory=pin).zero_()
+                return torch.empty(lp.shape, dtype=torch.float32,
+                                   pin_memory=lp.is_cuda).zero_()
 
             self.state[p] = {"mu": buf(), "nu": buf()}
             self._host_grads[p] = buf()
-            host_bytes += 2 * p.numel() * 4
+            host_bytes += 2 * lp.numel() * 4
         # one scratch buffer for the host math's temporaries, as large as
         # the largest param: fresh host allocations every step would
         # fault their pages in again each time
         self._scratch = torch.empty(max(
-            (p.numel() for p in self._params()), default=0))
+            (local(p).numel() for p in self._params()), default=0))
         logger.info("OffloadAdam: %.2f GB optimizer state on host",
                     host_bytes / (1 << 30))
         # the legs of the last step, for measurement: seconds waiting for
@@ -92,7 +104,7 @@ class OffloadAdam(torch.optim.Optimizer):
                     host.zero_()
                     done = None
                 else:
-                    host.copy_(p.grad, non_blocking=True)
+                    host.copy_(local(p.grad), non_blocking=True)
                     done = torch.cuda.Event() if p.is_cuda else None
                     if done is not None:
                         done.record()
@@ -107,9 +119,9 @@ class OffloadAdam(torch.optim.Optimizer):
             if done is not None:
                 done.synchronize()
             t1 = time.perf_counter()
-            st = self.state[p]
+            st, lp = self.state[p], local(p)
             mu, nu = st["mu"], st["nu"]
-            tmp = self._scratch[:p.numel()].view(p.shape)
+            tmp = self._scratch[:lp.numel()].view(lp.shape)
             # the JAX host code's operations in its order, in place:
             # mu = b1*mu + (1-b1)*g; nu = b2*nu + (1-b2)*g**2;
             # -lr * (mu/bc1) / (sqrt(nu/bc2) + eps)
@@ -125,10 +137,10 @@ class OffloadAdam(torch.optim.Optimizer):
             host.div_(tmp).mul_(-lr)
             math_s += time.perf_counter() - t1
             wait_s += t1 - t0
-            upd = host.to(p.device, dtype=p.dtype, non_blocking=True)
+            upd = host.to(lp.device, dtype=lp.dtype, non_blocking=True)
             if wd:
-                p.mul_(1.0 - lr * wd)
-            p.add_(upd)
+                lp.mul_(1.0 - lr * wd)
+            lp.add_(upd)
         self.state["count"] = t
         self.last_legs = {"d2h_wait_s": wait_s, "host_math_s": math_s}
         return loss
@@ -137,7 +149,9 @@ class OffloadAdam(torch.optim.Optimizer):
 
     def state_dict(self):
         sd = super().state_dict()
-        sd["state"] = {k: ({n: v.clone() for n, v in s.items()}
+        params = self._params()
+        sd["state"] = {k: ({n: _like_param(params[k], v.clone())
+                            for n, v in s.items()}
                            if isinstance(s, dict) else s)
                        for k, s in sd["state"].items()}
         return sd
@@ -151,5 +165,15 @@ class OffloadAdam(torch.optim.Optimizer):
             "param_groups": state_dict["param_groups"]})
         for i, p in enumerate(self._params()):
             for key, buf in bufs[p].items():
-                buf.copy_(saved[i][key])
+                buf.copy_(local(saved[i][key]))
             self.state[p] = bufs[p]
+
+
+def _like_param(p, host):
+    """A host moment of ``p``'s local shard as ``p`` is laid out: a
+    DTensor placed as ``p`` over the host tensor when ``p`` is one."""
+    if not isinstance(p, DTensor):
+        return host
+    return DTensor.from_local(host, p.device_mesh, list(p.placements),
+                              run_check=False, shape=p.shape,
+                              stride=p.stride())

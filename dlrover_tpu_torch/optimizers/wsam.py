@@ -18,6 +18,13 @@ Here ``params`` is the dict of leaf tensors the loss takes and the base
 optimizer updates (``loss_fn(params, batch, rng)``, as
 ``auto_accelerate``'s); grads come from ``torch.autograd.grad``, so no
 ``.grad`` is left behind but the one the base optimizer steps on.
+
+On a DeviceMesh (DTensor params, as ``auto_accelerate`` lays them out)
+each gradient is first placed as its param (a ``Partial`` batch axis
+summed, ``parallel/mesh_state.py`` ``placed_as``), ``|g|`` is the norm of
+the global gradient (``global_norm``: local sums of squares reduced
+over the mesh dims that shard each leaf), and the weights move on
+their local shards.
 """
 
 from __future__ import annotations
@@ -26,15 +33,17 @@ from typing import Callable
 
 import torch
 
+from dlrover_tpu_torch.parallel.mesh_state import (
+    global_norm,
+    local,
+    placed_as,
+)
+
 
 def _alpha(gamma: float) -> float:
     if gamma >= 1.0:
         raise ValueError(f"gamma must be < 1, got {gamma}")
     return gamma / (1.0 - gamma)
-
-
-def _global_norm(grads) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
 
 
 def wsam_update(grads: dict, adv_grads: dict, gamma: float = 0.9) -> dict:
@@ -50,27 +59,28 @@ def _grads(loss_fn, params: dict, batch, rng, has_aux: bool):
     loss = out[0] if has_aux else out
     names = list(params)
     grads = torch.autograd.grad(loss, [params[k] for k in names])
-    return out, dict(zip(names, grads))
+    return out, {k: placed_as(g, params[k]) for k, g in zip(names, grads)}
 
 
 @torch.no_grad()
 def _perturb(params: dict, grads: dict, rho: float, adaptive: bool,
              eps: float) -> dict:
     """Move ``params`` in place to ``w + eps``; returns copies of ``w``."""
-    scale = rho / (_global_norm(list(grads.values())) + eps)
-    saved = {k: p.detach().clone() for k, p in params.items()}
+    scale = rho / (global_norm(list(grads.values())) + eps)
+    saved = {k: local(p).clone() for k, p in params.items()}
     for k, p in params.items():
+        lp, g = local(p), local(grads[k])
         if adaptive:
-            p.add_(torch.square(p) * grads[k] * scale)
+            lp.add_(torch.square(lp) * g * scale)
         else:
-            p.add_(scale * grads[k])
+            lp.add_(scale * g)
     return saved
 
 
 @torch.no_grad()
 def _restore(params: dict, saved: dict) -> None:
     for k, p in params.items():
-        p.copy_(saved[k])
+        local(p).copy_(saved[k])
 
 
 def _adversarial(loss_fn, params, batch, rng, grads, rho, adaptive,
@@ -147,7 +157,8 @@ def make_wsam_step_fn(
         if decouple:
             with torch.no_grad():
                 for k, p in params.items():
-                    p.sub_((lr * alpha) * (adv[k] - grads[k]))
+                    local(p).sub_((lr * alpha)
+                                  * (local(adv[k]) - local(grads[k])))
         return out
 
     return step

@@ -38,9 +38,11 @@ group, no seq axis) lay a ``DeviceMesh`` over the ranks
 master param becomes a DTensor placed by its logical axes under the
 strategy's rule table (parallel/sharding.py), built on every rank from
 the same seed-made global tensor, as the JAX package's jitted init gives
-every device its shard of the same global values; optimizer moments
-follow their params (torch's optimizers make them ``zeros_like`` the
-param). ``batch`` is this rank's rows: its share, by its
+every device its shard of the same global values; the optimizer's
+state is laid out as the JAX package's ``compute_state_shardings`` lays
+it (parallel/mesh_state.py: moments that mirror the params are DTensors
+placed as them, the rest replicated). ``batch`` is this rank's rows: its
+share, by its
 ``(data, fsdp)`` index (``mesh.batch_place``), of the global batch. The
 loss function gets DTensor params (cast to the compute dtype) and a
 DTensor batch, ``Shard(0)`` over ``data`` and ``fsdp`` and ``Replicate``
@@ -51,7 +53,8 @@ returns is a DTensor (the models': ``Partial`` over the batch axes);
 after the backward each gradient is redistributed to its param's
 placements (a ``Partial`` batch axis is summed there), the optimizer
 steps on the DTensors, and the step returns the global loss on every
-rank.
+rank. Under ``Strategy.overlap_collectives`` the models' layer loops
+issue each layer's fsdp gathers one layer ahead (parallel/overlap.py).
 """
 
 from __future__ import annotations
@@ -76,6 +79,12 @@ from dlrover_tpu_torch.parallel.mesh import (
     ProcessGroupRing,
     build_mesh,
     set_mesh,
+)
+from dlrover_tpu_torch.parallel.mesh_state import placed_as
+from dlrover_tpu_torch.parallel.overlap import (
+    OVERLAP_MODES,
+    overlap_autocast,
+    wait_pending,
 )
 from dlrover_tpu_torch.parallel.shard_ops import shard_box
 from dlrover_tpu_torch.parallel.sharding import (
@@ -115,9 +124,19 @@ class AccelerateResult:
     mesh: Mesh
 
 
-# the optimizers whose step runs on DTensor params as it runs on tensors
-# (elementwise, no reduction over a param); the others raise on a mesh
-_MESH_OPTIMIZERS = (torch.optim.AdamW, torch.optim.Adam, torch.optim.SGD)
+# torch's optimizers that step DTensor params elementwise through
+# DTensor's own ops; they declare nothing themselves
+_TORCH_ELEMENTWISE = (torch.optim.AdamW, torch.optim.Adam, torch.optim.SGD)
+
+
+def steps_on_mesh(optimizer) -> bool:
+    """Whether ``optimizer`` steps DTensor params on a DeviceMesh with the
+    JAX package's numbers there: the port's optimizers declare it in
+    their class attribute ``steps_on_mesh`` (parallel/mesh_state.py says
+    how each lays out its state); torch's AdamW, Adam and SGD do it
+    through DTensor's elementwise ops."""
+    return bool(getattr(optimizer, "steps_on_mesh",
+                        isinstance(optimizer, _TORCH_ELEMENTWISE)))
 
 
 def _check_strategy(strategy: Strategy) -> None:
@@ -129,10 +148,10 @@ def _check_strategy(strategy: Strategy) -> None:
         raise ValueError(
             f"compute_dtype={strategy.compute_dtype!r}: want one of "
             f"{', '.join(_COMPUTE_DTYPES)}")
-    if strategy.overlap_collectives != "off":
-        raise NotImplementedError(
-            "overlap_collectives (parallel/overlap.py) is not ported yet "
-            "(ROADMAP Queue 1 item 7)")
+    if strategy.overlap_collectives not in OVERLAP_MODES:
+        raise ValueError(
+            f"overlap_collectives={strategy.overlap_collectives!r}: want "
+            f"one of {', '.join(OVERLAP_MODES)}")
     if not strategy.donate:
         raise NotImplementedError(
             "donate=False: the port's step always updates the state in "
@@ -271,15 +290,6 @@ def _microbatch_rows(x, device_mesh, accum: int):
     return chunks[:, index].reshape(x.shape)
 
 
-def _settle_grad(p) -> None:
-    """Redistribute a DTensor param's gradient to the param's placements:
-    a ``Partial`` batch axis is summed there (DTensor makes no collective
-    call over a mesh dim of size 1)."""
-    g = p.grad
-    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
-        p.grad = g.redistribute(p.device_mesh, p.placements)
-
-
 def global_value(x):
     """A loss's global value: a DTensor's ``full_tensor()``, a plain
     tensor as it is."""
@@ -311,8 +321,16 @@ def auto_accelerate(
     ``param_logical_axes`` (``{name: logical axes}``, as
     ``llama_logical_axes`` gives them) places the params on a
     DeviceMesh; a param without an entry is replicated. Off a DeviceMesh
-    it is not used. On one the optimizer must be ``torch.optim.AdamW``,
-    ``Adam`` or ``SGD``; the others raise (ROADMAP Queue 1 item 7).
+    it is not used. On one the optimizer must step DTensor params
+    (:func:`steps_on_mesh`: the port's optimizers, torch's AdamW, Adam
+    and SGD); another raises.
+
+    ``strategy.overlap_collectives`` ("xla", "manual") runs each
+    microbatch's forward under ``overlap_autocast``: the models' layer
+    loops issue each layer's fsdp gathers one layer ahead, and their
+    backward reduce-scatters are waited for before the gradients settle
+    (parallel/overlap.py). Off a DeviceMesh, or with fsdp 1, it changes
+    nothing.
 
     ``train_step(state, batch, rng)`` takes a dict batch of arrays or
     tensors (moved to the device), runs ``strategy.grad_accum``
@@ -379,12 +397,11 @@ def auto_accelerate(
     # by name, so that what keys on names (muP's multipliers) finds them
     state = TrainState(step=0, params=params, optimizer=optimizer_factory(
         [(name, params[name]) for name in tree_order(params)]))
-    if mesh.sharded and type(state.optimizer) not in _MESH_OPTIMIZERS:
+    if mesh.sharded and not steps_on_mesh(state.optimizer):
         raise NotImplementedError(
-            f"{type(state.optimizer).__name__} on a DeviceMesh: only "
-            "torch's AdamW, Adam and SGD step DTensor params so far; the "
-            "optimizers with kernels or global norms over local shards "
-            "are ROADMAP Queue 1 item 7")
+            f"{type(state.optimizer).__name__} on a DeviceMesh: it does not "
+            "declare steps_on_mesh (the port's optimizers and torch's "
+            "AdamW, Adam and SGD do; ROADMAP Queue 1 item 7)")
 
     def to_device(x):
         return torch.as_tensor(x).to(device, non_blocking=True)
@@ -420,6 +437,11 @@ def auto_accelerate(
         qctx = (contextlib.nullcontext if quant is None else
                 functools.partial(quant_autocast, quant,
                                   sites=strategy.quant_sites))
+        # the layer loops' fsdp gathers one layer ahead (parallel/
+        # overlap.py), with the rule table the params were placed with
+        octx = functools.partial(overlap_autocast,
+                                 strategy.overlap_collectives,
+                                 rules=strategy.rules)
         for mb in micro:
             cparams = {n: p.to(compute_dtype)
                        for n, p in state.params.items()}
@@ -430,7 +452,7 @@ def auto_accelerate(
                 share = valid / group.all_reduce(valid.clone()).clamp(min=1)
             if mesh.sharded:
                 mb = {k: as_rows(v) for k, v in mb.items()}
-            with rctx(), qctx():
+            with rctx(), qctx(), octx():
                 loss = inner_loss(cparams, mb, rng)
             if group is not None:
                 loss = loss * share
@@ -443,8 +465,12 @@ def auto_accelerate(
                     group.all_reduce(p.grad)
             group.all_reduce(loss_sum)
         if mesh.sharded:
+            # every reduce-scatter an overlapped backward left in flight
+            wait_pending()
+            # a Partial batch axis is summed (DTensor makes no collective
+            # call over a mesh dim of size 1)
             for p in state.params.values():
-                _settle_grad(p)
+                p.grad = placed_as(p.grad, p)
         state.optimizer.step()
         state.optimizer.zero_grad(set_to_none=True)
         state.step += 1

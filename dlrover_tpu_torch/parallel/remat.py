@@ -36,7 +36,8 @@ also saves the quantized matmul ops (``fp8_dot``, ``int8_dot``,
 and is never saved. The quant mode is module state read when the model
 runs, so each checkpoint captures it at the forward and restores it for
 the recompute in the backward, which runs after ``quant_autocast`` has
-exited.
+exited; so is the collective-overlap mode (parallel/overlap.py), whose
+gathers the recompute must run as the forward ran them.
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ from torch.utils._pytree import tree_map
 # policies name
 import dlrover_tpu_torch.ops.attention  # noqa: F401
 from dlrover_tpu_torch.ops import fp8 as fp8_lib
+from dlrover_tpu_torch.parallel import overlap
 
 aten = torch.ops.aten
 
@@ -181,19 +183,21 @@ def _selective(policy: dict):
 
 
 @contextlib.contextmanager
-def _recompute(inner, quant):
-    """The recompute's context: ``inner`` under the quant mode the
-    forward ran with."""
-    with fp8_lib.restored(quant), inner:
+def _recompute(inner, quant, overlapped):
+    """The recompute's context: ``inner`` under the quant mode and the
+    collective overlap the forward ran with."""
+    with fp8_lib.restored(quant), overlap.overlap_autocast(*overlapped), \
+            inner:
         yield
 
 
 def _contexts(policy: dict):
     """``context_fn`` of :func:`torch.utils.checkpoint.checkpoint`, called
     at the forward: the selective pair, the recompute's under the
-    forward's quant mode."""
+    forward's quant mode and overlap mode."""
     forward, recompute = _selective(policy)
-    return forward, _recompute(recompute, fp8_lib.capture())
+    return forward, _recompute(recompute, fp8_lib.capture(),
+                               overlap.capture())
 
 
 def checkpoint(fn, *args, policy: dict):

@@ -924,14 +924,14 @@ class Trainer:
 
     def _reshape_unsupported(self) -> str:
         """Why this worker cannot reshape in process ('' when it can)."""
-        from dlrover_tpu_torch.parallel.accelerate import _MESH_OPTIMIZERS
+        from dlrover_tpu_torch.parallel.accelerate import steps_on_mesh
 
         strategy = self._accel.strategy
         if self._engine is None:
             return ("flash_checkpoint is off, and the reshape moves the "
                     "state through it (a device-to-device mover is "
                     "ROADMAP Queue 1 item 8)")
-        if type(self.state.optimizer) not in _MESH_OPTIMIZERS:
+        if not steps_on_mesh(self.state.optimizer):
             return (f"{type(self.state.optimizer).__name__} has no "
                     "DeviceMesh step (ROADMAP Queue 1 item 7)")
         if strategy.mesh.seq != 1:

@@ -38,6 +38,8 @@ from dlrover_tpu_torch.models import (
     llama_logical_axes,
     llama_loss_fn,
 )
+from dlrover_tpu_torch.ops.fused_optim import fused_adamw
+from dlrover_tpu_torch.optimizers import OffloadAdam, adam8bit
 from dlrover_tpu_torch.parallel import MeshConfig, Strategy, build_mesh
 from dlrover_tpu_torch.parallel.mesh import batch_place
 from dlrover_tpu_torch.parallel.sharding import distribute_logical
@@ -149,10 +151,11 @@ def _dataset(n=64):
     return DS()
 
 
-def _trainer(config, out_dir, max_steps, ckpt):
-    """The tiny Llama's Trainer on ``config``'s mesh; each replica along
-    the batch axes reads GLOBAL_BATCH / replicas rows a step, and its
-    rows of the dataset's first GLOBAL_BATCH for ``evaluate``."""
+def _trainer(config, out_dir, max_steps, ckpt, optimizer=None):
+    """The tiny Llama's Trainer on ``config``'s mesh (AdamW unless
+    ``optimizer``, a factory, says otherwise); each replica along the
+    batch axes reads GLOBAL_BATCH / replicas rows a step, and its rows
+    of the dataset's first GLOBAL_BATCH for ``evaluate``."""
     index, count = batch_place(config)
     ds = _dataset()
     first = np.stack([ds[i] for i in range(GLOBAL_BATCH)])
@@ -170,7 +173,7 @@ def _trainer(config, out_dir, max_steps, ckpt):
                                        remat="none")),
         train_data=loader,
         eval_data=[{"tokens": np.split(first, count)[index]}],
-        device="cpu")
+        device="cpu", optimizer=optimizer)
     losses = {}
     inner = trainer._accel.train_step
 
@@ -203,6 +206,62 @@ def _trainer_cases(out_dir):
             "second": second_losses,
             "batch_size": second.train_data.batch_size,
             "eval": (ref_eval, second_eval)}
+
+
+# the optimizers whose state is laid out otherwise than AdamW's: the
+# replicated flat 8-bit moments and per-leaf codes and scales over the
+# global blocks, and OffloadAdam's host moments of the local shards
+OPTIMIZERS = {"fused_adamw8": lambda: fused_adamw(1e-2, bits=8),
+              "adam8bit": lambda: adam8bit(1e-2),
+              "offload_adam": lambda: lambda params: OffloadAdam(params,
+                                                                 lr=1e-2)}
+
+
+def _whole_state(trainer) -> dict:
+    """The optimizer's state tree, every leaf whole (DTensors gathered)."""
+    from torch.distributed.tensor import DTensor
+
+    from dlrover_tpu_torch.trainer.flash_checkpoint.engine import (
+        _tree_flatten_with_names,
+    )
+    from dlrover_tpu_torch.trainer.optim import optimizer_state_tree
+
+    names, leaves, _ = _tree_flatten_with_names(optimizer_state_tree(
+        trainer.state.optimizer, trainer.state.params))
+    return {n: (v.full_tensor() if isinstance(v, DTensor) else v.clone()
+                if isinstance(v, torch.Tensor) else v)
+            for n, v in zip(names, leaves)}
+
+
+def _optimizer_cases(out_dir):
+    """Per optimizer: three steps on (fsdp=2, tensor=2) with a save at
+    step 3 (its state whole), and a fourth step there unsaved; a Trainer
+    on fsdp=4 restores step 3 (its state whole) and takes steps 4-6."""
+    out = {}
+    for name, make in OPTIMIZERS.items():
+        # this process's saver persists into the first engine's directory
+        dist.barrier()
+        AsyncCheckpointSaver.reset()
+        run = os.path.join(out_dir, name, "run")
+        first, first_losses = _trainer(FSDP2_TENSOR2, run, 3, ckpt=True,
+                                       optimizer=make())
+        first.train()
+        saved = _whole_state(first)
+        engine, first._engine = first._engine, None
+        first.args.max_steps = 4
+        first.train()
+        first._engine = engine
+        first.close()
+        dist.barrier()
+        second, second_losses = _trainer(FSDP4, run, 6, ckpt=True,
+                                         optimizer=make())
+        step = second.maybe_resume()
+        restored = _whole_state(second)
+        second.train()
+        second.close()
+        out[name] = {"first": first_losses, "second": second_losses,
+                     "step": step, "saved": saved, "restored": restored}
+    return out
 
 
 def _mark(tmp, rank, what):
@@ -249,6 +308,8 @@ def _rank_cases(rank, store, tmp, job):
         AsyncCheckpointSaver.reset()
         got["trainer"] = _trainer_cases(os.path.join(tmp, "trainer"))
         _mark(tmp, rank, "trainer cases")
+        got["optimizers"] = _optimizer_cases(os.path.join(tmp, "optim"))
+        _mark(tmp, rank, "optimizer cases")
         torch.save(got, os.path.join(tmp, f"rank{rank}.pt"))
     finally:
         AsyncCheckpointSaver.reset()
@@ -413,3 +474,36 @@ def test_trainer_resumes_on_another_mesh(sharded_run):
         np.testing.assert_allclose(
             t["eval"][0], saved[0]["trainer"]["eval"][0], rtol=0, atol=0,
             err_msg=f"rank {rank}: uninterrupted evaluate against rank 0's")
+
+
+@pytest.mark.parametrize("name", list(OPTIMIZERS))
+def test_optimizer_state_restores_onto_another_mesh(sharded_run, name):
+    """FusedAdamW's flat 8-bit moments and Adam8bit's per-leaf codes and
+    scales (plain tensors of the global blocks, the same on every rank),
+    and OffloadAdam's host moments (saved as DTensors placed as their
+    params over each rank's host shard), saved at step 3 on (fsdp=2,
+    tensor=2) restore on fsdp=4 equal, leaf for leaf (whole), on every
+    rank; the resumed step 4 takes the loss of the
+    first run's own step 4 within 1e-5 (the same params and batch on
+    another mesh: the sums run in another order), and steps 5-6 run. A
+    longer comparison with another mesh's run does not hold at 1e-5 for
+    8-bit state: a grad that differs in its last bits can flip a code,
+    which moves that entry's update by about 5%."""
+    _, saved = sharded_run
+    for rank, got in enumerate(saved):
+        o = got["optimizers"][name]
+        assert o["step"] == 3
+        assert o["restored"].keys() == o["saved"].keys()
+        for leaf, want in o["saved"].items():
+            have = o["restored"][leaf]
+            if isinstance(want, torch.Tensor):
+                assert torch.equal(have, want), (rank, leaf)
+            else:
+                np.testing.assert_array_equal(have, want)
+        assert any(("mu_q" if "8" in name else ".mu") in leaf
+                   for leaf in o["saved"])
+        assert sorted(o["second"]) == [4, 5, 6]
+        np.testing.assert_allclose(
+            o["second"][4], o["first"][4], atol=1e-5,
+            err_msg=f"rank {rank}: resumed step 4 against the first run's")
+        assert all(np.isfinite(list(o["second"].values())))

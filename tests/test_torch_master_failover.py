@@ -21,6 +21,7 @@ import sys
 import threading
 import time
 import urllib.request
+from http.client import HTTPException
 
 import pytest
 
@@ -295,7 +296,11 @@ def test_master_kill_failover_smoke_through_the_port(tmp_path, monkeypatch):
     monkeypatch.setenv("DLROVER_TELEMETRY_DIR", str(tele_dir))
     monkeypatch.setenv(NodeEnv.DLROVER_MASTER_ADDR_FILE, str(addr_file))
     monkeypatch.setenv("DLROVER_PROBE_DISABLE", "1")
-    monkeypatch.setenv("DLROVER_RPC_MAX_ATTEMPTS", "40")
+    # the deadline, not an attempt count, bounds each rpc's wait for the
+    # restarted master: at 40 attempts of at most 0.3 s a loaded host's
+    # restart outlived the worker's shard fetch (it exited, and the agent
+    # restarted it) and the agent's rendezvous join
+    monkeypatch.setenv("DLROVER_RPC_MAX_ATTEMPTS", "1000")
     monkeypatch.setenv("DLROVER_RPC_BASE_DELAY", "0.05")
     monkeypatch.setenv("DLROVER_RPC_MAX_DELAY", "0.3")
     monkeypatch.setenv("DLROVER_RPC_DEADLINE", "45")
@@ -359,8 +364,10 @@ def test_master_kill_failover_smoke_through_the_port(tmp_path, monkeypatch):
                 try:
                     readings["after" if restarts else "before"].append(
                         dispatched(http[-1]))
-                except OSError:
-                    pass  # not serving yet
+                except (OSError, HTTPException):
+                    # not serving yet, or killed mid-response (an
+                    # IncompleteRead), which would end this thread
+                    pass
             time.sleep(0.05)
 
     supervisor = threading.Thread(target=supervise, daemon=True)

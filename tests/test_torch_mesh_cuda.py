@@ -4,7 +4,14 @@ process per card, through the hand-written kernels (bf16 compute over
 f32 masters). Each mesh's three adamw steps against the same steps in
 one process on one card, unsharded: losses within 1e-2 relative (bf16:
 the sharded step sums gradients over the ranks in another order, and
-the reduce-scatter of the gathered bf16 weights sums in bf16).
+the reduce-scatter of the gathered bf16 weights sums in bf16). On
+``fsdp=4`` also: ``fused_adamw`` bits 32 and 8 (K7 and K8, one launch a
+step on each rank, over the gathered whole grads) against the same
+optimizer on one card, within 1e-2 relative; and adamw under
+``overlap_collectives`` "xla" and "manual" against "off" on the same
+mesh: "xla" issues the same NCCL collectives earlier (within 1e-5
+relative), "manual" sums its ring reduce-scatter of bf16 gradients in
+the ring's order (within 1e-2 relative).
 
 Needs four cards; skips with that reason otherwise. One more case needs
 one card: a gloo group (a DeviceMesh on the CPU) under a step on the
@@ -27,6 +34,8 @@ from dlrover_tpu_torch.models import (
     llama_logical_axes,
     llama_loss_fn,
 )
+from dlrover_tpu_torch.ops import fused_optim
+from dlrover_tpu_torch.ops.fused_optim import fused_adamw
 from dlrover_tpu_torch.parallel import MeshConfig, Strategy, auto_accelerate
 from dlrover_tpu_torch.parallel.mesh import batch_place
 from dlrover_tpu_torch.trainer import build_optimizer
@@ -52,11 +61,17 @@ def _batches():
             for _ in range(3)]
 
 
-def _losses(config, axes):
+# the optimizer of each fused case, and its kernel
+FUSED = {"fused_adamw32": lambda: fused_adamw(1e-3),
+         "fused_adamw8": lambda: fused_adamw(1e-3, bits=8)}
+OVERLAP = ("off", "xla", "manual")
+
+
+def _losses(config, axes, optimizer=None, **strategy):
     res = auto_accelerate(
         llama_loss_fn(CFG), lambda s, d: llama_init(CFG, 0, d),
-        build_optimizer("adamw", 1e-3), Strategy(mesh=config,
-                                                 remat="none"),
+        optimizer or build_optimizer("adamw", 1e-3),
+        Strategy(mesh=config, remat="none", **strategy),
         device="cuda", param_logical_axes=axes)
     index, count = batch_place(config)
     state, out = res.state, []
@@ -72,8 +87,17 @@ def _worker(rank, store, out_dir):
     dist.init_process_group("nccl", init_method=f"file://{store}",
                             rank=rank, world_size=N)
     try:
-        got = {name: _losses(MeshConfig(**kw), llama_logical_axes(CFG))
+        axes = llama_logical_axes(CFG)
+        got = {name: _losses(MeshConfig(**kw), axes)
                for name, kw in MESHES.items()}
+        fsdp4 = MeshConfig(**MESHES["fsdp4"])
+        for name, make in FUSED.items():
+            kernel = getattr(fused_optim, name)
+            kernel.launches = 0
+            got[name] = (_losses(fsdp4, axes, make()), kernel.launches)
+        for mode in OVERLAP:
+            got["overlap", mode] = _losses(fsdp4, axes,
+                                           overlap_collectives=mode)
         torch.save(got, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -100,15 +124,36 @@ def nccl_run(tmp_path_factory):
             proc.join()
     assert not hung, f"NCCL ranks {hung} still running; killed"
     assert [p.exitcode for p in procs] == [0] * N
-    ref = _losses(MeshConfig(), None)
-    return ref, [torch.load(tmp / f"rank{r}.pt") for r in range(N)]
+    ref = {"adamw": _losses(MeshConfig(), None)}
+    ref.update({name: _losses(MeshConfig(), None, make())
+                for name, make in FUSED.items()})
+    return ref, [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+                 for r in range(N)]
 
 
 @pytest.mark.parametrize("mesh_name", list(MESHES))
 def test_nccl_mesh_matches_one_card(nccl_run, mesh_name):
     ref, saved = nccl_run
     for got in saved:
-        np.testing.assert_allclose(got[mesh_name], ref, rtol=1e-2)
+        np.testing.assert_allclose(got[mesh_name], ref["adamw"], rtol=1e-2)
+
+
+@pytest.mark.parametrize("name", list(FUSED))
+def test_fused_adamw_on_four_cards_matches_one_card(nccl_run, name):
+    ref, saved = nccl_run
+    for got in saved:
+        losses, launches = got[name]
+        np.testing.assert_allclose(losses, ref[name], rtol=1e-2)
+        assert launches == len(_batches())
+
+
+@pytest.mark.parametrize("mode", ["xla", "manual"])
+def test_overlap_on_four_cards_matches_off(nccl_run, mode):
+    _, saved = nccl_run
+    for got in saved:
+        off = got["overlap", "off"]
+        np.testing.assert_allclose(got["overlap", mode], off,
+                                   rtol=1e-5 if mode == "xla" else 1e-2)
 
 
 def test_gloo_mesh_under_a_cuda_step_raises(tmp_path):

@@ -292,7 +292,7 @@ class _Recording(Trainer):
         self._accel.train_step = step
 
 
-def _port_trainer(out_dir, params_np, channel=None, **args):
+def _port_trainer(out_dir, params_np, channel=None, factory=None, **args):
     loader = ElasticDataLoader(
         _Rows(_rows()), batch_size=8,
         sampler=ElasticSampler(48, num_replicas=1, rank=0, shuffle=False),
@@ -304,7 +304,7 @@ def _port_trainer(out_dir, params_np, channel=None, **args):
     return _Recording(
         llama_loss_fn(TINY), lambda s, d: params_from_jax(params_np, d),
         llama_logical_axes(TINY), TrainingArgs(**args), train_data=loader,
-        reshape_channel=channel, device="cpu")
+        reshape_channel=channel, device="cpu", optimizer=factory)
 
 
 def _jax_one_to_one(tmp_path, params_np):
@@ -425,18 +425,23 @@ def test_one_to_one_reshape_without_a_group_matches_jax(tmp_path, isolated,
 def test_the_agents_channel_is_installed_only_where_the_worker_can_reshape(
         tmp_path, isolated, monkeypatch):
     """The agent's channel (``NodeEnv.RESHAPE_DIR``) gets the ready marker
-    from a worker that can reshape, and none from one that cannot
-    (Flash Checkpoint off; an optimizer with no DeviceMesh step), which
-    the agent then restarts; a channel passed in to such a worker
-    raises."""
+    from a worker that can reshape (AGD's too: every optimizer of the
+    port steps on a DeviceMesh), and none from one that cannot (Flash
+    Checkpoint off; an optimizer with no DeviceMesh step, torch's
+    RMSprop), which the agent then restarts; a channel passed in to such
+    a worker raises."""
     params_np = _jax_params()
-    for name, args, ready in (
-            ("ok", {}, True),
-            ("noflash", {"flash_checkpoint": False}, False),
-            ("agd", {"optimizer": "agd"}, False)):
+    rmsprop = lambda params: torch.optim.RMSprop(  # noqa: E731
+        [p for _, p in params], lr=LR)
+    for name, args, ready, factory in (
+            ("ok", {}, True, None),
+            ("noflash", {"flash_checkpoint": False}, False, None),
+            ("agd", {"optimizer": "agd"}, True, None),
+            ("rmsprop", {}, False, rmsprop)):
         rdir = tmp_path / f"agent_{name}"
         monkeypatch.setenv(NodeEnv.RESHAPE_DIR, str(rdir))
-        tr = _port_trainer(tmp_path / name, params_np, **args)
+        tr = _port_trainer(tmp_path / name, params_np, factory=factory,
+                           **args)
         try:
             assert ReshapeChannel(str(rdir)).worker_ready() is ready, name
             assert (tr._reshape_channel is not None) is ready

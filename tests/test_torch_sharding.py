@@ -149,18 +149,22 @@ def test_build_mesh_over_a_group_refuses(fake_group, config, item):
         build_mesh(config)
 
 
-@pytest.mark.parametrize("optimizer", ["agd", "adam8bit"])
+@pytest.mark.parametrize("optimizer", ["rmsprop", "adagrad"])
 def test_optimizers_without_a_mesh_path_raise(fake_group, optimizer):
-    """Only torch's AdamW, Adam and SGD step DTensor params; the others
-    raise naming item 7."""
+    """An optimizer steps DTensor params only when it declares
+    ``steps_on_mesh`` (the port's optimizers) or is torch's AdamW, Adam
+    or SGD; torch's others raise naming item 7."""
+    import torch
+
     from dlrover_tpu_torch.models import llama_init, llama_loss_fn
     from dlrover_tpu_torch.parallel import Strategy, auto_accelerate
-    from dlrover_tpu_torch.trainer import build_optimizer
 
+    make = {"rmsprop": torch.optim.RMSprop,
+            "adagrad": torch.optim.Adagrad}[optimizer]
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
         auto_accelerate(
             llama_loss_fn(TINY), lambda s, d: llama_init(TINY, s, d),
-            build_optimizer(optimizer, 1e-3),
+            lambda params: make([p for _, p in params], lr=1e-3),
             Strategy(mesh=MeshConfig(data=1, fsdp=4), remat="none",
                      compute_dtype="float32"),
             device="cpu", param_logical_axes=llama_logical_axes(TINY))
