@@ -189,6 +189,29 @@ Phases, each fatal on failure (no exception is caught):
    ms beside the unsharded run's, its state bytes on the card and the
    grad all-gather's ms, then ``[reshape1]``'s round with fused 8-bit
    Adam, bit-equal after it, in a ``{"mesh1_opt": ...}`` line;
+   ``[seq4-mesh1]``, on ``[mesh1]``'s group before it is destroyed:
+   nano-350m under ``MeshConfig(data=1, fsdp=-1, seq=4)``, the 4 seq
+   ranks held in this process beside the one-rank DeviceMesh (every
+   param and moment a DTensor), on the ring (K12-K14 160 a step, K2 64)
+   and under ``attn_impl="ulysses"`` (K1-K4 64 a step), each within
+   1e-5 (relative) of ``[seq4]``'s and ``[ulysses4]``'s losses
+   (bit-equality printed) and 2e-2 of adamw's, step ms, host enqueue ms
+   and peak GiB beside theirs and an earlier smoke's, in a
+   ``{"seq4_mesh1": ...}`` line; ``[search1]``, after ``[mesh1-opt]``
+   with no process group: the
+   strategy search (``make_search_engine``, the engine
+   ``search_strategy`` searches with) on nano-350m, B8 S2048, adamw, ``try_low_precision``, the card's memory,
+   greedy over at most 4 dry-runs (on one card: the unsharded mesh at
+   its first feasible remat and its int8 variant), then remat "minimal"
+   and "full" of that mesh through the same dry-runner; each dry-run's
+   strategy, build and step s, loss, the memory estimate beside
+   ``max_memory_allocated`` and its launches a step, the winner, the
+   int8 gate's decision and the cost model's rank correlation, in a
+   ``{"search1": ...}`` line; gated: every dry-run ok, the winner the
+   fastest that passes the int8 gate, K1-K4 16 a step (K1 32 under a
+   remat) in each bf16 dry-run, K16 and K17 launched in the int8 one,
+   the allocated memory within 1 GiB from one freed candidate to the
+   next;
    ``[reshape1]``, the in-process reshape at one rank: nano-350m
    through the Trainer on a one-rank NCCL DeviceMesh with Flash
    Checkpoint and a reshape channel, 3 steps, then a request of round 2
@@ -1662,7 +1685,7 @@ def train_slice(steps: int = 5):
 
     # the sequence sharded over 4 ring ranks in this process: K12-K14 and
     # K2 on every layer
-    res, state, batch, losses, counts, _s = train_run(
+    res, state, batch, losses, counts, seq4_summary = train_run(
         cfg, "seq4", build_optimizer("adamw", SLICE_LR, weight_decay=0.0),
         Strategy(remat="none", mesh=MeshConfig(seq=SEQ)), steps,
         optimizer="adamw")
@@ -1677,8 +1700,10 @@ def train_slice(steps: int = 5):
     launches.update({name: counts[name] for name in RING_KERNELS
                      if name != "flash_bwd_preprocess"})
     loss_gap("seq4", losses, adamw_losses)
+    # each seq run's losses and summary, for [seq4-mesh1]
+    seq_refs = {"seq4": (losses, seq4_summary)}
     # Ulysses over the same 4 in-process ranks: K1-K4 per head group
-    ulysses_run(cfg, steps, adamw_losses)
+    seq_refs["ulysses4"] = ulysses_run(cfg, steps, adamw_losses)
     release()
 
     # the train step's other options: AGD through the example's chain,
@@ -1689,11 +1714,16 @@ def train_slice(steps: int = 5):
     refs.update(optimizer_runs(cfg, none_summary))
     release()
     # the data, fsdp and tensor axes' path: DTensor state on a one-rank
-    # NCCL DeviceMesh
-    refs["mesh1"] = mesh1_phase(cfg, steps, adamw_losses, none_summary)
+    # NCCL DeviceMesh, and the seq axis in this process beside it
+    refs["mesh1"] = mesh1_phase(cfg, steps, adamw_losses, none_summary,
+                                seq_refs)
     release()
     # every optimizer and the overlap modes on that mesh
     mesh1_opt_phase(cfg, refs)
+    release()
+    # the strategy search, with no process group (its int8 candidate
+    # runs K16 and K17, which a DeviceMesh refuses)
+    search1_phase(cfg)
     return launches
 
 
@@ -1703,7 +1733,7 @@ def ulysses_run(cfg, steps, adamw_losses):
     sequence shards into 4 head groups of 2 heads, K1-K4 run once per
     group and layer over the whole sequence (train_run gates the
     launches); losses within 2e-2 of adamw's; step ms, host enqueue ms,
-    K1-K4 launches per step."""
+    K1-K4 launches per step. Returns (losses, summary)."""
     from dlrover_tpu_torch.parallel import MeshConfig, Strategy
     from dlrover_tpu_torch.trainer import build_optimizer
 
@@ -1718,6 +1748,7 @@ def ulysses_run(cfg, steps, adamw_losses):
                          f"in-process transport with {SEQ} ranks")
     del res, state
     gap = loss_gap("ulysses4", losses, adamw_losses)
+    seq_ref = (losses, summary)
     log(json.dumps({"ulysses4": {
         "card": CARD["line"], "config": "nano-350m", "seq_ranks": SEQ,
         "step_ms_median_2_to_5": summary["step_ms_median_2_to_5"],
@@ -1728,6 +1759,7 @@ def ulysses_run(cfg, steps, adamw_losses):
         "k1_k4_launches_per_step": {name: counts[name] / steps
                                     for name in FLASH_KERNELS},
         "loss_gap_to_adamw": gap}}))
+    return seq_ref
 
 
 # --------------------------------------------------------------- [mesh1]
@@ -1736,7 +1768,7 @@ MESH1_STEPS = 5
 MESH1_MORE = 2
 
 
-def mesh1_phase(cfg, steps, adamw_losses, none_summary):
+def mesh1_phase(cfg, steps, adamw_losses, none_summary, seq_refs):
     """[mesh1]: the sharded path (parallel/accelerate.py on a DeviceMesh)
     at one rank. A one-rank NCCL process group from a ``file://`` store
     (``init_distributed`` makes none at world 1); then nano-350m through
@@ -1748,9 +1780,11 @@ def mesh1_phase(cfg, steps, adamw_losses, none_summary):
     to shm at step MESH1_STEPS, its blocking ms, and a fresh Trainer's
     restore from shm, every leaf ``torch.equal`` (a DTensor's local
     shard, placements kept) and its losses over MESH1_MORE more steps
-    within LOSS_TOL of the first Trainer's continuation. The group is
-    destroyed at the end, also when a check fails. No fallback: without
-    NCCL or a kernel the phase raises."""
+    within LOSS_TOL of the first Trainer's continuation; then
+    [seq4-mesh1] on the same group (``seq_refs``: the [seq4] and
+    [ulysses4] runs' losses and summaries). The group is destroyed at
+    the end, also when a check fails. No fallback: without NCCL or a
+    kernel the phase raises."""
     import tempfile
 
     import torch.distributed as dist
@@ -1774,12 +1808,7 @@ def mesh1_phase(cfg, steps, adamw_losses, none_summary):
             Strategy(remat="none", mesh=MeshConfig(data=1, fsdp=-1)),
             steps, optimizer="adamw", axes=llama_logical_axes(cfg))
         log(f"  [mesh1] {res.strategy.describe(res.mesh)}")
-        kinds = {type(p).__name__ for p in state.params.values()}
-        moments = {type(m).__name__ for st in state.optimizer.state.values()
-                   for k, m in st.items() if k != "step"}
-        if kinds != {"DTensor"} or moments != {"DTensor"}:
-            raise SystemExit(f"mesh1: params {kinds}, moments {moments}: "
-                             "want DTensors")
+        check_dtensor_state("mesh1", state)
         profile_step(res, state, _b, "mesh1", top=8)
         del res, state
         release()
@@ -1788,6 +1817,8 @@ def mesh1_phase(cfg, steps, adamw_losses, none_summary):
         job = os.environ["ELASTIC_JOB_NAME"]
         with flash_env("mesh1", job):
             chain = mesh1_chain(cfg, CKPT_DIR / "mesh1")
+        release()
+        seq4_mesh1_runs(cfg, steps, adamw_losses, seq_refs)
     finally:
         set_mesh(None)
         dist.destroy_process_group()
@@ -1816,6 +1847,229 @@ def mesh1_phase(cfg, steps, adamw_losses, none_summary):
     }
     log(json.dumps({"mesh1": report}))
     return {"losses": losses, "summary": summary}
+
+
+def check_dtensor_state(label, state) -> None:
+    """Fail unless every param and every moment is a DTensor."""
+    kinds = {type(p).__name__ for p in state.params.values()}
+    moments = {type(m).__name__ for st in state.optimizer.state.values()
+               for k, m in st.items() if k != "step"}
+    if kinds != {"DTensor"} or moments != {"DTensor"}:
+        raise SystemExit(f"{label}: params {kinds}, moments {moments}: "
+                         "want DTensors")
+
+
+# [seq4]'s and [ulysses4]'s steady step ms and host enqueue ms in an
+# earlier smoke of this script (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md),
+# printed beside [seq4-mesh1]'s and this run's
+EARLIER_SEQ_MS = {"seq4": {"step_ms": 151.73, "host_enqueue_ms": 114.42},
+               "ulysses4": {"step_ms": 145.41, "host_enqueue_ms": None}}
+
+
+def seq4_mesh1_runs(cfg, steps, adamw_losses, seq_refs):
+    """[seq4-mesh1]: on [mesh1]'s one-rank NCCL group, nano-350m under
+    ``MeshConfig(data=1, fsdp=-1, seq=4)`` with its logical axes: the 4
+    seq ranks held in this process (the in-process ring) beside the
+    one-rank DeviceMesh that the other axes fill, every param and moment
+    a DTensor. Two arms on the [seq4] run's batch: the ring (K12-K14 160
+    a step each, K2 64; train_run gates them) and ``attn_impl="ulysses"``
+    (K1-K4 64 a step). Each arm's losses within LOSS_TOL (relative) of
+    its run without the group ([seq4], [ulysses4]; bit-equality printed)
+    and within 2e-2 of flash adamw's; step ms, host enqueue ms and peak
+    GiB beside those runs' and an earlier smoke's."""
+    from dlrover_tpu_torch.models import llama_logical_axes
+    from dlrover_tpu_torch.parallel import MeshConfig, Strategy
+    from dlrover_tpu_torch.trainer import build_optimizer
+
+    report = {"card": CARD["line"], "config": "nano-350m", "batch": 8,
+              "seq": 2048, "mesh": "MeshConfig(data=1, fsdp=-1, seq=4)"}
+    for arm, arm_cfg in (("seq4", cfg),
+                         ("ulysses4", dataclasses.replace(
+                             cfg, attn_impl="ulysses"))):
+        label = f"{arm}-mesh1"
+        res, state, _b, losses, counts, summary = train_run(
+            arm_cfg, label, build_optimizer("adamw", SLICE_LR,
+                                            weight_decay=0.0),
+            Strategy(remat="none", mesh=MeshConfig(data=1, fsdp=-1,
+                                                   seq=SEQ)),
+            steps, optimizer="adamw", axes=llama_logical_axes(arm_cfg))
+        ring, dm = res.mesh.ring, res.mesh.device_mesh
+        log(f"  [{label}] {res.strategy.describe(res.mesh)}")
+        if (ring.kind != "in-process" or ring.ranks != tuple(range(SEQ))
+                or dm is None or "seq" in dm.mesh_dim_names):
+            raise SystemExit(f"{label}: ran on {ring.describe()} beside "
+                             f"{dm}, want the in-process ring of {SEQ} "
+                             "ranks beside a DeviceMesh without seq")
+        check_dtensor_state(label, state)
+        del res, state
+        release()
+        ref_losses, ref = seq_refs[arm]
+        gap = loss_gap(label, losses, ref_losses, LOSS_TOL, relative=True,
+                       to=f"[{arm}]")
+        loss_gap(label, losses, adamw_losses)
+        report[arm] = {
+            "step_ms_median_2_to_5": summary["step_ms_median_2_to_5"],
+            "host_enqueue_ms_median_2_to_5":
+                summary["host_enqueue_ms_median_2_to_5"],
+            "peak_mem_gib": summary["peak_mem_gib"],
+            "without_group": {
+                "step_ms_median_2_to_5": ref["step_ms_median_2_to_5"],
+                "host_enqueue_ms_median_2_to_5":
+                    ref["host_enqueue_ms_median_2_to_5"],
+                "peak_mem_gib": ref["peak_mem_gib"]},
+            "earlier_smoke": EARLIER_SEQ_MS[arm],
+            "launches_per_step": {
+                name: counts[name] // steps
+                for name in dict.fromkeys(FLASH_KERNELS + RING_KERNELS)},
+            "loss_gap_relative": gap, "bit_equal": losses == ref_losses,
+            "losses": losses}
+    log(json.dumps({"seq4_mesh1": report}))
+
+
+# ------------------------------------------------------------- [search1]
+
+# a dry-run's steps: the build's first, one warm-up, three timed
+SEARCH_STEPS = 5
+SEARCH_MEM_GROWTH = 1 << 30
+
+
+def search1_phase(cfg):
+    """[search1]: the strategy search on the card, through the engine
+    that ``search_strategy`` searches with (``make_search_engine``: the
+    analysis of ``llama_init`` under a ``FakeTensorMode``, the
+    ``auto_accelerate`` dry-runner), kept so that each candidate prints:
+    nano-350m at full width, the smoke's B8 S2048 batch, adamw,
+    ``try_low_precision``, ``hbm_gb`` from the card, ``max_dryruns=4``,
+    no process group. On one
+    card that is the unsharded mesh at its first feasible remat and its
+    int8 variant; then the same runner profiles remat "minimal" and
+    "full" of that mesh, for ``cost_model_rank_correlation``. Prints each
+    dry-run (strategy, compile and step s, loss, ok/error, the estimate
+    beside ``max_memory_allocated``, K1-K4 and K16/K17 launches a step),
+    the winner, the int8 gate's decision and the correlation. Gates:
+    every dry-run ok; the winner the fastest candidate that passes the
+    int8 gate; K1-K4 16 a step (K1 twice that under a remat's recompute)
+    in each bf16 dry-run, K16 and K17 launched in the int8 one; the card's
+    allocated memory after each freed candidate within 1 GiB of the
+    previous."""
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.models import (
+        llama_init,
+        llama_logical_axes,
+        llama_loss_fn,
+    )
+    from dlrover_tpu_torch.parallel import Strategy, estimate_hbm_per_device
+    from dlrover_tpu_torch.parallel.engine import (
+        LOSS_PARITY_TOL,
+        card_hbm_gb,
+        cost_model_rank_correlation,
+        make_search_engine,
+    )
+    from dlrover_tpu_torch.trainer import build_optimizer
+
+    if dist.is_initialized():
+        raise SystemExit("search1: a process group exists")
+    t_phase = time.perf_counter()
+    B, S = 8, 2048
+    # per dry-run, from its build (the init, after the last one was
+    # freed) to the next: memory before it, its peak and its launches
+    runs: list = []
+
+    def close():
+        if runs and "peak" not in runs[-1]:
+            torch.cuda.synchronize()
+            runs[-1].update(peak=torch.cuda.max_memory_allocated(),
+                            launches=launch_counts())
+
+    def init(seed, device):
+        if torch.device(device).type == "cuda":
+            close()
+            runs.append({"allocated_before": torch.cuda.memory_allocated()})
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+        return llama_init(cfg, seed, device)
+
+    engine = make_search_engine(
+        llama_loss_fn(cfg), init,
+        build_optimizer("adamw", SLICE_LR, weight_decay=0.0),
+        llama_logical_axes(cfg), lambda: synthetic_batch(cfg.vocab_size, S,
+                                                         B, 0),
+        device="cuda", seq_len=S, batch_per_device=B, max_dryruns=4,
+        search_algo="greedy", try_low_precision=True)
+    analysis, runner = engine.analysis, engine.dry_runner
+    best = engine.search()
+    close()
+    after = [torch.cuda.memory_allocated()]
+    results = engine.results
+    extra = [Strategy(mesh=engine.candidates[0].mesh, remat=mode)
+             for mode in ("minimal", "full")]
+    for strategy in extra:
+        results.append(runner.profile(strategy))
+        close()
+        after.append(torch.cuda.memory_allocated())
+    corr = cost_model_rank_correlation(engine.candidates + extra, results)
+
+    allocated = [r["allocated_before"] for r in runs] + after[-1:]
+    growth = [b - a for a, b in zip(allocated, allocated[1:])]
+    rows, failures = [], []
+    for r, run in zip(results, runs):
+        s = r.strategy
+        per_step = {name: run["launches"][name] / SEARCH_STEPS
+                    for name in FLASH_KERNELS + LOWP_KERNELS}
+        rows.append({
+            "strategy": s.describe(), "remat": s.remat,
+            "compute_dtype": s.compute_dtype, "ok": r.ok, "error": r.error,
+            "compile_s": r.compile_s, "step_s": r.step_s, "loss": r.loss,
+            "estimate_gib": estimate_hbm_per_device(
+                analysis, s, batch_per_device=B, seq_len=S) / 2**30,
+            "max_memory_allocated_gib": run["peak"] / 2**30,
+            "launches_per_step": per_step})
+        log(f"  [search1] {json.dumps(rows[-1])}")
+        if not r.ok:
+            failures.append(f"{s.describe()} failed: {r.error}")
+        want = {name: 16.0 for name in FLASH_KERNELS}
+        want["flash_fwd"] *= REMAT_FWD_RUNS[s.remat]
+        if any(per_step[n] != want[n] for n in FLASH_KERNELS):
+            failures.append(f"{s.describe()}: K1-K4 a step {per_step}, "
+                            f"want {want}")
+        quant = ("quantize_int8_channels", "dequantize_int32")
+        if s.compute_dtype == "int8" and not all(per_step[n]
+                                                  for n in quant):
+            failures.append(f"{s.describe()}: K16/K17 never launched")
+    # the winner: the fastest searched candidate that passes the engine's
+    # int8 gate (one it never weighed was slower than an unquantized one)
+    searched = [r for r in results[:len(results) - len(extra)] if r.ok]
+    passed = {id(r): ok for r, ok in engine.quant_gate}
+    want_best = min((r for r in searched
+                     if r.strategy.compute_dtype != "int8"
+                     or passed.get(id(r))), key=lambda r: r.step_s,
+                    default=None)
+    by_dtype = {r.strategy.compute_dtype: r for r in searched}
+    gate = {"decisions": [
+        {"strategy": r.strategy.describe(), "passed": ok}
+        for r, ok in engine.quant_gate] or "int8 never the fastest left",
+        "tol": LOSS_PARITY_TOL}
+    if "int8" in by_dtype and "bfloat16" in by_dtype:
+        q, b = by_dtype["int8"], by_dtype["bfloat16"]
+        gate.update(int8_step_s=q.step_s, bf16_step_s=b.step_s,
+                    loss_rel_diff=abs(q.loss - b.loss) / abs(b.loss))
+    if want_best is None or best is not want_best.strategy:
+        failures.append(f"the search picked {best.describe()}, want "
+                        f"{want_best and want_best.strategy.describe()}")
+    if any(g > SEARCH_MEM_GROWTH for g in growth):
+        failures.append(f"allocated memory grew {growth} bytes between "
+                        "freed candidates")
+    log(json.dumps({"search1": {
+        "card": CARD["line"], "config": "nano-350m", "batch": B, "seq": S,
+        "hbm_gb": card_hbm_gb(), "candidates": [
+            c.describe() for c in engine.candidates],
+        "dryruns": rows, "winner": best.describe(), "int8_gate": gate,
+        "rank_correlation": corr,
+        "allocated_after_each_freed_gib": [a / 2**30 for a in allocated],
+        "phase_s": time.perf_counter() - t_phase}}))
+    if failures:
+        raise SystemExit(f"search1: {failures}")
 
 
 def mesh1_chain(cfg, run_dir) -> dict:

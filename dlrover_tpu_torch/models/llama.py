@@ -88,6 +88,7 @@ from dlrover_tpu_torch.ops.fp8 import (
 )
 from dlrover_tpu_torch.parallel import remat as remat_lib
 from dlrover_tpu_torch.parallel.mesh import (
+    MeshError,
     ProcessGroupRing,
     axis_index,
     seq_ring,
@@ -512,7 +513,7 @@ def check_tensor_heads(config, shard) -> None:
     n_kv_heads (each rank runs H/t q heads over KVH/t kv heads)."""
     t = 1 if shard is None else shard.tensor_size
     if config.n_heads % t or config.n_kv_heads % t:
-        raise ValueError(
+        raise MeshError(
             f"a tensor axis of {t} must divide n_heads={config.n_heads} "
             f"and n_kv_heads={config.n_kv_heads}")
 

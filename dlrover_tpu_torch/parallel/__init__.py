@@ -1,13 +1,25 @@
-"""Strategy, its planner auto_strategy, and auto_accelerate, which makes
-the train step (with remat, parallel/remat.py); the mesh (a DeviceMesh
-for the data, fsdp, expert and tensor axes), the logical rule table's
-placements, the seq axis' ring and Ulysses attention, and the MoE FFN
-(parallel/moe.py)."""
+"""Strategy, its planner auto_strategy, the measured search
+(parallel/engine.py), and auto_accelerate, which makes the train step
+(with remat, parallel/remat.py); the mesh (a DeviceMesh over a process
+group, a seq axis one rank a process on it or held whole in process),
+the logical rule table's placements and manual tensor parallelism
+(parallel/manual_tp.py), the seq axis' ring and Ulysses attention, and
+the MoE FFN (parallel/moe.py)."""
 
 from dlrover_tpu_torch.parallel.accelerate import (  # noqa: F401
     AccelerateResult,
     TrainState,
     auto_accelerate,
+)
+from dlrover_tpu_torch.parallel.engine import (  # noqa: F401
+    DryRunner,
+    DryRunResult,
+    ModelAnalysis,
+    StrategySearchEngine,
+    analyse_params,
+    candidate_strategies,
+    estimate_hbm_per_device,
+    search_strategy,
 )
 from dlrover_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,

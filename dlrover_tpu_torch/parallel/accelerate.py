@@ -1,7 +1,7 @@
 """``auto_accelerate`` — from (loss fn, init fn, optimizer) to a train step
-(port of dlrover_tpu/parallel/accelerate.py: one device, a ``seq`` mesh
-axis, or the ``data``, ``fsdp``, ``expert`` and ``tensor`` axes over a
-process group).
+(port of dlrover_tpu/parallel/accelerate.py: one device with an
+in-process ``seq`` axis, or the ``data``, ``fsdp``, ``expert``, ``seq``
+and ``tensor`` axes over a process group).
 
 The step keeps the JAX step's semantics: fp32 master params are cast to
 the compute dtype for the forward and backward, the loss runs under the
@@ -17,10 +17,13 @@ is what ``Strategy.donate`` buys the JAX step.
 A ``seq`` axis (``MeshConfig(seq=n)``) shards the sequence for ring
 attention (parallel/mesh.py, parallel/sequence.py). With the in-process
 transport the step is unchanged: the model runs every rank's shard.
-With a process group each rank takes its slice of the shifted tokens,
-its loss is weighted by its share of the valid labels, and the loss and
-the gradients are summed over the group, so every rank returns the
-global loss and applies the same update.
+Over a process group (one seq rank a process) ``seq`` is a dim of the
+DeviceMesh: each rank takes its seq coordinate's slice of its replica's
+shifted tokens, its loss is its tokens' term of the global mean
+(``Partial`` over ``seq`` as over the batch axes), and each gradient is
+summed over ``seq`` where it is redistributed to its param's
+placements, so every rank returns the global loss and applies the same
+update.
 
 Low-precision compute (``compute_dtype`` "fp8" or "int8", the JAX
 package's): the masters are cast to bf16 and each microbatch's loss runs
@@ -28,12 +31,11 @@ under ``quant_autocast(mode, sites=strategy.quant_sites)``, so that the
 models' tagged matmuls (ops/fp8.py ``qdot``/``qeinsum``) run on the fp8
 or int8 tensor cores. On a CUDA device, "fp8" needs compute capability
 8.9 (Ada, Hopper) and "int8" 8.0; below that the step raises rather than
-emulate. A quant mode on a process group (a sharded mesh or a seq group)
-raises: per-tensor fp8 scales over local shards are not the global
-tensor's (ROADMAP Queue 1 item 12).
+emulate. A quant mode on a process group (a DeviceMesh) raises:
+per-tensor fp8 scales over local shards are not the global tensor's
+(ROADMAP Queue 1 item 12).
 
-The ``data``, ``fsdp``, ``expert`` and ``tensor`` axes (a process
-group, no seq axis) lay a ``DeviceMesh`` over the ranks
+A process group lays a ``DeviceMesh`` over its ranks
 (parallel/mesh.py). Each fp32
 master param becomes a DTensor placed by its logical axes under the
 strategy's rule table (parallel/sharding.py), built on every rank from
@@ -43,13 +45,15 @@ state is laid out as the JAX package's ``compute_state_shardings`` lays
 it (parallel/mesh_state.py: moments that mirror the params are DTensors
 placed as them, the rest replicated). ``batch`` is this rank's rows: its
 share, by its
-``(data, fsdp)`` index (``mesh.batch_place``), of the global batch. The
-loss function gets DTensor params (cast to the compute dtype) and a
-DTensor batch, ``Shard(0)`` over ``data`` and ``fsdp`` and ``Replicate``
-over ``tensor``. A plain loss function runs on them through DTensor's
-sharding propagation, as GSPMD runs the JAX one; the models take their
+``(data, fsdp)`` index (``mesh.batch_place``), of the global batch; the
+seq ranks of a replica get the same rows. The loss function gets
+DTensor params (cast to the compute dtype) and a DTensor batch,
+``Shard(0)`` over ``data`` and ``fsdp``, ``Shard(1)`` over ``seq`` (the
+rank's slice) and ``Replicate`` over ``tensor``. A plain loss function
+runs on them through DTensor's sharding propagation, as GSPMD runs the
+JAX one; the models take their
 local shards and gather explicitly (parallel/shard_ops.py). The loss it
-returns is a DTensor (the models': ``Partial`` over the batch axes);
+returns is a DTensor (the models': ``Partial`` over the token axes);
 after the backward each gradient is redistributed to its param's
 placements (a ``Partial`` batch axis is summed there), the optimizer
 steps on the DTensors, and the step returns the global loss on every
@@ -69,18 +73,18 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from dlrover_tpu_torch.common.log import get_logger
 from dlrover_tpu_torch.device import resolve_device
-from dlrover_tpu_torch.ops.cross_entropy import IGNORE_INDEX
 from dlrover_tpu_torch.ops.fp8 import QUANT_MODES, quant_autocast
 from dlrover_tpu_torch.ops.fused_optim import tree_order
 from dlrover_tpu_torch.parallel import remat as remat_lib
 from dlrover_tpu_torch.parallel.mesh import (
     BATCH_AXES,
     Mesh,
+    MeshError,
     ProcessGroupRing,
     build_mesh,
     set_mesh,
 )
-from dlrover_tpu_torch.parallel.mesh_state import placed_as
+from dlrover_tpu_torch.parallel.mesh_state import local, placed_as
 from dlrover_tpu_torch.parallel.overlap import (
     OVERLAP_MODES,
     overlap_autocast,
@@ -174,7 +178,7 @@ def _check_quant(quant, device, mesh: Mesh) -> None:
                 f"{need[0]}.{need[1]} ({quant} tensor cores); "
                 f"{torch.cuda.get_device_name(device)} has "
                 f"{have[0]}.{have[1]}")
-    if mesh.sharded or isinstance(mesh.ring, ProcessGroupRing):
+    if mesh.sharded:
         raise NotImplementedError(
             f"compute_dtype={quant!r} on a process group (per-tensor scales "
             "over local shards) is not ported yet (ROADMAP Queue 1 item 12)")
@@ -215,16 +219,22 @@ def _remat_wrap(loss_fn: Callable, mode: str) -> Callable:
 
 def _seq_slice(batch, ring):
     """This rank's slice of a token batch: the shifted inputs and labels
-    of its sequence shard (the shift comes first, so a shard's last
-    label is the next shard's first token)."""
-    if set(batch) != {"tokens"}:
-        raise ValueError("a seq process group slices batch['tokens'] and "
-                         f"takes no other key, got {sorted(batch)}")
+    of its seq coordinate's sequence shard (the shift comes first, so a
+    shard's last label is the next shard's first token). A batch that
+    brings its ``labels`` [B, S] comes shifted (``tokens`` [B, S], the
+    inputs, as the models take them): both are cut."""
+    if set(batch) not in ({"tokens"}, {"tokens", "labels"}):
+        raise ValueError("a seq process group slices batch['tokens'] (and "
+                         "batch['labels']) and takes no other key, got "
+                         f"{sorted(batch)}")
     tokens = batch["tokens"]
-    inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    if "labels" in batch:
+        inputs, labels = tokens, batch["labels"]
+    else:
+        inputs, labels = tokens[:, :-1], tokens[:, 1:]
     if inputs.shape[1] % ring.size:
-        raise ValueError(f"a seq axis of {ring.size} ranks does not divide "
-                         f"the sequence of {inputs.shape[1]}")
+        raise MeshError(f"a seq axis of {ring.size} ranks does not divide "
+                        f"the sequence of {inputs.shape[1]}")
     shard = inputs.shape[1] // ring.size
     cut = slice(ring.rank * shard, (ring.rank + 1) * shard)
     return {"tokens": inputs[:, cut], "labels": labels[:, cut]}
@@ -266,10 +276,12 @@ def empty_params(like: dict, device, mesh: Mesh, axes=None,
     return out
 
 
-def _batch_placements(device_mesh) -> list:
+def _batch_placements(device_mesh, seq_sliced: bool = False) -> list:
     """A batch leaf's placements: rows split over the batch axes (data
-    major), replicated over the rest."""
-    return [Shard(0) if name in BATCH_AXES else Replicate()
+    major), replicated over the rest; with ``seq_sliced``, a seq rank's
+    slice of the sequence (dim 1) split over ``seq``."""
+    return [Shard(0) if name in BATCH_AXES
+            else Shard(1) if name == "seq" and seq_sliced else Replicate()
             for name in device_mesh.mesh_dim_names]
 
 
@@ -278,7 +290,8 @@ def _microbatch_rows(x, device_mesh, accum: int):
     ``accum`` chunks is its share of the JAX step's microbatch i: the
     global batch's i-th contiguous chunk, cut over the batch replicas in
     ``batch_place`` order (data major). The global batch is gathered
-    over the batch ranks first (an all_gather: token ids, a few KB)."""
+    over the batch ranks first (an all_gather: token ids, a few KB),
+    never over ``seq``, whose ranks hold the same rows."""
     full = DTensor.from_local(x, device_mesh, _batch_placements(device_mesh),
                               run_check=False).full_tensor()
     sizes = dict(zip(device_mesh.mesh_dim_names, device_mesh.shape))
@@ -336,10 +349,10 @@ def auto_accelerate(
     tensors (moved to the device), runs ``strategy.grad_accum``
     microbatches split along dim 0, applies the optimizer and returns
     ``(state, {"loss": ...})``; the loss is the microbatch mean, a 0-d
-    f32 tensor on the device. Under a seq process group ``batch`` is the
-    whole batch on every rank (``tokens`` [B, S+1], S divisible by the
-    seq size) and the loss is the global one. On a DeviceMesh ``batch``
-    is this rank's rows (see the module's docstring); with ``grad_accum >
+    f32 tensor on the device. On a DeviceMesh ``batch`` is this rank's
+    rows (see the module's docstring); under a seq dim every seq rank of
+    a replica gets them whole (``tokens`` [B, S+1], S divisible by the
+    seq size) and takes its slice. With ``grad_accum >
     1`` microbatch ``i`` is this rank's share of the global batch's
     ``i``-th contiguous chunk, as the JAX package cuts it (the batch is
     gathered over the batch ranks to cut it so); the loss is the global
@@ -365,10 +378,9 @@ def auto_accelerate(
     if not mesh.sharded and (
             tuple(tuple(r) for r in strategy.rules) != DEFAULT_RULES):
         raise NotImplementedError(
-            "custom logical sharding rules need a DeviceMesh: the data, "
-            "fsdp or tensor axes over a process group (ROADMAP Queue 1 "
-            "item 7)")
-    # a process group splits the batch; the in-process ring needs nothing
+            "custom logical sharding rules need a DeviceMesh: a process "
+            "group (ROADMAP Queue 1 item 7)")
+    # a seq dim slices the sequence; the in-process ring needs nothing
     group = mesh.ring if isinstance(mesh.ring, ProcessGroupRing) else None
     compute_dtype = _COMPUTE_DTYPES[strategy.compute_dtype]
     quant = (strategy.compute_dtype if strategy.compute_dtype in QUANT_MODES
@@ -407,17 +419,19 @@ def auto_accelerate(
         return torch.as_tensor(x).to(device, non_blocking=True)
 
     def as_rows(x):
-        """A batch leaf (this rank's rows) as a DTensor over the mesh."""
+        """A batch leaf (this rank's rows, and under a seq dim its slice)
+        as a DTensor over the mesh."""
         dm = mesh.device_mesh
-        return DTensor.from_local(x, dm, _batch_placements(dm),
-                                  run_check=False)
+        return DTensor.from_local(
+            x, dm, _batch_placements(dm, seq_sliced=group is not None),
+            run_check=False)
 
     def train_step(state: TrainState, batch, rng):
         # the model reads the seq ring from the active mesh: make it this
         # step's, whatever was set since, so a step that slices shards
         # always runs the ring it was built for
         set_mesh(mesh)
-        batch = {k: to_device(v) for k, v in batch.items()}
+        batch = {k: to_device(local(v)) for k, v in batch.items()}
         for k, v in batch.items():
             if v.ndim < 1 or v.shape[0] % accum:
                 raise ValueError(
@@ -447,27 +461,17 @@ def auto_accelerate(
                        for n, p in state.params.items()}
             if group is not None:
                 mb = _seq_slice(mb, group)
-                valid = (mb["labels"] != IGNORE_INDEX).sum().float()
-                # this rank's mean, weighted by its share of the labels
-                share = valid / group.all_reduce(valid.clone()).clamp(min=1)
             if mesh.sharded:
                 mb = {k: as_rows(v) for k, v in mb.items()}
             with rctx(), qctx(), octx():
                 loss = inner_loss(cparams, mb, rng)
-            if group is not None:
-                loss = loss * share
             # grads accumulate in fp32 on the masters; /accum averages
             (loss / accum).backward()
             loss_sum += global_value(loss).detach().float()
-        if group is not None:
-            for p in state.params.values():
-                if p.grad is not None:
-                    group.all_reduce(p.grad)
-            group.all_reduce(loss_sum)
         if mesh.sharded:
             # every reduce-scatter an overlapped backward left in flight
             wait_pending()
-            # a Partial batch axis is summed (DTensor makes no collective
+            # a Partial token axis is summed (DTensor makes no collective
             # call over a mesh dim of size 1)
             for p in state.params.values():
                 p.grad = placed_as(p.grad, p)

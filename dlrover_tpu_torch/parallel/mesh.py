@@ -3,28 +3,30 @@
 The JAX package lays a ``jax.sharding.Mesh`` over its devices and lets
 XLA derive the collectives. Here the axes run one of two ways:
 
-- ``data``, ``fsdp``, ``expert`` and ``tensor`` over a
-  ``torch.distributed`` process group, one process per card:
+- over a ``torch.distributed`` process group, one process per card:
   :func:`build_mesh` lays a ``DeviceMesh`` over the group's ranks with
   the dims of size above 1 plus ``data`` and ``fsdp`` (the batch axes),
-  in ``AXIS_ORDER``. The state lives on it as DTensors placed by the
-  logical rule table (parallel/sharding.py), and the models gather and
-  reduce explicitly (models/llama.py).
-- ``seq``, sequence (context) parallelism for ring or Ulysses attention,
-  over one of two transports that carry one schedule
-  (parallel/sequence.py): :class:`ProcessGroupRing`, when a process
-  group exists (the axis is the group's ranks; NCCL, gloo on the CPU;
-  :meth:`~ProcessGroupRing.shift` sends to rank + 1 and receives from
-  rank - 1 in one ``batch_isend_irecv``, into fresh buffers;
-  :meth:`~ProcessGroupRing.all_to_all` is one ``all_to_all_single``);
-  and :class:`InProcessRing`, when none exists (this process holds every
-  rank of the axis on its one device, the counterpart of the JAX tests'
-  virtual CPU devices: a shift rotates a list, an all-to-all regroups
-  it).
+  in ``AXIS_ORDER``, as the JAX package lays devices (``seq`` inside
+  ``data``/``fsdp``/``expert``, outside ``tensor``). The state lives on
+  it as DTensors placed by the logical rule table
+  (parallel/sharding.py), and the models gather and reduce explicitly
+  (models/llama.py);
+- ``seq``, sequence (context) parallelism for ring or Ulysses
+  attention, over one of two transports that carry one schedule
+  (parallel/sequence.py): :class:`ProcessGroupRing`, when the group
+  holds one seq rank a process (the axis is a dim of the DeviceMesh and
+  the ring runs over its sub-group; NCCL, gloo on the CPU;
+  :meth:`~ProcessGroupRing.shift` sends to the next seq coordinate and
+  receives from the previous one in one ``batch_isend_irecv``, into
+  fresh buffers; :meth:`~ProcessGroupRing.all_to_all` is one
+  ``all_to_all_single`` over the sub-group); and :class:`InProcessRing`,
+  when this process holds every rank of the axis on its one device (no
+  process group, or a group whose ranks the other axes use up, beside
+  their DeviceMesh: the counterpart of a JAX process's several local
+  devices; a shift rotates a list, an all-to-all regroups it).
 
-Without a process group every axis but ``seq`` must be 1. ``seq``
-together with another axis above 1 is ROADMAP Queue 1 item 7's rest,
-``pipe`` is item 10's: they raise.
+Without a process group every axis but ``seq`` must be 1. ``pipe`` is
+ROADMAP Queue 1 item 10's: it raises.
 """
 
 from __future__ import annotations
@@ -43,13 +45,20 @@ from dlrover_tpu_torch.parallel.strategy import AXIS_ORDER, MeshConfig
 logger = get_logger(__name__)
 
 __all__ = [
-    "InProcessRing", "Mesh", "MeshConfig", "ProcessGroupRing",
+    "InProcessRing", "Mesh", "MeshConfig", "MeshError", "ProcessGroupRing",
     "axis_index", "axis_size", "batch_place", "build_mesh", "get_mesh",
-    "reform_process_group", "resolve_sizes", "seq_ring", "set_mesh",
+    "layout", "reform_process_group", "resolve_sizes", "seq_ring",
+    "set_mesh",
 ]
 
 # the mesh axes a batch is split over; a DeviceMesh always has them
 BATCH_AXES = ("data", "fsdp")
+
+
+class MeshError(ValueError):
+    """A mesh that does not fit the process group, the model or the
+    batch (axis sizes, heads or a sequence an axis does not divide): a
+    strategy search records its candidate as infeasible."""
 
 
 class InProcessRing:
@@ -83,50 +92,52 @@ class InProcessRing:
 
 
 class ProcessGroupRing:
-    """The seq axis as the ranks of the default process group."""
+    """The seq axis as a process group: the DeviceMesh's ``seq``
+    sub-group, one seq rank a process. ``rank`` is this process's seq
+    coordinate, the P2P peers the sub-group's neighbours (as global
+    ranks)."""
 
     kind = "process-group"
 
-    def __init__(self, size: int):
-        self.size = size
-        self.rank = dist.get_rank()
+    def __init__(self, group):
+        self.group = group
+        self.size = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
         self.ranks = (self.rank,)
+        self._peers = [dist.get_global_rank(group, r)
+                       for r in range(self.size)]
 
     def shift(self, blocks: list) -> list:
-        """Send this rank's tensors (``blocks`` holds one list) to rank + 1
-        and return rank - 1's. Differentiable: the gradient takes the
-        reverse hop."""
+        """Send this rank's tensors (``blocks`` holds one list) to the next
+        seq coordinate and return the previous one's. Differentiable: the
+        gradient takes the reverse hop."""
         (tensors,) = blocks
         return [list(_Shift.apply(self, *tensors))]
 
     def exchange(self, tensors, step: int) -> list:
-        """Send ``tensors`` to rank + step, receive the same shapes from
-        rank - step into fresh buffers."""
-        dst, src = (self.rank + step) % self.size, (self.rank - step) % self.size
+        """Send ``tensors`` to seq coordinate rank + step, receive the same
+        shapes from rank - step into fresh buffers."""
+        dst = self._peers[(self.rank + step) % self.size]
+        src = self._peers[(self.rank - step) % self.size]
         sends = [t.contiguous() for t in tensors]
         recvs = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
                  for t in tensors]
-        ops = ([dist.P2POp(dist.isend, t, dst) for t in sends]
-               + [dist.P2POp(dist.irecv, t, src) for t in recvs])
+        ops = ([dist.P2POp(dist.isend, t, dst, self.group) for t in sends]
+               + [dist.P2POp(dist.irecv, t, src, self.group) for t in recvs])
         for req in dist.batch_isend_irecv(ops):
             req.wait()
         return recvs
 
-    def all_reduce(self, tensor):
-        """Sum ``tensor`` over the ranks, in place."""
-        dist.all_reduce(tensor)
-        return tensor
-
     def all_to_all(self, xs: list, split_dim: int, concat_dim: int) -> list:
-        """As :meth:`InProcessRing.all_to_all`, over the group (``xs``
+        """As :meth:`InProcessRing.all_to_all`, over the sub-group (``xs``
         holds this rank's tensor). Differentiable: the gradient takes
         the inverse all-to-all."""
         (x,) = xs
-        return [_AllToAll.apply(x, split_dim, concat_dim, self.size)]
+        return [_AllToAll.apply(x, split_dim, concat_dim, self.group)]
 
     def describe(self) -> str:
-        return (f"process-group ({dist.get_backend()}), rank {self.rank} of "
-                f"{self.size}")
+        return (f"process-group ({dist.get_backend()}), seq rank "
+                f"{self.rank} of {self.size}")
 
 
 class _Shift(torch.autograd.Function):
@@ -142,13 +153,14 @@ class _Shift(torch.autograd.Function):
         return (None, *ctx.ring.exchange(grads, -1))
 
 
-def _all_to_all(x, split_dim: int, concat_dim: int, n: int):
-    """One ``all_to_all_single`` over the default group: chunk r of ``x``
-    along ``split_dim`` to rank r, the received chunks concatenated along
-    ``concat_dim`` in rank order."""
+def _all_to_all(x, split_dim: int, concat_dim: int, group):
+    """One ``all_to_all_single`` over ``group``: chunk r of ``x`` along
+    ``split_dim`` to the group's rank r, the received chunks concatenated
+    along ``concat_dim`` in rank order."""
+    n = dist.get_world_size(group)
     send = torch.stack(x.chunk(n, dim=split_dim)).contiguous()
     recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send)
+    dist.all_to_all_single(recv, send, group=group)
     return torch.cat(recv.unbind(0), dim=concat_dim)
 
 
@@ -156,22 +168,22 @@ class _AllToAll(torch.autograd.Function):
     """:func:`_all_to_all`; its gradient goes back by the inverse one."""
 
     @staticmethod
-    def forward(ctx, x, split_dim, concat_dim, n):
-        ctx.dims = split_dim, concat_dim, n
-        return _all_to_all(x, split_dim, concat_dim, n)
+    def forward(ctx, x, split_dim, concat_dim, group):
+        ctx.dims = split_dim, concat_dim, group
+        return _all_to_all(x, split_dim, concat_dim, group)
 
     @staticmethod
     def backward(ctx, grad):
-        split_dim, concat_dim, n = ctx.dims
-        return _all_to_all(grad, concat_dim, split_dim, n), None, None, None
+        split_dim, concat_dim, group = ctx.dims
+        return (_all_to_all(grad, concat_dim, split_dim, group), None, None,
+                None)
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """Axis sizes (every axis of ``AXIS_ORDER``), the seq axis'
-    transport (None when the axis is 1), and the ``DeviceMesh`` of the
-    data, fsdp, expert and tensor axes (None without a process group, or
-    under a seq axis)."""
+    transport (None when the axis is 1), and the ``DeviceMesh`` over the
+    process group (None without one)."""
 
     shape: dict
     ring: Optional[object] = None
@@ -188,23 +200,71 @@ def resolve_sizes(config: MeshConfig, world: Optional[int]) -> dict:
     sizes = {a: getattr(config, a) for a in AXIS_ORDER}
     wildcard = [a for a, s in sizes.items() if s == -1]
     if len(wildcard) > 1:
-        raise ValueError(f"only one axis may be -1, got {wildcard}")
+        raise MeshError(f"only one axis may be -1, got {wildcard}")
     if wildcard:
         fixed = math.prod(s for s in sizes.values() if s != -1)
         if world is not None and world % fixed:
-            raise ValueError(f"{world} ranks not divisible by the fixed "
+            raise MeshError(f"{world} ranks not divisible by the fixed "
                              f"axes' {fixed}")
         sizes[wildcard[0]] = 1 if world is None else world // fixed
     bad = {a: s for a, s in sizes.items() if s < 1}
     if bad:
-        raise ValueError(f"mesh axes must be >= 1 (or one -1), got {bad}")
+        raise MeshError(f"mesh axes must be >= 1 (or one -1), got {bad}")
     return sizes
+
+
+def _fits(config: MeshConfig, world: int) -> Optional[dict]:
+    """``config``'s sizes when they use exactly ``world`` ranks, else
+    None."""
+    try:
+        sizes = resolve_sizes(config, world)
+    except MeshError:
+        return None
+    return sizes if math.prod(sizes.values()) == world else None
+
+
+def layout(config: MeshConfig, world: Optional[int]) -> tuple:
+    """(sizes, seq_in_process): the axis sizes of ``config`` over
+    ``world`` ranks (None: no process group), and whether this process
+    holds every rank of the seq axis. Over a group the axes use its
+    ranks one seq rank a process when they can; else, with ``seq`` above
+    1, the other axes must use them and the seq axis runs in each
+    process beside their DeviceMesh (with a warning where a -1 axis took
+    the ranks the seq axis could not: each process then holds the whole
+    sequence). Any other split (a process holding some of the seq ranks)
+    raises."""
+    if world is None:
+        sizes = resolve_sizes(config, None)
+        return sizes, sizes["seq"] > 1
+    sizes = _fits(config, world)
+    if sizes is not None:
+        return sizes, False
+    if config.seq > 1:
+        rest = _fits(dataclasses.replace(config, seq=1), world)
+        if rest is not None:
+            sizes = dict(rest, seq=config.seq)
+            if world > 1 and -1 in (getattr(config, a) for a in AXIS_ORDER):
+                logger.warning(
+                    "mesh %s on %d ranks: seq=%d does not fit one seq rank "
+                    "a process, so the -1 axis takes the ranks and every "
+                    "process holds all %d seq ranks (the sequence is not "
+                    "sharded across processes)", sizes, world, config.seq,
+                    config.seq)
+            return sizes, True
+    sizes = resolve_sizes(config, world)
+    used = math.prod(sizes.values())
+    held = (f"; a process would hold {config.seq * world // used} of "
+            f"the {config.seq} seq ranks" if config.seq > 1 else "")
+    raise MeshError(
+        f"mesh axes {sizes} use {used} ranks, the process group has "
+        f"{world}: the axes must use the group's ranks (one seq rank a "
+        f"process), or the axes but seq must, the seq axis then held "
+        f"whole by each process{held}")
 
 
 def _check_axes(sizes: dict, world: Optional[int]) -> None:
     """Raise for what no transport runs yet."""
     wide = {a: s for a, s in sizes.items() if s > 1}
-    later = {a: s for a, s in wide.items() if a == "pipe"}
     if world is None and set(wide) - {"seq"}:
         raise NotImplementedError(
             f"mesh axes {wide} without a process group: this process "
@@ -212,50 +272,42 @@ def _check_axes(sizes: dict, world: Optional[int]) -> None:
             "expert and tensor run over a torch.distributed process group, "
             "one process per card (ROADMAP Queue 1 item 7); pipe is item "
             "10")
-    if later:
+    if "pipe" in wide:
         raise NotImplementedError(
-            f"mesh axes {later}: pipeline parallelism is not ported yet "
+            f"mesh axes {wide}: pipeline parallelism is not ported yet "
             "(ROADMAP Queue 1 item 10)")
-    if "seq" in wide and len(wide) > 1:
-        raise NotImplementedError(
-            f"mesh axes {wide}: the seq axis together with another axis "
-            "is not ported yet (ROADMAP Queue 1 item 7)")
 
 
 def build_mesh(config: Optional[MeshConfig] = None) -> Mesh:
     """The mesh of ``config``. An axis of -1 absorbs what the others
     leave of the process group's ranks (1 without a group).
 
-    With a process group and no seq axis, the data, fsdp, expert and
-    tensor axes become a ``DeviceMesh`` over the group (on the group's
-    device type: ``cuda`` under NCCL, ``cpu`` under gloo), ranks laid out
-    row-major in ``AXIS_ORDER`` as the JAX package lays devices. A seq axis must span
-    the whole group. Raises for the rest (see :func:`_check_axes`)."""
+    With a process group the axes become a ``DeviceMesh`` over it (on
+    the group's device type: ``cuda`` under NCCL, ``cpu`` under gloo),
+    ranks laid out row-major in ``AXIS_ORDER`` as the JAX package lays
+    devices. A seq axis of one rank a process is a dim of it, its ring
+    the dim's sub-group; a seq axis the other axes leave no ranks for
+    runs in process beside it (see :func:`layout`). Raises for the rest
+    (see :func:`_check_axes`)."""
     config = config or MeshConfig()
     world = dist.get_world_size() if dist.is_initialized() else None
     explicit = {a: getattr(config, a) for a in AXIS_ORDER}
     _check_axes({a: s for a, s in explicit.items() if s != -1}, world)
-    if world is not None and explicit["seq"] not in (-1, 1, world):
-        raise ValueError(
-            f"the process group has {world} ranks but the seq axis "
-            f"{explicit['seq']}: the seq axis must span the whole group")
-    sizes = resolve_sizes(config, world)
+    sizes, in_process = layout(config, world)
     _check_axes(sizes, world)
-    if world is not None and math.prod(sizes.values()) != world:
-        raise ValueError(f"mesh axes {sizes} use "
-                         f"{math.prod(sizes.values())} ranks, the process "
-                         f"group has {world}")
     n = sizes["seq"]
     ring, device_mesh = None, None
-    if n > 1:
-        ring = ProcessGroupRing(n) if world is not None else InProcessRing(n)
-    elif world is not None:
+    if world is not None:
         dims = tuple(a for a in AXIS_ORDER
-                     if sizes[a] > 1 or a in BATCH_AXES)
+                     if (sizes[a] > 1 or a in BATCH_AXES)
+                     and not (a == "seq" and in_process))
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
         device_mesh = init_device_mesh(
             device_type, tuple(sizes[a] for a in dims),
             mesh_dim_names=dims)
+    if n > 1:
+        ring = (InProcessRing(n) if in_process
+                else ProcessGroupRing(device_mesh.get_group("seq")))
     logger.info("built mesh %s, seq transport: %s, device mesh: %s", sizes,
                 ring.describe() if ring else "none",
                 dict(zip(device_mesh.mesh_dim_names, device_mesh.shape))
@@ -291,16 +343,19 @@ def batch_place(config: Optional[MeshConfig] = None) -> tuple:
     (``data`` x ``fsdp``, data major) under ``config`` over the process
     group; (0, 1) without one. A data sampler takes these, not the
     global rank: the tensor ranks of one replica must read the same
-    rows. Needs no DeviceMesh: the ranks are laid out row-major in
-    ``AXIS_ORDER``, as :func:`build_mesh` lays them."""
+    rows, and so must its seq ranks (each takes its slice of the
+    sequence from the same rows). Needs no DeviceMesh: the ranks are
+    laid out row-major in ``AXIS_ORDER``, as :func:`build_mesh` lays
+    them (an in-process seq axis takes no ranks)."""
     config = config or MeshConfig()
     if not dist.is_initialized():
         return 0, 1
-    sizes = resolve_sizes(config, dist.get_world_size())
+    sizes, in_process = layout(config, dist.get_world_size())
     coord, rest = {}, dist.get_rank()
     for axis in reversed(AXIS_ORDER):
-        coord[axis] = rest % sizes[axis]
-        rest //= sizes[axis]
+        size = 1 if axis == "seq" and in_process else sizes[axis]
+        coord[axis] = rest % size
+        rest //= size
     return (coord["data"] * sizes["fsdp"] + coord["fsdp"],
             sizes["data"] * sizes["fsdp"])
 
@@ -332,9 +387,10 @@ def axis_size(axis: str) -> int:
 
 
 def axis_index(axis: str) -> int:
-    """This process's index along ``axis``. On the seq axis: its rank in
-    the process group; with the in-process transport this process holds
-    every index of the axis, and the first, 0, is returned. On an axis
+    """This process's index along ``axis``. On the seq axis: its seq
+    coordinate (its rank in the DeviceMesh's seq sub-group); with the
+    in-process transport this process holds every index of the axis,
+    and the first, 0, is returned. On an axis
     of the DeviceMesh: its coordinate there. 0 on an inactive axis."""
     mesh = get_mesh()
     if axis == "seq":

@@ -8,6 +8,10 @@ so the result is single-device causal attention. q/k/v are
 [batch, heads, len(ring.ranks) * seq_shard, head_dim]: the shards of the
 ranks this process holds, in order (one shard with the process-group
 transport, the whole sequence with the in-process one; parallel/mesh.py).
+Over a process group the ring runs over the DeviceMesh's ``seq``
+sub-group: a rank's place on the ring is its seq coordinate, its P2P
+peers the sub-group's neighbours, whatever the other axes (the batch
+axes' replicas and the tensor ranks each run their own ring).
 
 - Causal rings run :class:`_RingFlash`: each visible block through
   ``flash_ring_fwd`` (K12, as the dispatcher op ``flash_ring_fwd_op``
@@ -24,9 +28,10 @@ sequence split for a head split: an all-to-all turns each rank's
 [b, h, s/n, d] shard into [b, h/n, s, d], the rank runs
 ``flash_attention`` (K1-K4) over its head group and the whole sequence,
 and the inverse all-to-all brings the output back to [b, h, s/n, d].
-Over a process group the all-to-all is one ``all_to_all_single`` in an
-autograd function whose backward is the inverse; in process it regroups
-the held shards (parallel/mesh.py).
+Over a process group the all-to-all is one ``all_to_all_single`` over
+the seq sub-group in an autograd function whose backward is the inverse;
+in process it regroups the held shards (parallel/mesh.py). Under a
+``tensor`` axis both run on the rank's local heads and kv heads.
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ from dlrover_tpu_torch.ops.attention import (
     flash_ring_dq,
     flash_ring_fwd,
 )
-from dlrover_tpu_torch.parallel.mesh import get_mesh
+from dlrover_tpu_torch.parallel.mesh import MeshError, get_mesh
 
 __all__ = ["ring_attention", "sequence_sharded_attention",
            "ulysses_attention"]
@@ -215,7 +220,7 @@ def ring_attention(q, k, v, mesh=None, causal: bool = True,
     held = len(ring.ranks)
     for t in (q, k, v):
         if t.shape[2] % held:
-            raise ValueError(
+            raise MeshError(
                 f"a seq axis of {n} ranks ({held} in this process) does "
                 f"not divide the sequence of {t.shape[2]}")
     if causal:
@@ -231,20 +236,21 @@ def ulysses_attention(q, k, v, mesh=None, causal: bool = True,
     back. q [batch, heads, seq_local, head_dim], k/v [batch, kv_heads,
     seq_local, head_dim], the held ranks' shards as in
     :func:`ring_attention`; heads and kv_heads must be divisible by the
-    axis size (``ValueError`` otherwise, as in the JAX package)."""
+    axis size (``ValueError`` otherwise, as in the JAX package: a
+    ``MeshError``)."""
     mesh = mesh or get_mesh()
     n = mesh.shape.get("seq", 1)
     if n == 1:
         return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
     if q.shape[1] % n or k.shape[1] % n:
-        raise ValueError(
+        raise MeshError(
             f"ulysses needs heads divisible by axis size: q heads "
             f"{q.shape[1]}, kv heads {k.shape[1]}, axis {n}")
     ring = mesh.ring
     held = len(ring.ranks)
     for t in (q, k, v):
         if t.shape[2] % held:
-            raise ValueError(
+            raise MeshError(
                 f"a seq axis of {n} ranks ({held} in this process) does "
                 f"not divide the sequence of {t.shape[2]}")
 

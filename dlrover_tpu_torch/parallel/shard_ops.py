@@ -24,10 +24,13 @@ local shard once (:meth:`ShardContext.local`), and in each layer:
   as over ``tensor``, each rank runs its own experts, whose stacks it
   does not gather, and the partial outputs are summed.
 
-Rows split over ``data`` and ``fsdp``: a rank's loss is its rows' term of
-the global mean, and the gradient of a param replicated over a batch
-axis is that axis' sum, taken after the backward (the step redistributes
-each gradient from ``Partial`` to its param's placements).
+Rows split over ``data`` and ``fsdp``, and the sequence over a ``seq``
+dim (the ring or Ulysses over its sub-group, parallel/sequence.py): a
+rank's loss is its tokens' term of the global mean, and the gradient of
+a param replicated over one of these token axes is that axis' sum,
+taken after the backward (the step redistributes each gradient from
+``Partial`` to its param's placements). The fsdp gathers and the
+tensor f and g stay on their own sub-groups under a seq dim.
 
 Everything here is a no-op on a mesh axis of size 1: on a one-rank
 mesh the model path makes no collective call.
@@ -35,6 +38,7 @@ mesh the model path makes no collective call.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -43,7 +47,11 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from dlrover_tpu_torch.parallel.mesh import BATCH_AXES
 
-__all__ = ["ShardContext", "shard_box"]
+__all__ = ["TOKEN_AXES", "ShardContext", "shard_box"]
+
+# the mesh axes whose ranks hold different tokens of the global batch:
+# the batch axes' rows, the seq axis' slices of the sequence
+TOKEN_AXES = BATCH_AXES + ("seq",)
 
 
 def shard_box(global_shape, device_mesh, placements) -> tuple:
@@ -127,7 +135,8 @@ class ShardContext:
         self.expert_size = self._size("expert")
         self._expert_pg = (device_mesh.get_group("expert")
                            if self.expert_size > 1 else None)
-        self.batch_size = self._size("data") * self._size("fsdp")
+        # the ranks whose tokens together make the global batch
+        self.batch_size = math.prod(self._size(a) for a in TOKEN_AXES)
 
     @classmethod
     def of(cls, params: dict) -> Optional["ShardContext"]:
@@ -144,13 +153,13 @@ class ShardContext:
 
     def local(self, p):
         """The local shard of a DTensor param, differentiable. Its
-        gradient is declared ``Partial`` on a batch axis the param is
-        replicated over (each rank's rows contribute a term); the step
+        gradient is declared ``Partial`` on a token axis the param is
+        replicated over (each rank's tokens contribute a term); the step
         sums it there."""
         if not isinstance(p, DTensor):
             return p
         grad_placements = [
-            Partial() if name in BATCH_AXES and isinstance(pl, Replicate)
+            Partial() if name in TOKEN_AXES and isinstance(pl, Replicate)
             else pl for name, pl in zip(self.names, p.placements)]
         return p.to_local(grad_placements=grad_placements)
 
@@ -260,27 +269,28 @@ class ShardContext:
 
     def local_rows(self, x):
         """This rank's rows of a batch leaf (a DTensor split over the batch
-        axes, or already a local tensor)."""
+        axes, and over ``seq`` its slice of the sequence; or already a
+        local tensor)."""
         return x.to_local() if isinstance(x, DTensor) else x
 
     def batch_sum(self, x):
-        """``x`` summed over the batch axes (data and fsdp), no
+        """``x`` summed over the token axes (data, fsdp and seq), no
         gradient."""
         out = x.detach().contiguous().clone()
-        for name in BATCH_AXES:
+        for name in TOKEN_AXES:
             if name in self.names and self._size(name) > 1:
                 dist.all_reduce(out, group=self.mesh.get_group(name))
         return out
 
     def batch_mean(self, x):
-        """``x`` averaged over the batch axes, no gradient."""
+        """``x`` averaged over the token axes, no gradient."""
         return self.batch_sum(x) / self.batch_size
 
     def loss_term(self, term):
         """A rank's term of the global loss as a DTensor: ``Partial`` over
-        the batch axes (the terms sum to the loss), ``Replicate`` over
+        the token axes (the terms sum to the loss), ``Replicate`` over
         ``tensor`` and ``expert`` (their ranks hold the same term)."""
-        placements = [Partial() if name in BATCH_AXES else Replicate()
+        placements = [Partial() if name in TOKEN_AXES else Replicate()
                       for name in self.names]
         return DTensor.from_local(term, self.mesh, placements,
                                   run_check=False)

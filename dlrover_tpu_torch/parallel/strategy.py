@@ -6,9 +6,10 @@ caller passes the card's memory as ``hbm_gb``).
 
 ``MeshConfig`` keeps every field, so that a plan written by the JAX
 package loads here; of its axes the port runs ``data``, ``fsdp``,
-``expert`` and ``tensor`` over a process group (a DeviceMesh), and
-``seq`` (ring or Ulysses attention) alone (parallel/mesh.py). ``pipe``
-is ROADMAP Queue 1 item 10.
+``expert``, ``seq`` and ``tensor`` over a process group (a DeviceMesh),
+and ``seq`` (ring or Ulysses attention) in process too, alone or beside
+the DeviceMesh (parallel/mesh.py). ``pipe`` is ROADMAP Queue 1 item
+10.
 """
 
 from __future__ import annotations
@@ -45,11 +46,12 @@ DEFAULT_RULES: LogicalRules = (
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
     """Sizes for each named axis; 1 means the axis is inactive and -1
-    absorbs the remaining ranks. ``data``, ``fsdp``, ``expert`` and
-    ``tensor`` run over a process group's ranks. ``seq=n`` shards the sequence over n
-    ring ranks: a process group of n processes, or n ranks in one
-    process on one device. ``dcn_*`` give the slices an axis spans (kept
-    for plan compatibility)."""
+    absorbs the remaining ranks. ``data``, ``fsdp``, ``expert``, ``seq``
+    and ``tensor`` run over a process group's ranks. ``seq=n`` shards the
+    sequence over n ring ranks: n processes of the group, or n ranks in
+    one process on one device (without a group, or beside a DeviceMesh
+    that the other axes' ranks fill). ``dcn_*`` give the slices an axis
+    spans (kept for plan compatibility)."""
 
     pipe: int = 1
     data: int = -1

@@ -223,8 +223,29 @@ def test_build_mesh_refuses_other_axes(config):
 def test_build_mesh_refuses_a_group_of_another_size(monkeypatch):
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
-    with pytest.raises(ValueError, match="span the whole group"):
-        build_mesh(MeshConfig(seq=4))
+    with pytest.raises(ValueError, match="2 of the 4 seq ranks"):
+        build_mesh(MeshConfig(data=1, seq=4))
+
+
+@pytest.mark.parametrize("config,warned", [
+    (MeshConfig(seq=4), True),
+    (MeshConfig(data=2, seq=4), False),
+    (MeshConfig(data=1, seq=2), False),
+], ids=["wildcard", "explicit", "one-seq-rank-a-process"])
+def test_layout_warns_when_a_wildcard_takes_the_seq_ranks(monkeypatch,
+                                                          config, warned):
+    """seq=4 on 2 ranks: the -1 data axis takes both ranks and each
+    process holds the whole seq axis, which a warning names; asked for
+    explicitly, or one seq rank a process, it is said nowhere."""
+    said = []
+    monkeypatch.setattr(port_mesh.logger, "warning",
+                        lambda *a: said.append(a[0] % a[1:]))
+    sizes, in_process = port_mesh.layout(config, 2)
+    assert in_process == (config.seq == 4)
+    assert sizes["data"] * (1 if in_process else sizes["seq"]) == 2
+    assert bool(said) == warned
+    if warned:
+        assert "every process holds all 4 seq ranks" in said[0]
 
 
 def test_ring_refuses_a_sequence_it_does_not_divide():

@@ -35,6 +35,7 @@ from dlrover_tpu_torch.parallel import (
     ring_attention,
     set_mesh,
 )
+from dlrover_tpu_torch.parallel.accelerate import global_value
 from dlrover_tpu_torch.trainer import build_optimizer
 
 N = 4  # ranks of the seq axis
@@ -124,7 +125,9 @@ def _train(p_np, mesh_config):
         tokens = rng.randint(0, 64, (4, 33)).astype(np.int32)
         state, m = res.train_step(state, {"tokens": tokens}, None)
         losses.append(m["loss"].item())
-    return res, losses, {k: v.detach() for k, v in state.params.items()}
+    # over a process group the params are DTensors (replicated over seq)
+    return res, losses, {k: global_value(v).detach()
+                         for k, v in state.params.items()}
 
 
 def _assert_params_close(params, ref):

@@ -139,14 +139,29 @@ TINY = dataclasses.replace(PRESETS["tiny"], attn_impl="flash")
 
 
 @pytest.mark.parametrize("config,item", [
-    (MeshConfig(data=1, expert=2, seq=2), "item 7"),
     (MeshConfig(data=1, pipe=4), "item 10"),
-    (MeshConfig(data=1, seq=2, fsdp=2), "item 7"),
-    (MeshConfig(data=1, seq=2, tensor=2), "item 7"),
-], ids=["expert", "pipe", "seq-fsdp", "seq-tensor"])
+], ids=["pipe"])
 def test_build_mesh_over_a_group_refuses(fake_group, config, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
         build_mesh(config)
+
+
+@pytest.mark.parametrize("config,dims", [
+    (MeshConfig(data=1, expert=2, seq=2), ("data", "fsdp", "expert", "seq")),
+    (MeshConfig(data=1, seq=2, fsdp=2), ("data", "fsdp", "seq")),
+    (MeshConfig(data=1, seq=2, tensor=2), ("data", "fsdp", "seq", "tensor")),
+], ids=["expert", "seq-fsdp", "seq-tensor"])
+def test_build_mesh_over_a_group_places_seq(fake_group, config, dims):
+    """A seq axis of one rank a process beside other axes is a dim of the
+    DeviceMesh in the JAX package's device order (inside data, fsdp and
+    expert, outside tensor), its ring the dim's sub-group; a process
+    that would hold some but not all of the seq ranks raises."""
+    mesh = build_mesh(config)
+    assert mesh.device_mesh.mesh_dim_names == dims
+    assert mesh.ring.kind == "process-group" and mesh.ring.size == 2
+    assert mesh.ring.ranks == (mesh.device_mesh.get_local_rank("seq"),)
+    with pytest.raises(ValueError, match="2 of the 4 seq ranks"):
+        build_mesh(dataclasses.replace(config, seq=4))
 
 
 @pytest.mark.parametrize("optimizer", ["rmsprop", "adagrad"])

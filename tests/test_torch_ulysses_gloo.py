@@ -41,6 +41,7 @@ from dlrover_tpu_torch.parallel import (
     set_mesh,
     ulysses_attention,
 )
+from dlrover_tpu_torch.parallel.accelerate import global_value
 from dlrover_tpu_torch.trainer import build_optimizer
 
 N = 4
@@ -99,7 +100,9 @@ def train(p_np, mesh_config, **changes):
         tokens = rng.randint(0, 64, (4, 33)).astype(np.int32)
         state, m = res.train_step(state, {"tokens": tokens}, None)
         losses.append(m["loss"].item())
-    return res, losses, {k: v.detach() for k, v in state.params.items()}
+    # over a process group the params are DTensors (replicated over seq)
+    return res, losses, {k: global_value(v).detach()
+                         for k, v in state.params.items()}
 
 
 # (causal, kv heads): seed of the inputs
